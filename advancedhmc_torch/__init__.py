@@ -4,8 +4,11 @@ The JAX package `advancedhmc_tpu` is the reference; this package carries its
 main path on one NVIDIA GPU (Hopper): cross-chain NUTS (generalised
 no-U-turn, multinomial, diagonal metric) on the hierarchical logistic, with
 the likelihood value+grad in a hand-written CUDA kernel
-(`ops/fused_logistic.py`, `csrc/fused_logistic.cu`). Module names follow the
-JAX package. Entry points run on CUDA unless `device="cpu"` is passed; the
+(`ops/fused_logistic.py`, `csrc/fused_logistic.cu`), and the JAX package's
+two other kernels: the NUTS megakernel on block targets
+(`ops/fused_nuts_kernel.py`, `csrc/fused_nuts.cu`) and the diagonal-Gaussian
+leapfrog (`ops/fused_leapfrog.py`, `csrc/fused_leapfrog.cu`). Module names
+follow the JAX package. Entry points run on CUDA unless `device="cpu"` is passed; the
 kernels are built on first use.
 """
 
@@ -25,7 +28,8 @@ from .integrators import Leapfrog, leapfrog_step
 from .kinetic import GaussianKinetic
 from .metrics import DiagEuclideanMetric, Metric, UnitEuclideanMetric, \
     make_metric
-from .models.logistic import hierarchical_logistic
+from .models.logistic import hierarchical_logistic, \
+    hierarchical_logistic_block
 from .nuts import nuts_transition, nuts_transitions_fused
 from .sampler import (
     HMCState,
@@ -38,13 +42,14 @@ from .sampler import (
     sample,
 )
 from .stepsize_search import find_good_stepsize
-from .target import LogDensityTarget
+from .target import BlockTarget, LogDensityTarget
 from .termination import GeneralisedNoUTurn
 from .trajectory import HMCKernel, Trajectory, mh_accept_ratio
 
 __all__ = [
     "AdaptState",
     "AdaptorConfig",
+    "BlockTarget",
     "DiagEuclideanMetric",
     "DualAveragingConfig",
     "DualAveragingState",
@@ -72,6 +77,7 @@ __all__ = [
     "fused_draw_phase",
     "fused_warmup_phase_crosschain",
     "hierarchical_logistic",
+    "hierarchical_logistic_block",
     "init_state",
     "leapfrog_step",
     "make_metric",

@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from ..utils import resolve_device
+
 N_MIN_DEFAULT = 10
 SHRINKAGE_EPS = 1.0e-3
 
@@ -34,8 +36,10 @@ class WelfordVarState:
     n_min: int = N_MIN_DEFAULT
 
     @classmethod
-    def init(cls, dim, dtype=torch.float32, device="cpu",
+    def init(cls, dim, dtype=torch.float32, device=None,
              n_min=N_MIN_DEFAULT):
+        """Empty moments on `device` (None means CUDA)."""
+        device = resolve_device(device)
         z = torch.zeros(dim, dtype=dtype, device=device)
         return cls(n=torch.zeros((), dtype=torch.int32, device=device),
                    mean=z, m2=z, var=torch.ones_like(z), n_min=n_min)

@@ -9,6 +9,7 @@ low-rank metrics are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -39,11 +40,14 @@ class Metric:
 
 @dataclasses.dataclass(frozen=True)
 class UnitEuclideanMetric(Metric):
-    """M⁻¹ = I."""
+    """M⁻¹ = I, with momenta drawn on `device` (None means CUDA)."""
 
     size: int
     dtype: torch.dtype = torch.float32
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     @property
     def dim(self):
@@ -75,8 +79,10 @@ class DiagEuclideanMetric(Metric):
         return cls(m_inv=m_inv, sqrt_m_inv=torch.sqrt(m_inv))
 
     @classmethod
-    def identity(cls, dim, dtype=torch.float32, device="cpu"):
-        return cls.create(torch.ones(dim, dtype=dtype, device=device))
+    def identity(cls, dim, dtype=torch.float32, device=None):
+        """M⁻¹ = I on `device` (None means CUDA)."""
+        return cls.create(torch.ones(dim, dtype=dtype,
+                                     device=resolve_device(device)))
 
     @property
     def dim(self):

@@ -9,6 +9,9 @@ fixed-seed synthetic design and the same model):
 torch plus the likelihood from `ops.fused_logistic`, which is the CUDA
 kernel K1 for CUDA tensors and its plain PyTorch version for CPU tensors —
 the JAX package's `fused=True` route, taken on every batched call.
+
+`hierarchical_logistic_block` is the same model in the block form of the
+NUTS megakernel K2 (`ops/fused_nuts_kernel.py`).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.fused_logistic import fused_logistic_value_grad
-from ..target import LogDensityTarget
+from ..target import BlockTarget, LogDensityTarget
 from ..utils import resolve_device
 
 
@@ -72,3 +75,41 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
         return lp_pri + lp_lik, g_pri + g_lik
 
     return LogDensityTarget(logdensity, p + 1, logdensity_and_grad)
+
+
+def hierarchical_logistic_block(n: int = 1000, p: int = 24, seed: int = 0,
+                                d_pad: int = 128, device=None):
+    """Block form of the model for the NUTS megakernel, on `device` (None
+    means CUDA); counterpart of the JAX function of the same name.
+
+    Returns `(target, (xt, y))`: `target(theta (B, d_pad), xt, y)` gives
+    ((B, 1) logp, (B, d_pad) grad); xt (d_pad, n) float32 has row 0 zero
+    (the slot of log σ) and rows p+1.. zero, y is (1, n). Its "logistic"
+    kind is compiled into K2's CUDA kernel."""
+    device = resolve_device(device)
+    x_np, y_np = _synthetic_data(n, p, seed)
+    xt = np.zeros((d_pad, n), np.float32)
+    xt[1:p + 1, :] = x_np.T
+    y = y_np.astype(np.float32)[None, :]
+
+    def fn(th, xt_m, y_m):
+        log_sigma = th[:, :1]                               # (B, 1)
+        inv_s2 = torch.exp(-2.0 * log_sigma)
+        logits = th @ xt_m                                   # (B, n)
+        sig = torch.sigmoid(logits)
+        loglik = torch.sum(
+            y_m * logits - torch.logaddexp(torch.zeros_like(logits), logits),
+            1, keepdim=True)
+        beta_sq = torch.sum(th * th, 1, keepdim=True) - log_sigma ** 2
+        lp = (-0.5 * log_sigma ** 2
+              - 0.5 * beta_sq * inv_s2 - p * log_sigma + loglik)
+        resid = y_m - sig                                    # (B, n)
+        grad_data = resid @ xt_m.T                           # (B, d_pad)
+        grad_beta_prior = -th * inv_s2     # right for the β columns
+        grad_ls = -log_sigma + beta_sq * inv_s2 - p
+        col0 = torch.arange(th.shape[1], device=th.device) == 0
+        grad_prior = torch.where(col0, grad_ls, grad_beta_prior)
+        return lp, grad_data + grad_prior
+
+    return BlockTarget("logistic", fn, p=p), (
+        torch.as_tensor(xt, device=device), torch.as_tensor(y, device=device))

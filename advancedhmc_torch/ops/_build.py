@@ -21,7 +21,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source of the port, by the stem of its `csrc/<name>.cu`
-SOURCES = ("fused_logistic",)
+SOURCES = ("fused_logistic", "fused_nuts", "fused_leapfrog")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

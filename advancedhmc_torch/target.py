@@ -49,3 +49,28 @@ class LogDensityTarget:
         if self.logdensity_and_grad is None:
             object.__setattr__(self, "logdensity_and_grad",
                                _autograd_value_and_grad(self.logdensity))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockTarget:
+    """A value+grad over a zero-padded block of chains, the form the NUTS
+    megakernel takes (the JAX package's `value_and_grad_block`).
+
+    Fields
+    ------
+    kind:
+        Names the version of the same function compiled into the CUDA
+        kernel: "logistic" or "gaussian".
+    value_and_grad:
+        `(theta (B, Dp), *data) -> ((B, 1) logp, (B, Dp) grad)`, the plain
+        PyTorch version, with the target's data passed at each call.
+    p:
+        The logistic's feature count (θ = (log σ, β₁..β_p)); 0 otherwise.
+    """
+
+    kind: str
+    value_and_grad: Callable
+    p: int = 0
+
+    def __call__(self, theta, *data):
+        return self.value_and_grad(theta, *data)

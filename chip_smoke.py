@@ -7,9 +7,13 @@ Run from the root of the repository on a machine with one CUDA card:
 
 Phases (any failure exits non-zero):
 
-1. build the CUDA kernels from `advancedhmc_torch/csrc/` with nvcc (sm_90a);
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it and at ragged shapes, and time both;
+1. build the CUDA kernels from `advancedhmc_torch/csrc/` with nvcc (sm_90a):
+   K1 (logistic value+grad), K2 (the NUTS megakernel), K3 (the Gaussian
+   leapfrog); print each library's ptxas registers and spills;
+2. hold K1 against its plain PyTorch version on the card, at the shapes the
+   main path gives it and at ragged shapes, and time both;
+2b. hold K3 against its plain version at the four shapes of the Pallas
+   microbenchmark and a ragged one, then time it there (its path);
 3. drive the main path through `advancedhmc_torch.sample`: NUTS
    (multinomial, generalised no-U-turn, max_depth 6, diagonal metric) on the
    100-D hierarchical logistic over 1000 rows, Stan cross-chain warmup
@@ -19,7 +23,15 @@ Phases (any failure exits non-zero):
    to 0 just before and read just after;
 4. check the results: finite draws of the expected shape, divergence,
    acceptance and posterior-moment gates;
-5. profile one fused draw call (device time by kernel, idle share).
+5. profile one fused draw call (device time by kernel, idle share);
+6. the megakernel draw phase: from phase 3's warmed state (ε, M⁻¹, the
+   32768 positions), 16 calls of K2 with 16 transitions each, threading the
+   positions, with divergence, moment and tree-depth gates (the first
+   call's inputs also go through K2's plain version: timed, compared and
+   gated on the share of chains that agree);
+7. hold K2 against its plain version: the logistic on 4096 warmed chains
+   at max_depth 6 and 8, forced-deep trees (depth 6 of 6, 8 of 8), mostly
+   divergent trees at 3ε, and the JAX megakernel test's Gaussian.
 
 It prints the main path's results as one JSON line, the kernels' line
 (`{"kernels": [...]}`), the card's name and power limit, and last
@@ -93,8 +105,31 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _wrappers():
+    from advancedhmc_torch.ops import fused_leapfrog, fused_logistic, \
+        fused_nuts_kernel
+
+    return {"fused_logistic_value_grad": fused_logistic.logistic_value_grad,
+            "fused_nuts": fused_nuts_kernel.fused_nuts,
+            "fused_gaussian_leapfrog": fused_leapfrog.fused_gaussian_leapfrog}
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    """Every kernel's launch count (just after a path ran)."""
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
 # ------------------------------------------------------------------ phase 1
 def phase_build():
+    import re
+
     from advancedhmc_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -103,10 +138,14 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         report = path.with_name(path.name + ".log")
-        if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    log(f"#   {name}: {line.strip()}")
+        if not report.exists():
+            continue
+        text = report.read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+        log(f"#   {name}: {len(regs)} kernel(s), {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, {spills} bytes of spills "
+            "(ptxas)")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -176,6 +215,73 @@ def phase_k1():
     return rows, worst
 
 
+# ----------------------------------------------------------------- phase 2b
+# (chains, dims, steps, ε): scripts/microbench_pallas.py's four shapes, then
+# tests/test_pallas_ops.py's ragged case
+K3_SHAPES = ((1024, 8, 100, 0.05), (4096, 128, 100, 0.05),
+             (16384, 128, 100, 0.05), (65536, 8, 100, 0.05),
+             (20, 5, 17, 0.12))
+K3_TOL = 2e-5      # relative and absolute, as tests/test_pallas_ops.py
+
+
+def k3_bound_ms(c, d, n_steps):
+    """Least time for one K3 call: ~8 float32 operations per element and
+    step over the CUDA-core peak, against θ, r in and θ′, r′, pot, kin out
+    (and prec, m_inv) over the memory rate."""
+    flops = 8.0 * c * d * n_steps
+    nbytes = 4.0 * (4 * c * d + 2 * c + 2 * d)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_k3():
+    """K3 against its plain version on the card; returns its timing rows
+    and the largest error."""
+    from advancedhmc_torch.ops import fused_leapfrog as k3
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases, worst = [], 0.0
+    for c, d, n_steps, eps in K3_SHAPES:
+        th = torch.randn(c, d, generator=gen, device="cuda")
+        r = torch.randn(c, d, generator=gen, device="cuda")
+        prec = torch.linspace(0.5, 2.0, d, device="cuda")
+        m_inv = torch.linspace(0.8, 1.2, d, device="cuda")
+        args = (th, r, prec, m_inv, eps, n_steps)
+        out = k3.fused_gaussian_leapfrog(*args)
+        ref = k3.reference_gaussian_leapfrog(*args)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        ok = all(bool(torch.isfinite(a).all()) and bool(
+            ((a - b).abs() <= K3_TOL + K3_TOL * b.abs()).all())
+            for a, b in zip(out, ref))
+        log(f"# K3 C={c} D={d} L={n_steps}: max|Δ| {err:.3e} (tol "
+            f"{K3_TOL:g} abs + rel): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"K3 disagrees with its plain version at "
+                               f"C={c}, D={d}")
+        worst = max(worst, err)
+        if c >= 1024:
+            cases.append((c, d, n_steps, args))
+
+    # the microbenchmark's path: the kernel timed at its four shapes, with
+    # the launch counts set to 0 just before and read just after
+    rows = []
+    reset_launches()
+    for c, d, n_steps, args in cases:
+        ms = cuda_ms(lambda: k3.fused_gaussian_leapfrog(*args), 20)
+        rows.append(dict(chains=c, dims=d, steps=n_steps, ms=ms))
+    launches = read_launches()
+    for row, (c, d, n_steps, args) in zip(rows, cases):
+        row["plain_ms"] = cuda_ms(
+            lambda: k3.reference_gaussian_leapfrog(*args), 5)
+        row["bound_ms"], row["bound_by"] = k3_bound_ms(c, d, n_steps)
+        log(f"# K3 C={c} D={d}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    return rows, worst, launches["fused_gaussian_leapfrog"]
+
+
 # ------------------------------------------------------------------ phase 3
 def main_path_spec():
     import advancedhmc_torch as ah
@@ -195,7 +301,6 @@ def phase_main(seed):
     import numpy as np
 
     import advancedhmc_torch as ah
-    from advancedhmc_torch.ops import fused_logistic as k1
 
     target, kernel, adaptor = main_path_spec()
     # starting points from numpy, as the tests make their inputs
@@ -206,7 +311,7 @@ def phase_main(seed):
     metric = ah.make_metric("diagonal", DIM, device="cuda")
     torch.cuda.synchronize()
 
-    k1.logistic_value_grad.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = ah.sample(
         gen, target, kernel, metric, theta0, N_WARMUP + N_DRAWS,
@@ -217,7 +322,7 @@ def phase_main(seed):
         device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = k1.logistic_value_grad.launches
+    launches = read_launches()["fused_logistic_value_grad"]
     return res, launches, wall
 
 
@@ -324,6 +429,285 @@ def phase_profile(res):
             f"{key[:90]}")
 
 
+# ------------------------------------------------------------------ phase 6
+# The megakernel draw phase (the counterpart of scripts/bench_megakernel.py):
+# from phase 3's warmed state, MEGA_CALLS calls of MEGA_T transitions each,
+# threading the positions, a new seed per call.
+MEGA_CALLS, MEGA_T, MEGA_SEED0, MEGA_BLOCK = 16, 16, 12, 256
+# K2 against its plain version: both draw the same counter stream, but a
+# float32 rounding difference can decide a near-tie the other way and send
+# a chain down another tree (or pick another candidate of the same tree),
+# so this share of the chains, not all, must agree at every transition, in
+# the integer outputs and in θ within K2_THETA_TOL. (At full width 9 of
+# 32768 chains pick another candidate; every other case agrees in full.)
+K2_AGREE_SHARE = 0.999
+K2_THETA_TOL = 1e-3
+K2_DEPTH_TOL = 0.5
+
+
+def k2_bound_ms(n_steps_sum, c, dim, n, T):
+    """Least time for one K2 call on the logistic: the float32 operations
+    of every leaf's value+grad (4·p·n each, Σ n_steps leaves, plus one
+    per chain at the start) over the CUDA-core peak, against θ₀, M⁻¹, the
+    design and y in and θ (T, C, dim) and three (T, C) int32 outputs out
+    over the memory rate."""
+    p = dim - 1
+    flops = 4.0 * p * n * (n_steps_sum + c)
+    nbytes = 4.0 * (c * dim + dim + n * p + n + T * c * dim + 3 * T * c)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def k2_agreement(out, ref):
+    """How K2's outputs agree with its plain version's, chain by chain.
+
+    `share`: chains whose integer outputs (n_steps, depth, diverged) agree
+    at every transition; `share_theta`: chains that also agree in θ within
+    K2_THETA_TOL at every transition (the gated share); `max_abs_err`: max
+    |Δθ| over all chains; `max_abs_err_agreeing`: over the latter. Each
+    chain that departs is counted by what differs at its first departing
+    transition: `divergence` (either version diverged there: ΔH crossed
+    1000 on one side only, or at another leaf), `candidate` (the same tree,
+    another draw) or `tree` (another tree, no divergence)."""
+    ints = (out[1] != ref[1]) | (out[2] != ref[2]) | (out[3] != ref[3])
+    dtheta = (out[0] - ref[0]).abs().amax(2)                     # (T, C)
+    departs = ints | (dtheta > K2_THETA_TOL)
+    bad = departs.any(0)
+    t0 = departs.int().argmax(0)[bad][None]          # first departure
+    cols = bad.nonzero()[:, 0][None]
+    div = (out[3] | ref[3])[t0, cols]
+    cand = ~div & ~ints[t0, cols]
+    dmax = dtheta.amax(0)
+    return dict(
+        share=float((~ints.any(0)).double().mean()),
+        share_theta=float((~bad).double().mean()),
+        max_abs_err=float(dmax.max()),
+        max_abs_err_agreeing=float(dmax[~bad].max()) if bool(
+            (~bad).any()) else 0.0,
+        departures=dict(divergence=int(div.sum()), candidate=int(cand.sum()),
+                        tree=int((~div & ~cand).sum())))
+
+
+def _events_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _logistic_block():
+    from advancedhmc_torch.models.logistic import hierarchical_logistic_block
+
+    return hierarchical_logistic_block(n=N_ROWS, p=DIM - 1, d_pad=128,
+                                       device="cuda")
+
+
+def phase_megakernel(res, main_out):
+    from advancedhmc_torch.diagnostics import effective_sample_size
+    from advancedhmc_torch.ops import fused_nuts_kernel as k2
+
+    fs = res.final_state
+    eps = float(fs.adapt.da.eps)
+    m_inv = fs.metric.m_inv.to(torch.float32).contiguous()
+    th_start = fs.z.theta.to(torch.float32).contiguous()
+    target, data = _logistic_block()
+
+    def run(fn, seed, th0):
+        return fn(target, th0, m_inv, eps, seed, data, DIM, MEGA_T,
+                  MAX_DEPTH, MEGA_BLOCK)
+
+    # the first call's inputs through the kernel and its plain version:
+    # compared (gated below) and timed, not counted
+    first, _ = _events_ms(lambda: run(k2.fused_nuts, MEGA_SEED0, th_start))
+    plain, plain_ms = _events_ms(
+        lambda: run(k2.plain_fused_nuts, MEGA_SEED0, th_start))
+    agree0 = k2_agreement(first, plain)
+    del plain
+
+    reset_launches()
+    t0 = time.perf_counter()
+    outs, events, th0 = [], [], th_start
+    for rep in range(MEGA_CALLS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = run(k2.fused_nuts, MEGA_SEED0 + rep, th0)
+        e1.record()
+        outs.append(out)
+        events.append((e0, e1))
+        th0 = out[0][-1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()["fused_nuts"]
+    call_ms = [a.elapsed_time(b) for a, b in events]
+    bounds = [k2_bound_ms(float(o[1].double().sum()), N_CHAINS, DIM, N_ROWS,
+                          MEGA_T) for o in outs]
+    # a block of 8 chains iterates until its slowest chain is done: the
+    # share of those leaf iterations that some chain needed
+    leaves = torch.stack([o[1].sum(0) for o in outs]).double()   # (calls, C)
+    tiles = leaves[:, :N_CHAINS - N_CHAINS % 8].reshape(MEGA_CALLS, -1, 8)
+    lockstep = float(tiles.sum() / (8 * tiles.amax(2)).sum())
+
+    th = torch.cat([o[0] for o in outs])
+    n_steps = torch.cat([o[1] for o in outs])
+    depth = torch.cat([o[2] for o in outs])
+    div = torch.cat([o[3] for o in outs])
+    del outs
+    if tuple(th.shape) != (MEGA_CALLS * MEGA_T, N_CHAINS, DIM) or \
+            not bool(torch.isfinite(th).all()):
+        raise RuntimeError(f"megakernel draws: shape {tuple(th.shape)} or "
+                           "non-finite values")
+    ess_512 = effective_sample_size(th[:, :ESS_CHAINS])
+    median_ess = float(ess_512.quantile(0.5)) * (N_CHAINS / ESS_CHAINS)
+    ls = th[:, :, 0].double()
+    lf = float(n_steps.double().sum())
+    phase3_call_ms = 1e3 * main_out["draws_s"] / (N_DRAWS // FUSE)
+    out = {
+        "phase": "megakernel draws",
+        "calls": MEGA_CALLS, "transitions_per_call": MEGA_T,
+        "chains": N_CHAINS, "max_depth": MAX_DEPTH,
+        "block_chains": MEGA_BLOCK, "step_size": eps,
+        "wall_s": wall,
+        "call_ms_mean": sum(call_ms) / len(call_ms),
+        "call_ms_min": min(call_ms), "call_ms_max": max(call_ms),
+        "bound_ms_mean": sum(b[0] for b in bounds) / len(bounds),
+        "bound_by": bounds[0][1],
+        "n_steps_total": lf,
+        "tile_lockstep_share": lockstep,
+        "leapfrog_steps_per_s": lf / wall,
+        "mean_tree_depth": float(depth.double().mean()),
+        "divergence_rate": float(div.double().mean()),
+        "mean_logsigma": float(ls.mean()),
+        "sd_logsigma": float(ls.std(correction=0)),
+        "mean_beta_norm": float(th[:, :, 1:].double().mean((0, 1)).norm()),
+        "median_pooled_ess": median_ess,
+        "effective_samples_per_s_per_chip": median_ess / wall,
+        "k2_launches": launches,
+        "first_call_plain_ms": plain_ms,
+        "first_call_agreement": agree0,
+        "phase3_draw_call_ms": phase3_call_ms,
+        "phase3_mean_tree_depth": main_out["mean_tree_depth"],
+        "phase3_effective_samples_per_s_per_chip":
+            main_out["effective_samples_per_s_per_chip"],
+    }
+    log(json.dumps(out))
+    log(f"# megakernel: {out['call_ms_mean']:.1f} ms per call of "
+        f"{MEGA_T} transitions (bound {out['bound_ms_mean']:.1f} ms, "
+        f"{out['bound_by']}); phase 3's fused draw call "
+        f"{phase3_call_ms:.1f} ms")
+    gates = {
+        f"k2 launched {MEGA_CALLS} times": launches == MEGA_CALLS,
+        "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
+        f"|mean_logsigma - ({REF_MEAN_LOGSIGMA})| <= {TOL_MEAN_LOGSIGMA}":
+            abs(out["mean_logsigma"] - REF_MEAN_LOGSIGMA)
+            <= TOL_MEAN_LOGSIGMA,
+        f"sd_logsigma within {TOL_SD_REL:.0%} of {REF_SD_LOGSIGMA}":
+            abs(out["sd_logsigma"] / REF_SD_LOGSIGMA - 1) <= TOL_SD_REL,
+        f"|mean_beta_norm - {REF_BETA_NORM}| <= {TOL_BETA_NORM}":
+            abs(out["mean_beta_norm"] - REF_BETA_NORM) <= TOL_BETA_NORM,
+        f"|mean depth - phase 3's| <= {K2_DEPTH_TOL}":
+            abs(out["mean_tree_depth"] - main_out["mean_tree_depth"])
+            <= K2_DEPTH_TOL,
+        "ESS finite": math.isfinite(median_ess) and median_ess > 0,
+        f"call 1 agrees with the plain version (share >= {K2_AGREE_SHARE})":
+            agree0["share_theta"] >= K2_AGREE_SHARE,
+    }
+    for name, ok in gates.items():
+        log(f"# gate {name}: {'ok' if ok else 'FAIL'}")
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        raise RuntimeError(f"megakernel gates failed: {failed}")
+    return out
+
+
+# ------------------------------------------------------------------ phase 7
+def _gaussian_moments_ok(out):
+    """tests/test_pallas_ops.py's checks of the megakernel's Gaussian."""
+    d = out[0][20:].reshape(-1, 5).double()
+    return (float(d.mean(0).abs().max()) < 0.35
+            and float((d.var(0, correction=0) - 1).abs().max()) < 0.45
+            and not bool(out[3].any())
+            and 2 <= float(out[2].double().mean()) <= 4)
+
+
+def phase_k2_parity(res):
+    """K2 against its plain version on the card, each case gated on the
+    share of agreeing chains and on reaching what it is there to reach:
+
+    * the logistic on the first 4096 warmed chains at the warmed ε (T 8,
+      max_depth 6 and 8; trees of depth ~3);
+    * forced-deep trees on the first 512 warmed chains: ε/8 at max_depth 6
+      (every tree stops at the depth cap) and ε/32 at max_depth 8 (trees
+      of depth 8, whose leaves 128.. share checkpoint slot S − 1 with leaf
+      0): the U-turn spans at k ≥ 3 and the deep checkpoint slots;
+    * 3ε on 4096 chains: most trees diverge;
+    * the JAX megakernel test's Gaussian (8 chains × 5-D, ε 0.5, seed 42,
+      max_depth 6, T 80, blocks of 8), with that test's moment and depth
+      checks."""
+    from advancedhmc_torch.models.gaussian import std_gaussian_block
+    from advancedhmc_torch.ops import fused_nuts_kernel as k2
+
+    fs = res.final_state
+    eps = float(fs.adapt.da.eps)
+    m_inv = fs.metric.m_inv.to(torch.float32).contiguous()
+    target, data = _logistic_block()
+    g_target, g_data = std_gaussian_block(5, device="cuda")
+
+    def logistic(c, e, T, s):
+        th0 = fs.z.theta[:c].to(torch.float32).contiguous()
+        return (target, th0, m_inv, e, 99, data, DIM, T, s, MEGA_BLOCK)
+
+    def mean_depth(out):
+        return float(out[2].double().mean())
+
+    # (name, arguments, what the case must reach)
+    cases = [(f"logistic C=4096 T=8 max_depth={s}", logistic(4096, eps, 8, s),
+              None) for s in (6, 8)]
+    cases += [
+        ("logistic deep eps/8 C=512 T=4 max_depth=6",
+         logistic(512, eps / 8, 4, 6),
+         ("mean depth >= 5.5", lambda o: mean_depth(o) >= 5.5)),
+        ("logistic deep eps/32 C=512 T=2 max_depth=8",
+         logistic(512, eps / 32, 2, 8),
+         ("mean depth >= 7.5", lambda o: mean_depth(o) >= 7.5)),
+        ("logistic divergent 3eps C=4096 T=8 max_depth=6",
+         logistic(4096, 3 * eps, 8, 6),
+         ("divergence rate >= 0.5",
+          lambda o: float(o[3].double().mean()) >= 0.5)),
+        ("gaussian C=8 D=5 T=80 max_depth=6",
+         (g_target, torch.zeros(8, 5, device="cuda"),
+          torch.ones(5, device="cuda"), 0.5, 42, g_data, 5, 80, 6, 8),
+         ("the JAX test's moments and depth", _gaussian_moments_ok)),
+    ]
+    rows = []
+    for name, args, reach in cases:
+        out, ms = _events_ms(lambda: k2.fused_nuts(*args))
+        ref, plain_ms = _events_ms(lambda: k2.plain_fused_nuts(*args))
+        agree = k2_agreement(out, ref)
+        ok = (bool(torch.isfinite(out[0]).all())
+              and agree["share_theta"] >= K2_AGREE_SHARE
+              and (reach is None or reach[1](out)))
+        log(f"# K2 {name}: chains agreeing in n_steps/depth/diverged "
+            f"{agree['share']:.5f}, and in θ within {K2_THETA_TOL:g} "
+            f"{agree['share_theta']:.5f} (gate >= {K2_AGREE_SHARE}), "
+            f"max|Δθ| {agree['max_abs_err']:.3e} (agreeing chains "
+            f"{agree['max_abs_err_agreeing']:.3e}), departures "
+            f"{agree['departures']}, mean depth {mean_depth(out):.3f}, "
+            f"divergence {float(out[3].double().mean()):.4f}"
+            + (f" (gate {reach[0]})" if reach else "")
+            + f", kernel {ms:.2f} ms, plain {plain_ms:.1f} ms: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"K2 disagrees with its plain version: {name}")
+        rows.append(dict(case=name, **agree, mean_depth=mean_depth(out),
+                         ms=ms, plain_ms=plain_ms))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -335,13 +719,23 @@ def main(argv=None):
     log(f"# card: {gpu}")
     phase_build()
     k1_rows, k1_err = phase_k1()
+    k3_rows, k3_err, k3_launches = phase_k3()
     res, launches, wall = phase_main(args.seed)
     out = phase_results(res, launches, wall, args.seed)
     log(f"# main path: warmup {out['warmup_s']:.1f} s, draws "
         f"{out['draws_s']:.1f} s, K1 launches {launches}")
     phase_profile(res)
+    mega = phase_megakernel(res, out)
+    k2_rows = [dict(case=f"logistic C={N_CHAINS} T={MEGA_T} "
+                    f"max_depth={MAX_DEPTH} (megakernel call 1)",
+                    **mega["first_call_agreement"],
+                    mean_depth=mega["mean_tree_depth"],
+                    ms=mega["call_ms_mean"],
+                    plain_ms=mega["first_call_plain_ms"],
+                    bound_ms=mega["bound_ms_mean"]),
+               *phase_k2_parity(res)]
 
-    draw_row = k1_rows[0]
+    k1_row, k3_row = k1_rows[0], k3_rows[2]
     kernels = {"kernels": [{
         "name": "fused_logistic_value_grad",
         "route": "cuda",
@@ -350,13 +744,48 @@ def main(argv=None):
         "launches": launches,
         "max_abs_err": k1_err,
         "max_err": k1_err,
-        "ms": draw_row["ms"],
-        "kernel_ms": draw_row["ms"],
-        "plain_ms": draw_row["plain_ms"],
-        "bound_ms": draw_row["bound_ms"],
-        "bound_by": draw_row["bound_by"],
+        "ms": k1_row["ms"],
+        "kernel_ms": k1_row["ms"],
+        "plain_ms": k1_row["plain_ms"],
+        "bound_ms": k1_row["bound_ms"],
+        "bound_by": k1_row["bound_by"],
         "library_ms": None,
         "shapes": k1_rows,
+    }, {
+        "name": "fused_nuts",
+        "route": "cuda",
+        "source": "advancedhmc_torch/csrc/fused_nuts.cu",
+        "replaces": "advancedhmc_tpu/ops/fused_nuts_kernel.py:417",
+        "launches": mega["k2_launches"],
+        # over every chain of every comparison, with the least share of
+        # chains that agreed (a chain that drew another candidate counts)
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "max_err": max(r["max_abs_err"] for r in k2_rows),
+        "agree_share": min(r["share_theta"] for r in k2_rows),
+        "max_abs_err_agreeing":
+            max(r["max_abs_err_agreeing"] for r in k2_rows),
+        "ms": mega["call_ms_mean"],
+        "kernel_ms": mega["call_ms_mean"],
+        "plain_ms": mega["first_call_plain_ms"],
+        "bound_ms": mega["bound_ms_mean"],
+        "bound_by": mega["bound_by"],
+        "library_ms": None,
+        "shapes": k2_rows,
+    }, {
+        "name": "fused_gaussian_leapfrog",
+        "route": "cuda",
+        "source": "advancedhmc_torch/csrc/fused_leapfrog.cu",
+        "replaces": "advancedhmc_tpu/ops/fused_leapfrog.py:60",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "max_err": k3_err,
+        "ms": k3_row["ms"],
+        "kernel_ms": k3_row["ms"],
+        "plain_ms": k3_row["plain_ms"],
+        "bound_ms": k3_row["bound_ms"],
+        "bound_by": k3_row["bound_by"],
+        "library_ms": None,
+        "shapes": k3_rows,
     }]}
     log(json.dumps(kernels))
     log(gpu)

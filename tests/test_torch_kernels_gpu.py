@@ -7,11 +7,31 @@ JAX, so that on the card it runs without the JAX package:
         -o addopts="" -p no:cacheprovider
 """
 
+import numpy as np
 import pytest
 import torch
 
-from advancedhmc_torch.models.logistic import _synthetic_data
+from advancedhmc_torch.models.gaussian import std_gaussian_block
+from advancedhmc_torch.models.logistic import _synthetic_data, \
+    hierarchical_logistic_block
+from advancedhmc_torch.ops import fused_leapfrog as k3
 from advancedhmc_torch.ops import fused_logistic as k1
+from advancedhmc_torch.ops import fused_nuts_kernel as k2
+
+# K2 against its plain version: both draw the same counter stream, but a
+# float32 rounding difference can decide a near-tie the other way and send
+# a chain down another tree (or pick another candidate of the same tree),
+# so a share of the chains, not all, must agree at every transition, in the
+# integer outputs and in θ within K2_THETA_TOL.
+K2_AGREE_SHARE = 0.999
+K2_THETA_TOL = 1e-3
+
+
+def _k2_agreement(out, ref):
+    same = (out[1] == ref[1]).all(0) & (out[2] == ref[2]).all(0) & \
+        (out[3] == ref[3]).all(0)
+    close = same & ((out[0] - ref[0]).abs().amax((0, 2)) <= K2_THETA_TOL)
+    return float(same.double().mean()), float(close.double().mean())
 
 
 @pytest.mark.gpu
@@ -35,3 +55,78 @@ def test_k1_kernel_matches_plain_on_card():
         assert float((g - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
         assert float((lp - lp_p).abs().max()) <= 1e-4 * float(
             lp_p.abs().max())
+
+
+# the logistic cases: (ε, max_depth, T)
+K2_LOGISTIC = {"logistic": (0.03, 6, 4), "deep": (0.02, 8, 4),
+               "divergent": (2.4, 6, 4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["gaussian", *K2_LOGISTIC])
+def test_k2_kernel_matches_plain_on_card(what):
+    """The JAX megakernel test's configuration (8 chains × 5-D standard
+    normal, ε 0.5, seed 42, max_depth 6, T 80, blocks of 8), and the
+    100-D logistic over 1000 rows at 512 chains: at an ε whose trees
+    stop at the depth cap of 6, at one whose trees reach depth 7-8 of 8
+    (the deep checkpoint slots), and at one where about a quarter of the
+    trees diverge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if what == "gaussian":
+        tgt, data = std_gaussian_block(5, device="cuda")
+        args = (tgt, torch.zeros(8, 5, device="cuda"),
+                torch.ones(5, device="cuda"), 0.5, 42, data, 5, 80, 6, 8)
+    else:
+        tgt, data = hierarchical_logistic_block(n=1000, p=99, d_pad=128,
+                                                device="cuda")
+        th0 = torch.as_tensor(
+            0.05 * np.random.default_rng(0).normal(size=(512, 100)),
+            dtype=torch.float32, device="cuda")
+        th0[:, 0] = -0.7
+        m_inv = torch.full((100,), 2e-3, device="cuda")
+        eps, max_depth, T = K2_LOGISTIC[what]
+        args = (tgt, th0, m_inv, eps, 3, data, 100, T, max_depth, 256)
+    before = k2.fused_nuts.launches
+    out = k2.fused_nuts(*args)
+    assert k2.fused_nuts.launches == before + 1
+    ref = k2.plain_fused_nuts(*args)
+    torch.cuda.synchronize()
+    assert out[0].shape == ref[0].shape and out[3].dtype == torch.bool
+    assert bool(torch.isfinite(out[0]).all())
+    share, share_theta = _k2_agreement(out, ref)
+    assert min(share, share_theta) >= K2_AGREE_SHARE, (share, share_theta)
+    if what == "gaussian":
+        d = out[0][20:].reshape(-1, 5).double()
+        assert float(d.mean(0).abs().max()) < 0.35
+        assert float((d.var(0, correction=0) - 1.0).abs().max()) < 0.45
+        assert not bool(out[3].any())
+        assert 2 <= float(out[2].double().mean()) <= 4
+    elif what == "deep":
+        assert float(out[2].double().mean()) >= 7.0
+    elif what == "divergent":
+        assert float(out[3].double().mean()) >= 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,n_steps,eps", [
+    (1024, 8, 100, 0.05), (4096, 128, 100, 0.05), (16384, 128, 100, 0.05),
+    (65536, 8, 100, 0.05), (20, 5, 17, 0.12)])
+def test_k3_kernel_matches_plain_on_card(c, d, n_steps, eps):
+    """The microbenchmark's four shapes and the JAX test's ragged case, at
+    its tolerance (2e-5, relative and absolute)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    th = torch.randn(c, d, generator=gen, device="cuda")
+    r = torch.randn(c, d, generator=gen, device="cuda")
+    prec = torch.linspace(0.5, 2.0, d, device="cuda")
+    m_inv = torch.linspace(0.8, 1.2, d, device="cuda")
+    before = k3.fused_gaussian_leapfrog.launches
+    out = k3.fused_gaussian_leapfrog(th, r, prec, m_inv, eps, n_steps)
+    assert k3.fused_gaussian_leapfrog.launches == before + 1
+    ref = k3.reference_gaussian_leapfrog(th, r, prec, m_inv, eps, n_steps)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)

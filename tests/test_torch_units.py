@@ -200,7 +200,7 @@ def test_dual_averaging_matches():
 def test_welford_matches():
     rng = np.random.default_rng(1)
     wj = WelfordJ.init(DIM, jnp.float64)
-    wt = ah.WelfordVarState.init(DIM, torch.float64)
+    wt = ah.WelfordVarState.init(DIM, torch.float64, "cpu")
     for c in (64, 7, 128, 3):
         xs = rng.normal(size=(c, DIM)) * np.linspace(0.1, 3.0, DIM) + 1.5
         wj = wj.push_batch(jnp.asarray(xs))
@@ -213,7 +213,7 @@ def test_welford_matches():
     _close(wt.m_inv, wj.m_inv)
     assert int(wt.n) == 0 and float(wt.m2.abs().sum()) == 0
     # below n_min the estimate is kept
-    wt2 = ah.WelfordVarState.init(DIM, torch.float64).push_batch(
+    wt2 = ah.WelfordVarState.init(DIM, torch.float64, "cpu").push_batch(
         torch.ones(5, DIM, dtype=torch.float64)).update_estimate()
     assert torch.equal(wt2.var, torch.ones(DIM, dtype=torch.float64))
 
@@ -290,3 +290,17 @@ def test_unported_options_raise_not_implemented():
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             case()
+
+
+def test_state_constructors_need_cuda_or_explicit_cpu(monkeypatch):
+    """The metrics' and the Welford estimator's constructors default to
+    CUDA, like the entry points, and raise without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: ah.UnitEuclideanMetric(size=DIM),
+                 lambda: ah.DiagEuclideanMetric.identity(DIM),
+                 lambda: ah.WelfordVarState.init(DIM)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert ah.UnitEuclideanMetric(size=DIM, device="cpu").device.type == "cpu"
+    assert ah.DiagEuclideanMetric.identity(DIM, device="cpu").m_inv.is_cpu
+    assert ah.WelfordVarState.init(DIM, device="cpu").mean.is_cpu
