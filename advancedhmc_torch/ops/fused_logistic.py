@@ -8,13 +8,17 @@ it returns
     loglik[c] = Σ_j y_j·logit_cj − softplus(logit_cj),   logit = β·xᵀ
     grad[c]   = (0, Σ_j (y_j − σ(logit_cj))·x_j)
 
-The kernel (`csrc/fused_logistic.cu`) is bound by the float32 rate of the
-CUDA cores: 4·C·p·n flops against (C·(dim + 1) + n·dim) floats moved, some
-4000 flops per byte at the sampler's shapes. Like the TPU kernel it keeps
-the (C, n) logits out of device memory: a block owns 32 chains, walks the
-observations in shared-memory tiles of 64 rows and folds each tile's
-residuals into register accumulators of the gradient. Inputs and sums are
-float32 (the TPU kernel's bfloat16 inputs were a TPU default).
+The kernel (`csrc/fused_logistic.cu`, its warp tile in
+`csrc/logistic_tile.cuh`) runs both products on the tensor cores at float32
+accuracy (3xTF32: each operand split into two TF32 parts, three products
+summed in float32), so it is bound by 3·4·C·p·n operations at the TF32 rate.
+Like the TPU kernel it keeps the (C, n) logits out of device memory: a
+block owns 64 chains, streams the observations through shared memory in
+tiles of 32 rows and carries the logits in registers from the first product
+to the residuals of the second. For small C the rows are split across the
+blocks of a cluster, whose partial sums are added in a fixed order: no
+atomics, so identical inputs give identical bits. Inputs and sums are
+float32 (the TPU kernel's bfloat16 inputs were a TPU default); p ≤ 128.
 
 `logistic_value_grad` dispatches on the device of θ: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the kernel or raises.
@@ -30,7 +34,6 @@ import torch
 from . import _build
 
 _LIB = "fused_logistic"
-_MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
 
 
 def plain_logistic_value_grad(theta, x, y):
@@ -48,8 +51,12 @@ def _kernel(lib):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.fused_logistic_max_dim.restype = ctypes.c_int
         lib.fused_logistic_smem_bytes.argtypes = [ctypes.c_int]
         lib.fused_logistic_smem_bytes.restype = ctypes.c_size_t
+        lib.fused_logistic_launch_shape.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.fused_logistic_launch_shape.restype = None
         lib.fused_logistic_error_string.argtypes = [ctypes.c_int]
         lib.fused_logistic_error_string.restype = ctypes.c_char_p
     return fn
@@ -81,10 +88,11 @@ def logistic_value_grad(theta, x, y):
     lib = _build.load(_LIB)
     fn = _kernel(lib)
     c, dim = theta.shape
-    if lib.fused_logistic_smem_bytes(dim) > _MAX_SMEM:
+    if dim > lib.fused_logistic_max_dim():
         raise NotImplementedError(
-            f"K1 stages whole rows of x in shared memory; dim {dim} exceeds "
-            "it (a column-tiled variant is ROADMAP.md section 2 work)")
+            f"K1 keeps a chain's gradient in registers; dim {dim} exceeds "
+            f"{lib.fused_logistic_max_dim()} (a column-tiled variant is "
+            "ROADMAP.md section 2 work)")
     loglik = torch.empty(c, dtype=torch.float32, device=theta.device)
     grad = torch.empty(c, dim, dtype=torch.float32, device=theta.device)
     stream = torch.cuda.current_stream(theta.device).cuda_stream

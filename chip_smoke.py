@@ -11,7 +11,9 @@ Phases (any failure exits non-zero):
    K1 (logistic value+grad), K2 (the NUTS megakernel), K3 (the Gaussian
    leapfrog); print each library's ptxas registers and spills;
 2. hold K1 against its plain PyTorch version on the card, at the shapes the
-   main path gives it and at ragged shapes, and time both;
+   main path gives it and at ragged shapes, check that two calls give the
+   same bits, print its registers, spills and shared memory per block, and
+   time both;
 2b. hold K3 against its plain version at the four shapes of the Pallas
    microbenchmark and a ragged one, then time it there (its path);
 3. drive the main path through `advancedhmc_torch.sample`: NUTS
@@ -20,7 +22,8 @@ Phases (any failure exits non-zero):
    (δ 0.55, κ 0.8, 128 iterations in blocks of 8, gradient-seeded M⁻¹) on a
    4096-chain pool fanned out to 32768 chains, 32 decorrelation transitions,
    then 256 fused draws (16 per call), with every kernel's launch count set
-   to 0 just before and read just after;
+   to 0 just before and read just after, and the target's value+grad
+   calls (each one K1 launch) tallied by chain count;
 4. check the results: finite draws of the expected shape, divergence,
    acceptance and posterior-moment gates;
 5. profile one fused draw call (device time by kernel, idle share);
@@ -41,6 +44,8 @@ It prints the main path's results as one JSON line, the kernels' line
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import json
 import math
 import subprocess
@@ -58,8 +63,9 @@ TOL_MEAN_LOGSIGMA, TOL_SD_REL, TOL_BETA_NORM = 0.03, 0.20, 0.1
 DELTA = 0.55
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): float32 on
-# the CUDA cores, and HBM3 bandwidth.
+# the CUDA cores, TF32 on the tensor cores (dense), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 N_ROWS, DIM = 1000, 100
@@ -150,15 +156,50 @@ def phase_build():
 
 # ------------------------------------------------------------------ phase 2
 def k1_bound_ms(c, dim, n):
-    """Least time for one K1 call: the larger of the float32 operations of
-    the two products (4·C·p·n) over the CUDA-core peak and the bytes of θ,
-    x, y in and lp, grad out over the memory rate."""
+    """Least time for one K1 call: the larger of the operations the kernel
+    issues at float32 accuracy, 3xTF32 (three TF32 products for each of the
+    two, 3·4·C·p·n) over the TF32 tensor-core peak, and the bytes of θ, x,
+    y in and lp, grad out over the memory rate. Also returns the float32
+    CUDA-core figure (4·C·p·n over that peak), the bound before the
+    kernel used the tensor cores."""
     p = dim - 1
     flops = 4.0 * c * p * n
     nbytes = 4.0 * (c * dim + n * p + n + c + c * dim)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
+
+
+def k1_report():
+    """K1's registers and spills by instance (ptxas), and its shared memory
+    per block, resident blocks per SM and blocks per cluster at the main
+    path's shapes."""
+    import ctypes
+    import re
+
+    from advancedhmc_torch.ops import _build
+    from advancedhmc_torch.ops import fused_logistic as k1
+
+    lib = _build.load("fused_logistic")
+    k1._kernel(lib)
+    path = _build.library_path("fused_logistic")
+    text = path.with_name(path.name + ".log").read_text()
+    for entry in text.split("Compiling entry function")[1:]:
+        ks = re.search(r"fused_logistic_kernelILi(\d+)E", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        if ks and regs and spill:
+            log(f"# K1 instance p <= {8 * int(ks.group(1))}: "
+                f"{regs.group(1)} registers, {spill.group(1)} bytes of "
+                "spill stores (ptxas)")
+    per_sm, split = ctypes.c_int(), ctypes.c_int()
+    for c in (N_CHAINS, WARMUP_CHAINS, 1):
+        lib.fused_logistic_launch_shape(c, DIM, N_ROWS, ctypes.byref(per_sm),
+                                        ctypes.byref(split))
+        log(f"# K1 C={c} n={N_ROWS}: {lib.fused_logistic_smem_bytes(DIM)} "
+            f"bytes of shared memory per block, {per_sm.value} blocks per "
+            f"SM, {split.value} blocks per cluster")
 
 
 def phase_k1():
@@ -193,12 +234,17 @@ def phase_k1():
         tol_g = 1e-4 * float(g_p.abs().max())
         tol_lp = 1e-4 * max(1.0, float(lp_p.abs().max()))
         err64 = float((g.double() - g_64).abs().max())
+        plain64 = float((g_p.double() - g_64).abs().max())
+        # no atomics: a second call on the same inputs gives the same bits
+        lp2, g2 = k1.logistic_value_grad(theta, x, y)
+        same = torch.equal(lp, lp2) and torch.equal(g, g2)
         ok = (bool(torch.isfinite(lp).all() and torch.isfinite(g).all())
               and err_g <= tol_g and err_lp <= tol_lp
-              and bool((g[:, 0] == 0).all()))
+              and bool((g[:, 0] == 0).all()) and same)
         log(f"# K1 C={c} n={n}: max|Δgrad| {err_g:.3e} (tol {tol_g:.3e}), "
-            f"max|Δlp| {err_lp:.3e} (tol {tol_lp:.3e}), vs float64 "
-            f"{err64:.3e}: {'ok' if ok else 'FAIL'}")
+            f"max|Δlp| {err_lp:.3e} (tol {tol_lp:.3e}), grad vs float64 "
+            f"{err64:.3e} (plain {plain64:.3e}), two calls bitwise equal "
+            f"{same}: {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"K1 disagrees with its plain version at C={c}")
         worst = max(worst, err_g, err_lp)
@@ -207,11 +253,14 @@ def phase_k1():
             ms = cuda_ms(lambda: k1.logistic_value_grad(theta, x, y), reps)
             plain_ms = cuda_ms(
                 lambda: k1.plain_logistic_value_grad(theta, x, y), reps)
-            bound_ms, bound_by = k1_bound_ms(c, DIM, n)
+            bound_ms, bound_by, f32_ms = k1_bound_ms(c, DIM, n)
             rows.append(dict(chains=c, n=n, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             bound_ms_f32_cuda_cores=f32_ms))
             log(f"# K1 C={c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+                f"bound {bound_ms:.4f} ms ({bound_by}, 3xTF32 on the tensor "
+                f"cores; {f32_ms:.4f} ms by float32 on the CUDA cores)")
+    k1_report()
     return rows, worst
 
 
@@ -283,6 +332,19 @@ def phase_k3():
 
 
 # ------------------------------------------------------------------ phase 3
+def count_by_chains(target):
+    """`target` with its value+grad calls tallied by chain count
+    (θ.shape[0]); on the card each of them is one K1 launch."""
+    tally = collections.Counter()
+    value_and_grad = target.logdensity_and_grad
+
+    def counted(theta):
+        tally[int(theta.shape[0])] += 1
+        return value_and_grad(theta)
+
+    return dataclasses.replace(target, logdensity_and_grad=counted), tally
+
+
 def main_path_spec():
     import advancedhmc_torch as ah
 
@@ -303,6 +365,7 @@ def phase_main(seed):
     import advancedhmc_torch as ah
 
     target, kernel, adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
     # starting points from numpy, as the tests make their inputs
     theta0 = torch.as_tensor(
         0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
@@ -323,7 +386,12 @@ def phase_main(seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()["fused_logistic_value_grad"]
-    return res, launches, wall
+    by_chains = dict(sorted(by_chains.items(), reverse=True))
+    log(f"# main path: K1 launches by chain count {by_chains}")
+    if sum(by_chains.values()) != launches:
+        raise RuntimeError(f"K1 calls by chain count {by_chains} do not add "
+                           f"up to its {launches} launches")
+    return res, launches, wall, by_chains
 
 
 # ------------------------------------------------------------------ phase 4
@@ -720,7 +788,7 @@ def main(argv=None):
     phase_build()
     k1_rows, k1_err = phase_k1()
     k3_rows, k3_err, k3_launches = phase_k3()
-    res, launches, wall = phase_main(args.seed)
+    res, launches, wall, k1_by_chains = phase_main(args.seed)
     out = phase_results(res, launches, wall, args.seed)
     log(f"# main path: warmup {out['warmup_s']:.1f} s, draws "
         f"{out['draws_s']:.1f} s, K1 launches {launches}")
@@ -742,6 +810,7 @@ def main(argv=None):
         "source": "advancedhmc_torch/csrc/fused_logistic.cu",
         "replaces": "advancedhmc_tpu/ops/fused_logistic.py:53",
         "launches": launches,
+        "launches_by_chains": k1_by_chains,
         "max_abs_err": k1_err,
         "max_err": k1_err,
         "ms": k1_row["ms"],
@@ -749,6 +818,7 @@ def main(argv=None):
         "plain_ms": k1_row["plain_ms"],
         "bound_ms": k1_row["bound_ms"],
         "bound_by": k1_row["bound_by"],
+        "bound_ms_f32_cuda_cores": k1_row["bound_ms_f32_cuda_cores"],
         "library_ms": None,
         "shapes": k1_rows,
     }, {

@@ -37,24 +37,32 @@ def _k2_agreement(out, ref):
 @pytest.mark.gpu
 def test_k1_kernel_matches_plain_on_card():
     """K1 on the card against its plain version (float32, summation order
-    differs: 1e-4 of the largest magnitude)."""
+    differs: 1e-4 of the largest magnitude), at the draw phase's and the
+    warmup pool's chain counts, the step-size search's one chain and a
+    ragged count, over 1000 and 300 rows; two calls on the same inputs give
+    the same bits (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, y = _synthetic_data(1000, 99)
-    xt = torch.as_tensor(x, dtype=torch.float32, device="cuda")
-    yt = torch.as_tensor(y, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for c in (4096, 13, 1):
-        th = 0.3 * torch.randn(c, 100, generator=gen, device="cuda")
-        before = k1.logistic_value_grad.launches
-        lp, g = k1.logistic_value_grad(th, xt, yt)
-        assert k1.logistic_value_grad.launches == before + 1
-        lp_p, g_p = k1.plain_logistic_value_grad(th, xt, yt)
-        torch.cuda.synchronize()
-        assert float((g - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
-        assert float((lp - lp_p).abs().max()) <= 1e-4 * float(
-            lp_p.abs().max())
+    for n in (1000, 300):
+        x, y = _synthetic_data(n, 99)
+        xt = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+        yt = torch.as_tensor(y, dtype=torch.float32, device="cuda")
+        for c in (32768, 4096, 13, 1):
+            th = 0.3 * torch.randn(c, 100, generator=gen, device="cuda")
+            before = k1.logistic_value_grad.launches
+            lp, g = k1.logistic_value_grad(th, xt, yt)
+            assert k1.logistic_value_grad.launches == before + 1
+            lp2, g2 = k1.logistic_value_grad(th, xt, yt)
+            lp_p, g_p = k1.plain_logistic_value_grad(th, xt, yt)
+            torch.cuda.synchronize()
+            assert torch.equal(lp, lp2) and torch.equal(g, g2), (c, n)
+            assert bool((g[:, 0] == 0).all())
+            assert float((g - g_p).abs().max()) <= 1e-4 * float(
+                g_p.abs().max()), (c, n)
+            assert float((lp - lp_p).abs().max()) <= 1e-4 * max(
+                1.0, float(lp_p.abs().max())), (c, n)
 
 
 # the logistic cases: (ε, max_depth, T)
