@@ -51,6 +51,9 @@
 #include "logistic_tile.cuh"
 
 namespace cg = cooperative_groups;
+using logistic_tile::cp_async4;
+using logistic_tile::cp_async_commit;
+using logistic_tile::cp_async_wait;
 using logistic_tile::kTileRows;
 using logistic_tile::x_stride;
 
@@ -68,22 +71,6 @@ __host__ __device__ constexpr size_t smem_floats(int ksteps) {
   // and the y tiles its partial lp (kChains)
   return (size_t)(kChains + 2 * kTileRows) * x_stride(ksteps) +
          2 * kTileRows;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));  // 0 bytes read: zero fill
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Four blocks per SM: at most 128 registers a thread, 4 x 55.5 KB of shared

@@ -12,34 +12,68 @@
 // row * Dp + col) and its own leaf count, so `block_chains` is an argument
 // here and not the launch shape.
 //
-// Design: a thread block owns kChains = 8 chains, one warp each. A warp
-// keeps its chain's tree state (15 + 2S vectors of dim floats) in shared
-// memory, with element k of every vector owned by lane k % 32, so the
-// bookkeeping of a leaf needs no barrier; dot products are xor-shuffle sums,
-// which leave the same value in every lane. The block walks leaves in lock
-// step, as the Pallas block does: every chain takes exactly one leaf per
-// iteration, and a chain that has finished its T transitions keeps
-// iterating without recording, until all chains of the block are done.
-// The target's value and gradient is computed for the whole tile at once
-// (template parameter `Target`): for the hierarchical logistic the tile's
-// 8 chains share each shared-memory tile of the design matrix.
+// Bound: per leaf and chain the logistic costs 4 * p * n operations (two
+// products over the n x p design), which dominate. At float32 accuracy on
+// the tensor cores (3xTF32, logistic_tile.cuh) that is 3 * 4 * p * n per
+// leaf at the TF32 rate; the bytes (theta0 in, theta (T, C, dim) out) are
+// far below. Measured against both in chip_smoke.py.
 //
-// Bound: per leaf and chain the logistic costs 4 * p * n float32 operations
-// (two products over the n x p design), which dominate; the bytes are the
-// outputs theta (T, C, dim). Measured against both in chip_smoke.py.
+// Design. A block of kWarps = 4 warps owns kChains = 64 chains, a warp 16 of
+// them: the M rows of K1's warp tile (logistic_tile.cuh). The block walks
+// leaves in lock step, as the Pallas block does: every chain takes exactly
+// one leaf per iteration, and a chain that has finished its T transitions
+// keeps iterating without recording, until all chains of the block are
+// done. Each iteration
+//   1. evaluates the target at the frontier of all 64 chains. For the
+//      logistic that is K1's loop: 32-row tiles of the design, double-
+//      buffered by cp.async and shared by the block's warps, each warp's 16
+//      chains through warp_tile (both products as 3xTF32 mma.sync, short
+//      accumulation chains). The frontier's beta is the A operand, in
+//      shared memory; after the last tile each warp writes its gradient
+//      fragments over its own beta rows, and sums lp over the lanes in a
+//      fixed order;
+//   2. lets each warp walk its 16 chains one after another, lanes over dim:
+//      the prior (per chain), the second half kick and the energy, the
+//      reservoir, the checkpoints and U-turn spans, the merge, the
+//      transition record and the momentum refresh, then the next leaf's
+//      half kick and drift, which stages the new frontier for step 1.
+// The tree state is in a device scratch buffer that the caller allocates:
+// each chain's 15 + 2S vectors of dim floats lie contiguous (a vector is one
+// coalesced row), so shared memory holds only the tile's operands and M^-1
+// (56 KB at p = 99: four blocks, 16 warps per SM; three or two blocks were
+// slower). Step 2 reads the scratch mostly from device memory, a few
+// stages per chain (the kick; the reservoir with the first U-turn span or
+// the checkpoint; the merge, only when a doubling completes; record and
+// refresh; the drift), each one loop over the chain's elements. A chain's
+// scalars are a record in the scratch too, read and written once per leaf,
+// so that registers hold only the chain at hand: at four blocks an SM keeps
+// ~27 KB of L1 beside the shared memory, so spills go to L2, and the pass
+// was faster with fewer live registers than with more loads in flight.
+// Dot products are xor-shuffle sums, which leave the same value in every
+// lane. No atomics and fixed summation orders: the same inputs give the
+// same bits.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "logistic_tile.cuh"
+
+using logistic_tile::kTileRows;
+using logistic_tile::x_stride;
+
 namespace {
 
-constexpr int kChains = 8;               // chains per block, one warp each
-constexpr int kThreads = 32 * kChains;
-constexpr int kRows = 128;               // design rows per shared tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChainsPerWarp = 16;              // the warp tile's M rows
+constexpr int kChains = kChainsPerWarp * kWarps;
 constexpr float kDeltaMax = 1000.f;
+constexpr unsigned kFull = 0xffffffffu;
 
-// tree-state vectors of a chain; the two checkpoint stacks follow kCk
+// tree-state vectors of a chain; the two checkpoint stacks follow kCk. The
+// (theta, r, g) triples of the frontier and of the two edges are
+// consecutive, so an edge's r and g sit at +1 and +2 from its theta.
 enum Vec {
   kThE, kRE, kGE,       // integration frontier (leaf being taken)
   kThL, kRL, kGL,       // left edge of the tree
@@ -50,13 +84,7 @@ enum Vec {
   kCk                   // ck_r[S] then ck_cum[S]
 };
 
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
-// rows of the design tile at a stride of 4 mod 32 floats: the float4 reads
-// of 8 consecutive rows fall in 8 different groups of 4 banks
-__host__ __device__ inline int xs_stride(int p) {
-  const int s = round4(p);
-  return s + (36 - s % 32) % 32;
-}
+__host__ __device__ inline int n_vectors(int S) { return kCk + 2 * S; }
 
 // ------------------------------------------------ counter RNG (:44-102)
 __device__ __forceinline__ uint32_t splitmix32(uint32_t x) {
@@ -95,487 +123,635 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-__device__ __forceinline__ float* vec_of(float* st, int nvec, int dim, int c,
-                                         int v) {
-  return st + ((size_t)c * nvec + v) * dim;
-}
-
 // ------------------------------------------------------------- targets
-// Each target is called by every thread of the block. It reads theta from
-// the kThE vector of each of the tile's chains and writes the gradient to
-// its kGE vector and the log density to lp[c].
+// A target splits its value and gradient at the frontier into
+//   - `term(k, th)`, summed over the frontier's elements as the drift
+//     writes them (the chain's `q`), and `put`, which stages an element
+//     for `likelihood`; `clear_pad` after a chain's elements;
+//   - `likelihood(sm)`, called by every thread of the block once the
+//     frontiers of all its chains are staged: gives lane c (< 16) of each
+//     warp the data term of the warp's chain c;
+//   - `aux(q, ls)` per chain, then `lp` per chain and `grad` per element,
+//     where ls is element 0 of the frontier.
 
 // Diagonal Gaussian: lp = -1/2 sum prec * theta^2, grad = -prec * theta.
 struct GaussianTarget {
   const float* prec;   // (>= dim,)
 
   __host__ __device__ static size_t smem_floats(int) { return 0; }
-
-  __device__ void operator()(float* st, int nvec, int dim, float* lp,
-                             float*) const {
-    const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const float* th = vec_of(st, nvec, dim, w, kThE);
-    float* g = vec_of(st, nvec, dim, w, kGE);
-    float s = 0.f;
-    for (int k = lane; k < dim; k += 32) {
-      const float t = th[k], pr = prec[k];
-      s += pr * t * t;
-      g[k] = -pr * t;
-    }
-    s = warp_sum(s);
-    if (lane == 0) lp[w] = -0.5f * s;
+  __device__ void init(float*) const {}
+  __device__ float term(int k, float th) const { return prec[k] * th * th; }
+  __device__ void put(float*, int, int, float) const {}
+  __device__ void clear_pad(float*, int, int) const {}
+  __device__ float likelihood(float*) const { return 0.f; }
+  __device__ float aux(float, float) const { return 0.f; }
+  __device__ float lp(float q, float, float, float) const {
+    return -0.5f * q;
+  }
+  __device__ float grad(const float*, int, int k, float th, float, float,
+                        float) const {
+    return -prec[k] * th;
   }
 };
 
-// Hierarchical logistic in block form (models/logistic.py:207-249):
-// theta = (log sigma, beta_1..beta_p), x^T (d_pad, n) with row 0 zero.
+// Hierarchical logistic in block form (models/logistic.py
+// hierarchical_logistic_block): theta = (log sigma, beta_1..beta_p), the
+// design as x^T (>= dim rows, n columns) with row 0 zero, read where it
+// lies. The prior is added per chain: q = sum theta^2, aux = 1 / sigma^2.
+// KSteps k-steps of 8 columns hold p.
+template <int KSteps>
 struct LogisticTarget {
-  const float* xt;     // (d_pad, n): rows 1..p are the features
+  static constexpr int S = x_stride(KSteps);
+  static_assert(kTileRows == 32, "a tile's rows are a warp's lanes");
+  const float* xt;     // (>= p + 1, n): rows 1..p are the features
   const float* y;      // (n,)
   int n, p;
 
-  __host__ __device__ static size_t smem_floats(int dim) {
-    const int p = dim - 1;
-    return (size_t)kRows * xs_stride(p)      // xs: design tile, row-major
-           + (size_t)kChains * round4(p)     // bt: the tile's beta rows
-           + (size_t)kRows * kChains         // rs: residuals [row][chain]
-           + kRows                           // ys
-           + (size_t)kChains * round4(p)     // gacc: data gradient
-           + 2 * kChains;                    // per-warp log-lik partials
+  // beta of the block's chains, then two staged tiles of x, two of y (K1's
+  // layout); after `likelihood` a warp's beta rows hold its chains' data
+  // gradient
+  __host__ __device__ static size_t smem_floats(int) {
+    return (size_t)(kChains + 2 * kTileRows) * S + 2 * kTileRows;
   }
 
-  __device__ void operator()(float* st, int nvec, int dim, float* lp,
-                             float* sm) const {
-    const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
-    const int xstr = xs_stride(p), bstr = round4(p);
-    float* xs = sm;
-    float* bt = xs + kRows * xstr;
-    float* rs = bt + kChains * bstr;
-    float* ys = rs + kRows * kChains;
-    float* gacc = ys + kRows;
-    float* part = gacc + kChains * bstr;
-
-    // warp w stages its chain's beta and the prior's sums
-    const float* th = vec_of(st, nvec, dim, w, kThE);
-    float ssq = 0.f;
-    for (int k = lane; k < dim; k += 32) ssq += th[k] * th[k];
-    ssq = warp_sum(ssq);
-    const float ls = th[0];
-    for (int k = lane; k < bstr; k += 32) {
-      bt[w * bstr + k] = k < p ? th[1 + k] : 0.f;
-      gacc[w * bstr + k] = 0.f;
+  // columns p .. S-1 of beta and of both x buffers zero (cp.async never
+  // writes them, `clear_pad` keeps beta's)
+  __device__ void init(float* sm) const {
+    for (int i = threadIdx.x; i < (kChains + 2 * kTileRows) * (S - p);
+         i += kThreads) {
+      sm[(i / (S - p)) * S + p + i % (S - p)] = 0.f;
     }
+  }
 
-    // phase 1: chains 2cp, 2cp+1 x rows rp, rp+64; phase 2: chains
-    // 4cq..4cq+3 x column col of each 128-wide chunk. Every accumulator
-    // has one owner, so no atomics and a fixed summation order.
-    const int cp = tid / 64, rp = tid % 64;
-    const int cq = tid / 128, col = tid % 128;
-    float ll0 = 0.f, ll1 = 0.f;
-    for (int j0 = 0; j0 < n; j0 += kRows) {
-      const int rows = min(kRows, n - j0);
-      __syncthreads();   // the previous tile is consumed; bt, gacc staged
-      for (int i = tid; i < kRows * bstr; i += kThreads) {
-        const int j = i % kRows, k = i / kRows;
-        xs[j * xstr + k] =
-            (j < rows && k < p) ? xt[(size_t)(1 + k) * n + j0 + j] : 0.f;
-      }
-      if (tid < kRows) ys[tid] = tid < rows ? y[j0 + tid] : 0.f;
-      __syncthreads();
+  __device__ float term(int, float th) const { return th * th; }
 
-      float acc[2][2] = {};
-      const float4* b0 = reinterpret_cast<const float4*>(bt + 2 * cp * bstr);
-      const float4* b1 = b0 + bstr / 4;
-      const float4* x0 = reinterpret_cast<const float4*>(xs + rp * xstr);
-      const float4* x1 = reinterpret_cast<const float4*>(xs + (rp + 64) * xstr);
-      for (int k4 = 0; k4 < bstr / 4; ++k4) {
-        const float4 a0 = b0[k4], a1 = b1[k4], u0 = x0[k4], u1 = x1[k4];
-        acc[0][0] = fmaf(a0.x, u0.x, acc[0][0]);
-        acc[0][0] = fmaf(a0.y, u0.y, acc[0][0]);
-        acc[0][0] = fmaf(a0.z, u0.z, acc[0][0]);
-        acc[0][0] = fmaf(a0.w, u0.w, acc[0][0]);
-        acc[0][1] = fmaf(a0.x, u1.x, acc[0][1]);
-        acc[0][1] = fmaf(a0.y, u1.y, acc[0][1]);
-        acc[0][1] = fmaf(a0.z, u1.z, acc[0][1]);
-        acc[0][1] = fmaf(a0.w, u1.w, acc[0][1]);
-        acc[1][0] = fmaf(a1.x, u0.x, acc[1][0]);
-        acc[1][0] = fmaf(a1.y, u0.y, acc[1][0]);
-        acc[1][0] = fmaf(a1.z, u0.z, acc[1][0]);
-        acc[1][0] = fmaf(a1.w, u0.w, acc[1][0]);
-        acc[1][1] = fmaf(a1.x, u1.x, acc[1][1]);
-        acc[1][1] = fmaf(a1.y, u1.y, acc[1][1]);
-        acc[1][1] = fmaf(a1.z, u1.z, acc[1][1]);
-        acc[1][1] = fmaf(a1.w, u1.w, acc[1][1]);
-      }
+  __device__ void put(float* sm, int cb, int k, float th) const {
+    if (k > 0) sm[cb * S + k - 1] = th;
+  }
+
+  // the gradient left columns p .. 8 KSteps - 1 zero, or NaN where the
+  // chain's residuals were: the next tile must read zeros there
+  __device__ void clear_pad(float* sm, int cb, int lane) const {
+    for (int k = p + lane; k < 8 * KSteps; k += 32) sm[cb * S + k] = 0.f;
+  }
+
+  // rows j0 .. j0 + 31 of the design into a tile buffer, as one group of
+  // cp.async: warps over columns, lanes over rows, so that a warp reads a
+  // 128-byte run of one row of x^T with every lane busy (faster than
+  // staging a row-major copy with lanes over columns, as K1 does:
+  // scripts/k2_ablation.py); rows past n are zero-filled
+  __device__ void stage(float* xs, float* ys, int j0) const {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const bool valid = j0 + lane < n;
+    const float* src = xt + (valid ? j0 + lane : 0);
+    for (int k = warp; k < p; k += kWarps) {
+      logistic_tile::cp_async4(xs + lane * S + k, src + (size_t)(1 + k) * n,
+                               valid);
+    }
+    if (warp == 0) {
+      logistic_tile::cp_async4(ys + lane, y + (valid ? j0 + lane : 0), valid);
+    }
+    logistic_tile::cp_async_commit();
+  }
+
+  __device__ float likelihood(float* sm) const {
+    float* bs = sm;                          // [kChains][S]
+    float* xs = bs + kChains * S;            // [2][kTileRows][S]
+    float* ys = xs + 2 * kTileRows * S;      // [2][kTileRows]
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int n_tiles = (n + kTileRows - 1) / kTileRows;
+    float* rows = bs + kChainsPerWarp * warp * S;
+
+    float acc[KSteps][4];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int j = rp + 64 * q;
-        const bool valid = j < rows;
-        const float yv = ys[j];
+    for (int nt = 0; nt < KSteps; ++nt) {
 #pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const float l = acc[s][q];
-          const float softplus = fmaxf(l, 0.f) + log1pf(expf(-fabsf(l)));
-          const float sig = 1.f / (1.f + expf(-l));
-          const float ll = valid ? yv * l - softplus : 0.f;
-          if (s == 0) ll0 += ll; else ll1 += ll;
-          rs[j * kChains + 2 * cp + s] = valid ? yv - sig : 0.f;
-        }
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    }
+    float lp_g = 0.f, lp_g8 = 0.f;
+    if (n_tiles > 0) stage(xs, ys, 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int buf = tile & 1;
+      if (tile + 1 < n_tiles) {
+        stage(xs + (buf ^ 1) * kTileRows * S, ys + (buf ^ 1) * kTileRows,
+              (tile + 1) * kTileRows);
+        logistic_tile::cp_async_wait<1>();  // this tile landed, next in flight
+      } else {
+        logistic_tile::cp_async_wait<0>();
       }
       __syncthreads();
+      logistic_tile::warp_tile<KSteps>(
+          rows, xs + buf * kTileRows * S, ys + buf * kTileRows,
+          min(kTileRows, n - tile * kTileRows), acc, lp_g, lp_g8);
+      __syncthreads();  // the buffer is free for the tile after next
+    }
 
-      for (int k = col; k < p; k += 128) {
-        float g[4] = {};
-        const float4* r4 = reinterpret_cast<const float4*>(rs) + cq;
-        for (int j = 0; j < rows; ++j) {
-          const float xv = xs[j * xstr + k];
-          const float4 r = r4[2 * j];
-          g[0] = fmaf(r.x, xv, g[0]);
-          g[1] = fmaf(r.y, xv, g[1]);
-          g[2] = fmaf(r.z, xv, g[2]);
-          g[3] = fmaf(r.w, xv, g[3]);
-        }
+    // lp of chains g, g+8 over the 4 lanes t of the group, in a fixed order
+    lp_g += __shfl_xor_sync(kFull, lp_g, 1);
+    lp_g += __shfl_xor_sync(kFull, lp_g, 2);
+    lp_g8 += __shfl_xor_sync(kFull, lp_g8, 1);
+    lp_g8 += __shfl_xor_sync(kFull, lp_g8, 2);
+
+    // the C fragments (chains g | g+8, columns 8nt + 2t, +1) over the warp's
+    // beta rows, which only this warp reads and which it has consumed
 #pragma unroll
-        for (int s = 0; s < 4; ++s) gacc[(4 * cq + s) * bstr + k] += g[s];
-      }
+    for (int nt = 0; nt < KSteps; ++nt) {
+      const int k = 8 * nt + 2 * t;
+      rows[g * S + k] = acc[nt][0];
+      rows[g * S + k + 1] = acc[nt][1];
+      rows[(g + 8) * S + k] = acc[nt][2];
+      rows[(g + 8) * S + k + 1] = acc[nt][3];
     }
-    ll0 = warp_sum(ll0);
-    ll1 = warp_sum(ll1);
-    if (lane == 0) {
-      part[2 * w] = ll0;
-      part[2 * w + 1] = ll1;
-    }
-    __syncthreads();
+    __syncwarp();
+    const float a = __shfl_sync(kFull, lp_g, 4 * (lane & 7));
+    const float b = __shfl_sync(kFull, lp_g8, 4 * (lane & 7));
+    return lane < 8 ? a : b;
+  }
 
-    // chain w sits in pair w / 2, slot w % 2, summed by warps 2(w/2), +1
-    const int pw = 2 * (w / 2), s = w % 2;
-    const float loglik = part[2 * pw + s] + part[2 * (pw + 1) + s];
-    const float inv_s2 = expf(-2.f * ls);
-    const float beta_sq = ssq - ls * ls;
-    if (lane == 0) {
-      lp[w] = -0.5f * (ls * ls) - 0.5f * beta_sq * inv_s2 - (float)p * ls
-              + loglik;
-    }
-    float* g = vec_of(st, nvec, dim, w, kGE);
-    for (int k = lane; k < dim; k += 32) {
-      g[k] = k == 0 ? -ls + beta_sq * inv_s2 - (float)p
-                    : gacc[w * bstr + k - 1] + (-th[k] * inv_s2);
-    }
+  __device__ float aux(float, float ls) const { return expf(-2.f * ls); }
+
+  __device__ float lp(float q, float ls, float inv_s2, float loglik) const {
+    const float beta_sq = q - ls * ls;
+    return -0.5f * (ls * ls) - 0.5f * beta_sq * inv_s2 - (float)p * ls
+           + loglik;
+  }
+
+  __device__ float grad(const float* sm, int cb, int k, float th, float q,
+                        float ls, float inv_s2) const {
+    return k == 0 ? -ls + (q - ls * ls) * inv_s2 - (float)p
+                  : sm[cb * S + k - 1] + (-th * inv_s2);
   }
 };
 
-template <class Target>
-__host__ __device__ inline size_t smem_floats(int dim, int S) {
-  return Target::smem_floats(dim) + kChains + 2 * (size_t)dim
-         + (size_t)kChains * (kCk + 2 * S) * dim;
-}
+// --------------------------------------------- a chain's scalar state
+// One 64-byte record per chain in the scratch, after every chain's vectors:
+// the warp loads chain c's record (all lanes, one address) with the first
+// stage's loads, and lane 0 stores it back when the warp is done with the
+// chain, so no chain's scalars stay in registers across the tile or the
+// other chains.
+struct alignas(16) Chain {
+  float lp_c, h0, lp_sc, t_w, s_w;
+  float q;              // the target's sum over the frontier
+  int n_alpha, depth, leaf, v, t;
+  int diverged;
+  int done;             // T transitions recorded, or not a chain
+  int pad[3];
+};
+constexpr int kChainWords = sizeof(Chain) / sizeof(float);
 
 // --------------------------------------------------------------- kernel
-template <class Target, int S>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_nuts_kernel(Target target, const float* __restrict__ theta0,
+template <class Target>
+__global__ void __launch_bounds__(kThreads, 4)
+fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
                   const float* __restrict__ m_inv_in, float eps,
                   uint32_t seed, int block_chains, int dp, int n_chains,
-                  int dim, int T, float* __restrict__ out_theta,
+                  int dim, int T, int S, float* scratch,
+                  float* __restrict__ out_theta,
                   int* __restrict__ out_stats) {
-  extern __shared__ float4 smem4[];
-  float* scratch = reinterpret_cast<float*>(smem4);
-  float* lpbuf = scratch + Target::smem_floats(dim);
-  float* mi = lpbuf + kChains;          // M^-1
+  extern __shared__ __align__(16) float smem[];
+  float* tsm = smem;                                // the target's
+  float* mi = smem + Target::smem_floats(dim);      // M^-1
   float* isq = mi + dim;                // 1 / sqrt(M^-1), 0 where M^-1 = 0
-  float* st = isq + dim;
-  constexpr int nvec = kCk + 2 * S;
-
-  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
-  const int chain = blockIdx.x * kChains + w;
-  const bool real = chain < n_chains;
-  const uint32_t row = (uint32_t)(chain % block_chains);
-  const uint32_t base =
-      seed * 7919u + (uint32_t)(chain / block_chains) * 104729u;
-  auto V = [&](int v) { return vec_of(st, nvec, dim, w, v); };
-  float* the = V(kThE); float* re = V(kRE); float* ge = V(kGE);
-  float* thl = V(kThL); float* rl = V(kRL); float* gl = V(kGL);
-  float* thr = V(kThR); float* rr = V(kRR); float* gr = V(kGR);
-  float* thc = V(kThC); float* gc = V(kGC);
-  float* thsc = V(kThSc); float* gsc = V(kGSc);
-  float* rhot = V(kRhoT); float* rhos = V(kRhoS);
-  float* ckr = V(kCk);                  // slot s at ckr + s * dim
-  float* ckc = V(kCk + S);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nvec = n_vectors(S);
+  const int cb0 = kChainsPerWarp * warp;        // the warp's first row
+  const int c0 = blockIdx.x * kChains + cb0;    // and its first chain
+  Chain* records = reinterpret_cast<Chain*>(
+      scratch + (size_t)gridDim.x * kChains * nvec * dim) + c0;
 
   for (int k = tid; k < dim; k += kThreads) {
     const float m = m_inv_in[k];
     mi[k] = m;
     isq[k] = m > 0.f ? 1.f / fmaxf(sqrtf(m), 1e-30f) : 0.f;
   }
-  for (int k = lane; k < dim; k += 32) {
-    the[k] = real ? theta0[(size_t)chain * dim + k] : 0.f;
-  }
-  __syncthreads();
-  target(st, nvec, dim, lpbuf, scratch);
+  tg.init(tsm);
   __syncthreads();
 
-  // initial transition: momentum at counter base + 0, salt 1
-  float lp_c = lpbuf[w];
-  float nk = 0.f;
-  for (int k = lane; k < dim; k += 32) {
-    const float r = normal_at(base, row * (uint32_t)dp + k, 1u) * isq[k];
-    nk += r * r * mi[k];
-    const float t = the[k], g = ge[k];
-    re[k] = r;
-    thl[k] = thr[k] = thc[k] = thsc[k] = t;
-    rl[k] = rr[k] = rhot[k] = r;
-    gl[k] = gr[k] = gc[k] = gsc[k] = g;
-    rhos[k] = 0.f;
+  // chain c of the warp: its vectors in the scratch, its stream
+  auto vecs = [&](int c) { return scratch + (size_t)(c0 + c) * nvec * dim; };
+  auto row_of = [&](int c) {
+    return (uint32_t)((c0 + c) % block_chains);
+  };
+  auto base_of = [&](int c) {
+    return seed * 7919u + (uint32_t)((c0 + c) / block_chains) * 104729u;
+  };
+
+  // The leapfrog's first half at counter ctr: direction (at a doubling's
+  // first leaf), half kick and drift from the leaf's start into the
+  // frontier, staged for the target.
+  auto drift = [&](Chain& s, int c, float* st, uint32_t ctr, uint32_t row) {
+    const bool start = s.leaf == 0;
+    if (start) {
+      s.v = uniform_at(ctr, row, 2u) < 0.5f ? -1 : 1;
+      s.s_w = -CUDART_INF_F;
+    }
+    const float eps_s = eps * (float)s.v;
+    const float half = 0.5f * eps_s;
+    const int from = start ? (s.v > 0 ? kThR : kThL) : kThE;
+    const float* sth = st + from * dim;
+    const float* sr = sth + dim;
+    const float* sg = sr + dim;
+    float* the = st + kThE * dim;
+    float* re = st + kRE * dim;
+    float* rhos = st + kRhoS * dim;
+    float q = 0.f;
+    for (int k = lane; k < dim; k += 32) {
+      const float r_half = sr[k] + half * sg[k];
+      const float th = sth[k] + eps_s * (r_half * mi[k]);
+      the[k] = th;
+      re[k] = r_half;
+      if (start) rhos[k] = 0.f;
+      tg.put(tsm, cb0 + c, k, th);
+      q += tg.term(k, th);
+    }
+    tg.clear_pad(tsm, cb0 + c, lane);
+    s.q = warp_sum(q);
+  };
+
+  for (int c = 0; c < kChainsPerWarp; ++c) {
+    const int chain = c0 + c;
+    const bool real = chain < n_chains;
+    float* the = vecs(c) + kThE * dim;
+    float q = 0.f;
+    for (int k = lane; k < dim; k += 32) {
+      const float th = real ? theta0[(size_t)chain * dim + k] : 0.f;
+      the[k] = th;
+      tg.put(tsm, cb0 + c, k, th);
+      q += tg.term(k, th);
+    }
+    tg.clear_pad(tsm, cb0 + c, lane);
+    q = warp_sum(q);
+    if (lane == 0) {
+      records[c].q = q;
+      records[c].done = real ? 0 : 1;
+    }
   }
-  float h0 = -(lp_c + -0.5f * warp_sum(nk));
-  float lp_sc = lp_c, t_w = 0.f, s_w = -CUDART_INF_F;
-  int n_alpha = 0, depth = 0, leaf = 0, v = 1, t = 0;
-  bool diverged = false, all_done = !real;
+  float lik = tg.likelihood(tsm);
+  __syncwarp();         // the records' lane-0 stores, for every lane
+
+  // the first transition's start (momentum at counter base + 0, salt 1),
+  // then the first leaf's drift
+  int warp_done = 1;    // every chain of the warp has recorded T
+  for (int c = 0; c < kChainsPerWarp; ++c) {
+    Chain s = records[c];
+    const float loglik = __shfl_sync(kFull, lik, c);
+    float* st = vecs(c);
+    const uint32_t row = row_of(c), base = base_of(c);
+    auto V = [&](int v) { return st + v * dim; };
+    const float ls = V(kThE)[0];
+    const float ax = tg.aux(s.q, ls);
+    const float lp0 = tg.lp(s.q, ls, ax, loglik);
+    float nk = 0.f;
+    for (int k = lane; k < dim; k += 32) {
+      const float th = V(kThE)[k];
+      const float g = tg.grad(tsm, cb0 + c, k, th, s.q, ls, ax);
+      const float r = normal_at(base, row * (uint32_t)dp + k, 1u) * isq[k];
+      nk += r * r * mi[k];
+      V(kRE)[k] = r;
+      V(kThL)[k] = V(kThR)[k] = V(kThC)[k] = V(kThSc)[k] = th;
+      V(kRL)[k] = V(kRR)[k] = V(kRhoT)[k] = r;
+      V(kGE)[k] = V(kGL)[k] = V(kGR)[k] = V(kGC)[k] = V(kGSc)[k] = g;
+      V(kRhoS)[k] = 0.f;
+    }
+    s.h0 = -(lp0 + -0.5f * warp_sum(nk));
+    s.lp_c = s.lp_sc = lp0;
+    s.t_w = 0.f;
+    s.s_w = -CUDART_INF_F;
+    s.n_alpha = s.depth = s.leaf = s.t = s.diverged = 0;
+    s.v = 1;
+    drift(s, c, st, base + 1u, row);
+    warp_done &= s.done;
+    if (lane == 0) records[c] = s;
+  }
 
   const int max_iters = T * (1 << S) + 16;
   for (int it = 0; it < max_iters; ++it) {
-    if (__syncthreads_and(all_done)) break;
-    const uint32_t ctr = base + (uint32_t)(it + 1);
-    const bool start = leaf == 0;
-    if (start) v = uniform_at(ctr, row, 2u) < 0.5f ? -1 : 1;
-    const bool fwd = v > 0;
-    const float eps_s = eps * (float)v;
-    const float half = 0.5f * eps_s;
+    if (__syncthreads_and(warp_done)) break;
+    lik = tg.likelihood(tsm);
+    warp_done = 1;
 
-    // ---- one leapfrog step: half kick and drift into the frontier ----
-    const float* sth = start ? (fwd ? thr : thl) : the;
-    const float* sr = start ? (fwd ? rr : rl) : re;
-    const float* sg = start ? (fwd ? gr : gl) : ge;
-    for (int k = lane; k < dim; k += 32) {
-      const float r_half = sr[k] + half * sg[k];
-      the[k] = sth[k] + eps_s * (r_half * mi[k]);
-      re[k] = r_half;
-      if (start) rhos[k] = 0.f;
-    }
-    if (start) s_w = -CUDART_INF_F;
-    __syncthreads();
-    target(st, nvec, dim, lpbuf, scratch);
-    __syncthreads();
+    for (int c = 0; c < kChainsPerWarp; ++c) {
+      Chain s = records[c];
+      const float loglik = __shfl_sync(kFull, lik, c);
+      const int chain = c0 + c;
+      float* st = vecs(c);
+      const uint32_t row = row_of(c), base = base_of(c);
+      const uint32_t ctr = base + (uint32_t)(it + 1);
+      auto V = [&](int v) { return st + v * dim; };
+      float* the = V(kThE); float* re = V(kRE); float* ge = V(kGE);
+      float* thl = V(kThL); float* rl = V(kRL); float* gl = V(kGL);
+      float* thr = V(kThR); float* rr = V(kRR); float* gr = V(kGR);
+      float* thc = V(kThC); float* gc = V(kGC);
+      float* thsc = V(kThSc); float* gsc = V(kGSc);
+      float* rhot = V(kRhoT); float* rhos = V(kRhoS);
+      float* ckr = V(kCk);                  // slot j at ckr + j * dim
+      float* ckc = V(kCk + S);
+      const bool fwd = s.v > 0;
+      const float half = 0.5f * (eps * (float)s.v);
 
-    float lp_n = lpbuf[w];
-    if (!isfinite(lp_n)) lp_n = -CUDART_INF_F;
-    nk = 0.f;
-    for (int k = lane; k < dim; k += 32) {
-      const float r = re[k] + half * ge[k];
-      re[k] = r;
-      nk += r * r * mi[k];
-    }
-    nk = -0.5f * warp_sum(nk);
-    if (!isfinite(nk)) nk = -CUDART_INF_F;
-    const float h_n = -(lp_n + nk);
-    const float dh = h_n - h0;
-
-    // ---- multinomial leaf weight and reservoir ----
-    const float lw_leaf = -dh;
-    const float new_sw = logaddexp(s_w, lw_leaf);
-    const bool take = logf(uniform_at(ctr, row, 3u)) < lw_leaf - new_sw;
-    const bool diverging = !(dh < kDeltaMax);
-    s_w = new_sw;
-    if (take) lp_sc = lp_n;
-    for (int k = lane; k < dim; k += 32) {
-      if (take) {
-        thsc[k] = the[k];
-        gsc[k] = ge[k];
+      // ---- the target at the frontier, and the second half kick ----
+      const float ls = the[0];
+      const float ax = tg.aux(s.q, ls);
+      float lp_n = tg.lp(s.q, ls, ax, loglik);
+      if (!isfinite(lp_n)) lp_n = -CUDART_INF_F;
+      float nk = 0.f;
+      for (int k = lane; k < dim; k += 32) {
+        const float g = tg.grad(tsm, cb0 + c, k, the[k], s.q, ls, ax);
+        const float r = re[k] + half * g;
+        ge[k] = g;
+        re[k] = r;
+        nk += r * r * mi[k];
       }
-      rhos[k] += re[k];
-    }
-    n_alpha += 1;
+      nk = -0.5f * warp_sum(nk);
+      if (!isfinite(nk)) nk = -CUDART_INF_F;
+      const float h_n = -(lp_n + nk);
+      const float dh = h_n - s.h0;
 
-    // ---- U-turn checks over the aligned spans that end at leaf i ----
-    const int i = leaf;
-    bool s_turning = false;
-    if (i & 1) {
-      const int tones = __ffs(~i) - 1;
-      for (int kk = 1; kk <= S - 1 && kk <= tones && !s_turning; ++kk) {
-        const int a = i - (1 << kk) + 1;
-        if (a < 0) break;
-        const int slot = a == 0 ? S - 1 : min(__ffs(a) - 1, S - 1);
-        const float* ra = ckr + slot * dim;
-        const float* ca = ckc + slot * dim;
-        float d1 = 0.f, d2 = 0.f;
-        for (int k = lane; k < dim; k += 32) {
-          const float span = rhos[k] - ca[k] + ra[k];
-          d1 += span * (ra[k] * mi[k]);
-          d2 += span * (re[k] * mi[k]);
+      // ---- multinomial leaf weight and reservoir; the first U-turn span
+      // that ends at an odd leaf i (kk = 1, from leaf i - 1) or the even
+      // leaf's checkpoint ----
+      const float lw_leaf = -dh;
+      const float new_sw = logaddexp(s.s_w, lw_leaf);
+      const bool take = logf(uniform_at(ctr, row, 3u)) < lw_leaf - new_sw;
+      const bool diverging = !(dh < kDeltaMax);
+      s.s_w = new_sw;
+      if (take) s.lp_sc = lp_n;
+      s.n_alpha += 1;
+      const int i = s.leaf;
+      const bool odd = i & 1;
+      const bool span1 = odd && S >= 2;
+      const int at = odd ? i - 1 : i;           // span start, or the leaf
+      const int slot0 = at == 0 ? S - 1 : min(__ffs(at) - 1, S - 1);
+      const float* ra = ckr + slot0 * dim;
+      const float* ca = ckc + slot0 * dim;
+      float d1 = 0.f, d2 = 0.f;
+      for (int k = lane; k < dim; k += 32) {
+        const float rv = re[k], rh = rhos[k] + rv;
+        if (take) {
+          thsc[k] = the[k];
+          gsc[k] = ge[k];
         }
+        if (span1) {
+          const float rav = ra[k];
+          const float span = rh - ca[k] + rav;
+          d1 += span * (rav * mi[k]);
+          d2 += span * (rv * mi[k]);
+        } else if (!odd) {
+          ckr[slot0 * dim + k] = rv;
+          ckc[slot0 * dim + k] = rh;
+        }
+        rhos[k] = rh;
+      }
+      bool s_turning = false;
+      if (span1) {
         d1 = warp_sum(d1);
         d2 = warp_sum(d2);
         s_turning = d1 <= 0.f || d2 <= 0.f;
       }
-    } else {
-      // ---- store the even leaf's checkpoint ----
-      const int slot = i == 0 ? S - 1 : min(__ffs(i) - 1, S - 1);
-      for (int k = lane; k < dim; k += 32) {
-        ckr[slot * dim + k] = re[k];
-        ckc[slot * dim + k] = rhos[k];
-      }
-    }
-
-    // ---- doubling complete? then biased progressive sampling, merge ----
-    const bool sub_done = s_turning || diverging;
-    const bool complete = sub_done || i >= (1 << depth) - 1;
-    const bool not_term = !sub_done;
-    const float e_mh = -logf(uniform_at(ctr, row, 4u));
-    const bool acc = complete && not_term && t_w < s_w + e_mh;
-    if (acc) lp_c = lp_sc;
-    bool full_turn = false;
-    float fl = 0.f, fr = 0.f;
-    for (int k = lane; k < dim; k += 32) {
-      if (acc) {
-        thc[k] = thsc[k];
-        gc[k] = gsc[k];
-      }
-      if (complete) {
-        const float c_rho = rhot[k] + rhos[k];
-        const float r_l = fwd ? rl[k] : re[k];
-        const float r_r = fwd ? re[k] : rr[k];
-        fl += c_rho * (r_l * mi[k]);
-        fr += c_rho * (r_r * mi[k]);
-        rhot[k] = c_rho;
-        if (fwd) {
-          thr[k] = the[k]; rr[k] = re[k]; gr[k] = ge[k];
-        } else {
-          thl[k] = the[k]; rl[k] = re[k]; gl[k] = ge[k];
+      // ---- the longer aligned spans that end at leaf i ----
+      if (odd) {
+        const int tones = __ffs(~i) - 1;
+        for (int kk = 2; kk <= S - 1 && kk <= tones && !s_turning; ++kk) {
+          const int a = i - (1 << kk) + 1;
+          if (a < 0) break;
+          const int slot = a == 0 ? S - 1 : min(__ffs(a) - 1, S - 1);
+          const float* rak = ckr + slot * dim;
+          const float* cak = ckc + slot * dim;
+          d1 = d2 = 0.f;
+          for (int k = lane; k < dim; k += 32) {
+            const float span = rhos[k] - cak[k] + rak[k];
+            d1 += span * (rak[k] * mi[k]);
+            d2 += span * (re[k] * mi[k]);
+          }
+          d1 = warp_sum(d1);
+          d2 = warp_sum(d2);
+          s_turning = d1 <= 0.f || d2 <= 0.f;
         }
       }
-    }
-    if (complete) {
-      fl = warp_sum(fl);
-      fr = warp_sum(fr);
-      full_turn = fl <= 0.f || fr <= 0.f;
-      t_w = logaddexp(t_w, s_w);
-      s_w = -CUDART_INF_F;
-      leaf = 0;
-    } else {
-      leaf = i + 1;
-    }
-    depth += complete && not_term ? 1 : 0;
-    diverged = diverged || (complete && diverging);
-    const bool done = (complete && (sub_done || full_turn)) || depth >= S;
 
-    // ---- transition boundary: record, then refresh ----
-    if (done && !all_done) {
-      for (int k = lane; k < dim; k += 32) {
-        out_theta[((size_t)t * n_chains + chain) * dim + k] = thc[k];
-      }
-      if (lane == 0) {
-        const size_t tc = (size_t)T * n_chains;
-        const size_t at = (size_t)t * n_chains + chain;
-        out_stats[at] = n_alpha;
-        out_stats[tc + at] = depth;
-        out_stats[2 * tc + at] = diverged ? 1 : 0;
-      }
-      t += 1;
-      if (t >= T) {
-        all_done = true;
+      // ---- doubling complete? then biased progressive sampling, merge ----
+      const bool sub_done = s_turning || diverging;
+      const bool complete = sub_done || i >= (1 << s.depth) - 1;
+      const bool not_term = !sub_done;
+      const float e_mh = -logf(uniform_at(ctr, row, 4u));
+      const bool acc = complete && not_term && s.t_w < s.s_w + e_mh;
+      if (acc) s.lp_c = s.lp_sc;
+      bool full_turn = false;
+      if (complete) {           // (acc implies complete)
+        // the edge the doubling did not move
+        const float* r_far = fwd ? rl : rr;
+        float* edge = fwd ? thr : thl;          // theta, r, g of the edge
+        float fl = 0.f, fr = 0.f;
+        for (int k = lane; k < dim; k += 32) {
+          const float rv = re[k], rf = r_far[k];
+          const float tv = the[k], gv = ge[k];
+          const float c_rho = rhot[k] + rhos[k];
+          if (acc) {
+            thc[k] = thsc[k];
+            gc[k] = gsc[k];
+          }
+          fl += c_rho * ((fwd ? rf : rv) * mi[k]);
+          fr += c_rho * ((fwd ? rv : rf) * mi[k]);
+          rhot[k] = c_rho;
+          edge[k] = tv;
+          edge[dim + k] = rv;
+          edge[2 * dim + k] = gv;
+        }
+        fl = warp_sum(fl);
+        fr = warp_sum(fr);
+        full_turn = fl <= 0.f || fr <= 0.f;
+        s.t_w = logaddexp(s.t_w, s.s_w);
+        s.s_w = -CUDART_INF_F;
+        s.leaf = 0;
       } else {
+        s.leaf = i + 1;
+      }
+      s.depth += complete && not_term ? 1 : 0;
+      s.diverged = s.diverged || (complete && diverging);
+      const bool done = (complete && (sub_done || full_turn)) ||
+                        s.depth >= S;
+
+      // ---- transition boundary: record, then refresh ----
+      if (done && !s.done) {
+        const bool last = s.t + 1 >= T;
+        float* out = out_theta + ((size_t)s.t * n_chains + chain) * dim;
         nk = 0.f;
         for (int k = lane; k < dim; k += 32) {
-          const float r = normal_at(ctr, row * (uint32_t)dp + k, 5u) * isq[k];
-          nk += r * r * mi[k];
-          const float tc = thc[k], g = gc[k];
-          the[k] = thl[k] = thr[k] = thsc[k] = tc;
-          ge[k] = gl[k] = gr[k] = gsc[k] = g;
-          re[k] = rl[k] = rr[k] = rhot[k] = r;
-          rhos[k] = 0.f;
+          const float tv = thc[k];
+          out[k] = tv;
+          if (!last) {
+            const float gv = gc[k];
+            const float r = normal_at(ctr, row * (uint32_t)dp + k, 5u) *
+                            isq[k];
+            nk += r * r * mi[k];
+            the[k] = thl[k] = thr[k] = thsc[k] = tv;
+            ge[k] = gl[k] = gr[k] = gsc[k] = gv;
+            re[k] = rl[k] = rr[k] = rhot[k] = r;
+            rhos[k] = 0.f;
+          }
         }
-        h0 = -(lp_c + -0.5f * warp_sum(nk));
-        lp_sc = lp_c;
-        t_w = 0.f;
-        s_w = -CUDART_INF_F;
-        n_alpha = 0;
-        depth = 0;
-        leaf = 0;
-        diverged = false;
+        if (lane == 0) {
+          const size_t tc = (size_t)T * n_chains;
+          const size_t at_t = (size_t)s.t * n_chains + chain;
+          out_stats[at_t] = s.n_alpha;
+          out_stats[tc + at_t] = s.depth;
+          out_stats[2 * tc + at_t] = s.diverged ? 1 : 0;
+        }
+        s.t += 1;
+        if (last) {
+          s.done = 1;
+        } else {
+          s.h0 = -(s.lp_c + -0.5f * warp_sum(nk));
+          s.lp_sc = s.lp_c;
+          s.t_w = 0.f;
+          s.s_w = -CUDART_INF_F;
+          s.n_alpha = 0;
+          s.depth = 0;
+          s.leaf = 0;
+          s.diverged = 0;
+        }
       }
+
+      // ---- the next leaf's first half (counter of iteration it + 1) ----
+      drift(s, c, st, ctr + 1u, row);
+      warp_done &= s.done;
+      if (lane == 0) records[c] = s;
     }
   }
 }
 
-template <class Target, int S>
-int launch(const Target& target, const float* theta0, const float* m_inv,
-           float eps, uint32_t seed, int block_chains, int dp, int n_chains,
-           int dim, int T, float* out_theta, int* out_stats,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats<Target>(dim, S) * sizeof(float);
-  auto kern = fused_nuts_kernel<Target, S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so that it is not reported again later
-    return (int)err;
-  }
-  const int blocks = (n_chains + kChains - 1) / kChains;
-  kern<<<blocks, kThreads, smem, stream>>>(target, theta0, m_inv, eps, seed,
-                                           block_chains, dp, n_chains, dim, T,
-                                           out_theta, out_stats);
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------- launch
+template <class Target>
+size_t smem_bytes(int dim) {
+  return (Target::smem_floats(dim) + 2 * (size_t)dim) * sizeof(float);
 }
 
+// Sets the instance's attributes; gives its resident blocks per SM if
+// `per_sm` is not null.
 template <class Target>
-int launch_depth(int S, const Target& target, const float* theta0,
-                 const float* m_inv, float eps, uint32_t seed,
-                 int block_chains, int dp, int n_chains, int dim, int T,
-                 float* out_theta, int* out_stats, cudaStream_t stream) {
-#define K2_CASE(s)                                                        \
-  case s:                                                                 \
-    return launch<Target, s>(target, theta0, m_inv, eps, seed,            \
-                             block_chains, dp, n_chains, dim, T,          \
-                             out_theta, out_stats, stream);
-  switch (S) {
-    K2_CASE(1) K2_CASE(2) K2_CASE(3) K2_CASE(4) K2_CASE(5)
-    K2_CASE(6) K2_CASE(7) K2_CASE(8) K2_CASE(9) K2_CASE(10)
+cudaError_t prepare(int dim, int* per_sm) {
+  const size_t smem = smem_bytes<Target>(dim);
+  auto kern = fused_nuts_kernel<Target>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {   // room for four blocks per SM
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   }
-#undef K2_CASE
-  return (int)cudaErrorInvalidValue;
+  if (err == cudaSuccess && per_sm) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern,
+                                                        kThreads, smem);
+  }
+  return err;
+}
+
+struct Args {
+  const float* theta0;
+  const float* m_inv;
+  float eps;
+  uint32_t seed;
+  int block_chains, dp, n_chains, dim, T, S;
+  float* scratch;
+  float* out_theta;
+  int* out_stats;
+};
+
+template <class Target>
+cudaError_t launch(const Target& tg, const Args& a, cudaStream_t stream) {
+  const cudaError_t err = prepare<Target>(a.dim, nullptr);
+  if (err != cudaSuccess) return err;
+  const int blocks = (a.n_chains + kChains - 1) / kChains;
+  fused_nuts_kernel<Target><<<blocks, kThreads, smem_bytes<Target>(a.dim),
+                              stream>>>(
+      tg, a.theta0, a.m_inv, a.eps, a.seed, a.block_chains, a.dp,
+      a.n_chains, a.dim, a.T, a.S, a.scratch, a.out_theta, a.out_stats);
+  return cudaGetLastError();
+}
+
+// f(target) for the kernel instance of a target kind and dim; `none` where
+// the kernel does not take them. Kinds: 0 = hierarchical logistic (d0 =
+// x^T, >= dim rows by n columns, row 0 zero; d1 = y (n,)), 1 = diagonal
+// Gaussian (d0 = the precisions). The logistic instances, by k-steps of 8
+// columns (13 is the 100-D model's p = 99), are K1's: a call takes the
+// smallest that holds its p <= 128.
+template <class F, class R>
+R dispatch(int kind, int dim, const float* d0, const float* d1, int n, F f,
+           R none) {
+  const int p = dim - 1;
+  if (kind == 1) return f(GaussianTarget{d0});
+  if (kind != 0 || p < 1) return none;
+  if (p <= 32) return f(LogisticTarget<4>{d0, d1, n, p});
+  if (p <= 64) return f(LogisticTarget<8>{d0, d1, n, p});
+  if (p <= 104) return f(LogisticTarget<13>{d0, d1, n, p});
+  if (p <= 128) return f(LogisticTarget<16>{d0, d1, n, p});
+  return none;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Target kinds: 0 = hierarchical logistic block, 1 = diagonal Gaussian.
-// Dynamic shared memory one block needs (bytes).
-size_t fused_nuts_smem_bytes(int kind, int dim, int max_depth) {
-  const size_t floats = kind == 0 ? smem_floats<LogisticTarget>(dim, max_depth)
-                                  : smem_floats<GaussianTarget>(dim, max_depth);
-  return floats * sizeof(float);
+// Chains per thread block.
+int fused_nuts_chains_per_block() { return kChains; }
+
+// Floats of device scratch a call needs: the tree state of every chain of
+// every block, 15 + 2 max_depth vectors of dim floats each, then a record
+// of 16 scalars per chain.
+size_t fused_nuts_scratch_floats(int n_chains, int dim, int max_depth) {
+  const size_t chains = (size_t)(n_chains + kChains - 1) / kChains * kChains;
+  return chains * (n_vectors(max_depth) * (size_t)dim + kChainWords);
 }
 
-// theta0 (n_chains, dim), m_inv (dim,): contiguous float32 device arrays.
-// Logistic: d0 = x^T (>= dim rows, n columns), d1 = y (n,). Gaussian: d0 =
-// the precisions (>= dim,). Outputs: out_theta (T, n_chains, dim) float32,
-// out_stats (3, T, n_chains) int32 (n_steps, depth, diverged). Launches on
-// `stream`; returns the CUDA error code of the launch (0 on success).
+// Dynamic shared memory of one block (bytes); 0 if the kernel does not take
+// that target kind and dim.
+size_t fused_nuts_smem_bytes(int kind, int dim) {
+  return dispatch(kind, dim, nullptr, nullptr, 0,
+                  [&](auto tg) { return smem_bytes<decltype(tg)>(dim); },
+                  (size_t)0);
+}
+
+// Resident blocks per SM of the instance for a target kind and dim on the
+// current device; 0 if that fails.
+int fused_nuts_blocks_per_sm(int kind, int dim) {
+  int per_sm = 0;
+  const cudaError_t err = dispatch(
+      kind, dim, nullptr, nullptr, 0,
+      [&](auto tg) { return prepare<decltype(tg)>(dim, &per_sm); },
+      cudaErrorInvalidValue);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return per_sm;
+}
+
+// theta0 (n_chains, dim), m_inv (dim,): contiguous float32 device arrays;
+// d0, d1, n: the target's data (see `dispatch`); scratch: at least
+// fused_nuts_scratch_floats(n_chains, dim, max_depth) floats. Outputs:
+// out_theta (T, n_chains, dim) float32, out_stats (3, T, n_chains) int32
+// (n_steps, depth, diverged). Launches on `stream`; returns the CUDA error
+// code of the launch (0 on success).
 int fused_nuts_f32(int kind, const float* theta0, const float* m_inv,
                    float eps, uint32_t seed, int block_chains, int dp,
                    int n_chains, int dim, int T, int max_depth,
-                   const float* d0, const float* d1, int n, float* out_theta,
-                   int* out_stats, void* stream) {
+                   const float* d0, const float* d1, int n, float* scratch,
+                   float* out_theta, int* out_stats, void* stream) {
   if (n_chains <= 0 || T <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 0) {
-    const LogisticTarget tg{d0, d1, n, dim - 1};
-    return launch_depth(max_depth, tg, theta0, m_inv, eps, seed,
-                        block_chains, dp, n_chains, dim, T, out_theta,
-                        out_stats, s);
-  }
-  if (kind == 1) {
-    const GaussianTarget tg{d0};
-    return launch_depth(max_depth, tg, theta0, m_inv, eps, seed,
-                        block_chains, dp, n_chains, dim, T, out_theta,
-                        out_stats, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (max_depth < 1 || max_depth > 10) return (int)cudaErrorInvalidValue;
+  const Args a{theta0, m_inv, eps, seed, block_chains, dp, n_chains, dim, T,
+               max_depth, scratch, out_theta, out_stats};
+  const cudaError_t err = dispatch(
+      kind, dim, d0, d1, n,
+      [&](auto tg) { return launch(tg, a, (cudaStream_t)stream); },
+      cudaErrorInvalidValue);
+  if (err != cudaSuccess) cudaGetLastError();  // not reported again later
+  return (int)err;
 }
 
 const char* fused_nuts_error_string(int code) {

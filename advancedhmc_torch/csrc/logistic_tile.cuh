@@ -1,6 +1,8 @@
 // The logistic likelihood tile on Hopper's tensor cores: one warp, 16
-// chains, one staged tile of kTileRows observations (device code shared by
-// the kernels that evaluate the Bernoulli-logit likelihood).
+// chains, one staged tile of kTileRows observations, and the cp.async
+// helpers that stage those tiles (device code shared by the kernels that
+// evaluate the Bernoulli-logit likelihood: K1 fused_logistic.cu, K2
+// fused_nuts.cu).
 //
 // For the warp's chains c and the tile's rows j, with beta_c = theta[c, 1:]:
 //
@@ -52,6 +54,24 @@ __host__ __device__ constexpr int x_stride(int ksteps) {
 // conversion (a quarter-rate pipe).
 __device__ __forceinline__ uint32_t to_tf32(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// cp.async of one float from device to shared memory; `valid` false reads
+// no bytes and zero-fills the destination
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,

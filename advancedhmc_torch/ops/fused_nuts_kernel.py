@@ -21,11 +21,16 @@ of the stream, and both versions here draw what the Pallas kernel draws:
   m_inv = 0 on padded dims), with every chain block in one batch. It drops
   the JAX carry's dead fields (the subtree's first leaf, the candidates'
   energies, the acceptance sum), which no output reads;
-* the CUDA kernel `csrc/fused_nuts.cu`: eight chains per thread block, one
-  warp each, tree state in shared memory, the tile's chains sharing each
-  shared-memory tile of the target's data. The target is compiled in: a
+* the CUDA kernel `csrc/fused_nuts.cu`: 64 chains per thread block, 16 per
+  warp, which walk their leaves in lock step. The logistic's value and
+  gradient at each leaf run on the tensor cores through K1's warp tile
+  (`csrc/logistic_tile.cuh`: 3xTF32 `mma.sync`, 32-row design tiles staged
+  by `cp.async` and shared by the block); the tree state lies in a device
+  scratch buffer that the wrapper allocates, one contiguous run of
+  15 + 2·max_depth vectors per chain. The target is compiled in: a
   `BlockTarget` of kind "logistic" (`models.logistic.
-  hierarchical_logistic_block`) or "gaussian" (`models.gaussian`).
+  hierarchical_logistic_block`, p ≤ 128) or "gaussian"
+  (`models.gaussian`).
 
 `fused_nuts` dispatches on the device of θ₀: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. `fused_nuts.launches`
@@ -49,8 +54,7 @@ from .counter_rng import (
 )
 
 _LIB = "fused_nuts"
-_MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
-MAX_DEPTH = 10              # the CUDA kernel is instantiated for 1..10
+MAX_DEPTH = 10              # the CUDA kernel takes max_depth 1..10
 DELTA_MAX = 1000.0
 _KINDS = {"logistic": 0, "gaussian": 1}
 
@@ -281,10 +285,15 @@ def _kernel(lib):
                         ctypes.c_float, ctypes.c_uint32]
                        + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
-        lib.fused_nuts_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.fused_nuts_chains_per_block.restype = ctypes.c_int
+        lib.fused_nuts_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.fused_nuts_scratch_floats.restype = ctypes.c_size_t
+        lib.fused_nuts_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.fused_nuts_smem_bytes.restype = ctypes.c_size_t
+        lib.fused_nuts_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.fused_nuts_blocks_per_sm.restype = ctypes.c_int
         lib.fused_nuts_error_string.argtypes = [ctypes.c_int]
         lib.fused_nuts_error_string.restype = ctypes.c_char_p
     return fn
@@ -336,22 +345,23 @@ def fused_nuts(target, theta0, m_inv, eps, seed, data, dim,
     lib = _build.load(_LIB)
     fn = _kernel(lib)
     kind = _KINDS[target.kind]
-    smem = lib.fused_nuts_smem_bytes(kind, dim, max_depth)
-    if smem > _MAX_SMEM:
+    if lib.fused_nuts_smem_bytes(kind, dim) == 0:
         raise NotImplementedError(
-            f"K2 keeps eight chains' tree state in shared memory: {smem} "
-            f"bytes at dim {dim}, max_depth {max_depth} exceed a block's "
-            f"{_MAX_SMEM}")
-    c, T = theta0.shape[0], n_transitions
-    thetas = torch.empty(T, c, dim, dtype=torch.float32, device=theta0.device)
-    stats = torch.empty(3, T, c, dtype=torch.int32, device=theta0.device)
+            f"K2's logistic runs K1's warp tile, which keeps a chain's "
+            f"gradient in registers: p = {dim - 1} exceeds 128 (a "
+            "column-tiled variant is ROADMAP.md section 2 work)")
+    dev, c, T = theta0.device, theta0.shape[0], n_transitions
+    thetas = torch.empty(T, c, dim, dtype=torch.float32, device=dev)
+    stats = torch.empty(3, T, c, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.fused_nuts_scratch_floats(c, dim, max_depth),
+                          dtype=torch.float32, device=dev)
     d1 = data[1].data_ptr() if len(data) > 1 else None
     n = data[0].shape[1] if target.kind == "logistic" else 0
-    stream = torch.cuda.current_stream(theta0.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(kind, theta0.data_ptr(), m_inv.data_ptr(), float(eps),
              int(seed) & 0xFFFFFFFF, block_chains, _round_up(dim, 128), c,
              dim, T, max_depth, data[0].data_ptr(), d1, n,
-             thetas.data_ptr(), stats.data_ptr(), stream)
+             scratch.data_ptr(), thetas.data_ptr(), stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("fused_nuts kernel launch failed: "
                            + lib.fused_nuts_error_string(err).decode())

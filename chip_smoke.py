@@ -31,10 +31,14 @@ Phases (any failure exits non-zero):
    32768 positions), 16 calls of K2 with 16 transitions each, threading the
    positions, with divergence, moment and tree-depth gates (the first
    call's inputs also go through K2's plain version: timed, compared and
-   gated on the share of chains that agree);
+   gated on the share of chains that agree); it prints K2's registers and
+   spills by instance, its chains and shared memory per block, resident
+   blocks per SM, and the share of lock-step leaf iterations that some
+   chain of the block needed;
 7. hold K2 against its plain version: the logistic on 4096 warmed chains
    at max_depth 6 and 8, forced-deep trees (depth 6 of 6, 8 of 8), mostly
-   divergent trees at 3ε, and the JAX megakernel test's Gaussian.
+   divergent trees at 3ε, and the JAX megakernel test's Gaussian; each
+   case also runs K2 twice and checks that the two give the same bits.
 
 It prints the main path's results as one JSON line, the kernels' line
 (`{"kernels": [...]}`), the card's name and power limit, and last
@@ -171,28 +175,40 @@ def k1_bound_ms(c, dim, n):
             1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
 
 
+def ptxas_instances(lib_name, k_steps_pattern):
+    """(p bound or None, registers, spill-store bytes) of each kernel in a
+    library's ptxas report; the p bound is 8 × the k-steps that
+    `k_steps_pattern` finds in the kernel's mangled name."""
+    import re
+
+    from advancedhmc_torch.ops import _build
+
+    path = _build.library_path(lib_name)
+    text = path.with_name(path.name + ".log").read_text()
+    for entry in text.split("Compiling entry function")[1:]:
+        ks = re.search(k_steps_pattern, entry.split("\n")[0])
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        if regs and spill:
+            yield (8 * int(ks.group(1)) if ks else None, regs.group(1),
+                   spill.group(1))
+
+
 def k1_report():
     """K1's registers and spills by instance (ptxas), and its shared memory
     per block, resident blocks per SM and blocks per cluster at the main
     path's shapes."""
     import ctypes
-    import re
 
     from advancedhmc_torch.ops import _build
     from advancedhmc_torch.ops import fused_logistic as k1
 
     lib = _build.load("fused_logistic")
     k1._kernel(lib)
-    path = _build.library_path("fused_logistic")
-    text = path.with_name(path.name + ".log").read_text()
-    for entry in text.split("Compiling entry function")[1:]:
-        ks = re.search(r"fused_logistic_kernelILi(\d+)E", entry)
-        regs = re.search(r"Used (\d+) registers", entry)
-        spill = re.search(r"(\d+) bytes spill stores", entry)
-        if ks and regs and spill:
-            log(f"# K1 instance p <= {8 * int(ks.group(1))}: "
-                f"{regs.group(1)} registers, {spill.group(1)} bytes of "
-                "spill stores (ptxas)")
+    for p_max, regs, spill in ptxas_instances(
+            "fused_logistic", r"fused_logistic_kernelILi(\d+)E"):
+        log(f"# K1 instance p <= {p_max}: {regs} registers, {spill} bytes "
+            "of spill stores (ptxas)")
     per_sm, split = ctypes.c_int(), ctypes.c_int()
     for c in (N_CHAINS, WARMUP_CHAINS, 1):
         lib.fused_logistic_launch_shape(c, DIM, N_ROWS, ctypes.byref(per_sm),
@@ -514,17 +530,57 @@ K2_DEPTH_TOL = 0.5
 
 
 def k2_bound_ms(n_steps_sum, c, dim, n, T):
-    """Least time for one K2 call on the logistic: the float32 operations
-    of every leaf's value+grad (4·p·n each, Σ n_steps leaves, plus one
-    per chain at the start) over the CUDA-core peak, against θ₀, M⁻¹, the
-    design and y in and θ (T, C, dim) and three (T, C) int32 outputs out
-    over the memory rate."""
+    """Least time for one K2 call on the logistic: the operations of every
+    leaf's value+grad at float32 accuracy on the tensor cores, 3xTF32
+    (three TF32 products for each of the two, 3·4·p·n per leaf; Σ n_steps
+    leaves, plus one per chain at the start) over the TF32 peak, against
+    θ₀, M⁻¹, the design and y in and θ (T, C, dim) and three (T, C) int32
+    outputs out over the memory rate. Also returns the float32 CUDA-core
+    figure (4·p·n per leaf over that peak), the bound before K2 used the
+    tensor cores."""
     p = dim - 1
     flops = 4.0 * p * n * (n_steps_sum + c)
     nbytes = 4.0 * (c * dim + dim + n * p + n + T * c * dim + 3 * T * c)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
+
+
+def k2_report():
+    """K2's registers and spills by instance (ptxas), and its chains per
+    block, shared memory per block and resident blocks per SM on the
+    100-D logistic."""
+    from advancedhmc_torch.ops import _build
+    from advancedhmc_torch.ops import fused_nuts_kernel as k2
+
+    lib = _build.load("fused_nuts")
+    k2._kernel(lib)
+    for p_max, regs, spill in ptxas_instances(
+            "fused_nuts", r"LogisticTargetILi(\d+)E"):
+        name = f"logistic p <= {p_max}" if p_max else "gaussian"
+        log(f"# K2 instance {name}: {regs} registers, {spill} bytes of "
+            "spill stores (ptxas)")
+    shape = dict(chains_per_block=lib.fused_nuts_chains_per_block(),
+                 smem_bytes_per_block=lib.fused_nuts_smem_bytes(0, DIM),
+                 blocks_per_sm=lib.fused_nuts_blocks_per_sm(0, DIM))
+    shape["warps_per_sm"] = shape["blocks_per_sm"] * (
+        shape["chains_per_block"] // 16)
+    log(f"# K2 logistic dim={DIM}: {shape['chains_per_block']} chains per "
+        f"block, {shape['smem_bytes_per_block']} bytes of shared memory per "
+        f"block, {shape['blocks_per_sm']} blocks ({shape['warps_per_sm']} "
+        "warps) per SM")
+    return shape
+
+
+def lockstep_share(leaves, group):
+    """Of the leaf iterations that blocks of `group` consecutive chains
+    walk in lock step (each until its slowest chain is done), the share
+    that some chain needed; `leaves` (calls, C) is each chain's Σ n_steps
+    per call."""
+    calls, c = leaves.shape
+    tiles = leaves[:, :c - c % group].reshape(calls, -1, group)
+    return float(tiles.sum() / (group * tiles.amax(2)).sum())
 
 
 def k2_agreement(out, ref):
@@ -583,6 +639,7 @@ def phase_megakernel(res, main_out):
     m_inv = fs.metric.m_inv.to(torch.float32).contiguous()
     th_start = fs.z.theta.to(torch.float32).contiguous()
     target, data = _logistic_block()
+    shape = k2_report()
 
     def run(fn, seed, th0):
         return fn(target, th0, m_inv, eps, seed, data, DIM, MEGA_T,
@@ -614,11 +671,12 @@ def phase_megakernel(res, main_out):
     call_ms = [a.elapsed_time(b) for a, b in events]
     bounds = [k2_bound_ms(float(o[1].double().sum()), N_CHAINS, DIM, N_ROWS,
                           MEGA_T) for o in outs]
-    # a block of 8 chains iterates until its slowest chain is done: the
-    # share of those leaf iterations that some chain needed
+    # a block iterates until its slowest chain is done: the share of those
+    # leaf iterations that some chain needed, at K2's block and at PR 2's
+    # block of 8 chains
     leaves = torch.stack([o[1].sum(0) for o in outs]).double()   # (calls, C)
-    tiles = leaves[:, :N_CHAINS - N_CHAINS % 8].reshape(MEGA_CALLS, -1, 8)
-    lockstep = float(tiles.sum() / (8 * tiles.amax(2)).sum())
+    lockstep = lockstep_share(leaves, shape["chains_per_block"])
+    lockstep8 = lockstep_share(leaves, 8)
 
     th = torch.cat([o[0] for o in outs])
     n_steps = torch.cat([o[1] for o in outs])
@@ -644,8 +702,12 @@ def phase_megakernel(res, main_out):
         "call_ms_min": min(call_ms), "call_ms_max": max(call_ms),
         "bound_ms_mean": sum(b[0] for b in bounds) / len(bounds),
         "bound_by": bounds[0][1],
+        "bound_ms_f32_cuda_cores_mean":
+            sum(b[2] for b in bounds) / len(bounds),
         "n_steps_total": lf,
+        **shape,
         "tile_lockstep_share": lockstep,
+        "lockstep_share_8_chains": lockstep8,
         "leapfrog_steps_per_s": lf / wall,
         "mean_tree_depth": float(depth.double().mean()),
         "divergence_rate": float(div.double().mean()),
@@ -665,8 +727,11 @@ def phase_megakernel(res, main_out):
     log(json.dumps(out))
     log(f"# megakernel: {out['call_ms_mean']:.1f} ms per call of "
         f"{MEGA_T} transitions (bound {out['bound_ms_mean']:.1f} ms, "
-        f"{out['bound_by']}); phase 3's fused draw call "
-        f"{phase3_call_ms:.1f} ms")
+        f"{out['bound_by']}, 3xTF32 on the tensor cores; "
+        f"{out['bound_ms_f32_cuda_cores_mean']:.1f} ms by float32 on the "
+        f"CUDA cores); phase 3's fused draw call {phase3_call_ms:.1f} ms; "
+        f"lock-step share {lockstep:.4f} at {shape['chains_per_block']} "
+        f"chains per block ({lockstep8:.4f} at 8)")
     gates = {
         f"k2 launched {MEGA_CALLS} times": launches == MEGA_CALLS,
         "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
@@ -756,8 +821,11 @@ def phase_k2_parity(res):
         out, ms = _events_ms(lambda: k2.fused_nuts(*args))
         ref, plain_ms = _events_ms(lambda: k2.plain_fused_nuts(*args))
         agree = k2_agreement(out, ref)
+        # no atomics: a second call on the same inputs gives the same bits
+        same = all(torch.equal(a, b)
+                   for a, b in zip(out, k2.fused_nuts(*args)))
         ok = (bool(torch.isfinite(out[0]).all())
-              and agree["share_theta"] >= K2_AGREE_SHARE
+              and agree["share_theta"] >= K2_AGREE_SHARE and same
               and (reach is None or reach[1](out)))
         log(f"# K2 {name}: chains agreeing in n_steps/depth/diverged "
             f"{agree['share']:.5f}, and in θ within {K2_THETA_TOL:g} "
@@ -767,12 +835,13 @@ def phase_k2_parity(res):
             f"{agree['departures']}, mean depth {mean_depth(out):.3f}, "
             f"divergence {float(out[3].double().mean()):.4f}"
             + (f" (gate {reach[0]})" if reach else "")
-            + f", kernel {ms:.2f} ms, plain {plain_ms:.1f} ms: "
-            f"{'ok' if ok else 'FAIL'}")
+            + f", two calls bitwise equal {same}, kernel {ms:.2f} ms, plain "
+            f"{plain_ms:.1f} ms: {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise RuntimeError(f"K2 disagrees with its plain version: {name}")
+            raise RuntimeError(f"K2 disagrees with its plain version or "
+                               f"with itself: {name}")
         rows.append(dict(case=name, **agree, mean_depth=mean_depth(out),
-                         ms=ms, plain_ms=plain_ms))
+                         same_bits=same, ms=ms, plain_ms=plain_ms))
     return rows
 
 
@@ -839,7 +908,12 @@ def main(argv=None):
         "plain_ms": mega["first_call_plain_ms"],
         "bound_ms": mega["bound_ms_mean"],
         "bound_by": mega["bound_by"],
+        "bound_ms_f32_cuda_cores": mega["bound_ms_f32_cuda_cores_mean"],
         "library_ms": None,
+        "chains_per_block": mega["chains_per_block"],
+        "smem_bytes_per_block": mega["smem_bytes_per_block"],
+        "blocks_per_sm": mega["blocks_per_sm"],
+        "lockstep_share": mega["tile_lockstep_share"],
         "shapes": k2_rows,
     }, {
         "name": "fused_gaussian_leapfrog",

@@ -1,0 +1,211 @@
+#!/usr/bin/env python3
+"""Where K2's time goes on the card: variants of the NUTS megakernel, each
+with one part changed, timed beside the real one on the same inputs.
+
+Run from the root of the repository on a machine with one CUDA card:
+
+    python3 scripts/k2_ablation.py
+
+Each variant is a copy of `advancedhmc_torch/csrc/fused_nuts.cu` and
+`csrc/logistic_tile.cuh` with one text edit (the script fails if an edit no
+longer applies). All variants build in parallel with the port's nvcc flags
+into `advancedhmc_torch/_build/k2_ablation/`. Each runs one call of 16
+transitions at max_depth 6 over 32768 chains of the 100-D logistic (1000
+rows), from 0.05·N(0, 1) starts with log σ = −0.7, M⁻¹ = 0.02 and ε = 0.3
+(trees of depth ~4; the main path's are ~3), timed with CUDA events over 3
+calls, twice. A block walks its leaves in lock step until its slowest
+chain is done, so besides the time per call the script gives the time per
+block iteration (the call's time over the mean, over blocks, of the
+slowest chain's leaves plus one).
+
+  kernel        the kernel as it is
+  row_major     the design tiles staged from a row-major (n, p) copy of
+                xᵀ, warps over rows and lanes over columns, as K1 stages
+                them, instead of from xᵀ with lanes over rows
+  three_per_sm  three resident blocks per SM instead of four (168
+                registers, no spills)
+  two_per_sm    two resident blocks per SM
+  no_tile       the logistic's tile loop taken out (likelihood 0, data
+                gradient 0): what the bookkeeping and the lock step cost.
+                It samples another density, so its trees differ; compare
+                its time per block iteration
+
+Prints one line per variant, the card's name and power limit, and last a
+JSON object with the times.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+H, CU = "logistic_tile.cuh", "fused_nuts.cu"
+EDITS = {   # variant: [(file, old text, new text)]
+    "kernel": [],
+    "row_major": [(CU,
+        "    const bool valid = j0 + lane < n;\n"
+        "    const float* src = xt + (valid ? j0 + lane : 0);\n"
+        "    for (int k = warp; k < p; k += kWarps) {\n"
+        "      logistic_tile::cp_async4(xs + lane * S + k, src + "
+        "(size_t)(1 + k) * n,\n"
+        "                               valid);\n"
+        "    }\n",
+        "    for (int r = warp; r < kTileRows; r += kWarps) {\n"
+        "      const bool ok = j0 + r < n;\n"
+        "      const float* row = xt + (size_t)(ok ? j0 + r : 0) * p;\n"
+        "      for (int k = lane; k < p; k += 32) {\n"
+        "        logistic_tile::cp_async4(xs + r * S + k, row + k, ok);\n"
+        "      }\n"
+        "    }\n"
+        "    const bool valid = j0 + lane < n;\n")],
+    "three_per_sm": [(CU, "__launch_bounds__(kThreads, 4)",
+                      "__launch_bounds__(kThreads, 3)")],
+    "two_per_sm": [(CU, "__launch_bounds__(kThreads, 4)",
+                    "__launch_bounds__(kThreads, 2)")],
+    "no_tile": [(CU,
+        "    const int n_tiles = (n + kTileRows - 1) / kTileRows;",
+        "    const int n_tiles = 0;")],
+}
+N_ROWS, DIM, CHAINS, T, MAX_DEPTH = 1000, 100, 32768, 16, 6
+EPS, M_INV, SEED, BLOCK_CHAINS = 0.3, 0.02, 3, 256
+
+
+def build_all():
+    from advancedhmc_torch.ops import _build
+
+    csrc = ROOT / "advancedhmc_torch" / "csrc"
+    out = _build.BUILD_DIR / "k2_ablation"
+    procs = {}
+    for name, edits in EDITS.items():
+        texts = {f: (csrc / f).read_text() for f in (H, CU)}
+        for f, old, new in edits:
+            if old not in texts[f]:
+                raise RuntimeError(f"variant {name}: edit does not apply")
+            texts[f] = texts[f].replace(old, new)
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f, text in texts.items():
+            (d / f).write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+             str(d / CU)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    from advancedhmc_torch.ops import fused_nuts_kernel as k2
+
+    libs = {}
+    for name, proc in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{report}")
+        lib = ctypes.CDLL(str(out / name / "lib.so"))
+        k2._kernel(lib)
+        libs[name] = (lib, _registers(report))
+    return libs
+
+
+def _registers(report):
+    """Registers and spill stores of the p <= 104 instance (ptxas)."""
+    import re
+
+    for entry in report.split("Compiling entry function")[1:]:
+        if "LogisticTargetILi13E" in entry.split("\n")[0]:
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            return int(regs.group(1)), int(spill.group(1))
+    return None, None
+
+
+def call(lib, theta0, m_inv, d0, y, n):
+    from advancedhmc_torch.ops.counter_rng import _round_up
+
+    c, dim = theta0.shape
+    thetas = torch.empty(T, c, dim, device="cuda")
+    stats = torch.empty(3, T, c, dtype=torch.int32, device="cuda")
+    scratch = torch.empty(lib.fused_nuts_scratch_floats(c, dim, MAX_DEPTH),
+                          device="cuda")
+    err = lib.fused_nuts_f32(
+        0, theta0.data_ptr(), m_inv.data_ptr(), EPS, SEED, BLOCK_CHAINS,
+        _round_up(dim, 128), c, dim, T, MAX_DEPTH, d0.data_ptr(),
+        y.data_ptr(), n, scratch.data_ptr(), thetas.data_ptr(),
+        stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed with CUDA error {err}")
+    return thetas, stats
+
+
+def cuda_ms(fn, reps=3):
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("k2_ablation: no CUDA device; this script runs on the card")
+    from advancedhmc_torch.models.logistic import hierarchical_logistic_block
+
+    libs = build_all()
+    _, (xt, y) = hierarchical_logistic_block(n=N_ROWS, p=DIM - 1,
+                                             d_pad=128, device="cuda")
+    x = xt[1:DIM].T.contiguous()        # the row_major variant's copy
+    y = y.reshape(-1)
+    theta0 = torch.as_tensor(
+        0.05 * np.random.default_rng(0).normal(size=(CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+    theta0[:, 0] = -0.7
+    m_inv = torch.full((DIM,), M_INV, device="cuda")
+    block = libs["kernel"][0].fused_nuts_chains_per_block()
+    ref = None
+    result = {}
+    for name, (lib, (regs, spills)) in libs.items():
+        d0 = x if name == "row_major" else xt
+        out = call(lib, theta0, m_inv, d0, y, N_ROWS)
+        torch.cuda.synchronize()
+        if ref is None:
+            ref = out
+        same = all(torch.equal(a, b) for a, b in zip(out, ref))
+        leaves = out[1][0].sum(0).double()                  # (C,)
+        iters = leaves.reshape(-1, block).amax(1) + 1
+        ms = [cuda_ms(lambda: call(lib, theta0, m_inv, d0, y, N_ROWS))
+              for _ in range(2)]
+        per_sm = lib.fused_nuts_blocks_per_sm(0, DIM)
+        result[name] = dict(
+            ms=ms, block_iterations_mean=float(iters.mean()),
+            block_iterations_max=float(iters.max()),
+            ms_per_block_iteration=ms[0] / float(iters.mean()),
+            mean_depth=float(out[1][1].double().mean()),
+            registers=regs, spill_store_bytes=spills, blocks_per_sm=per_sm,
+            same_bits=same)
+        print(f"# {name:12s} {ms[0]:8.2f} {ms[1]:8.2f} ms per call, "
+              f"{1e3 * result[name]['ms_per_block_iteration']:7.1f} µs per "
+              f"block iteration ({float(iters.mean()):.1f} mean, "
+              f"{float(iters.max()):.0f} max), depth "
+              f"{result[name]['mean_depth']:.3f}, {regs} registers, "
+              f"{spills} B spill stores, {per_sm} blocks per SM, same bits "
+              f"as the kernel {same}", flush=True)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(gpu)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "variants": result}))
+
+
+if __name__ == "__main__":
+    main()

@@ -118,6 +118,55 @@ def test_k2_kernel_matches_plain_on_card(what):
 
 
 @pytest.mark.gpu
+def test_k2_ragged_block_and_repeatable_bits_on_card():
+    """1000 chains: neither the warp tile (16 chains) nor the block (64)
+    divides them. K2 agrees with its plain version at the 0.999 share, two
+    calls on the same inputs give the same bits (no atomics), and the
+    scratch is the block-padded chains' tree state and scalar records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tgt, data = hierarchical_logistic_block(n=1000, p=99, d_pad=128,
+                                            device="cuda")
+    th0 = torch.as_tensor(
+        0.05 * np.random.default_rng(1).normal(size=(1000, 100)),
+        dtype=torch.float32, device="cuda")
+    th0[:, 0] = -0.7
+    args = (tgt, th0, torch.full((100,), 2e-3, device="cuda"), 0.05, 5,
+            data, 100, 4, 6, 256)
+    out = k2.fused_nuts(*args)
+    again = k2.fused_nuts(*args)
+    ref = k2.plain_fused_nuts(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert bool(torch.isfinite(out[0]).all())
+    share, share_theta = _k2_agreement(out, ref)
+    assert min(share, share_theta) >= K2_AGREE_SHARE, (share, share_theta)
+    lib = k2._build.load("fused_nuts")
+    k2._kernel(lib)
+    assert lib.fused_nuts_chains_per_block() == 64
+    padded, vectors, record = 1024, 15 + 2 * 6, 16
+    assert lib.fused_nuts_scratch_floats(1000, 100, 6) == padded * (
+        vectors * 100 + record)
+
+
+@pytest.mark.gpu
+def test_k2_logistic_wider_than_the_warp_tile_raises_on_card():
+    """p = 129 exceeds the warp tile's 128 columns: NotImplementedError, no
+    fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tgt, data = hierarchical_logistic_block(n=200, p=129, d_pad=256,
+                                            device="cuda")
+    before = k2.fused_nuts.launches
+    with pytest.raises(NotImplementedError, match="p = 129"):
+        k2.fused_nuts(tgt, torch.zeros(64, 130, device="cuda"),
+                      torch.ones(130, device="cuda"), 0.01, 1, data, 130,
+                      2, 4, 64)
+    assert k2.fused_nuts.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c,d,n_steps,eps", [
     (1024, 8, 100, 0.05), (4096, 128, 100, 0.05), (16384, 128, 100, 0.05),
     (65536, 8, 100, 0.05), (20, 5, 17, 0.12)])
