@@ -1,8 +1,9 @@
 """advancedhmc_torch — the PyTorch/CUDA port of advancedhmc_tpu.
 
 The JAX package `advancedhmc_tpu` is the reference; this package carries its
-main path on one NVIDIA GPU (Hopper): cross-chain NUTS (generalised
-no-U-turn, multinomial, diagonal metric) on the hierarchical logistic, with
+main path on one NVIDIA GPU (Hopper): NUTS (generalised no-U-turn,
+multinomial, unit or diagonal metric) with per-chain or cross-chain Stan
+adaptation, step by step or fused, on the hierarchical logistic, with
 the likelihood value+grad in a hand-written CUDA kernel
 (`ops/fused_logistic.py`, `csrc/fused_logistic.cu`), and the JAX package's
 two other kernels: the NUTS megakernel on block targets
@@ -19,6 +20,8 @@ from .adaptation import (
     DualAveragingState,
     WelfordVarState,
     adapt_flags,
+    adapt_step,
+    adapt_step_batch,
     da_update,
     stan_schedule,
 )
@@ -40,8 +43,9 @@ from .sampler import (
     fused_warmup_phase_crosschain,
     init_state,
     sample,
+    sample_step,
 )
-from .stepsize_search import find_good_stepsize
+from .stepsize_search import find_good_stepsize, find_good_stepsizes
 from .target import BlockTarget, LogDensityTarget
 from .termination import GeneralisedNoUTurn
 from .trajectory import HMCKernel, Trajectory, mh_accept_ratio
@@ -69,11 +73,14 @@ __all__ = [
     "UnitEuclideanMetric",
     "WelfordVarState",
     "adapt_flags",
+    "adapt_step",
+    "adapt_step_batch",
     "da_update",
     "effective_sample_size",
     "ess_bulk",
     "fanout_warmup_state",
     "find_good_stepsize",
+    "find_good_stepsizes",
     "fused_draw_phase",
     "fused_warmup_phase_crosschain",
     "hierarchical_logistic",
@@ -86,5 +93,6 @@ __all__ = [
     "nuts_transitions_fused",
     "rhat",
     "sample",
+    "sample_step",
     "stan_schedule",
 ]

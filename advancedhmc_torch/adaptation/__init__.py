@@ -16,6 +16,8 @@ from .stan import (
     AdaptorConfig,
     AdaptState,
     adapt_flags,
+    adapt_step,
+    adapt_step_batch,
     stan_schedule,
 )
 from .stepsize import DualAveragingConfig, DualAveragingState, da_update
@@ -37,6 +39,8 @@ __all__ = [
     "STEPSIZE",
     "WelfordVarState",
     "adapt_flags",
+    "adapt_step",
+    "adapt_step_batch",
     "da_update",
     "stan_schedule",
 ]

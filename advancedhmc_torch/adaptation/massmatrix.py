@@ -2,9 +2,12 @@
 
 PyTorch counterpart of `advancedhmc_tpu/adaptation/massmatrix.py:38`, with
 Stan's shrinkage estimate n/((n+5)(n-1))·M2 + 1e-3·5/(n+5) and n_min=10.
-`push_batch` folds a whole (chains, dim) batch in with the exact
-parallel-Welford combine (the cross-chain path). The dense, low-rank and
-nutpie estimators are ROADMAP.md section 1, item 11.
+`push_batch` folds a whole (chains, dim) batch into shared moments with the
+exact parallel-Welford combine (the cross-chain path); `push` adds one
+sample to each chain's own moments (the per-chain path, the JAX package's
+vmapped `push`): n is then (C,) and the moments (C, dim). The dense,
+low-rank and nutpie estimators are queued under ROADMAP.md's "The rest
+of the surface".
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ SHRINKAGE_EPS = 1.0e-3
 
 
 def _shrunk(n, m2):
-    nf = n.to(m2.dtype)
+    nf = n.to(m2.dtype)[..., None]     # over dim, per chain if n is (C,)
     return nf / ((nf + 5.0) * (nf - 1.0)) * m2 + SHRINKAGE_EPS * (
         5.0 / (nf + 5.0))
 
@@ -29,20 +32,32 @@ def _shrunk(n, m2):
 class WelfordVarState:
     """Diagonal (variance) estimator."""
 
-    n: torch.Tensor      # sample count (int32)
-    mean: torch.Tensor   # (dim,)
-    m2: torch.Tensor     # (dim,) sum of squared deviations
-    var: torch.Tensor    # (dim,) current M⁻¹ estimate
+    n: torch.Tensor      # sample count (int32), () or per chain (C,)
+    mean: torch.Tensor   # (dim,) or (C, dim)
+    m2: torch.Tensor     # sum of squared deviations, as mean
+    var: torch.Tensor    # current M⁻¹ estimate, as mean
     n_min: int = N_MIN_DEFAULT
 
     @classmethod
     def init(cls, dim, dtype=torch.float32, device=None,
-             n_min=N_MIN_DEFAULT):
-        """Empty moments on `device` (None means CUDA)."""
+             n_min=N_MIN_DEFAULT, n_chains=None):
+        """Empty moments on `device` (None means CUDA): shared, or one set
+        per chain when `n_chains` is given."""
         device = resolve_device(device)
-        z = torch.zeros(dim, dtype=dtype, device=device)
-        return cls(n=torch.zeros((), dtype=torch.int32, device=device),
+        lead = () if n_chains is None else (n_chains,)
+        z = torch.zeros(lead + (dim,), dtype=dtype, device=device)
+        return cls(n=torch.zeros(lead, dtype=torch.int32, device=device),
                    mean=z, m2=z, var=torch.ones_like(z), n_min=n_min)
+
+    def push(self, x):
+        """Welford single-sample update of each chain's moments with its row
+        of `x (C, dim)`."""
+        n = self.n + 1
+        nf = n.to(x.dtype)[..., None]
+        delta = x - self.mean
+        mean = self.mean + delta / nf
+        m2 = self.m2 + delta * delta * ((nf - 1.0) / nf)
+        return dataclasses.replace(self, n=n, mean=mean, m2=m2)
 
     def push_batch(self, xs):
         """Fold in a (batch, dim) block via the exact parallel-Welford
@@ -58,10 +73,10 @@ class WelfordVarState:
             m2=self.m2 + b_m2 + delta * delta * (n0f * c / nf))
 
     def update_estimate(self):
-        """Refresh `var` if n ≥ n_min."""
+        """Refresh `var` where n ≥ n_min (chain by chain if n is (C,))."""
         est = _shrunk(self.n, self.m2)
-        return dataclasses.replace(
-            self, var=torch.where(self.n >= self.n_min, est, self.var))
+        ok = (self.n >= self.n_min)[..., None]
+        return dataclasses.replace(self, var=torch.where(ok, est, self.var))
 
     def reset(self):
         """Zero the moments, keep the current estimate."""

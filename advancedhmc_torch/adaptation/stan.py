@@ -1,8 +1,11 @@
-"""Adaptor configuration, composite state and Stan's windowed schedule.
+"""Adaptor configuration, composite state, Stan's windowed schedule and the
+adaptation step.
 
-PyTorch counterpart of `advancedhmc_tpu/adaptation/stan.py:48,76,94,161`. The
-window schedule is computed on the host as boolean numpy arrays indexed by
-iteration, so the sampler decides on the host which adaptation steps run.
+PyTorch counterpart of `advancedhmc_tpu/adaptation/stan.py:48,76,94,161,207`.
+The window schedule is computed on the host as boolean numpy arrays indexed
+by iteration, so the sampler decides on the host which adaptation steps run:
+`adapt_step` and `adapt_step_batch` take one iteration's flags as Python
+booleans where the JAX functions mask with traced ones.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import roadmap
 from .massmatrix import WelfordVarState
-from .stepsize import DualAveragingConfig, DualAveragingState
+from .stepsize import DualAveragingConfig, DualAveragingState, da_update
 
 # mass-matrix estimator kinds
 MM_UNIT = "unit"
@@ -59,13 +63,17 @@ class AdaptState:
 
     @classmethod
     def init(cls, cfg: AdaptorConfig, dim: int, eps0, dtype=torch.float32):
+        """Shared state from a scalar ε, or one state per chain (dual
+        averaging and Welford moments) from a (C,) ε."""
         if cfg.mm_kind != MM_WELFORD_VAR:
             raise NotImplementedError(
                 f"mass-matrix estimator {cfg.mm_kind!r} is not ported yet "
-                "(ROADMAP.md section 1, item 11)")
+                + roadmap("surface"))
         eps0 = torch.as_tensor(eps0, dtype=dtype)
+        n_chains = eps0.shape[0] if eps0.dim() else None
         return cls(da=DualAveragingState.init(eps0),
-                   mm=WelfordVarState.init(dim, dtype, eps0.device))
+                   mm=WelfordVarState.init(dim, dtype, eps0.device,
+                                           n_chains=n_chains))
 
 
 def stan_schedule(
@@ -113,3 +121,47 @@ def adapt_flags(cfg: AdaptorConfig, n_adapts: int, n_total: int):
         in_window = is_adapt.copy()
     return {"is_adapt": is_adapt, "in_window": in_window,
             "window_end": window_end, "is_last": is_last}
+
+
+def _adapt_core(cfg: AdaptorConfig, st: AdaptState, push, alpha, flags):
+    """One adaptation step, in the JAX package's order: dual-averaging
+    update → Welford push (in a window) → estimate (window end) → reset of
+    both (window end) → finalize (last adaptation step). `flags` holds one
+    iteration's flags as booleans."""
+    if not flags["is_adapt"]:
+        return st
+    da, mm = st.da, st.mm
+    if cfg.uses_da:
+        da = da_update(cfg.da, da, alpha)
+    if cfg.uses_mm:
+        if flags["in_window"]:
+            mm = push(mm)
+        if flags["in_window" if cfg.kind in (NAIVE, MASSMATRIX)
+                 else "window_end"]:
+            mm = mm.update_estimate()
+        if flags["window_end"]:
+            mm = mm.reset()
+    if cfg.uses_da and cfg.kind == STAN and flags["window_end"]:
+        da = da.reset()
+    if cfg.uses_da and flags["is_last"]:
+        da = da.finalize()
+    return AdaptState(da=da, mm=mm)
+
+
+def adapt_step(cfg: AdaptorConfig, st: AdaptState, theta, grad, alpha,
+               flags):
+    """Per-chain adaptation: each chain's dual averaging on its own
+    acceptance `alpha (C,)`, each chain's Welford moments on its own row of
+    `theta (C, dim)` (the JAX package's `vmap(adapt_step)`). `grad` is
+    there for the nutpie estimator, which is not ported."""
+    return _adapt_core(cfg, st, lambda mm: mm.push(theta), alpha, flags)
+
+
+def adapt_step_batch(cfg: AdaptorConfig, st: AdaptState, thetas, grads,
+                     alphas, flags):
+    """Cross-chain adaptation: the whole (C, dim) batch folded into shared
+    Welford moments, dual averaging on the batch-mean acceptance (each α
+    clamped at 1)."""
+    alpha = torch.mean(torch.clamp(alphas, max=1.0))
+    return _adapt_core(cfg, st, lambda mm: mm.push_batch(thetas), alpha,
+                       flags)

@@ -2,7 +2,9 @@
 
 PyTorch counterpart of `advancedhmc_tpu/adaptation/stepsize.py:19,28,103`,
 with the Stan defaults γ=0.05, t₀=10, κ=0.75. The state is a dataclass of
-0-d tensors on the sampler's device, so an update never waits on the host.
+tensors on the sampler's device, 0-d (one state shared by the chains) or
+(C,) (one per chain; every operation is elementwise), so an update never
+waits on the host.
 """
 
 from __future__ import annotations

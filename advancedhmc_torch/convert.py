@@ -51,8 +51,9 @@ def welford_var_state(mm, device=None) -> WelfordVarState:
 
 
 def hmc_state(state, device=None) -> HMCState:
-    """A whole cross-chain `HMCState` (shared diagonal metric and
-    adaptation)."""
+    """A whole `HMCState` with a diagonal metric: cross-chain (ε 0-d, M⁻¹
+    (dim,), Welford n 0-d) or per chain (ε (C,), M⁻¹ (C, dim), Welford n
+    (C,) and its moments (C, dim)); every leaf keeps its shape and bits."""
     return HMCState(
         iteration=int(np.asarray(state.iteration)),
         z=phasepoint(state.z, device),

@@ -17,7 +17,7 @@ import torch
 from .kinetic import GaussianKinetic
 from .metrics import Metric
 from .target import LogDensityTarget
-from .utils import clamp_nonfinite
+from .utils import clamp_nonfinite, roadmap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +61,7 @@ class Hamiltonian:
         if not isinstance(self.kinetic, GaussianKinetic):
             raise NotImplementedError(
                 "only the Gaussian kinetic energy is ported "
-                "(ROADMAP.md section 1, item 11)")
+                + roadmap("surface"))
 
     @property
     def dim(self):

@@ -1,7 +1,8 @@
 """Leapfrog integrator (counterpart of `advancedhmc_tpu/integrators.py`).
 
 Only plain `Leapfrog` is on the main path; the jittered, tempered, composed
-and external-solver integrators are ROADMAP.md section 1, item 11.
+and external-solver integrators are queued under ROADMAP.md's "The rest
+of the surface".
 """
 
 from __future__ import annotations

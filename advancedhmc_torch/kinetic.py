@@ -1,7 +1,7 @@
 """Kinetic energy configurations (counterpart of `advancedhmc_tpu/kinetic.py`).
 
 Only the Gaussian kinetic energy is ported; `RelativisticKinetic` is
-ROADMAP.md section 1, item 11.
+queued under ROADMAP.md's "The rest of the surface".
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 
 PyTorch counterpart of `advancedhmc_tpu/metrics.py`. A metric is a small
 immutable dataclass of tensors; momenta carry a leading chain axis, so
-`velocity` and `neg_kinetic_energy` act on (C, dim) batches. The dense and
-low-rank metrics are not ported yet.
+`velocity` and `neg_kinetic_energy` act on (C, dim) batches. A diagonal
+M⁻¹ is shared, (dim,), or per chain, (C, dim) (`per_chain`, the JAX
+package's metric broadcast along the chain axis): every operation
+broadcasts. The dense and low-rank metrics are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,9 +15,9 @@ from typing import Optional
 
 import torch
 
-from .utils import resolve_device
+from .utils import resolve_device, roadmap
 
-_LATER = "(ROADMAP.md section 1, item 11)"
+_LATER = roadmap("surface")
 
 
 class Metric:
@@ -36,6 +38,11 @@ class Metric:
 
     def renew(self, m_inv):
         raise NotImplementedError
+
+    def per_chain(self, n_chains):
+        """The metric with its M⁻¹ repeated for each of `n_chains` chains
+        (a metric without tensors is already per chain)."""
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +78,8 @@ class UnitEuclideanMetric(Metric):
 class DiagEuclideanMetric(Metric):
     """Diagonal M⁻¹ with cached sqrt."""
 
-    m_inv: torch.Tensor        # (dim,)
-    sqrt_m_inv: torch.Tensor   # (dim,)
+    m_inv: torch.Tensor        # (dim,) or per chain (C, dim)
+    sqrt_m_inv: torch.Tensor   # as m_inv
 
     @classmethod
     def create(cls, m_inv):
@@ -106,6 +113,11 @@ class DiagEuclideanMetric(Metric):
 
     def renew(self, m_inv):
         return DiagEuclideanMetric.create(m_inv)
+
+    def per_chain(self, n_chains):
+        return DiagEuclideanMetric(
+            m_inv=self.m_inv.expand(n_chains, -1).contiguous(),
+            sqrt_m_inv=self.sqrt_m_inv.expand(n_chains, -1).contiguous())
 
 
 def make_metric(kind: str, dim: int, dtype=torch.float32,

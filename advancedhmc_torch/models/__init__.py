@@ -1,6 +1,7 @@
 """Target models (counterpart of `advancedhmc_tpu/models`): the hierarchical
 logistic, its block form and the diagonal Gaussians in block form for the
-NUTS megakernel; the rest is ROADMAP.md section 1, item 11."""
+NUTS megakernel; the rest is queued under ROADMAP.md's "The rest of the
+surface"."""
 
 from .gaussian import mvn_diag_block, std_gaussian_block
 from .logistic import hierarchical_logistic, hierarchical_logistic_block

@@ -5,10 +5,12 @@ fixed-seed synthetic design and the same model):
 
     log σ ~ N(0, 1),   β_j ~ N(0, σ²),   y_i ~ Bernoulli(logit⁻¹(x_iᵀ β))
 
-θ = (log σ, β₁..β_p), dim = p + 1. The batched value+grad is the prior in
-torch plus the likelihood from `ops.fused_logistic`, which is the CUDA
-kernel K1 for CUDA tensors and its plain PyTorch version for CPU tensors —
-the JAX package's `fused=True` route, taken on every batched call.
+θ = (log σ, β₁..β_p), dim = p + 1. The batched value+grad dispatches
+before the call, as the JAX model's `fused=True` gate does: a float32 θ on
+CUDA (`ops.fused_logistic.kernel_route`) gets the prior in torch plus the
+likelihood of the CUDA kernel K1, which raises above p = 128 until its
+column-tiled variant exists; any other θ (the CPU, float64) the analytic
+value+grad, the counterpart of the JAX model's `logdensity_and_grad`.
 
 `hierarchical_logistic_block` is the same model in the block form of the
 NUTS megakernel K2 (`ops/fused_nuts_kernel.py`).
@@ -20,10 +22,11 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..ops.fused_logistic import fused_logistic_value_grad
+from ..ops.fused_logistic import fused_logistic_value_grad, kernel_route
 from ..target import BlockTarget, LogDensityTarget
-from ..utils import resolve_device
+from ..utils import resolve_device, roadmap
 
 
 @lru_cache(maxsize=None)
@@ -56,23 +59,28 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
     if resid_dtype is not None or x_dtype is not None:
         raise NotImplementedError(
             "reduced-precision residuals / design matrix are not ported yet "
-            "(ROADMAP.md section 1, item 2)")
+            + roadmap("options"))
     device = resolve_device(device)
     x_np, y_np = _synthetic_data(n, p, seed)
     x = torch.as_tensor(x_np, dtype=dtype, device=device).contiguous()
     y = torch.as_tensor(y_np, dtype=dtype, device=device)
     likelihood = fused_logistic_value_grad(x, y)
 
-    def logdensity(theta):
-        logits = theta[:, 1:] @ x.T
-        ll = torch.sum(
+    def loglik(logits):
+        return torch.sum(
             y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
-        return _prior(theta, p)[0] + ll
+
+    def logdensity(theta):
+        return _prior(theta, p)[0] + loglik(theta[:, 1:] @ x.T)
 
     def logdensity_and_grad(theta):
-        lp_lik, g_lik = likelihood(theta)
         lp_pri, g_pri = _prior(theta, p)
-        return lp_pri + lp_lik, g_pri + g_lik
+        if kernel_route(theta):
+            lp_lik, g_lik = likelihood(theta)
+            return lp_pri + lp_lik, g_pri + g_lik
+        logits = theta[:, 1:] @ x.T
+        g_beta = (y - torch.sigmoid(logits)) @ x
+        return lp_pri + loglik(logits), g_pri + F.pad(g_beta, (1, 0))
 
     return LogDensityTarget(logdensity, p + 1, logdensity_and_grad)
 

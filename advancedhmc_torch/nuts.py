@@ -26,10 +26,10 @@ import torch
 from .hamiltonian import PhasePoint, select_phasepoint
 from .integrators import leapfrog_step
 from .termination import GeneralisedNoUTurn, MULTINOMIAL
-from .utils import maxabs, rand_exponential, rand_sign, trailing_ones, \
-    trailing_zeros
+from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
+    roadmap, trailing_ones, trailing_zeros
 
-_LATER = "(ROADMAP.md section 1, item 11)"
+
 # The fused loop reads its exit condition back to the host every this many
 # iterations; the iterations run after every chain finished are masked
 # no-ops, exactly as in the JAX batch loop.
@@ -41,7 +41,7 @@ def _check_trajectory(traj):
             traj.ts_kind != MULTINOMIAL:
         raise NotImplementedError(
             "only the generalised criterion with multinomial sampling is "
-            "ported " + _LATER)
+            "ported " + roadmap("surface"))
 
 
 def _sel(pred, a, b):
@@ -234,14 +234,15 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
                     force_directions=None, return_debug=False, **options):
     """One NUTS transition of every chain of `z0`; returns (z_next, stats).
 
+    The integrator's step size is a scalar or one per chain (C,), and so is
+    the stats' `step_size`; a per-chain M⁻¹ comes with `h`'s metric. The
+    loop runs until every chain's tree is done.
+
     Test hook: `force_directions` ((max_depth,) array of ±1) overrides the
     per-doubling direction draw; `return_debug` also returns the final loop
     state (tree edges, ρ, log weight). The JAX function's other options
     (`coupled_key`, the leaf-pair body) are not ported yet."""
-    if options:
-        raise NotImplementedError(
-            f"nuts_transition options {sorted(options)} are not ported yet "
-            + _LATER)
+    not_ported("nuts_transition", options)
     _check_trajectory(traj)
     crit = traj.criterion
     max_depth = int(crit.max_depth)
@@ -276,16 +277,15 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     when a chain's transition ends, its candidate is recorded, its momentum
     is refreshed and its next transition starts in the next iteration, while
     other chains are still mid-tree. The loop ends when every chain has
-    completed `n_transitions`. Step size and metric are frozen for the call.
+    completed `n_transitions`. Step size and metric are frozen for the call;
+    each is shared or per chain, as in `nuts_transition`.
 
     Returns (z_final, thetas (C, n_transitions, dim), stats of
     (C, n_transitions)). `z_final` is each chain's last candidate; its
     momentum is stale and is refreshed before any further use.
     """
-    if not batched or options:
-        raise NotImplementedError(
-            "only the batch-explicit fused loop without in-loop adaptation "
-            f"is ported (got batched={batched}, {sorted(options)}) " + _LATER)
+    not_ported("nuts_transitions_fused",
+               options if batched else dict(options, batched=batched))
     _check_trajectory(traj)
     crit = traj.criterion
     max_depth = int(crit.max_depth)

@@ -31,9 +31,21 @@ import ctypes
 
 import torch
 
+from ..utils import roadmap
 from . import _build
 
 _LIB = "fused_logistic"
+# The widest θ the kernel takes, `fused_logistic_max_dim()` of
+# csrc/fused_logistic.cu (8 · kMaxKSteps + 1); a test reads it from there.
+MAX_DIM = 129
+
+
+def kernel_route(theta):
+    """Whether `theta` is the kernel's to compute: a float32 CUDA tensor,
+    as the TPU kernel takes any float32 θ. Callers with another path of
+    their own (float64, the CPU) dispatch on this before the call; above
+    MAX_DIM columns the wrapper raises."""
+    return theta.is_cuda and theta.dtype == torch.float32
 
 
 def plain_logistic_value_grad(theta, x, y):
@@ -84,15 +96,14 @@ def logistic_value_grad(theta, x, y):
     `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`."""
     if theta.device.type == "cpu":
         return plain_logistic_value_grad(theta, x, y)
+    if theta.shape[-1] > MAX_DIM:
+        raise NotImplementedError(
+            f"K1 keeps a chain's gradient in registers; dim "
+            f"{theta.shape[-1]} exceeds {MAX_DIM} " + roadmap("wide"))
     _check_inputs(theta, x, y)
     lib = _build.load(_LIB)
     fn = _kernel(lib)
     c, dim = theta.shape
-    if dim > lib.fused_logistic_max_dim():
-        raise NotImplementedError(
-            f"K1 keeps a chain's gradient in registers; dim {dim} exceeds "
-            f"{lib.fused_logistic_max_dim()} (a column-tiled variant is "
-            "ROADMAP.md section 2 work)")
     loglik = torch.empty(c, dtype=torch.float32, device=theta.device)
     grad = torch.empty(c, dim, dtype=torch.float32, device=theta.device)
     stream = torch.cuda.current_stream(theta.device).cuda_stream

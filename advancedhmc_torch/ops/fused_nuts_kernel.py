@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from ..utils import trailing_ones, trailing_zeros
+from ..utils import roadmap, trailing_ones, trailing_zeros
 from . import _build
 from .counter_rng import (
     _round_up,
@@ -348,8 +348,8 @@ def fused_nuts(target, theta0, m_inv, eps, seed, data, dim,
     if lib.fused_nuts_smem_bytes(kind, dim) == 0:
         raise NotImplementedError(
             f"K2's logistic runs K1's warp tile, which keeps a chain's "
-            f"gradient in registers: p = {dim - 1} exceeds 128 (a "
-            "column-tiled variant is ROADMAP.md section 2 work)")
+            f"gradient in registers: p = {dim - 1} exceeds 128 "
+            + roadmap("wide"))
     dev, c, T = theta0.device, theta0.shape[0], n_transitions
     thetas = torch.empty(T, c, dim, dtype=torch.float32, device=dev)
     stats = torch.empty(3, T, c, dtype=torch.int32, device=dev)

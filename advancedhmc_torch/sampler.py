@@ -1,13 +1,17 @@
-"""Sampling: initial state, cross-chain fused warmup, fan-out, fused draws.
+"""Sampling: initial state, the step-by-step and the fused phases, `sample`.
 
-PyTorch counterpart of the main path of `advancedhmc_tpu/sampler.py`:
-`init_state` → `fused_warmup_phase_crosschain` → `fanout_warmup_state` →
-`fused_draw_phase`, driven by `sample`. Randomness comes from one
-`torch.Generator` on the sampler's device, passed to each function; the
-state carries no key. Adaptation is cross-chain (one shared step size and
-diagonal M⁻¹, the Welford moments pooled over the chain batch); the
-per-chain, scan-loop, online and mesh paths are ROADMAP.md section 1,
-item 11.
+PyTorch counterpart of `advancedhmc_tpu/sampler.py`. At its defaults
+`sample` adapts each chain on its own (per-chain Stan adaptation: each chain
+has its own ε, diagonal M⁻¹, dual-averaging and Welford state) and runs one
+`sample_step` per iteration. `cross_chain=True` shares one adaptation state
+over the chain batch (the Welford moments pooled over it). The draws run
+step by step or, with `fuse_draws`, through `fused_draw_phase`; a
+cross-chain warmup runs in fused blocks with `fuse_warmup`
+(`fused_warmup_phase_crosschain`), optionally on a sub-pool that
+`fanout_warmup_state` fans out. Randomness comes from one `torch.Generator`
+on the sampler's device, passed to each function; the state carries no
+key. The per-chain fused warmup and the thinned, online, coupled and mesh
+paths are not ported; each raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -19,35 +23,31 @@ from typing import Dict, Optional
 import torch
 
 from .adaptation import (
+    MM_NUTPIE,
+    MM_WELFORD_VAR,
     NONE,
     STAN,
     AdaptorConfig,
     AdaptState,
     adapt_flags,
+    adapt_step,
+    adapt_step_batch,
     da_update,
 )
 from .hamiltonian import Hamiltonian, PhasePoint
 from .kinetic import GaussianKinetic
-from .metrics import DiagEuclideanMetric, Metric
-from .nuts import nuts_transitions_fused
-from .stepsize_search import find_good_stepsize
+from .metrics import DiagEuclideanMetric, Metric, UnitEuclideanMetric
+from .nuts import _STAT_FIELDS, nuts_transition, nuts_transitions_fused
+from .stepsize_search import find_good_stepsize, find_good_stepsizes
 from .target import LogDensityTarget
 from .trajectory import HMCKernel
-from .utils import resolve_device
-
-_LATER = "(ROADMAP.md section 1, item 11)"
-
-
-def _no_options(fn, options):
-    if options:
-        raise NotImplementedError(
-            f"{fn} options {sorted(options)} are not ported yet " + _LATER)
-
+from .utils import not_ported, resolve_device, roadmap
 
 @dataclasses.dataclass(frozen=True)
 class HMCState:
-    """Resumable sampler state: chain-batched phase points, the shared
-    metric and the shared adaptation state."""
+    """Resumable sampler state: chain-batched phase points, the metric and
+    the adaptation state, shared by the chains (cross-chain adaptation) or
+    with a leading chain axis (per chain: ε (C,), M⁻¹ (C, dim))."""
 
     iteration: int
     z: PhasePoint          # leading chain axis (C, ...)
@@ -71,13 +71,10 @@ class SampleSpec:
     coupled: bool = False
 
     def __post_init__(self):
-        if not self.cross_chain:
-            raise NotImplementedError(
-                "per-chain adaptation is not ported yet; use "
-                "cross_chain=True " + _LATER)
         if self.coupled:
             raise NotImplementedError(
-                "coupled trajectory randomness is not ported yet " + _LATER)
+                "coupled trajectory randomness is not ported yet "
+                + roadmap("options"))
 
 
 def _hamiltonian(spec, state):
@@ -86,7 +83,8 @@ def _hamiltonian(spec, state):
 
 
 def _run_fused(generator, spec, state, n_transitions):
-    """One fused call at the state's frozen ε and M⁻¹; outputs (T, C, ...)."""
+    """One fused call at the state's frozen ε and M⁻¹, shared or per chain;
+    outputs (T, C, ...)."""
     traj = spec.kernel.trajectory.with_nom_step_size(state.adapt.da.eps)
     z, ths, stats = nuts_transitions_fused(
         generator, _hamiltonian(spec, state), traj, state.z, n_transitions,
@@ -109,6 +107,9 @@ def fanout_warmup_state(spec: SampleSpec, state: HMCState,
     before collecting draws.
     """
     c0 = state.z.theta.shape[0]
+    if not spec.cross_chain:
+        raise ValueError("fanout_warmup_state requires cross_chain=True "
+                         "(a shared adaptation state)")
     if n_chains < c0:
         raise ValueError(f"n_chains {n_chains} < warmed pool {c0}")
     reps = -(-n_chains // c0)
@@ -125,8 +126,9 @@ def fanout_warmup_state(spec: SampleSpec, state: HMCState,
 def fused_draw_phase(generator, spec: SampleSpec, state: HMCState,
                      n_draws: int, fuse: int, **options):
     """Post-warmup draws, `fuse` transitions per fused call, adaptation
-    frozen. Returns (state, thetas (n_draws, C, dim), stats (n_draws, C))."""
-    _no_options("fused_draw_phase", options)
+    frozen, at the state's ε and M⁻¹ (shared, or each chain's own).
+    Returns (state, thetas (n_draws, C, dim), stats (n_draws, C))."""
+    not_ported("fused_draw_phase", options)
     if n_draws % fuse:
         raise ValueError("fuse must divide the draw count")
     z, ths, stats = state.z, [], []
@@ -155,7 +157,7 @@ def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
     are host arrays, so the replay branches on the host.
     Returns (state, warm_thetas (n_adapts, C, dim), warm_stats).
     """
-    _no_options("fused_warmup_phase_crosschain", options)
+    not_ported("fused_warmup_phase_crosschain", options)
     cfg = spec.adaptor
     if n_adapts % block:
         raise ValueError("block must divide n_adapts")
@@ -194,6 +196,77 @@ def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
     return state, torch.cat(ths), _cat_stats(stats)
 
 
+def _transition(generator, spec: SampleSpec, state: HMCState):
+    """Momentum refresh, then one NUTS transition of every chain at its ε
+    and M⁻¹: the JAX package's `_one_chain_transition`, vmapped (the plain
+    `Leapfrog` draws no jitter; a static trajectory is refused by
+    `nuts_transition`)."""
+    h = _hamiltonian(spec, state)
+    traj = spec.kernel.trajectory.with_nom_step_size(state.adapt.da.eps)
+    z = spec.kernel.refreshment.refresh(generator, h, state.z)
+    return nuts_transition(generator, h, traj, z)
+
+
+def sample_step(generator, spec: SampleSpec, state: HMCState, flags):
+    """One transition of every chain, then one adaptation step: shared
+    (`adapt_step_batch`) or each chain's own (`adapt_step`). `flags` holds
+    this iteration's adaptation flags as booleans; the metric is renewed
+    from the estimate at every adaptation step. Returns (state, stats of
+    (C,)), the stats with `is_adapt`."""
+    cfg = spec.adaptor
+    z, stats = _transition(generator, spec, state)
+    step = adapt_step_batch if spec.cross_chain else adapt_step
+    adapt = step(cfg, state.adapt, z.theta, z.grad, stats["acceptance_rate"],
+                 flags)
+    metric = state.metric
+    if cfg.uses_mm and flags["is_adapt"]:
+        metric = metric.renew(adapt.mm.m_inv)
+    stats["is_adapt"] = torch.full_like(stats["numerical_error"],
+                                        flags["is_adapt"])
+    return HMCState(iteration=state.iteration + 1, z=z, metric=metric,
+                    adapt=adapt), stats
+
+
+# the integer and boolean stats of a transition; the others take θ's dtype
+_STAT_DTYPES = {"n_steps": torch.int32, "tree_depth": torch.int32,
+                "is_accept": torch.bool, "numerical_error": torch.bool,
+                "is_adapt": torch.bool}
+_STATS = _STAT_FIELDS + ("is_accept", "nom_step_size", "is_adapt")
+
+
+def _rows(n, c, theta):
+    """Buffers for `n` iterations of `c` chains of θ's width and dtype:
+    θ (n, c, dim) and each stat (n, c)."""
+    return theta.new_empty((n, c, theta.shape[-1])), {
+        k: theta.new_empty((n, c), dtype=_STAT_DTYPES.get(k, theta.dtype))
+        for k in _STATS}
+
+
+def _part(rows, lo, hi):
+    """Rows lo..hi-1 of `rows`, as views."""
+    return rows[0][lo:hi], {k: v[lo:hi] for k, v in rows[1].items()}
+
+
+def _fill(rows, thetas, stats):
+    """Copy a phase's θ and stats into `rows` (as many rows)."""
+    rows[0].copy_(thetas)
+    for k, v in rows[1].items():
+        v.copy_(stats[k])
+
+
+def _step_loop(generator, spec, state, flags, lo, hi, rows):
+    """`sample_step` at the run's iterations lo..hi-1 (`flags` are the
+    run's `adapt_flags`), iteration lo + i writing its θ and stats into row
+    i of `rows`. Returns the state."""
+    for i, t in enumerate(range(lo, hi)):
+        state, st = sample_step(generator, spec, state,
+                                {k: bool(v[t]) for k, v in flags.items()})
+        rows[0][i] = state.z.theta
+        for k, v in st.items():
+            rows[1][k][i] = v
+    return state
+
+
 def init_state(generator, spec: SampleSpec, metric: Metric, init_theta,
                init_eps=None, n_chains: Optional[int] = None,
                init_mass_matrix: str = "identity", device=None) -> HMCState:
@@ -201,14 +274,18 @@ def init_state(generator, spec: SampleSpec, metric: Metric, init_theta,
 
     `init_mass_matrix="gradient"` seeds the diagonal M⁻¹ from the gradient
     at the initial positions, M⁻¹_j = 1/mean|∇_j ℓπ|. Without `init_eps` the
-    step size comes from `find_good_stepsize` on the first chain.
+    step size comes from the search `find_good_stepsize`: per chain, each
+    from its own position (`find_good_stepsizes`), or on the first chain for
+    cross-chain adaptation. Per chain, a scalar or (C,) `init_eps` seeds
+    each chain's dual averaging and the metric is repeated for each chain;
+    cross-chain adaptation takes a scalar.
     """
     device = resolve_device(device)
     theta = torch.as_tensor(init_theta, device=device)
     if theta.dim() == 1:
         theta = theta[None].expand(n_chains or 1, -1)
     theta = theta.contiguous()
-    dtype = theta.dtype
+    c, dtype = theta.shape[0], theta.dtype
 
     if init_mass_matrix == "gradient":
         if not isinstance(metric, DiagEuclideanMetric):
@@ -222,15 +299,20 @@ def init_state(generator, spec: SampleSpec, metric: Metric, init_theta,
         raise ValueError(f"unknown init_mass_matrix {init_mass_matrix!r}")
 
     h = Hamiltonian(metric=metric, target=spec.target, kinetic=spec.kinetic)
-    if init_eps is None:
+    if init_eps is not None:
+        eps0 = torch.as_tensor(init_eps, dtype=dtype, device=device)
+    elif spec.cross_chain:
         eps0 = find_good_stepsize(generator, h, theta[0])
     else:
-        eps0 = torch.as_tensor(init_eps, dtype=dtype, device=device)
-        if eps0.dim() != 0:
-            raise ValueError("cross-chain adaptation shares one dual-"
-                             "averaging state; init_eps must be a scalar")
-    return HMCState(iteration=0, z=h.init_phasepoint(generator, theta),
-                    metric=metric,
+        eps0 = find_good_stepsizes(generator, h, theta)
+    z = h.init_phasepoint(generator, theta)
+    if not spec.cross_chain:
+        eps0 = torch.broadcast_to(eps0, (c,)).clone()
+        metric = metric.per_chain(c)
+    elif eps0.dim() != 0:
+        raise ValueError("cross-chain adaptation shares one dual-averaging "
+                         "state; init_eps must be a scalar")
+    return HMCState(iteration=0, z=z, metric=metric,
                     adapt=AdaptState.init(spec.adaptor, spec.target.dim,
                                           eps0, dtype))
 
@@ -277,20 +359,23 @@ def sample(
     device=None,
     **options,
 ) -> SampleResult:
-    """Sample `n_samples` iterations per chain (the first `n_adapts` adapt).
+    """Sample `n_samples` iterations per chain (the first `n_adapts` adapt;
+    None means min(n_samples // 10, 1000)), on `device` (None means CUDA;
+    pass "cpu" explicitly for the CPU).
 
-    The ported path: cross-chain adaptation (`cross_chain=True`) with the
-    fused warmup (`fuse_warmup=True`, `fuse_warmup_block` dividing
-    `n_adapts`) and fused draws (`fuse_draws > 1` dividing the draw count).
-    `warmup_chains = W < n_chains` warms the first W chains, fans the warmed
-    state out to all chains and runs `fanout_decorrelate` discarded
-    transitions before the draws (requires `drop_warmup=True`). Runs on
-    `device` (None means CUDA; pass "cpu" explicitly for the CPU).
+    The paths follow the JAX function's. At the defaults each chain adapts
+    on its own and every iteration is one `sample_step`. `cross_chain=True`
+    shares the adaptation; with `fuse_warmup=True` and `fuse_warmup_block`
+    dividing `n_adapts` its warmup runs in fused blocks. `fuse_draws > 1`
+    dividing the draw count runs the draws fused. `drop_warmup` returns the
+    warmup's stats apart and no warmup draws. `warmup_chains = W <
+    n_chains` (cross-chain, `drop_warmup=True`) warms the first W chains,
+    fans the warmed state out to all chains and runs `fanout_decorrelate`
+    discarded transitions before the draws. The JAX function's other
+    options raise, as does the per-chain fused warmup (`fuse_warmup=True`
+    without `cross_chain`).
     """
-    _no_options("sample", options)
-    if not cross_chain:
-        raise NotImplementedError("per-chain adaptation is not ported yet; "
-                                  "use cross_chain=True " + _LATER)
+    not_ported("sample", options)
     if n_adapts is None:
         n_adapts = min(n_samples // 10, 1000)
     if adaptor.kind == NONE:
@@ -298,22 +383,31 @@ def sample(
         if drop_warmup:
             raise ValueError("cannot drop warmup without adaptation")
     n_draw = n_samples - n_adapts
-    if fuse_draws <= 1 or n_draw <= 0 or n_draw % fuse_draws:
+    use_fused = fuse_draws > 1 and n_draw > 0 and n_draw % fuse_draws == 0
+    use_fused_warmup_cc = (fuse_warmup and cross_chain and n_adapts > 0
+                           and adaptor.mm_kind != MM_NUTPIE
+                           and n_adapts % fuse_warmup_block == 0)
+    # the JAX package runs `fused_warmup_phase` here, which is not ported
+    if fuse_warmup and not cross_chain and n_adapts > 0 and (
+            (adaptor.uses_mm and isinstance(metric, DiagEuclideanMetric)
+             and adaptor.mm_kind in (MM_WELFORD_VAR, MM_NUTPIE))
+            or (not adaptor.uses_mm and isinstance(
+                metric, (DiagEuclideanMetric, UnitEuclideanMetric)))):
         raise NotImplementedError(
-            "only fused draws are ported (fuse_draws > 1 dividing the draw "
-            "count) " + _LATER)
-    if n_adapts > 0 and (not fuse_warmup or n_adapts % fuse_warmup_block):
-        raise NotImplementedError(
-            "only the fused cross-chain warmup is ported (fuse_warmup=True, "
-            "fuse_warmup_block dividing n_adapts) " + _LATER)
+            "the per-chain fused warmup (fuse_warmup=True with per-chain "
+            "adaptation) is not ported yet " + roadmap("options"))
 
     device = resolve_device(device)
     spec = SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
-                      cross_chain=True)
+                      cross_chain=cross_chain)
     init_theta = torch.as_tensor(init_theta, device=device)
     n_total = (init_theta.shape[0] if init_theta.dim() > 1
                else (n_chains or 1))
     use_fanout = 0 < warmup_chains < n_total and n_adapts > 0
+    if use_fanout and not cross_chain:
+        raise ValueError(
+            "warmup_chains requires cross_chain=True (the fanned-out pool "
+            "reuses the shared adaptation state)")
     if use_fanout and not drop_warmup:
         raise ValueError(
             "warmup_chains requires drop_warmup=True (warmup draws have the "
@@ -330,11 +424,26 @@ def sample(
     _synchronize(device)
     timings["init_s"] = time.perf_counter() - t0
 
+    # the rows the run returns, on every chain: the warmup's unless it is
+    # dropped (a fanned-out warmup is), then the draws'
+    keep = 0 if drop_warmup else n_adapts
+    rows = _rows(keep + n_draw, n_total, state.z.theta)
+    flags = adapt_flags(adaptor, n_adapts, n_samples)
     t0 = time.perf_counter()
-    warm_thetas = warm_stats = None
-    if n_adapts > 0:
-        state, warm_thetas, warm_stats = fused_warmup_phase_crosschain(
+    warm_stats = None
+    if use_fused_warmup_cc:
+        state, th, st = fused_warmup_phase_crosschain(
             generator, spec, state, n_adapts, fuse_warmup_block)
+        if drop_warmup:
+            warm_stats = st
+        else:
+            _fill(_part(rows, 0, n_adapts), th, st)
+    elif n_adapts > 0:
+        warm = (_part(rows, 0, n_adapts) if keep else
+                _rows(n_adapts, state.z.theta.shape[0], state.z.theta))
+        state = _step_loop(generator, spec, state, flags, 0, n_adapts, warm)
+        if drop_warmup:
+            warm_stats = warm[1]
     if use_fanout:
         state = fanout_warmup_state(spec, state, n_total)
         if fanout_decorrelate > 0:
@@ -345,15 +454,16 @@ def sample(
     timings["warmup_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    state, thetas, stats = fused_draw_phase(generator, spec, state, n_draw,
-                                            fuse_draws)
+    draws = _part(rows, keep, keep + n_draw)
+    if use_fused:
+        state, th, st = fused_draw_phase(generator, spec, state, n_draw,
+                                         fuse_draws)
+        _fill(draws, th, st)
+    else:
+        state = _step_loop(generator, spec, state, flags, n_adapts,
+                           n_samples, draws)
     _synchronize(device)
     timings["draws_s"] = time.perf_counter() - t0
-
-    if n_adapts > 0 and not drop_warmup:
-        thetas = torch.cat([warm_thetas, thetas])
-        stats = {k: torch.cat([warm_stats[k].to(v.dtype), v])
-                 for k, v in stats.items()}
-        warm_stats = None
-    return SampleResult(thetas=thetas, stats=stats, warmup_stats=warm_stats,
-                        final_state=state, timings=timings)
+    return SampleResult(thetas=rows[0], stats=rows[1],
+                        warmup_stats=warm_stats, final_state=state,
+                        timings=timings)

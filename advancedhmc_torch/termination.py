@@ -2,7 +2,8 @@
 
 Counterpart of `advancedhmc_tpu/termination.py`: frozen dataclasses of
 hyperparameters. Only the generalised no-U-turn criterion with multinomial
-sampling is on the main path; the others are ROADMAP.md section 1, item 11.
+sampling is on the main path; the others are queued under ROADMAP.md's
+"The rest of the surface".
 """
 
 from __future__ import annotations

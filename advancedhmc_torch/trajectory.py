@@ -1,8 +1,8 @@
 """Trajectory configuration and the log-space MH accept.
 
 Counterpart of `advancedhmc_tpu/trajectory.py:50,81,91`. The static-HMC
-transitions (`transition_static`, endpoint sampling) are ROADMAP.md section
-1, item 11.
+transitions (`transition_static`, endpoint sampling) are queued under
+ROADMAP.md's "The rest of the surface".
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ import torch
 
 from .hamiltonian import FullMomentumRefreshment
 from .termination import MULTINOMIAL, GeneralisedNoUTurn, TerminationCriterion
-from .utils import rand_exponential
+from .utils import rand_exponential, roadmap
 
-_LATER = "(ROADMAP.md section 1, item 11)"
+_LATER = roadmap("surface")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +38,8 @@ class Trajectory:
                 + _LATER)
         if self.stack_dtype is not None or self.uturn_precision is not None:
             raise NotImplementedError(
-                "reduced-precision U-turn stacks are not ported yet " + _LATER)
+                "reduced-precision U-turn stacks are not ported yet "
+                + roadmap("options"))
 
     def with_nom_step_size(self, eps):
         return dataclasses.replace(

@@ -26,6 +26,35 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# Where ROADMAP.md queues each part the port lacks: (section, item, title).
+# The one place in the package that knows the roadmap's numbering; a test
+# holds every entry to ROADMAP.md.
+ROADMAP_ITEMS = {
+    "pair": (1, 1, "The leaf-pair body"),
+    "options": (1, 2, "The other options of JAX `sample`"),
+    "surface": (1, 3, "The rest of the surface"),
+    "wide": (2, 2, "K1 and K2 for p > 128"),
+}
+
+
+def roadmap(key):
+    """Where ROADMAP.md queues the part `key`, as the end of a message."""
+    section, item, title = ROADMAP_ITEMS[key]
+    return f"(ROADMAP.md section {section}, item {item}: {title})"
+
+
+def not_ported(what, options):
+    """Raise for options of the JAX function `what` that the port lacks:
+    the leaf-pair body (`pair`, `fuse_pair`), `mesh` (multi-GPU, with the
+    rest of the surface) and the other options each have their item."""
+    if options:
+        key = ("pair" if {"pair", "fuse_pair"} & set(options)
+               else "surface" if "mesh" in options else "options")
+        raise NotImplementedError(
+            f"{what} options {sorted(options)} are not ported yet "
+            + roadmap(key))
+
+
 def logaddexp(a, b):
     """Numerically stable log(exp(a) + exp(b)) that tolerates -inf inputs."""
     return torch.logaddexp(a, b)

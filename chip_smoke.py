@@ -38,7 +38,16 @@ Phases (any failure exits non-zero):
 7. hold K2 against its plain version: the logistic on 4096 warmed chains
    at max_depth 6 and 8, forced-deep trees (depth 6 of 6, 8 of 8), mostly
    divergent trees at 3ε, and the JAX megakernel test's Gaussian; each
-   case also runs K2 twice and checks that the two give the same bits.
+   case also runs K2 twice and checks that the two give the same bits;
+8. the default path of `advancedhmc_torch.sample`: per-chain Stan
+   adaptation (δ 0.8, buffers 75/50/25, gradient-seeded M⁻¹) and one
+   `sample_step` per iteration, on 4096 chains of the same model and NUTS,
+   300 iterations of which 200 adapt, every other `sample` argument at its
+   default; then 64 fused draws (8 per call) at each chain's own ε and
+   M⁻¹ from its final state. Gated on finite draws, divergence,
+   acceptance, the posterior moments, the per-chain ε (4096,) and M⁻¹
+   (4096, 100), the fused draws' step size, and K1's launches (counted
+   from 0 over the phase) against the target's value+grad calls.
 
 It prints the main path's results as one JSON line, the kernels' line
 (`{"kernels": [...]}`), the card's name and power limit, and last
@@ -411,6 +420,24 @@ def phase_main(seed):
 
 
 # ------------------------------------------------------------------ phase 4
+def _moment_gates(th):
+    """Phase 4's posterior-moment gates on draws `th` (n, C, dim)."""
+    ls = th[:, :, 0].double()
+    out = {"mean_logsigma": float(ls.mean()),
+           "sd_logsigma": float(ls.std(correction=0)),
+           "mean_beta_norm": float(th[:, :, 1:].double().mean((0, 1)).norm())}
+    gates = {
+        f"|mean_logsigma - ({REF_MEAN_LOGSIGMA})| <= {TOL_MEAN_LOGSIGMA}":
+            abs(out["mean_logsigma"] - REF_MEAN_LOGSIGMA)
+            <= TOL_MEAN_LOGSIGMA,
+        f"sd_logsigma within {TOL_SD_REL:.0%} of {REF_SD_LOGSIGMA}":
+            abs(out["sd_logsigma"] / REF_SD_LOGSIGMA - 1) <= TOL_SD_REL,
+        f"|mean_beta_norm - {REF_BETA_NORM}| <= {TOL_BETA_NORM}":
+            abs(out["mean_beta_norm"] - REF_BETA_NORM) <= TOL_BETA_NORM,
+    }
+    return out, gates
+
+
 def phase_results(res, launches, wall, seed):
     from advancedhmc_torch.diagnostics import effective_sample_size
 
@@ -426,7 +453,7 @@ def phase_results(res, launches, wall, seed):
     ess_512 = effective_sample_size(th[:, :ESS_CHAINS])
     ess = ess_512 * (N_CHAINS / ESS_CHAINS)
     median_ess = float(ess.quantile(0.5))   # numpy's median, as bench.py
-    ls = th[:, :, 0].double()
+    moments, moment_gates = _moment_gates(th)
     out = {
         "effective_samples_per_s_per_chip": median_ess / t_draw,
         "leapfrog_steps_per_s":
@@ -438,10 +465,7 @@ def phase_results(res, launches, wall, seed):
         "min_ess_per_s": float(ess.min()) / t_draw,
         "accept_mean": float(st["acceptance_rate"].double().mean()),
         "divergence_rate": float(st["numerical_error"].double().mean()),
-        "mean_logsigma": float(ls.mean()),
-        "sd_logsigma": float(ls.std(correction=0)),
-        "mean_beta_norm":
-            float(th[:, :, 1:].double().mean((0, 1)).norm()),
+        **moments,
         "mean_tree_depth": float(st["tree_depth"].double().mean()),
         "step_size": float(res.final_state.adapt.da.eps),
         "init_s": res.timings["init_s"],
@@ -458,13 +482,7 @@ def phase_results(res, launches, wall, seed):
         "k1 launched": launches > 0,
         "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
         f"|accept - {DELTA}| <= 0.1": abs(out["accept_mean"] - DELTA) <= 0.1,
-        f"|mean_logsigma - ({REF_MEAN_LOGSIGMA})| <= {TOL_MEAN_LOGSIGMA}":
-            abs(out["mean_logsigma"] - REF_MEAN_LOGSIGMA)
-            <= TOL_MEAN_LOGSIGMA,
-        f"sd_logsigma within {TOL_SD_REL:.0%} of {REF_SD_LOGSIGMA}":
-            abs(out["sd_logsigma"] / REF_SD_LOGSIGMA - 1) <= TOL_SD_REL,
-        f"|mean_beta_norm - {REF_BETA_NORM}| <= {TOL_BETA_NORM}":
-            abs(out["mean_beta_norm"] - REF_BETA_NORM) <= TOL_BETA_NORM,
+        **moment_gates,
         "ESS finite": math.isfinite(median_ess) and median_ess > 0,
     }
     for name, ok in gates.items():
@@ -689,7 +707,7 @@ def phase_megakernel(res, main_out):
                            "non-finite values")
     ess_512 = effective_sample_size(th[:, :ESS_CHAINS])
     median_ess = float(ess_512.quantile(0.5)) * (N_CHAINS / ESS_CHAINS)
-    ls = th[:, :, 0].double()
+    moments, moment_gates = _moment_gates(th)
     lf = float(n_steps.double().sum())
     phase3_call_ms = 1e3 * main_out["draws_s"] / (N_DRAWS // FUSE)
     out = {
@@ -711,9 +729,7 @@ def phase_megakernel(res, main_out):
         "leapfrog_steps_per_s": lf / wall,
         "mean_tree_depth": float(depth.double().mean()),
         "divergence_rate": float(div.double().mean()),
-        "mean_logsigma": float(ls.mean()),
-        "sd_logsigma": float(ls.std(correction=0)),
-        "mean_beta_norm": float(th[:, :, 1:].double().mean((0, 1)).norm()),
+        **moments,
         "median_pooled_ess": median_ess,
         "effective_samples_per_s_per_chip": median_ess / wall,
         "k2_launches": launches,
@@ -735,13 +751,7 @@ def phase_megakernel(res, main_out):
     gates = {
         f"k2 launched {MEGA_CALLS} times": launches == MEGA_CALLS,
         "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
-        f"|mean_logsigma - ({REF_MEAN_LOGSIGMA})| <= {TOL_MEAN_LOGSIGMA}":
-            abs(out["mean_logsigma"] - REF_MEAN_LOGSIGMA)
-            <= TOL_MEAN_LOGSIGMA,
-        f"sd_logsigma within {TOL_SD_REL:.0%} of {REF_SD_LOGSIGMA}":
-            abs(out["sd_logsigma"] / REF_SD_LOGSIGMA - 1) <= TOL_SD_REL,
-        f"|mean_beta_norm - {REF_BETA_NORM}| <= {TOL_BETA_NORM}":
-            abs(out["mean_beta_norm"] - REF_BETA_NORM) <= TOL_BETA_NORM,
+        **moment_gates,
         f"|mean depth - phase 3's| <= {K2_DEPTH_TOL}":
             abs(out["mean_tree_depth"] - main_out["mean_tree_depth"])
             <= K2_DEPTH_TOL,
@@ -845,6 +855,131 @@ def phase_k2_parity(res):
     return rows
 
 
+# ------------------------------------------------------------------ phase 8
+# `sample` at its defaults: per-chain adaptation, step by step
+# 300 iterations, not 400, keep the phase near 150 s on the card (at 400
+# it took 157-168 s); 200 adapt, so two Stan windows remain
+DEF_CHAINS, DEF_SAMPLES, DEF_ADAPTS = 4096, 300, 200
+DEF_DELTA, DEF_TOL_ACCEPT = 0.8, 0.15
+DEF_DRAWS, DEF_FUSE = 64, 8
+
+
+def phase_defaults(seed):
+    """Drive `sample` at its defaults, then per-chain fused draws from its
+    final state; returns the phase's results and K1's launches by chain
+    count."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.diagnostics import effective_sample_size
+
+    target, kernel, _ = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    adaptor = ah.AdaptorConfig(
+        kind="stan", da=ah.DualAveragingConfig(delta=DEF_DELTA),
+        init_buffer=75, term_buffer=50, window_size=25)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(size=(DEF_CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    metric = ah.make_metric("diagonal", DIM, device="cuda")
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = ah.sample(gen, target, kernel, metric, theta0, DEF_SAMPLES,
+                    n_adapts=DEF_ADAPTS, adaptor=adaptor,
+                    init_mass_matrix="gradient", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_sample = read_launches()["fused_logistic_value_grad"]
+    fs = res.final_state
+    spec = ah.SampleSpec(target=target, kernel=kernel, adaptor=adaptor)
+    t0 = time.perf_counter()
+    _, th_f, st_f = ah.fused_draw_phase(gen, spec, fs, DEF_DRAWS, DEF_FUSE)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    launches = read_launches()["fused_logistic_value_grad"]
+    by_chains = dict(sorted(by_chains.items(), reverse=True))
+    log(f"# default path: K1 launches by chain count {by_chains}")
+
+    th = res.thetas[DEF_ADAPTS:]
+    st = {k: v[DEF_ADAPTS:] for k, v in res.stats.items()}
+    n_draw = DEF_SAMPLES - DEF_ADAPTS
+    t_draw = res.timings["draws_s"]
+    ess = effective_sample_size(th[:, :ESS_CHAINS]) * (
+        DEF_CHAINS / ESS_CHAINS)
+    median_ess = float(ess.quantile(0.5))
+    eps, m_inv = fs.adapt.da.eps, fs.metric.m_inv
+    depth = res.stats["tree_depth"]
+    out = {
+        "phase": "default path",
+        "chains": DEF_CHAINS, "samples": DEF_SAMPLES, "adapts": DEF_ADAPTS,
+        "init_s": res.timings["init_s"],
+        "warmup_s": res.timings["warmup_s"],
+        "draws_s": t_draw, "wall_s": wall,
+        "warmup_s_per_iteration": res.timings["warmup_s"] / DEF_ADAPTS,
+        "draws_s_per_iteration": t_draw / n_draw,
+        "leapfrog_steps_per_s": float(st["n_steps"].double().sum()) / t_draw,
+        "effective_samples_per_s_per_chip": median_ess / t_draw,
+        "median_pooled_ess": median_ess,
+        "accept_mean": float(st["acceptance_rate"].double().mean()),
+        "divergence_rate": float(st["numerical_error"].double().mean()),
+        "mean_tree_depth": float(st["tree_depth"].double().mean()),
+        # the loop runs each transition until its slowest chain is done
+        "leaf_iterations_per_transition":
+            float(res.stats["n_steps"].amax(1).double().mean()),
+        "depth_histogram_warmup": torch.bincount(
+            depth[:DEF_ADAPTS].flatten(), minlength=MAX_DEPTH + 1).tolist(),
+        "depth_histogram_draws": torch.bincount(
+            depth[DEF_ADAPTS:].flatten(), minlength=MAX_DEPTH + 1).tolist(),
+        "step_size_median": float(eps.median()),
+        "step_size_min": float(eps.min()), "step_size_max": float(eps.max()),
+        "k1_launches": launches, "k1_launches_sample": k1_sample,
+        "fused_draws": DEF_DRAWS, "fused_s": fused_s,
+        "fused_accept_mean": float(st_f["acceptance_rate"].double().mean()),
+        "fused_mean_tree_depth": float(st_f["tree_depth"].double().mean()),
+        "device": torch.cuda.get_device_name(0),
+    }
+    moments, gates = _moment_gates(th)
+    moments_f, gates_f = _moment_gates(th_f)
+    out.update(moments)
+    out.update({f"fused_{k}": v for k, v in moments_f.items()})
+    log(json.dumps(out))
+    log(f"# default path: init {out['init_s']:.1f} s, warmup "
+        f"{out['warmup_s']:.1f} s, draws {t_draw:.1f} s "
+        f"({1e3 * out['draws_s_per_iteration']:.0f} ms per iteration, "
+        f"{out['leaf_iterations_per_transition']:.1f} leaf iterations per "
+        f"transition), fused draws {fused_s:.1f} s, K1 launches {launches}")
+    gates = {
+        "draws finite": tuple(th.shape) == (n_draw, DEF_CHAINS, DIM)
+        and bool(torch.isfinite(th).all()),
+        "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
+        f"|accept - {DEF_DELTA}| <= {DEF_TOL_ACCEPT}":
+            abs(out["accept_mean"] - DEF_DELTA) <= DEF_TOL_ACCEPT,
+        **gates,
+        f"final eps ({DEF_CHAINS},), finite, > 0":
+            tuple(eps.shape) == (DEF_CHAINS,)
+            and bool(torch.isfinite(eps).all() and (eps > 0).all()),
+        f"final M^-1 ({DEF_CHAINS}, {DIM}), finite, > 0":
+            tuple(m_inv.shape) == (DEF_CHAINS, DIM)
+            and bool(torch.isfinite(m_inv).all() and (m_inv > 0).all()),
+        "fused draws finite": bool(torch.isfinite(th_f).all()),
+        **{f"fused draws {k}": v for k, v in gates_f.items()},
+        "fused draws' step_size is each chain's eps": torch.equal(
+            st_f["step_size"], eps.expand(DEF_DRAWS, -1)),
+        "k1 launched": launches > 0,
+        "k1 launches = value+grad calls": sum(by_chains.values())
+        == launches,
+    }
+    for name, ok in gates.items():
+        log(f"# gate {name}: {'ok' if ok else 'FAIL'}")
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        raise RuntimeError(f"default-path gates failed: {failed}")
+    return out, by_chains
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -871,6 +1006,8 @@ def main(argv=None):
                     plain_ms=mega["first_call_plain_ms"],
                     bound_ms=mega["bound_ms_mean"]),
                *phase_k2_parity(res)]
+    del res
+    defaults, k1_by_chains_defaults = phase_defaults(args.seed)
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     kernels = {"kernels": [{
@@ -880,6 +1017,8 @@ def main(argv=None):
         "replaces": "advancedhmc_tpu/ops/fused_logistic.py:53",
         "launches": launches,
         "launches_by_chains": k1_by_chains,
+        "launches_default_path": defaults["k1_launches"],
+        "launches_default_path_by_chains": k1_by_chains_defaults,
         "max_abs_err": k1_err,
         "max_err": k1_err,
         "ms": k1_row["ms"],

@@ -13,7 +13,7 @@ import torch
 
 from advancedhmc_torch.models.gaussian import std_gaussian_block
 from advancedhmc_torch.models.logistic import _synthetic_data, \
-    hierarchical_logistic_block
+    hierarchical_logistic, hierarchical_logistic_block
 from advancedhmc_torch.ops import fused_leapfrog as k3
 from advancedhmc_torch.ops import fused_logistic as k1
 from advancedhmc_torch.ops import fused_nuts_kernel as k2
@@ -63,6 +63,43 @@ def test_k1_kernel_matches_plain_on_card():
                 g_p.abs().max()), (c, n)
             assert float((lp - lp_p).abs().max()) <= 1e-4 * max(
                 1.0, float(lp_p.abs().max())), (c, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,dtype", [(200, torch.float32),
+                                     (99, torch.float64)])
+def test_logistic_model_beyond_k1_runs_on_card(p, dtype):
+    """A float64 model runs on the card through its analytic value+grad, as
+    the JAX model does, launching nothing, and agrees with the float64
+    analytic value on the CPU to 1e-10 of the largest magnitude. A float32
+    model wider than K1 (p = 200 > 128) is K1's to compute, as it is the
+    Pallas kernel's: K1 raises, naming the ROADMAP item of its
+    column-tiled variant, and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    th = 0.1 * np.random.default_rng(6).normal(size=(4096, p + 1))
+    tgt = hierarchical_logistic(n=1000, p=p, dtype=dtype, device="cuda")
+    before = k1.logistic_value_grad.launches
+    th_card = torch.as_tensor(th, dtype=dtype, device="cuda")
+    if dtype == torch.float32:
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md section 2, item 2"):
+            tgt.logdensity_and_grad(th_card)
+        assert k1.logistic_value_grad.launches == before
+        return
+    lp, g = tgt.logdensity_and_grad(th_card)
+    torch.cuda.synchronize()
+    assert k1.logistic_value_grad.launches == before
+    assert lp.dtype == g.dtype == dtype and g.shape == (4096, p + 1)
+    ref = hierarchical_logistic(n=1000, p=p, dtype=torch.float64,
+                                device="cpu")
+    lp64, g64 = ref.logdensity_and_grad(torch.as_tensor(th))
+    tol = 1e-10
+    assert float((lp.cpu().double() - lp64).abs().max()) <= tol * float(
+        lp64.abs().max())
+    assert float((g.cpu().double() - g64).abs().max()) <= tol * float(
+        g64.abs().max())
 
 
 # the logistic cases: (ε, max_depth, T)

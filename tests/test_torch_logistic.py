@@ -7,6 +7,10 @@ does; the PyTorch side runs on the CPU, where K1's wrapper takes its plain
 version.
 """
 
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -97,6 +101,56 @@ def test_cpu_tensors_take_the_plain_version():
                                    device="cpu")
     tgt.logdensity_and_grad(th)
     assert k1.logistic_value_grad.launches == before == 0
+
+
+def test_model_dispatch_predicate_matches_the_kernel_source():
+    """The model sends every float32 θ on CUDA to K1, as the JAX model sends
+    every float32 θ to its Pallas kernel; float64 and the CPU take the
+    model's analytic path. Above `fused_logistic_max_dim()` = 8 · kMaxKSteps
+    + 1, read from the kernel's source, the wrapper raises, naming the
+    ROADMAP item of the column-tiled variant, before it builds anything
+    (here on meta tensors, which no kernel could take)."""
+    src = (Path(k1.__file__).resolve().parent.parent / "csrc" /
+           "fused_logistic.cu").read_text()
+    k_max = int(re.search(r"constexpr int kMaxKSteps = (\d+);", src).group(1))
+    assert re.search(r"int fused_logistic_max_dim\(\) \{ return "
+                     r"8 \* kMaxKSteps \+ 1; \}", src)
+    assert k1.MAX_DIM == 8 * k_max + 1
+
+    def theta(cuda, dtype, dim):
+        return SimpleNamespace(is_cuda=cuda, dtype=dtype, shape=(64, dim))
+
+    f32, f64 = torch.float32, torch.float64
+    assert k1.kernel_route(theta(True, f32, 100))
+    assert k1.kernel_route(theta(True, f32, k1.MAX_DIM))
+    assert k1.kernel_route(theta(True, f32, k1.MAX_DIM + 1))
+    assert not k1.kernel_route(theta(True, f64, 100))
+    assert not k1.kernel_route(theta(False, f32, 100))
+    wide = k1.MAX_DIM + 1
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md section 2, item 2: K1 and K2"):
+        k1.logistic_value_grad(torch.empty(4, wide, device="meta"),
+                               torch.empty(N, wide - 1, device="meta"),
+                               torch.empty(N, device="meta"))
+
+
+@pytest.mark.parametrize("p,dtype", [(200, torch.float64),
+                                     (200, torch.float32)])
+def test_model_wider_than_k1_matches_jax_analytic(p, dtype):
+    """p = 200, beyond K1's width: the model's analytic value+grad against
+    the JAX model's in float64 (float32 held to its own rounding)."""
+    th = 0.1 * np.random.default_rng(3).normal(size=(6, p + 1))
+    tj = jax_logistic(n=N, p=p, dtype=jnp.float64)
+    lp_j, g_j = jax.vmap(tj.logdensity_and_grad)(jnp.asarray(th))
+    tt = ah.hierarchical_logistic(n=N, p=p, dtype=dtype, device="cpu")
+    lp_t, g_t = tt.logdensity_and_grad(torch.as_tensor(th, dtype=dtype))
+    assert lp_t.dtype == g_t.dtype == dtype and g_t.shape == (6, p + 1)
+    rtol = 1e-10 if dtype == torch.float64 else 1e-4
+    np.testing.assert_allclose(lp_t.double().numpy(), np.asarray(lp_j),
+                               rtol=rtol)
+    scale = float(np.abs(np.asarray(g_j)).max())
+    assert float(np.abs(g_t.double().numpy() - np.asarray(g_j)).max()) \
+        <= rtol * scale
 
 
 def test_non_cpu_tensor_is_never_run_plain():

@@ -6,6 +6,9 @@ same numpy inputs on both sides: float64 on both, held to 1e-10 (the flags
 exactly).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -269,8 +272,6 @@ def test_unported_options_raise_not_implemented():
         lambda: ah.AdaptState.init(ah.AdaptorConfig(mm_kind="nutpie"), DIM,
                                    0.1),
         lambda: ah.SampleSpec(target=tgt, kernel=kernel,
-                              adaptor=ah.AdaptorConfig(), cross_chain=False),
-        lambda: ah.SampleSpec(target=tgt, kernel=kernel,
                               adaptor=ah.AdaptorConfig(), cross_chain=True,
                               coupled=True),
         lambda: ah.hierarchical_logistic(n=N, p=P, x_dtype="bfloat16",
@@ -283,13 +284,38 @@ def test_unported_options_raise_not_implemented():
                           adaptor=ah.AdaptorConfig(), cross_chain=True,
                           fuse_draws=4, fuse_warmup=True,
                           fuse_warmup_block=4, mesh=object(), device="cpu"),
+        # the per-chain fused warmup (JAX `fused_warmup_phase`)
+        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
+                          adaptor=ah.AdaptorConfig(), fuse_warmup=True,
+                          device="cpu"),
+        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
+                          adaptor=ah.AdaptorConfig(), drop_warmup=True,
+                          thin=2, device="cpu"),
+        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
+                          adaptor=ah.AdaptorConfig(), drop_warmup=True,
+                          collect="online", device="cpu"),
         lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
                           adaptor=ah.AdaptorConfig(), cross_chain=True,
-                          fuse_draws=0, device="cpu"),
+                          fuse_draws=4, fuse_pair=True, device="cpu"),
     ]
     for case in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md section \d, item \d: "):
             case()
+
+
+def test_roadmap_items_exist():
+    """Every message about a part the port lacks names its ROADMAP.md item
+    from `utils.ROADMAP_ITEMS`; each entry is an item of that number and
+    title in its section of ROADMAP.md."""
+    text = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
+    for section, item, title in ut.ROADMAP_ITEMS.values():
+        body = re.split(rf"^### {section}\. .*$", text, flags=re.M)[1]
+        body = body.split("\n### ")[0]
+        assert re.search(rf"^{item}\. \*\*{re.escape(title)}", body,
+                         flags=re.M), (section, item, title)
+    assert ut.roadmap("wide") == \
+        "(ROADMAP.md section 2, item 2: K1 and K2 for p > 128)"
 
 
 def test_state_constructors_need_cuda_or_explicit_cpu(monkeypatch):
