@@ -40,8 +40,46 @@
 // inputs give identical bits.
 //
 // Inputs and sums are float32 (the TPU kernel's bfloat16 inputs were a TPU
-// default). Ragged C and n are masked here. p is at most 8 * 16 = 128: the
-// gradient's columns are compiled into register arrays (KSteps instances).
+// default). Ragged C and n are masked here. The narrow kernel takes p up to
+// 8 * 16 = 128: the gradient's columns are compiled into register arrays
+// (KSteps instances). A wider p goes to the wide kernel below, which has no
+// limit on p: it tiles the columns.
+//
+// The wide kernel (p > 128). At p = 999 a block's beta and two x tiles at
+// full width would need ~514 KB of shared memory, and the gradient would not
+// fit in registers. So the columns are cut into chunks of kChunk = 128, the
+// width of the narrow kernel's largest instance, and the rows into panels
+// of kPanelTiles tiles of 32. A block still owns 64 chains (16 a warp) and a
+// cluster rank's contiguous share of the row tiles, as above. For each of
+// its panels it runs two stages:
+//
+//   stage A  for each column chunk (beta's chunk staged once), for each row
+//            tile (x[tile, chunk] streamed by cp.async, double-buffered):
+//            product 1 of the chunk, added in float32 into the panel's
+//            logits in shared memory (64 chains x 128 rows); then the
+//            epilogue turns them into lp and residuals, in place;
+//   stage B  for each column chunk, for each row tile: product 2 from the
+//            residuals in shared memory into the warp's 16 x 128
+//            accumulators; then the cluster's ranks sum their partials of
+//            the chunk in rank order through distributed shared memory and
+//            add the sum to the gradient in device memory (the first panel
+//            writes it). The same thread owns an output element in every
+//            panel, so the panels add in a fixed order too.
+//
+// Like the narrow kernel and the TPU kernel, the (C, n) logits and residuals
+// never leave the chip: a panel's live in shared memory between the stages.
+// A block has 8 warps, two for each 16 chains: in stage A the two split the
+// tile's rows, in stage B the chunk's columns. Shared memory is ~101 KB a
+// block, so two blocks (16 warps) share an SM, and the row split across a
+// cluster (up to 16 blocks, a size the H100 allows beyond the portable 8)
+// fills the card as above: at C = 1024, 16 chain tiles x 16 ranks = 256
+// blocks; at C = 1 (the step-size search) 16 blocks of 2 row tiles each.
+// No atomics: identical inputs give identical bits. Bound at C = 1024,
+// p = 999, n = 1000: 3 * 4 * C*p*n operations at the TF32 rate, 24.8 us;
+// the design matrix is read from L2 twice per chain tile (stages A and B),
+// 8 MB a tile. Measured on an H100 (scripts/k1_wide_ablation.py), the time
+// at C <= 1024 is one block's serial path, not the card's rate: C = 1 takes
+// 0.13 ms against 0.32 ms at C = 1024.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -303,18 +341,464 @@ const Instance* instance_for(int dim) {
   return nullptr;
 }
 
+// ------------------------------------------------------------ wide kernel
+constexpr int kWideKSteps = 16;                    // k-steps of 8 a chunk
+constexpr int kChunk = 8 * kWideKSteps;            // columns per chunk
+constexpr int kWideS = x_stride(kWideKSteps);      // 132, 4 mod 8
+constexpr int kPanelTiles = 4;                     // row tiles per panel
+constexpr int kPanelRows = kPanelTiles * kTileRows;
+// Row stride of the panel's logits and residuals: 8 mod 32, so that the
+// float2 accesses of a C fragment (rows 2t, 2t+1 of chain g) and of product
+// 2's A fragment (the same elements) hit 32 different banks per half-warp.
+constexpr int kResStride = kPanelRows + 8;
+// Warps per block: kHalves warps share each 16 chains; in stage A they
+// split the tile's n-tiles (rows), in stage B the chunk's n-tiles (columns),
+// so that their outputs are disjoint. At C <= 1024 a block's serial path
+// sets the time, and the halves halve it.
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kHalves = kWideWarps / 4;
+constexpr int kNJ = 4 / kHalves;                   // product 1's n-tiles
+constexpr int kNNT = kWideKSteps / kHalves;        // product 2's n-tiles
+// Two blocks per SM (launch bounds: at most 128 registers a thread; ~101 KB
+// of shared memory a block): at C = 1024 the card then takes 16 chain tiles
+// x 16 ranks in one wave, 0.315 ms against 0.485 at one block per SM
+// (scripts/k1_wide_ablation.py, H100).
+constexpr int kWideMinBlocks = 2;
+// Blocks per cluster: above 8 a non-portable size, which the H100 allows.
+constexpr int kWideMaxSplit = 16;
+static_assert(kWideWarps % 4 == 0 && 4 % kHalves == 0, "warps per block");
+
+__host__ __device__ constexpr size_t wide_smem_floats() {
+  // beta's chunk (after stage A the block's partial gradient chunk), two x
+  // tiles of a chunk, the panel's logits/residuals, its y, the partial lp
+  return (size_t)kChains * kWideS + 2 * kTileRows * kWideS +
+         (size_t)kChains * kResStride + kPanelRows + kHalves * kChains;
+}
+
+// Product 1 of one x tile over one column chunk for the warp's 16 chains
+// and kNJ of the tile's n-tiles: d[j] is the C fragment of the rows 8j..
+// 8j+7 after `xs`. Short chains as in warp_tile: each k-step's three mma
+// from zero, added in float32.
+__device__ __forceinline__ void chunk_logits(const float* __restrict__ bs,
+                                             const float* __restrict__ xs,
+                                             int n_ks, float (&out)[kNJ][4]) {
+  constexpr int S = kWideS;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[j][i] = 0.f;
+  }
+#pragma unroll
+  for (int ks0 = 0; ks0 < kWideKSteps; ks0 += 2) {
+    if (ks0 < n_ks) {
+      // two k-steps' chains side by side: 2 kNJ independent mma in flight
+      float d[2][kNJ][4] = {};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (ks0 + q < n_ks) {
+          const float* br = bs + g * S + 8 * (ks0 + q) + t;
+          uint32_t a_hi[4], a_lo[4];
+          logistic_tile::split_tf32(br[0], a_hi[0], a_lo[0]);
+          logistic_tile::split_tf32(br[8 * S], a_hi[1], a_lo[1]);
+          logistic_tile::split_tf32(br[4], a_hi[2], a_lo[2]);
+          logistic_tile::split_tf32(br[8 * S + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) {
+            const float* xr = xs + (8 * j + g) * S + 8 * (ks0 + q) + t;
+            uint32_t b_hi[2], b_lo[2];
+            logistic_tile::split_tf32(xr[0], b_hi[0], b_lo[0]);
+            logistic_tile::split_tf32(xr[4], b_hi[1], b_lo[1]);
+            logistic_tile::mma_3xtf32(d[q][j], a_hi, a_lo, b_hi, b_lo);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) out[j][i] += d[0][j][i] + d[1][j][i];
+      }
+    }
+  }
+}
+
+// Product 2 of one x tile over one column chunk: acc[nt] (the chunk's
+// columns 8(nt0+nt)..+7) += the tile's residuals times x, one chain of four
+// k-steps (the tile's 32 rows) from zero, added in float32. `rs` holds the
+// warp's 16 chains' residuals of this tile's rows (row stride kResStride);
+// n-tiles from `n_nt` on lie past p.
+__device__ __forceinline__ void chunk_grad(const float* __restrict__ rs,
+                                           const float* __restrict__ xs,
+                                           int nt0, int n_nt,
+                                           float (&acc)[kNNT][4]) {
+  constexpr int S = kWideS;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float d[kNNT][4] = {};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // A order (chain g, row r0), (g+8, r0), (g, r0+1), (g+8, r0+1), r0 =
+    // 8j + 2t: the C fragment of product 1, as in warp_tile
+    const float2 v0 =
+        *reinterpret_cast<const float2*>(rs + g * kResStride + 8 * j + 2 * t);
+    const float2 v1 = *reinterpret_cast<const float2*>(
+        rs + (g + 8) * kResStride + 8 * j + 2 * t);
+    uint32_t a_hi[4], a_lo[4];
+    logistic_tile::split_tf32(v0.x, a_hi[0], a_lo[0]);
+    logistic_tile::split_tf32(v1.x, a_hi[1], a_lo[1]);
+    logistic_tile::split_tf32(v0.y, a_hi[2], a_lo[2]);
+    logistic_tile::split_tf32(v1.y, a_hi[3], a_lo[3]);
+#pragma unroll
+    for (int nt = 0; nt < kNNT; ++nt) {
+      if (nt0 + nt < n_nt) {
+        const float* xc = xs + (8 * j + 2 * t) * S + 8 * (nt0 + nt) + g;
+        uint32_t b_hi[2], b_lo[2];
+        logistic_tile::split_tf32(xc[0], b_hi[0], b_lo[0]);
+        logistic_tile::split_tf32(xc[S], b_hi[1], b_lo[1]);
+        logistic_tile::mma_3xtf32(d[nt], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNNT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] += d[nt][i];
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
+fused_logistic_wide_kernel(const float* __restrict__ theta,
+                           const float* __restrict__ x,
+                           const float* __restrict__ y,
+                           float* __restrict__ lp, float* __restrict__ grad,
+                           int n_chains, int dim, int n) {
+  constexpr int S = kWideS;
+  extern __shared__ __align__(16) float smem[];
+  float* bs = smem;                             // [kChains][S]
+  float* xs = bs + kChains * S;                 // [2][kTileRows][S]
+  float* res = xs + 2 * kTileRows * S;          // [kChains][kResStride]
+  float* yp = res + kChains * kResStride;       // [kPanelRows]
+  float* part_lp = yp + kPanelRows;             // [kHalves][kChains]
+  float* part = bs;                             // [kChains][S], stage B
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int c0 = (int)(blockIdx.x / n_ranks) * kChains;
+  const int p = dim - 1;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int group = warp % 4, half = warp / 4;  // 16 chains, share of them
+  const int g = lane / 4, t = lane % 4;
+  const int cw = 16 * group + g;                // the lane's chains cw, cw+8
+  const int j0 = kNJ * half;                    // stage A: rows 8 j0 + ..
+  const int nt0 = kNNT * half;                  // stage B: columns 8 nt0 + ..
+
+  const int n_chunks = (p + kChunk - 1) / kChunk;
+  const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int tile_begin = rank * n_tiles / n_ranks;
+  const int tile_end = (rank + 1) * n_tiles / n_ranks;
+  // every rank walks as many panels as the rank with the most tiles (the
+  // cluster meets at every chunk of stage B), at least one, so that the
+  // gradient is written also where n is 0
+  const int max_tiles = (n_tiles + n_ranks - 1) / n_ranks;
+  const int n_panels = max(1, (max_tiles + kPanelTiles - 1) / kPanelTiles);
+
+  // x[tile, chunk] into buffer `buf`: warps over rows, lanes over columns;
+  // rows past n and columns past p are zero-filled
+  auto stage_x = [&](int chunk, int tile, int buf) {
+    const int r0 = tile * kTileRows, k0 = chunk * kChunk;
+    float* dst = xs + buf * kTileRows * S;
+    for (int r = warp; r < kTileRows; r += kWideWarps) {
+      const bool row_ok = r0 + r < n;
+      const float* src = x + (size_t)(row_ok ? r0 + r : 0) * p;
+      for (int k = lane; k < kChunk; k += 32) {
+        const bool ok = row_ok && k0 + k < p;
+        cp_async4(dst + r * S + k, src + (ok ? k0 + k : 0), ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // beta's chunk of the block's chains (zero past n_chains and past p)
+  auto stage_beta = [&](int chunk) {
+    const int k0 = chunk * kChunk;
+    for (int r = warp; r < kChains; r += kWideWarps) {
+      const bool chain_ok = c0 + r < n_chains;
+      const float* src = theta + (size_t)(chain_ok ? c0 + r : 0) * dim + 1;
+      for (int k = lane; k < kChunk; k += 32) {
+        const bool ok = chain_ok && k0 + k < p;
+        cp_async4(bs + r * S + k, src + (ok ? k0 + k : 0), ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float lp_g = 0.f, lp_g8 = 0.f;
+  for (int panel = 0; panel < n_panels; ++panel) {
+    const int t0 = tile_begin + panel * kPanelTiles;
+    const int nt_p = max(0, min(tile_end, t0 + kPanelTiles) - t0);
+
+    // ---- stage A: the panel's logits, chunk by chunk
+    if (nt_p > 0) {
+      for (int i = tid; i < kPanelRows; i += kWideThreads) {
+        const int row = t0 * kTileRows + i;
+        const bool ok = i < nt_p * kTileRows && row < n;
+        cp_async4(yp + i, y + (ok ? row : 0), ok);
+      }
+      stage_beta(0);  // one group with the panel's y
+      stage_x(0, t0, 0);
+    }
+    const int steps = n_chunks * nt_p;
+    for (int s = 0; s < steps; ++s) {
+      const int chunk = s / nt_p, i = s % nt_p, buf = s & 1;
+      // beta's buffer is free: the previous step ended in a barrier
+      if (i == 0 && s > 0) stage_beta(chunk);
+      if (s + 1 < steps) {
+        stage_x((s + 1) / nt_p, t0 + (s + 1) % nt_p, buf ^ 1);
+        cp_async_wait<1>();  // this step's tile and beta have landed
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      float d[kNJ][4];
+      chunk_logits(bs + 16 * group * S, xs + (buf * kTileRows + 8 * j0) * S,
+                   min(kWideKSteps, (p - chunk * kChunk + 7) / 8), d);
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        const int r0 = kTileRows * i + 8 * (j0 + j) + 2 * t;
+        float2* l0 = reinterpret_cast<float2*>(res + cw * kResStride + r0);
+        float2* l8 =
+            reinterpret_cast<float2*>(res + (cw + 8) * kResStride + r0);
+        if (chunk == 0) {
+          *l0 = make_float2(d[j][0], d[j][1]);
+          *l8 = make_float2(d[j][2], d[j][3]);
+        } else {
+          const float2 a = *l0, b = *l8;
+          *l0 = make_float2(a.x + d[j][0], a.y + d[j][1]);
+          *l8 = make_float2(b.x + d[j][2], b.y + d[j][3]);
+        }
+      }
+      __syncthreads();  // both buffers are free for the steps after next
+    }
+    // epilogue: each lane turns its own logits into residuals, in place
+    for (int i = 0; i < nt_p; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        const int r0 = kTileRows * i + 8 * (j0 + j) + 2 * t;
+        const int row = t0 * kTileRows + r0;
+        const float w0 = row < n ? 1.f : 0.f;
+        const float w1 = row + 1 < n ? 1.f : 0.f;
+        float2* l0 = reinterpret_cast<float2*>(res + cw * kResStride + r0);
+        float2* l8 =
+            reinterpret_cast<float2*>(res + (cw + 8) * kResStride + r0);
+        const float2 a = *l0, b = *l8;
+        float2 ra, rb;
+        ra.x = logistic_tile::logit_term(a.x, yp[r0], w0, lp_g);
+        ra.y = logistic_tile::logit_term(a.y, yp[r0 + 1], w1, lp_g);
+        rb.x = logistic_tile::logit_term(b.x, yp[r0], w0, lp_g8);
+        rb.y = logistic_tile::logit_term(b.y, yp[r0 + 1], w1, lp_g8);
+        *l0 = ra;
+        *l8 = rb;
+      }
+    }
+    // product 2 reads every row of the tile: the other halves' residuals
+    __syncthreads();
+
+    // ---- stage B: the gradient, chunk by chunk
+    if (nt_p > 0) stage_x(0, t0, 0);
+    for (int chunk = 0; chunk < n_chunks; ++chunk) {
+      const int k0 = chunk * kChunk;
+      float acc[kNNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNNT; ++nt) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
+      }
+      const int n_nt = min(kWideKSteps, (p - k0 + 7) / 8);
+      for (int i = 0; i < nt_p; ++i) {
+        const int buf = i & 1;
+        if (i + 1 < nt_p) {
+          stage_x(chunk, t0 + i + 1, buf ^ 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        chunk_grad(res + 16 * group * kResStride + kTileRows * i,
+                   xs + buf * kTileRows * S, nt0, n_nt, acc);
+        __syncthreads();
+      }
+      // the next chunk's first tile loads while the cluster sums this one
+      if (nt_p > 0 && chunk + 1 < n_chunks) stage_x(chunk + 1, t0, 0);
+#pragma unroll
+      for (int nt = 0; nt < kNNT; ++nt) {
+        const int k = 8 * (nt0 + nt) + 2 * t;
+        *reinterpret_cast<float2*>(part + cw * S + k) =
+            make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(part + (cw + 8) * S + k) =
+            make_float2(acc[nt][2], acc[nt][3]);
+      }
+      cluster.sync();
+      // every rank's partial, in rank order, added to the gradient; the
+      // cluster's ranks share the chunk's outputs
+      for (int e = rank * kWideThreads + tid; e < kChains * kChunk;
+           e += n_ranks * kWideThreads) {
+        const int c = e / kChunk, k = e % kChunk;
+        if (c0 + c < n_chains && k0 + k < p) {
+          float part_q[kWideMaxSplit];
+#pragma unroll
+          for (int q = 0; q < kWideMaxSplit; ++q) {
+            part_q[q] =
+                q < n_ranks ? cluster.map_shared_rank(part, q)[c * S + k]
+                            : 0.f;
+          }
+          float v = 0.f;
+#pragma unroll
+          for (int q = 0; q < kWideMaxSplit; ++q) v += part_q[q];
+          float* out = grad + (size_t)(c0 + c) * dim + 1 + k0 + k;
+          *out = panel == 0 ? v : *out + v;
+        }
+      }
+      cluster.sync();  // no rank writes its partial while another reads it
+    }
+  }
+
+  // lp of chains g, g+8 over the 4 lanes t of the group, in a fixed order,
+  // then over the halves and the ranks in order
+  lp_g += __shfl_xor_sync(0xffffffffu, lp_g, 1);
+  lp_g += __shfl_xor_sync(0xffffffffu, lp_g, 2);
+  lp_g8 += __shfl_xor_sync(0xffffffffu, lp_g8, 1);
+  lp_g8 += __shfl_xor_sync(0xffffffffu, lp_g8, 2);
+  if (t == 0) {
+    part_lp[half * kChains + cw] = lp_g;
+    part_lp[half * kChains + cw + 8] = lp_g8;
+  }
+  cluster.sync();
+  for (int c = rank * kWideThreads + tid; c < kChains;
+       c += n_ranks * kWideThreads) {
+    if (c0 + c < n_chains) {
+      float part_q[kWideMaxSplit];
+#pragma unroll
+      for (int q = 0; q < kWideMaxSplit; ++q) {
+        float v = 0.f;
+        if (q < n_ranks) {
+          const float* pq = cluster.map_shared_rank(part_lp, q);
+#pragma unroll
+          for (int h = 0; h < kHalves; ++h) v += pq[h * kChains + c];
+        }
+        part_q[q] = v;
+      }
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWideMaxSplit; ++q) v += part_q[q];
+      lp[c0 + c] = v;
+      grad[(size_t)(c0 + c) * dim] = 0.f;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
+// Blocks per cluster of the wide kernel: as row_split, up to kWideMaxSplit.
+int wide_split(int n_chains, int n, int slots) {
+  const int chain_tiles = (n_chains + kChains - 1) / kChains;
+  const int row_tiles = (n + kTileRows - 1) / kTileRows;
+  return std::max(1,
+                  std::min({slots / chain_tiles, kWideMaxSplit, row_tiles}));
+}
+
+cudaError_t prepare_wide(int* sms, int* per_sm) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  const size_t smem = wide_smem_floats() * sizeof(float);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(fused_logistic_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(fused_logistic_wide_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess && kWideMaxSplit > kMaxSplit) {
+    err = cudaFuncSetAttribute(fused_logistic_wide_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, fused_logistic_wide_kernel, kWideThreads, smem);
+  }
+  return err;
+}
+
+// The launch configuration of the wide kernel at `split` blocks per
+// cluster; `attr` holds the cluster's dimension.
+cudaLaunchConfig_t wide_config(int n_chains, int split,
+                               cudaLaunchAttribute* attr,
+                               cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((n_chains + kChains - 1) / kChains) * split);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = wide_smem_floats() * sizeof(float);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Blocks per cluster for a call's shape: wide_split, halved until the card
+// can place such a cluster at all (a cluster's blocks share one GPC).
+cudaError_t wide_launch_split(int n_chains, int n, int* split) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = prepare_wide(&sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  *split = wide_split(n_chains, n, sms * std::max(per_sm, 1));
+  while (*split > 1) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = wide_config(n_chains, *split, attr, 0);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters,
+                                         fused_logistic_wide_kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters > 0) break;
+    *split /= 2;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t launch_wide(const float* theta, const float* x, const float* y,
+                        float* lp, float* grad, int n_chains, int dim, int n,
+                        cudaStream_t stream) {
+  int split = 1;
+  const cudaError_t err = wide_launch_split(n_chains, n, &split);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = wide_config(n_chains, split, attr, stream);
+  return cudaLaunchKernelEx(&cfg, fused_logistic_wide_kernel, theta, x, y,
+                            lp, grad, n_chains, dim, n);
+}
+
 }  // namespace
 
 extern "C" {
 
-// The largest dim (p + 1) the kernel takes.
-int fused_logistic_max_dim() { return 8 * kMaxKSteps + 1; }
-
-// Dynamic shared memory of one block for a given dim (bytes), 0 if the
-// kernel does not take that dim.
+// Dynamic shared memory of one block for a given dim (bytes): the narrow
+// instance's up to dim 129, the wide kernel's beyond.
 size_t fused_logistic_smem_bytes(int dim) {
   const Instance* inst = instance_for(dim);
-  return inst ? smem_floats(inst->ksteps) * sizeof(float) : 0;
+  return (inst ? smem_floats(inst->ksteps) : wide_smem_floats()) *
+         sizeof(float);
 }
 
 // Resident blocks per SM and blocks per cluster (row splits per chain tile)
@@ -324,12 +808,18 @@ void fused_logistic_launch_shape(int n_chains, int dim, int n, int* per_sm,
   const Instance* inst = instance_for(dim);
   int sms = 0;
   *per_sm = *split = 0;
-  if (!inst || inst->prepare(&sms, per_sm) != cudaSuccess) {
-    cudaGetLastError();
-    *per_sm = 0;
+  const cudaError_t err =
+      inst ? inst->prepare(&sms, per_sm) : prepare_wide(&sms, per_sm);
+  if (err == cudaSuccess && inst) {
+    *split = row_split(n_chains, n, sms * std::max(*per_sm, 1));
     return;
   }
-  *split = row_split(n_chains, n, sms * std::max(*per_sm, 1));
+  if (err == cudaSuccess &&
+      wide_launch_split(n_chains, n, split) == cudaSuccess) {
+    return;
+  }
+  cudaGetLastError();
+  *per_sm = *split = 0;
 }
 
 // theta (n_chains, dim), x (n, dim - 1), y (n,), lp (n_chains,),
@@ -339,10 +829,14 @@ int fused_logistic_value_grad_f32(const float* theta, const float* x,
                                   const float* y, float* lp, float* grad,
                                   int n_chains, int dim, int n, void* stream) {
   if (n_chains <= 0) return 0;
+  // p <= 128 takes the narrow instance that holds it, a wider p the wide
+  // kernel
   const Instance* inst = instance_for(dim);
-  if (!inst) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = inst->launch(theta, x, y, lp, grad, n_chains, dim,
-                                       n, (cudaStream_t)stream);
+  const cudaError_t err =
+      inst ? inst->launch(theta, x, y, lp, grad, n_chains, dim, n,
+                          (cudaStream_t)stream)
+           : launch_wide(theta, x, y, lp, grad, n_chains, dim, n,
+                         (cudaStream_t)stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that it is not reported again later
     return (int)err;

@@ -18,7 +18,14 @@ tiles of 32 rows and carries the logits in registers from the first product
 to the residuals of the second. For small C the rows are split across the
 blocks of a cluster, whose partial sums are added in a fixed order: no
 atomics, so identical inputs give identical bits. Inputs and sums are
-float32 (the TPU kernel's bfloat16 inputs were a TPU default); p ≤ 128.
+float32 (the TPU kernel's bfloat16 inputs were a TPU default).
+
+The kernel takes any p, as the TPU kernel does. Up to p = 128 a chain's
+gradient stays in registers (the narrow instances); a wider p goes to the
+wide variant in the same source, which cuts the columns into chunks of 128
+and the rows into panels of 128, keeps a panel's logits and residuals in
+shared memory between its two products, and sums a chunk's partials across
+the cluster in rank order.
 
 `logistic_value_grad` dispatches on the device of θ: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the kernel or raises.
@@ -31,20 +38,16 @@ import ctypes
 
 import torch
 
-from ..utils import roadmap
 from . import _build
 
 _LIB = "fused_logistic"
-# The widest θ the kernel takes, `fused_logistic_max_dim()` of
-# csrc/fused_logistic.cu (8 · kMaxKSteps + 1); a test reads it from there.
-MAX_DIM = 129
 
 
 def kernel_route(theta):
     """Whether `theta` is the kernel's to compute: a float32 CUDA tensor,
-    as the TPU kernel takes any float32 θ. Callers with another path of
-    their own (float64, the CPU) dispatch on this before the call; above
-    MAX_DIM columns the wrapper raises."""
+    as the TPU kernel takes any float32 θ, of any width. Callers with
+    another path of their own (float64, the CPU) dispatch on this before
+    the call."""
     return theta.is_cuda and theta.dtype == torch.float32
 
 
@@ -63,7 +66,6 @@ def _kernel(lib):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.fused_logistic_max_dim.restype = ctypes.c_int
         lib.fused_logistic_smem_bytes.argtypes = [ctypes.c_int]
         lib.fused_logistic_smem_bytes.restype = ctypes.c_size_t
         lib.fused_logistic_launch_shape.argtypes = [ctypes.c_int] * 3 + [
@@ -96,10 +98,6 @@ def logistic_value_grad(theta, x, y):
     `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`."""
     if theta.device.type == "cpu":
         return plain_logistic_value_grad(theta, x, y)
-    if theta.shape[-1] > MAX_DIM:
-        raise NotImplementedError(
-            f"K1 keeps a chain's gradient in registers; dim "
-            f"{theta.shape[-1]} exceeds {MAX_DIM} " + roadmap("wide"))
     _check_inputs(theta, x, y)
     lib = _build.load(_LIB)
     fn = _kernel(lib)

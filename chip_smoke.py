@@ -47,7 +47,23 @@ Phases (any failure exits non-zero):
    M⁻¹ from its final state. Gated on finite draws, divergence,
    acceptance, the posterior moments, the per-chain ε (4096,) and M⁻¹
    (4096, 100), the fused draws' step size, and K1's launches (counted
-   from 0 over the phase) against the target's value+grad calls.
+   from 0 over the phase) against the target's value+grad calls;
+9. the wide path: K1's wide kernel (p > 128) against float64 and its plain
+   version at six shapes up to p = 2047, two calls bitwise equal, timed at
+   the path's shapes beside its bound, its plain version and cuBLAS's two
+   products; then `sample()` on the 1000-D hierarchical logistic (p = 999,
+   n = 1000) at 1024 chains with the main path's NUTS and cross-chain
+   warmup (128 iterations, the whole batch, no fan-out) and 64 fused
+   draws (16 per call), with every kernel's launch count set to 0 just
+   before and read just after. Gated on finite draws, divergence,
+   acceptance, K1's launches against the target's value+grad calls, and
+   the posterior moments against the JAX package's (scripts/
+   wide_reference.py, four runs) within 4 combined MCSEs plus 3 standard
+   deviations between the JAX runs.
+
+Kernel times are device times: a CUDA graph of 20-50 launches replayed
+between CUDA events, so that the wrapper's host cost is not in them; the
+back-to-back time through the wrapper is printed beside as `wrapper_ms`.
 
 It prints the main path's results as one JSON line, the kernels' line
 (`{"kernels": [...]}`), the card's name and power limit, and last
@@ -108,9 +124,11 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of one call of `fn`, over `reps` calls after a
-    warm-up, from CUDA events."""
+def wrapper_ms(fn, reps):
+    """Mean time of one call of `fn` issued back to back, over `reps` calls
+    after a warm-up, from CUDA events: where the wrapper's host cost (output
+    allocation, input checks, the ctypes call) exceeds the kernel, this is
+    the host's time, not the device's."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -122,6 +140,39 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, replays=3):
+    """Mean device time of one call of `fn`: `reps` calls captured once in a
+    CUDA graph (their outputs allocated once, in the graph's pool), the
+    graph replayed `replays` times between CUDA events. The host issues one
+    replay, so its cost per call is not in the time. The launch counts end
+    as they were: capture records the kernels without launching them, and
+    the replays launch them without passing the wrappers."""
+    counts = read_launches()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the wrappers' per-launch attribute and occupancy queries are
+    # not stream work and stay out of the graph
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    for name, wrapper in _wrappers().items():
+        wrapper.launches = counts[name]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
 
 
 def _wrappers():
@@ -168,6 +219,37 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 2
+def time_k1(theta, x, y):
+    """K1's timing row at one shape: device time (a CUDA graph of its
+    launches), the wrapper's back-to-back time, the plain version's device
+    time, the two float32 cuBLAS products alone (logits = β·xᵀ, grad =
+    r·x; a yardstick the port never calls), and the bound."""
+    from advancedhmc_torch.ops import fused_logistic as k1
+
+    (c, dim), n = theta.shape, x.shape[0]
+    reps = 20 if c >= N_CHAINS else 50
+    beta = theta[:, 1:].contiguous()
+    resid = torch.rand(c, n, device=theta.device)
+    row = dict(
+        chains=c, dim=dim, n=n,
+        ms=device_ms(lambda: k1.logistic_value_grad(theta, x, y), reps),
+        wrapper_ms=wrapper_ms(lambda: k1.logistic_value_grad(theta, x, y),
+                              reps),
+        plain_ms=device_ms(lambda: k1.plain_logistic_value_grad(theta, x, y),
+                           reps),
+        cublas_ms=device_ms(lambda: (beta @ x.T, resid @ x), reps))
+    row["bound_ms"], row["bound_by"], row["bound_ms_f32_cuda_cores"] = \
+        k1_bound_ms(c, dim, n)
+    log(f"# K1 C={c} dim={dim} n={n}: kernel {row['ms']:.4f} ms on the "
+        f"device ({row['wrapper_ms']:.4f} ms back to back through the "
+        f"wrapper), plain {row['plain_ms']:.4f} ms, cuBLAS's two products "
+        f"{row['cublas_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}, 3xTF32 on the tensor cores; "
+        f"{row['bound_ms_f32_cuda_cores']:.4f} ms by float32 on the CUDA "
+        "cores)")
+    return row
+
+
 def k1_bound_ms(c, dim, n):
     """Least time for one K1 call: the larger of the operations the kernel
     issues at float32 accuracy, 3xTF32 (three TF32 products for each of the
@@ -216,8 +298,9 @@ def k1_report():
     k1._kernel(lib)
     for p_max, regs, spill in ptxas_instances(
             "fused_logistic", r"fused_logistic_kernelILi(\d+)E"):
-        log(f"# K1 instance p <= {p_max}: {regs} registers, {spill} bytes "
-            "of spill stores (ptxas)")
+        name = f"p <= {p_max}" if p_max else "wide (p > 128)"
+        log(f"# K1 instance {name}: {regs} registers, {spill} bytes of "
+            "spill stores (ptxas)")
     per_sm, split = ctypes.c_int(), ctypes.c_int()
     for c in (N_CHAINS, WARMUP_CHAINS, 1):
         lib.fused_logistic_launch_shape(c, DIM, N_ROWS, ctypes.byref(per_sm),
@@ -235,9 +318,10 @@ def phase_k1():
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, worst = [], 0.0
     # (chains, n): the draw phase, the warmup pool, the step-size search
-    # (one chain) and a ragged chain count on a ragged row count
+    # (one chain, timed over the main path's rows) and a ragged chain count
+    # on a ragged row count
     for c, n, timed in ((N_CHAINS, N_ROWS, True),
-                        (WARMUP_CHAINS, N_ROWS, True),
+                        (WARMUP_CHAINS, N_ROWS, True), (1, N_ROWS, True),
                         (1, 300, False), (13, 300, False)):
         x_np, y_np = _synthetic_data(n, DIM - 1)
         x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
@@ -274,17 +358,7 @@ def phase_k1():
             raise RuntimeError(f"K1 disagrees with its plain version at C={c}")
         worst = max(worst, err_g, err_lp)
         if timed:
-            reps = 20 if c >= N_CHAINS else 50
-            ms = cuda_ms(lambda: k1.logistic_value_grad(theta, x, y), reps)
-            plain_ms = cuda_ms(
-                lambda: k1.plain_logistic_value_grad(theta, x, y), reps)
-            bound_ms, bound_by, f32_ms = k1_bound_ms(c, DIM, n)
-            rows.append(dict(chains=c, n=n, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             bound_ms_f32_cuda_cores=f32_ms))
-            log(f"# K1 C={c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}, 3xTF32 on the tensor "
-                f"cores; {f32_ms:.4f} ms by float32 on the CUDA cores)")
+            rows.append(time_k1(theta, x, y))
     k1_report()
     return rows, worst
 
@@ -338,21 +412,25 @@ def phase_k3():
         if c >= 1024:
             cases.append((c, d, n_steps, args))
 
-    # the microbenchmark's path: the kernel timed at its four shapes, with
-    # the launch counts set to 0 just before and read just after
-    rows = []
+    rows = [dict(chains=c, dims=d, steps=n_steps, ms=device_ms(
+        lambda: k3.fused_gaussian_leapfrog(*args), 20))
+        for c, d, n_steps, args in cases]
+    # the microbenchmark's path: the kernel called eagerly through its
+    # wrapper at its four shapes (3 + 20 calls each), with the launch counts
+    # set to 0 just before and read just after
     reset_launches()
-    for c, d, n_steps, args in cases:
-        ms = cuda_ms(lambda: k3.fused_gaussian_leapfrog(*args), 20)
-        rows.append(dict(chains=c, dims=d, steps=n_steps, ms=ms))
+    for row, (c, d, n_steps, args) in zip(rows, cases):
+        row["wrapper_ms"] = wrapper_ms(
+            lambda: k3.fused_gaussian_leapfrog(*args), 20)
     launches = read_launches()
     for row, (c, d, n_steps, args) in zip(rows, cases):
-        row["plain_ms"] = cuda_ms(
-            lambda: k3.reference_gaussian_leapfrog(*args), 5)
+        row["plain_ms"] = device_ms(
+            lambda: k3.reference_gaussian_leapfrog(*args), 5, replays=1)
         row["bound_ms"], row["bound_by"] = k3_bound_ms(c, d, n_steps)
-        log(f"# K3 C={c} D={d}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+        log(f"# K3 C={c} D={d}: kernel {row['ms']:.4f} ms on the device "
+            f"({row['wrapper_ms']:.4f} ms back to back through the wrapper),"
+            f" plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']})")
     return rows, worst, launches["fused_gaussian_leapfrog"]
 
 
@@ -980,6 +1058,278 @@ def phase_defaults(seed):
     return out, by_chains
 
 
+# ------------------------------------------------------------------ phase 9
+# The repo's 1000-D hierarchical logistic (README's 10/100/1000-D
+# portfolio; bench.py at AHMC_BENCH_DIM=1000) through sample()'s main path,
+# at the widest chain count of its recorded table: 1024 chains, the whole
+# batch warmed (bench.py: no fan-out below 4096 chains), the design in
+# float32 (bench.py's AHMC_BENCH_X_DTYPE=float32) and the single-leaf loop
+# (AHMC_BENCH_PAIR=0), the two switches the port has.
+# Draws cut from 128 to 64: at 128 the phase took 115.5 s on an H100
+# (draws 75.5 s), over the ~90 s it may take; the width, the chains and the
+# warmup are not cut.
+WIDE_ROWS, WIDE_DIM, WIDE_CHAINS = 1000, 1000, 1024
+WIDE_WARMUP, WIDE_DRAWS, WIDE_FUSE = 128, 64, 16
+# K1's wide kernel against its plain version at (C, p, n): the step-size
+# search, ragged C and n, the path's width and four times it, p = 200 (past
+# the narrow instances' 128), and twice the path's p
+WIDE_SHAPES = ((1, 999, 1000), (1000, 999, 997), (1024, 999, 1000),
+               (4096, 999, 1000), (4096, 200, 1000), (1024, 2047, 1000))
+WIDE_TIMED = ((1024, 999, 1000), (1, 999, 1000))   # the path's shapes
+# The JAX package's posterior: scripts/wide_reference.py runs JAX `sample`
+# in float64 on the CPU with this phase's settings, 1024 chains × 64 draws,
+# one run per seed:
+#   JAX_PLATFORMS=cpu python scripts/wide_reference.py --chains 1024 \
+#       --draws 64 --seeds S          (S = 0, 1, 2, 3; ~16 min each)
+# Each run's (mean log σ, MCSE), (sd log σ, MCSE), (|mean β|, MCSE) and
+# acceptance rate; no run diverged.
+WIDE_REF_RUNS = (
+    ((-1.4216668142360107, 0.014786840366395047),
+     (0.3595792036087667, 0.010455875095400911),
+     (5.5764722904037605, 0.005783396450034072), 0.6458364642068548),
+    ((-1.2700725133612583, 0.018609043787471937),
+     (0.44021924780082866, 0.0131585810535188),
+     (6.756374980012899, 0.008272404134484353), 0.6168769385735674),
+    ((-1.3531486543634053, 0.016313066555488833),
+     (0.39181934903290466, 0.011535079983333628),
+     (6.0816745275004855, 0.007114198814788947), 0.6440173588980289),
+    ((-1.5169276618034264, 0.012723630936283965),
+     (0.3149433063840599, 0.008996965716361332),
+     (4.950331363037433, 0.004198786347971704), 0.6254673169370746),
+)
+WIDE_MOMENTS = ("mean_logsigma", "sd_logsigma", "mean_beta_norm")
+# At this configuration 128 warmup iterations do not reach stationarity:
+# within each JAX run |mean β| moves by 0.27-0.40 between the first and the
+# second 32 draws, and the runs differ by far more than their MCSEs
+# (|mean β| 4.95-6.76 against MCSEs of 0.004-0.008), since every chain of
+# a run shares its warmup's ε and M⁻¹. So each moment is gated at 4 × the
+# combined MCSE (the reference mean's and this run's) plus a floor of 3 ×
+# the standard deviation between the JAX runs, which measures how far one
+# run of this configuration lands from another.
+WIDE_K_MCSE, WIDE_K_RUNS = 4.0, 3.0
+# acceptance: every JAX run lies outside δ ± 0.1 (0.617-0.646), so the gate
+# is |accept − the JAX runs' mean (0.633)| <= 0.1
+WIDE_TOL_ACCEPT = 0.1
+
+
+def wide_reference():
+    """Over the JAX runs: each moment's mean, the MCSE of that mean, the
+    standard deviation between runs; and the mean acceptance rate."""
+    n = len(WIDE_REF_RUNS)
+    ref = {}
+    for i, name in enumerate(WIDE_MOMENTS):
+        vals = [run[i][0] for run in WIDE_REF_RUNS]
+        mean = sum(vals) / n
+        ref[name] = dict(
+            mean=mean,
+            mcse=math.sqrt(sum(run[i][1] ** 2 for run in WIDE_REF_RUNS)) / n,
+            sd_between_runs=math.sqrt(
+                sum((v - mean) ** 2 for v in vals) / (n - 1)))
+    return ref, sum(run[3] for run in WIDE_REF_RUNS) / n
+
+
+def k1_wide_report():
+    """The wide kernel's registers and spills (ptxas) and, at the path's
+    shapes, its shared memory per block, resident blocks per SM and blocks
+    per cluster."""
+    import ctypes
+
+    from advancedhmc_torch.ops import _build
+    from advancedhmc_torch.ops import fused_logistic as k1
+
+    lib = _build.load("fused_logistic")
+    k1._kernel(lib)
+    (regs, spill), = [(r, sp) for p_max, r, sp in ptxas_instances(
+        "fused_logistic", r"fused_logistic_kernelILi(\d+)E") if p_max is None]
+    out = dict(
+        registers=int(regs), spill_store_bytes=int(spill),
+        smem_bytes_per_block=int(lib.fused_logistic_smem_bytes(WIDE_DIM)))
+    per_sm, split = ctypes.c_int(), ctypes.c_int()
+    for c, p, n in WIDE_TIMED:
+        lib.fused_logistic_launch_shape(c, p + 1, n, ctypes.byref(per_sm),
+                                        ctypes.byref(split))
+        out[f"C={c}"] = dict(blocks_per_sm=per_sm.value,
+                             blocks_per_cluster=split.value)
+    log(f"# K1 wide: {out['registers']} registers, "
+        f"{out['spill_store_bytes']} bytes of spill stores (ptxas), "
+        f"{out['smem_bytes_per_block']} bytes of shared memory per block; "
+        + ", ".join(f"C={c}: {out[f'C={c}']['blocks_per_sm']} blocks per "
+                    f"SM, {out[f'C={c}']['blocks_per_cluster']} blocks per "
+                    "cluster" for c, _, _ in WIDE_TIMED))
+    return out
+
+
+def phase_wide_k1():
+    """K1's wide kernel against float64 and its plain version on the card,
+    two calls bitwise equal, at WIDE_SHAPES; timing rows at the path's
+    shapes; returns (rows, largest error, report)."""
+    from advancedhmc_torch.models.logistic import _synthetic_data
+    from advancedhmc_torch.ops import fused_logistic as k1
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, worst = [], 0.0
+    for c, p, n in WIDE_SHAPES:
+        x_np, y_np = _synthetic_data(n, p)
+        x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
+        y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+        theta = 0.1 * torch.randn(c, p + 1, generator=gen, device="cuda")
+        lp, g = k1.logistic_value_grad(theta, x, y)
+        lp2, g2 = k1.logistic_value_grad(theta, x, y)
+        lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y)
+        lp_64, g_64 = k1.plain_logistic_value_grad(
+            theta.double(), x.double(), y.double())
+        torch.cuda.synchronize()
+        same = torch.equal(lp, lp2) and torch.equal(g, g2)
+        err_g = float((g.double() - g_64).abs().max())
+        err_lp = float((lp.double() - lp_64).abs().max())
+        tol_g = 1e-4 * float(g_64.abs().max())
+        tol_lp = 1e-4 * max(1.0, float(lp_64.abs().max()))
+        plain_g = float((g_p.double() - g_64).abs().max())
+        ok = (lp.shape == (c,) and g.shape == (c, p + 1)
+              and bool(torch.isfinite(lp).all() and torch.isfinite(g).all())
+              and err_g <= tol_g and err_lp <= tol_lp
+              and bool((g[:, 0] == 0).all()) and same)
+        log(f"# K1 wide C={c} p={p} n={n}: vs float64 max|Δgrad| "
+            f"{err_g:.3e} (tol {tol_g:.3e}; plain float32 {plain_g:.3e}), "
+            f"max|Δlp| {err_lp:.3e} (tol {tol_lp:.3e}), two calls bitwise "
+            f"equal {same}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"K1's wide kernel disagrees at C={c}, p={p}, "
+                               f"n={n}")
+        worst = max(worst, err_g, err_lp)
+        if (c, p, n) in WIDE_TIMED:
+            rows.append(time_k1(theta, x, y))
+    return rows, worst, k1_wide_report()
+
+
+def wide_spec():
+    import advancedhmc_torch as ah
+
+    target = ah.hierarchical_logistic(n=WIDE_ROWS, p=WIDE_DIM - 1,
+                                      dtype=torch.float32, device="cuda")
+    kernel = ah.HMCKernel(ah.Trajectory(
+        ah.Leapfrog(step_size=torch.tensor(0.05, device="cuda")),
+        ah.GeneralisedNoUTurn(max_depth=MAX_DEPTH)))
+    adaptor = ah.AdaptorConfig(
+        kind="stan", da=ah.DualAveragingConfig(delta=DELTA, kappa=0.8),
+        init_buffer=75, term_buffer=50, window_size=25)
+    return target, kernel, adaptor
+
+
+def _wide_moments(th):
+    """The three moments and their MCSEs from the pooled bulk ESS (as
+    scripts/wide_reference.py computes them)."""
+    from advancedhmc_torch.diagnostics import effective_sample_size
+
+    ess = effective_sample_size(th).double()
+    ls = th[:, :, 0].double()
+    beta_mean = th[:, :, 1:].double().mean((0, 1))
+    beta_sd = th[:, :, 1:].double().std((0, 1), correction=0)
+    norm = float(beta_mean.norm())
+    sd_ls = float(ls.std(correction=0))
+    out = {"mean_logsigma": float(ls.mean()), "sd_logsigma": sd_ls,
+           "mean_beta_norm": norm}
+    mcse = {"mean_logsigma": sd_ls / math.sqrt(float(ess[0])),
+            "sd_logsigma": sd_ls / math.sqrt(2 * float(ess[0])),
+            "mean_beta_norm": float(torch.sqrt(torch.sum(
+                (beta_mean / norm) ** 2 * beta_sd ** 2 / ess[1:])))}
+    return out, mcse, ess
+
+
+def phase_wide(seed):
+    """Drive sample() on the 1000-D model at 1024 chains, with every
+    kernel's launch count set to 0 just before and read just after, and
+    gate the result against the JAX package's posterior."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+
+    target, kernel, adaptor = wide_spec()
+    target, by_chains = count_by_chains(target)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(
+            size=(WIDE_CHAINS, WIDE_DIM)),
+        dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    metric = ah.make_metric("diagonal", WIDE_DIM, device="cuda")
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = ah.sample(
+        gen, target, kernel, metric, theta0, WIDE_WARMUP + WIDE_DRAWS,
+        n_adapts=WIDE_WARMUP, adaptor=adaptor, init_mass_matrix="gradient",
+        cross_chain=True, fuse_draws=WIDE_FUSE, fuse_warmup=True,
+        fuse_warmup_block=WARMUP_BLOCK, drop_warmup=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    by_chains = dict(sorted(by_chains.items(), reverse=True))
+    k1_launches = launches["fused_logistic_value_grad"]
+    log(f"# wide path: K1 launches by chain count {by_chains}")
+
+    th, st = res.thetas, res.stats
+    t_draw = res.timings["draws_s"]
+    moments, mcse, ess = _wide_moments(th)
+    median_ess = float(ess.quantile(0.5))
+    out = {
+        "phase": "wide path",
+        "chains": WIDE_CHAINS, "dim": WIDE_DIM, "rows": WIDE_ROWS,
+        "warmup": WIDE_WARMUP, "draws": WIDE_DRAWS, "fuse": WIDE_FUSE,
+        "init_s": res.timings["init_s"], "warmup_s": res.timings["warmup_s"],
+        "draws_s": t_draw, "wall_s": wall,
+        "effective_samples_per_s_per_chip": median_ess / t_draw,
+        "median_pooled_ess": median_ess,
+        "ess_per_s_incl_warmup":
+            median_ess / (res.timings["warmup_s"] + t_draw),
+        "min_ess_per_s": float(ess.min()) / t_draw,
+        "leapfrog_steps_per_s": float(st["n_steps"].double().sum()) / t_draw,
+        "accept_mean": float(st["acceptance_rate"].double().mean()),
+        "divergence_rate": float(st["numerical_error"].double().mean()),
+        "mean_tree_depth": float(st["tree_depth"].double().mean()),
+        "leaf_iterations_per_transition":
+            float(st["n_steps"].amax(1).double().mean()),
+        "step_size": float(res.final_state.adapt.da.eps),
+        **moments, "mcse": mcse,
+        "k1_launches": k1_launches, "k1_launches_by_chains": by_chains,
+        "launches": launches, "seed": seed,
+        "device": torch.cuda.get_device_name(0),
+    }
+    log(json.dumps(out))
+    log(f"# wide path: init {out['init_s']:.1f} s, warmup "
+        f"{out['warmup_s']:.1f} s, draws {t_draw:.1f} s, "
+        f"{out['leaf_iterations_per_transition']:.1f} leaf iterations per "
+        f"draw transition, K1 launches {k1_launches}")
+    ref, ref_accept = wide_reference()
+    out["reference"] = dict(moments=ref, accept_mean=ref_accept)
+    gates = {
+        f"draws finite, shape {(WIDE_DRAWS, WIDE_CHAINS, WIDE_DIM)}":
+            tuple(th.shape) == (WIDE_DRAWS, WIDE_CHAINS, WIDE_DIM)
+            and bool(torch.isfinite(th).all()),
+        "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
+        f"|accept - JAX's {ref_accept:.4f}| <= {WIDE_TOL_ACCEPT}":
+            abs(out["accept_mean"] - ref_accept) <= WIDE_TOL_ACCEPT,
+        "k1 launched": k1_launches > 0,
+        "k1 launches = value+grad calls": sum(by_chains.values())
+        == k1_launches,
+        "no other kernel launched": launches["fused_nuts"] == 0
+        and launches["fused_gaussian_leapfrog"] == 0,
+    }
+    for name in WIDE_MOMENTS:
+        r = ref[name]
+        floor = WIDE_K_RUNS * r["sd_between_runs"]
+        tol = WIDE_K_MCSE * math.hypot(r["mcse"], mcse[name]) + floor
+        gates[f"|{name} - JAX's {r['mean']:.4f}| <= {tol:.4f} (4 MCSE + "
+              f"3 sd between JAX runs, {floor:.4f})"] = \
+            abs(moments[name] - r["mean"]) <= tol
+    for name, ok in gates.items():
+        log(f"# gate {name}: {'ok' if ok else 'FAIL'}")
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        raise RuntimeError(f"wide-path gates failed: {failed}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1008,8 +1358,11 @@ def main(argv=None):
                *phase_k2_parity(res)]
     del res
     defaults, k1_by_chains_defaults = phase_defaults(args.seed)
+    wide_rows, wide_err, wide_shape = phase_wide_k1()
+    wide = phase_wide(args.seed)
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
+    wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
     kernels = {"kernels": [{
         "name": "fused_logistic_value_grad",
         "route": "cuda",
@@ -1028,7 +1381,29 @@ def main(argv=None):
         "bound_by": k1_row["bound_by"],
         "bound_ms_f32_cuda_cores": k1_row["bound_ms_f32_cuda_cores"],
         "library_ms": None,
+        "cublas_ms": k1_row["cublas_ms"],
+        "wrapper_ms": k1_row["wrapper_ms"],
         "shapes": k1_rows,
+    }, {
+        "name": "fused_logistic_value_grad (wide, p > 128)",
+        "route": "cuda",
+        "source": "advancedhmc_torch/csrc/fused_logistic.cu",
+        "replaces": "advancedhmc_tpu/ops/fused_logistic.py:53",
+        "launches": wide["k1_launches"],
+        "launches_by_chains": wide["k1_launches_by_chains"],
+        "max_abs_err": wide_err,
+        "max_err": wide_err,
+        "ms": wide_row["ms"],
+        "kernel_ms": wide_row["ms"],
+        "plain_ms": wide_row["plain_ms"],
+        "bound_ms": wide_row["bound_ms"],
+        "bound_by": wide_row["bound_by"],
+        "bound_ms_f32_cuda_cores": wide_row["bound_ms_f32_cuda_cores"],
+        "library_ms": None,
+        "cublas_ms": wide_row["cublas_ms"],
+        "wrapper_ms": wide_row["wrapper_ms"],
+        **wide_shape,
+        "shapes": wide_rows,
     }, {
         "name": "fused_nuts",
         "route": "cuda",
@@ -1068,6 +1443,7 @@ def main(argv=None):
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
         "library_ms": None,
+        "wrapper_ms": k3_row["wrapper_ms"],
         "shapes": k3_rows,
     }]}
     log(json.dumps(kernels))

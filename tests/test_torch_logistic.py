@@ -106,32 +106,37 @@ def test_cpu_tensors_take_the_plain_version():
 def test_model_dispatch_predicate_matches_the_kernel_source():
     """The model sends every float32 θ on CUDA to K1, as the JAX model sends
     every float32 θ to its Pallas kernel; float64 and the CPU take the
-    model's analytic path. Above `fused_logistic_max_dim()` = 8 · kMaxKSteps
-    + 1, read from the kernel's source, the wrapper raises, naming the
-    ROADMAP item of the column-tiled variant, before it builds anything
-    (here on meta tensors, which no kernel could take)."""
+    model's analytic path. K1 has no width limit, read from its source: the
+    narrow instances hold p ≤ 8 · kMaxKSteps = 128, and every wider p goes
+    to the wide kernel, with no limit of its own and no `max_dim` entry
+    point. So a θ wider than the narrow instances reaches the kernel's input
+    checks (here on meta tensors, which no kernel could take, refused there
+    with a ValueError) and no NotImplementedError about width."""
     src = (Path(k1.__file__).resolve().parent.parent / "csrc" /
            "fused_logistic.cu").read_text()
     k_max = int(re.search(r"constexpr int kMaxKSteps = (\d+);", src).group(1))
-    assert re.search(r"int fused_logistic_max_dim\(\) \{ return "
-                     r"8 \* kMaxKSteps \+ 1; \}", src)
-    assert k1.MAX_DIM == 8 * k_max + 1
+    assert 8 * k_max == 128
+    assert "max_dim" not in src
+    entry = src[src.index("int fused_logistic_value_grad_f32("):]
+    entry = entry[:entry.index("\n}\n")]
+    assert re.search(r"inst \? inst->launch\(.*?\)\s*: launch_wide\(", entry,
+                     re.S)
+    assert "cudaErrorInvalidValue" not in entry
 
     def theta(cuda, dtype, dim):
         return SimpleNamespace(is_cuda=cuda, dtype=dtype, shape=(64, dim))
 
     f32, f64 = torch.float32, torch.float64
-    assert k1.kernel_route(theta(True, f32, 100))
-    assert k1.kernel_route(theta(True, f32, k1.MAX_DIM))
-    assert k1.kernel_route(theta(True, f32, k1.MAX_DIM + 1))
+    for dim in (100, 8 * k_max + 1, 8 * k_max + 2, 1000, 2048):
+        assert k1.kernel_route(theta(True, f32, dim))
     assert not k1.kernel_route(theta(True, f64, 100))
     assert not k1.kernel_route(theta(False, f32, 100))
-    wide = k1.MAX_DIM + 1
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md section 2, item 2: K1 and K2"):
-        k1.logistic_value_grad(torch.empty(4, wide, device="meta"),
-                               torch.empty(N, wide - 1, device="meta"),
-                               torch.empty(N, device="meta"))
+    assert not hasattr(k1, "MAX_DIM")
+    for wide in (8 * k_max + 2, 1000, 2048):
+        with pytest.raises(ValueError, match="must be on"):
+            k1.logistic_value_grad(torch.empty(4, wide, device="meta"),
+                                   torch.empty(N, wide - 1, device="meta"),
+                                   torch.empty(N, device="meta"))
 
 
 @pytest.mark.parametrize("p,dtype", [(200, torch.float64),

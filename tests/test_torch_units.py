@@ -315,7 +315,7 @@ def test_roadmap_items_exist():
         assert re.search(rf"^{item}\. \*\*{re.escape(title)}", body,
                          flags=re.M), (section, item, title)
     assert ut.roadmap("wide") == \
-        "(ROADMAP.md section 2, item 2: K1 and K2 for p > 128)"
+        "(ROADMAP.md section 2, item 2: K2 for p > 128)"
 
 
 def test_state_constructors_need_cuda_or_explicit_cpu(monkeypatch):
