@@ -45,29 +45,16 @@
 // (KSteps instances). A wider p goes to the wide kernel below, which has no
 // limit on p: it tiles the columns.
 //
-// The wide kernel (p > 128). At p = 999 a block's beta and two x tiles at
-// full width would need ~514 KB of shared memory, and the gradient would not
-// fit in registers. So the columns are cut into chunks of kChunk = 128, the
-// width of the narrow kernel's largest instance, and the rows into panels
-// of kPanelTiles tiles of 32. A block still owns 64 chains (16 a warp) and a
-// cluster rank's contiguous share of the row tiles, as above. For each of
-// its panels it runs two stages:
+// The wide kernel (p > 128) runs the column-tiled stages of
+// logistic_wide_tile.cuh: column chunks of 128, row panels of 128 whose
+// logits and residuals stay in shared memory between the two products. A
+// block still owns 64 chains (16 a warp) and a cluster rank's contiguous
+// share of the row tiles, as above. After stage B of each chunk the
+// cluster's ranks sum their partials of the chunk in rank order through
+// distributed shared memory and add the sum to the gradient in device
+// memory (the first panel writes it). The same thread owns an output
+// element in every panel, so the panels add in a fixed order too.
 //
-//   stage A  for each column chunk (beta's chunk staged once), for each row
-//            tile (x[tile, chunk] streamed by cp.async, double-buffered):
-//            product 1 of the chunk, added in float32 into the panel's
-//            logits in shared memory (64 chains x 128 rows); then the
-//            epilogue turns them into lp and residuals, in place;
-//   stage B  for each column chunk, for each row tile: product 2 from the
-//            residuals in shared memory into the warp's 16 x 128
-//            accumulators; then the cluster's ranks sum their partials of
-//            the chunk in rank order through distributed shared memory and
-//            add the sum to the gradient in device memory (the first panel
-//            writes it). The same thread owns an output element in every
-//            panel, so the panels add in a fixed order too.
-//
-// Like the narrow kernel and the TPU kernel, the (C, n) logits and residuals
-// never leave the chip: a panel's live in shared memory between the stages.
 // A block has 8 warps, two for each 16 chains: in stage A the two split the
 // tile's rows, in stage B the chunk's columns. Shared memory is ~101 KB a
 // block, so two blocks (16 warps) share an SM, and the row split across a
@@ -87,6 +74,7 @@
 #include <algorithm>
 
 #include "logistic_tile.cuh"
+#include "logistic_wide_tile.cuh"
 
 namespace cg = cooperative_groups;
 using logistic_tile::cp_async4;
@@ -342,15 +330,12 @@ const Instance* instance_for(int dim) {
 }
 
 // ------------------------------------------------------------ wide kernel
-constexpr int kWideKSteps = 16;                    // k-steps of 8 a chunk
-constexpr int kChunk = 8 * kWideKSteps;            // columns per chunk
-constexpr int kWideS = x_stride(kWideKSteps);      // 132, 4 mod 8
-constexpr int kPanelTiles = 4;                     // row tiles per panel
-constexpr int kPanelRows = kPanelTiles * kTileRows;
-// Row stride of the panel's logits and residuals: 8 mod 32, so that the
-// float2 accesses of a C fragment (rows 2t, 2t+1 of chain g) and of product
-// 2's A fragment (the same elements) hit 32 different banks per half-warp.
-constexpr int kResStride = kPanelRows + 8;
+using logistic_wide_tile::kChunk;
+using logistic_wide_tile::kPanelRows;
+using logistic_wide_tile::kPanelTiles;
+using logistic_wide_tile::kResStride;
+using logistic_wide_tile::kWideKSteps;
+using logistic_wide_tile::kWideS;
 // Warps per block: kHalves warps share each 16 chains; in stage A they
 // split the tile's n-tiles (rows), in stage B the chunk's n-tiles (columns),
 // so that their outputs are disjoint. At C <= 1024 a block's serial path
@@ -374,98 +359,6 @@ __host__ __device__ constexpr size_t wide_smem_floats() {
   // tiles of a chunk, the panel's logits/residuals, its y, the partial lp
   return (size_t)kChains * kWideS + 2 * kTileRows * kWideS +
          (size_t)kChains * kResStride + kPanelRows + kHalves * kChains;
-}
-
-// Product 1 of one x tile over one column chunk for the warp's 16 chains
-// and kNJ of the tile's n-tiles: d[j] is the C fragment of the rows 8j..
-// 8j+7 after `xs`. Short chains as in warp_tile: each k-step's three mma
-// from zero, added in float32.
-__device__ __forceinline__ void chunk_logits(const float* __restrict__ bs,
-                                             const float* __restrict__ xs,
-                                             int n_ks, float (&out)[kNJ][4]) {
-  constexpr int S = kWideS;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kNJ; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[j][i] = 0.f;
-  }
-#pragma unroll
-  for (int ks0 = 0; ks0 < kWideKSteps; ks0 += 2) {
-    if (ks0 < n_ks) {
-      // two k-steps' chains side by side: 2 kNJ independent mma in flight
-      float d[2][kNJ][4] = {};
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (ks0 + q < n_ks) {
-          const float* br = bs + g * S + 8 * (ks0 + q) + t;
-          uint32_t a_hi[4], a_lo[4];
-          logistic_tile::split_tf32(br[0], a_hi[0], a_lo[0]);
-          logistic_tile::split_tf32(br[8 * S], a_hi[1], a_lo[1]);
-          logistic_tile::split_tf32(br[4], a_hi[2], a_lo[2]);
-          logistic_tile::split_tf32(br[8 * S + 4], a_hi[3], a_lo[3]);
-#pragma unroll
-          for (int j = 0; j < kNJ; ++j) {
-            const float* xr = xs + (8 * j + g) * S + 8 * (ks0 + q) + t;
-            uint32_t b_hi[2], b_lo[2];
-            logistic_tile::split_tf32(xr[0], b_hi[0], b_lo[0]);
-            logistic_tile::split_tf32(xr[4], b_hi[1], b_lo[1]);
-            logistic_tile::mma_3xtf32(d[q][j], a_hi, a_lo, b_hi, b_lo);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) out[j][i] += d[0][j][i] + d[1][j][i];
-      }
-    }
-  }
-}
-
-// Product 2 of one x tile over one column chunk: acc[nt] (the chunk's
-// columns 8(nt0+nt)..+7) += the tile's residuals times x, one chain of four
-// k-steps (the tile's 32 rows) from zero, added in float32. `rs` holds the
-// warp's 16 chains' residuals of this tile's rows (row stride kResStride);
-// n-tiles from `n_nt` on lie past p.
-__device__ __forceinline__ void chunk_grad(const float* __restrict__ rs,
-                                           const float* __restrict__ xs,
-                                           int nt0, int n_nt,
-                                           float (&acc)[kNNT][4]) {
-  constexpr int S = kWideS;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float d[kNNT][4] = {};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    // A order (chain g, row r0), (g+8, r0), (g, r0+1), (g+8, r0+1), r0 =
-    // 8j + 2t: the C fragment of product 1, as in warp_tile
-    const float2 v0 =
-        *reinterpret_cast<const float2*>(rs + g * kResStride + 8 * j + 2 * t);
-    const float2 v1 = *reinterpret_cast<const float2*>(
-        rs + (g + 8) * kResStride + 8 * j + 2 * t);
-    uint32_t a_hi[4], a_lo[4];
-    logistic_tile::split_tf32(v0.x, a_hi[0], a_lo[0]);
-    logistic_tile::split_tf32(v1.x, a_hi[1], a_lo[1]);
-    logistic_tile::split_tf32(v0.y, a_hi[2], a_lo[2]);
-    logistic_tile::split_tf32(v1.y, a_hi[3], a_lo[3]);
-#pragma unroll
-    for (int nt = 0; nt < kNNT; ++nt) {
-      if (nt0 + nt < n_nt) {
-        const float* xc = xs + (8 * j + 2 * t) * S + 8 * (nt0 + nt) + g;
-        uint32_t b_hi[2], b_lo[2];
-        logistic_tile::split_tf32(xc[0], b_hi[0], b_lo[0]);
-        logistic_tile::split_tf32(xc[S], b_hi[1], b_lo[1]);
-        logistic_tile::mma_3xtf32(d[nt], a_hi, a_lo, b_hi, b_lo);
-      }
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < kNNT; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] += d[nt][i];
-  }
 }
 
 __global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
@@ -563,46 +456,16 @@ fused_logistic_wide_kernel(const float* __restrict__ theta,
       }
       __syncthreads();
       float d[kNJ][4];
-      chunk_logits(bs + 16 * group * S, xs + (buf * kTileRows + 8 * j0) * S,
-                   min(kWideKSteps, (p - chunk * kChunk + 7) / 8), d);
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int r0 = kTileRows * i + 8 * (j0 + j) + 2 * t;
-        float2* l0 = reinterpret_cast<float2*>(res + cw * kResStride + r0);
-        float2* l8 =
-            reinterpret_cast<float2*>(res + (cw + 8) * kResStride + r0);
-        if (chunk == 0) {
-          *l0 = make_float2(d[j][0], d[j][1]);
-          *l8 = make_float2(d[j][2], d[j][3]);
-        } else {
-          const float2 a = *l0, b = *l8;
-          *l0 = make_float2(a.x + d[j][0], a.y + d[j][1]);
-          *l8 = make_float2(b.x + d[j][2], b.y + d[j][3]);
-        }
-      }
+      logistic_wide_tile::chunk_logits(
+          bs + 16 * group * S, xs + (buf * kTileRows + 8 * j0) * S,
+          min(kWideKSteps, (p - chunk * kChunk + 7) / 8), d);
+      logistic_wide_tile::add_logits(res, cw, kTileRows * i + 8 * j0 + 2 * t,
+                                     d, chunk == 0);
       __syncthreads();  // both buffers are free for the steps after next
     }
     // epilogue: each lane turns its own logits into residuals, in place
-    for (int i = 0; i < nt_p; ++i) {
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int r0 = kTileRows * i + 8 * (j0 + j) + 2 * t;
-        const int row = t0 * kTileRows + r0;
-        const float w0 = row < n ? 1.f : 0.f;
-        const float w1 = row + 1 < n ? 1.f : 0.f;
-        float2* l0 = reinterpret_cast<float2*>(res + cw * kResStride + r0);
-        float2* l8 =
-            reinterpret_cast<float2*>(res + (cw + 8) * kResStride + r0);
-        const float2 a = *l0, b = *l8;
-        float2 ra, rb;
-        ra.x = logistic_tile::logit_term(a.x, yp[r0], w0, lp_g);
-        ra.y = logistic_tile::logit_term(a.y, yp[r0 + 1], w1, lp_g);
-        rb.x = logistic_tile::logit_term(b.x, yp[r0], w0, lp_g8);
-        rb.y = logistic_tile::logit_term(b.y, yp[r0 + 1], w1, lp_g8);
-        *l0 = ra;
-        *l8 = rb;
-      }
-    }
+    logistic_wide_tile::panel_epilogue<kNJ>(res, yp, cw, j0, nt_p,
+                                            n - t0 * kTileRows, lp_g, lp_g8);
     // product 2 reads every row of the tile: the other halves' residuals
     __syncthreads();
 
@@ -626,8 +489,9 @@ fused_logistic_wide_kernel(const float* __restrict__ theta,
           cp_async_wait<0>();
         }
         __syncthreads();
-        chunk_grad(res + 16 * group * kResStride + kTileRows * i,
-                   xs + buf * kTileRows * S, nt0, n_nt, acc);
+        logistic_wide_tile::chunk_grad(
+            res + 16 * group * kResStride + kTileRows * i,
+            xs + buf * kTileRows * S, nt0, n_nt, acc);
         __syncthreads();
       }
       // the next chunk's first tile loads while the cluster sums this one

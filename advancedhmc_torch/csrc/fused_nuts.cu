@@ -52,12 +52,30 @@
 // Dot products are xor-shuffle sums, which leave the same value in every
 // lane. No atomics and fixed summation orders: the same inputs give the
 // same bits.
+//
+// Wider than the warp tile (p > 128, any p). Step 1 runs the column-tiled
+// stages of K1's wide kernel (logistic_wide_tile.cuh) in one block, with no
+// cluster: beta's chunks of 128 columns are staged from the frontier's theta
+// in the scratch (a block's beta at p = 999 does not fit in shared memory),
+// x's tiles from x^T where it lies, and a row panel's logits, then
+// residuals, stay in shared memory between the two products. The block's
+// 4 warps each own 16 chains in both stages (K1's wide kernel splits them
+// over 8). Stage B leaves each chunk of the data gradient in the frontier's
+// gradient vector in the scratch (the first panel writes it, later panels
+// add, in panel order), where step 2 reads it; lp is summed over the panels
+// in order. The tiles take ~100 KB of shared memory a block whatever p;
+// M^-1 (dim floats, and as many for its roots) stays in device memory, so
+// that no dim is too wide. Bound as above; at C = 1024 the 16 blocks
+// occupy 16 of the 132 SMs, each walking whole leaves of 64 chains, so the
+// time is one block's serial path, far from the card's rate (H100: 3.8 s
+// a call of 16 transitions on the 1000-D model, chip_smoke.py phase 10).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include "logistic_tile.cuh"
+#include "logistic_wide_tile.cuh"
 
 using logistic_tile::kTileRows;
 using logistic_tile::x_stride;
@@ -132,14 +150,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 //   - `term(k, th)`, summed over the frontier's elements as the drift
 //     writes them (the chain's `q`), and `put`, which stages an element
 //     for `likelihood`; `clear_pad` after a chain's elements;
-//   - `likelihood(sm)`, called by every thread of the block once the
-//     frontiers of all its chains are staged: gives lane c (< 16) of each
-//     warp the data term of the warp's chain c;
+//   - `likelihood(sm, vecs, dim, nvec)`, called by every thread of the
+//     block once the frontiers of all its chains are written (`vecs`: the
+//     tree-state vectors of the block's first chain, chain r's vector v at
+//     vecs + (r * nvec + v) * dim): gives lane c (< 16) of each warp the
+//     data term of the warp's chain c;
 //   - `aux(q, ls)` per chain, then `lp` per chain and `grad` per element,
-//     where ls is element 0 of the frontier.
+//     where ls is element 0 of the frontier and `ge` the frontier's
+//     gradient vector.
+// kMinBlocks is the instance's launch bound (resident blocks per SM);
+// kMInvShared false leaves M^-1 in device memory, for a target whose
+// shared memory must not grow with dim.
 
 // Diagonal Gaussian: lp = -1/2 sum prec * theta^2, grad = -prec * theta.
 struct GaussianTarget {
+  static constexpr int kMinBlocks = 4;
+  static constexpr bool kMInvShared = true;
   const float* prec;   // (>= dim,)
 
   __host__ __device__ static size_t smem_floats(int) { return 0; }
@@ -147,16 +173,31 @@ struct GaussianTarget {
   __device__ float term(int k, float th) const { return prec[k] * th * th; }
   __device__ void put(float*, int, int, float) const {}
   __device__ void clear_pad(float*, int, int) const {}
-  __device__ float likelihood(float*) const { return 0.f; }
+  __device__ float likelihood(float*, float*, int, int) const { return 0.f; }
   __device__ float aux(float, float) const { return 0.f; }
   __device__ float lp(float q, float, float, float) const {
     return -0.5f * q;
   }
-  __device__ float grad(const float*, int, int k, float th, float, float,
-                        float) const {
+  __device__ float grad(const float*, const float*, int, int k, float th,
+                        float, float, float) const {
     return -prec[k] * th;
   }
 };
+
+// The hierarchical logistic's prior and its total, per chain: lp from the
+// data term `loglik`, and the gradient's element 0 (log sigma), from q =
+// sum theta^2, ls = log sigma and inv_s2 = 1 / sigma^2.
+__device__ __forceinline__ float logistic_lp(int p, float q, float ls,
+                                             float inv_s2, float loglik) {
+  const float beta_sq = q - ls * ls;
+  return -0.5f * (ls * ls) - 0.5f * beta_sq * inv_s2 - (float)p * ls
+         + loglik;
+}
+
+__device__ __forceinline__ float logistic_grad0(int p, float q, float ls,
+                                                float inv_s2) {
+  return -ls + (q - ls * ls) * inv_s2 - (float)p;
+}
 
 // Hierarchical logistic in block form (models/logistic.py
 // hierarchical_logistic_block): theta = (log sigma, beta_1..beta_p), the
@@ -165,6 +206,8 @@ struct GaussianTarget {
 // KSteps k-steps of 8 columns hold p.
 template <int KSteps>
 struct LogisticTarget {
+  static constexpr int kMinBlocks = 4;
+  static constexpr bool kMInvShared = true;
   static constexpr int S = x_stride(KSteps);
   static_assert(kTileRows == 32, "a tile's rows are a warp's lanes");
   const float* xt;     // (>= p + 1, n): rows 1..p are the features
@@ -218,7 +261,7 @@ struct LogisticTarget {
     logistic_tile::cp_async_commit();
   }
 
-  __device__ float likelihood(float* sm) const {
+  __device__ float likelihood(float* sm, float*, int, int) const {
     float* bs = sm;                          // [kChains][S]
     float* xs = bs + kChains * S;            // [2][kTileRows][S]
     float* ys = xs + 2 * kTileRows * S;      // [2][kTileRows]
@@ -276,15 +319,207 @@ struct LogisticTarget {
   __device__ float aux(float, float ls) const { return expf(-2.f * ls); }
 
   __device__ float lp(float q, float ls, float inv_s2, float loglik) const {
-    const float beta_sq = q - ls * ls;
-    return -0.5f * (ls * ls) - 0.5f * beta_sq * inv_s2 - (float)p * ls
-           + loglik;
+    return logistic_lp(p, q, ls, inv_s2, loglik);
   }
 
-  __device__ float grad(const float* sm, int cb, int k, float th, float q,
-                        float ls, float inv_s2) const {
-    return k == 0 ? -ls + (q - ls * ls) * inv_s2 - (float)p
+  __device__ float grad(const float* sm, const float*, int cb, int k,
+                        float th, float q, float ls, float inv_s2) const {
+    return k == 0 ? logistic_grad0(p, q, ls, inv_s2)
                   : sm[cb * S + k - 1] + (-th * inv_s2);
+  }
+};
+
+// The hierarchical logistic at any p > 128, its likelihood in the column-
+// tiled stages of logistic_wide_tile.cuh (see the head of this file): beta
+// from the frontiers' theta in the scratch, the data gradient into their
+// gradient vectors there.
+struct WideLogisticTarget {
+  // ~100 KB of shared memory a block: two blocks per SM, up to 255
+  // registers a thread (stage B's 16 x 128 accumulators a warp)
+  static constexpr int kMinBlocks = 2;
+  static constexpr bool kMInvShared = false;
+  static_assert(kTileRows == 32, "a tile's rows are a warp's lanes");
+  const float* xt;     // (>= p + 1, n): rows 1..p are the features
+  const float* y;      // (n,)
+  int n, p;
+
+  // beta's chunk of the block's chains (in stage B each warp's rows hold
+  // its chains' gradient chunk), two x tiles of a chunk, the panel's
+  // logits/residuals, its y
+  __host__ __device__ static size_t smem_floats(int) {
+    using namespace logistic_wide_tile;
+    return (size_t)(kChains + 2 * kTileRows) * kWideS +
+           (size_t)kChains * kResStride + kPanelRows;
+  }
+
+  __device__ void init(float*) const {}
+  __device__ float term(int, float th) const { return th * th; }
+  __device__ void put(float*, int, int, float) const {}
+  __device__ void clear_pad(float*, int, int) const {}
+
+  __device__ float likelihood(float* sm, float* vecs, int dim,
+                              int nvec) const {
+    using namespace logistic_wide_tile;
+    constexpr int S = kWideS;
+    float* bs = sm;                               // [kChains][S]
+    float* xs = bs + kChains * S;                 // [2][kTileRows][S]
+    float* res = xs + 2 * kTileRows * S;          // [kChains][kResStride]
+    float* yp = res + kChains * kResStride;       // [kPanelRows]
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int cw = kChainsPerWarp * warp + g;     // the lane's chains cw, +8
+    const int n_chunks = (p + kChunk - 1) / kChunk;
+    const int n_tiles = (n + kTileRows - 1) / kTileRows;
+    // at least one panel, so that the gradient is written also where n is 0
+    const int n_panels = max(1, (n_tiles + kPanelTiles - 1) / kPanelTiles);
+    auto vec = [&](int r, int v) {
+      return vecs + ((size_t)r * nvec + v) * dim;
+    };
+
+    // x[tile, chunk] into buffer `buf` from x^T as `stage` does (warps over
+    // the chunk's columns, lanes over rows); rows past n and columns past p
+    // are zero-filled
+    auto stage_x = [&](int chunk, int tile, int buf) {
+      const int j0 = tile * kTileRows, k0 = chunk * kChunk;
+      float* dst = xs + buf * kTileRows * S;
+      const bool row_ok = j0 + lane < n;
+      for (int k = warp; k < kChunk; k += kWarps) {
+        const bool ok = row_ok && k0 + k < p;
+        logistic_tile::cp_async4(
+            dst + lane * S + k,
+            xt + (ok ? (size_t)(1 + k0 + k) * n + j0 + lane : 0), ok);
+      }
+      logistic_tile::cp_async_commit();
+    };
+    // beta's chunk of the block's chains: columns 1 + k0 .. of each
+    // frontier theta, zero past p
+    auto stage_beta = [&](int chunk) {
+      const int k0 = chunk * kChunk;
+      for (int r = warp; r < kChains; r += kWarps) {
+        const float* src = vec(r, kThE) + 1;
+        for (int k = lane; k < kChunk; k += 32) {
+          const bool ok = k0 + k < p;
+          logistic_tile::cp_async4(bs + r * S + k, src + (ok ? k0 + k : 0),
+                                   ok);
+        }
+      }
+      logistic_tile::cp_async_commit();
+    };
+
+    float lp_g = 0.f, lp_g8 = 0.f;
+    for (int panel = 0; panel < n_panels; ++panel) {
+      const int t0 = panel * kPanelTiles;
+      const int nt_p = max(0, min(n_tiles, t0 + kPanelTiles) - t0);
+      // the frontiers are written (first panel), stage B is done with
+      // beta's buffer (later panels)
+      __syncthreads();
+
+      // ---- stage A: the panel's logits, chunk by chunk
+      if (nt_p > 0) {
+        for (int i = threadIdx.x; i < kPanelRows; i += kThreads) {
+          const int row = t0 * kTileRows + i;
+          const bool ok = i < nt_p * kTileRows && row < n;
+          logistic_tile::cp_async4(yp + i, y + (ok ? row : 0), ok);
+        }
+        stage_beta(0);  // one group with the panel's y
+        stage_x(0, t0, 0);
+      }
+      const int steps = n_chunks * nt_p;
+      for (int s = 0; s < steps; ++s) {
+        const int chunk = s / nt_p, i = s % nt_p, buf = s & 1;
+        // beta's buffer is free: the previous step ended in a barrier
+        if (i == 0 && s > 0) stage_beta(chunk);
+        if (s + 1 < steps) {
+          stage_x((s + 1) / nt_p, t0 + (s + 1) % nt_p, buf ^ 1);
+          logistic_tile::cp_async_wait<1>();  // this step's tile and beta
+        } else {
+          logistic_tile::cp_async_wait<0>();
+        }
+        __syncthreads();
+        float d[4][4];
+        chunk_logits(bs + kChainsPerWarp * warp * S,
+                     xs + buf * kTileRows * S,
+                     min(kWideKSteps, (p - chunk * kChunk + 7) / 8), d);
+        add_logits(res, cw, kTileRows * i + 2 * t, d, chunk == 0);
+        __syncthreads();  // both buffers are free for the steps after next
+      }
+      panel_epilogue<4>(res, yp, cw, 0, nt_p, n - t0 * kTileRows, lp_g,
+                        lp_g8);
+      __syncthreads();
+
+      // ---- stage B: the gradient, chunk by chunk
+      float* rows = bs + kChainsPerWarp * warp * S;   // the warp's own
+      if (nt_p > 0) stage_x(0, t0, 0);
+      for (int chunk = 0; chunk < n_chunks; ++chunk) {
+        const int k0 = chunk * kChunk;
+        float acc[kWideKSteps][4];
+#pragma unroll
+        for (int nt = 0; nt < kWideKSteps; ++nt) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
+        }
+        const int n_nt = min(kWideKSteps, (p - k0 + 7) / 8);
+        for (int i = 0; i < nt_p; ++i) {
+          const int buf = i & 1;
+          if (i + 1 < nt_p) {
+            stage_x(chunk, t0 + i + 1, buf ^ 1);
+            logistic_tile::cp_async_wait<1>();
+          } else {
+            logistic_tile::cp_async_wait<0>();
+          }
+          __syncthreads();
+          chunk_grad(res + kChainsPerWarp * warp * kResStride + kTileRows * i,
+                     xs + buf * kTileRows * S, 0, n_nt, acc);
+          __syncthreads();
+        }
+        // the next chunk's first tile loads while the warp writes this one
+        if (nt_p > 0 && chunk + 1 < n_chunks) stage_x(chunk + 1, t0, 0);
+        // the C fragments (chains g | g+8, columns 8nt + 2t, +1) over the
+        // warp's rows of beta's buffer, then into the frontiers' gradient
+        // vectors, lanes over columns: the first panel writes, later panels
+        // add; the same lane owns an element in every panel
+#pragma unroll
+        for (int nt = 0; nt < kWideKSteps; ++nt) {
+          const int k = 8 * nt + 2 * t;
+          *reinterpret_cast<float2*>(rows + g * S + k) =
+              make_float2(acc[nt][0], acc[nt][1]);
+          *reinterpret_cast<float2*>(rows + (g + 8) * S + k) =
+              make_float2(acc[nt][2], acc[nt][3]);
+        }
+        __syncwarp();
+        for (int r = 0; r < kChainsPerWarp; ++r) {
+          float* out = vec(kChainsPerWarp * warp + r, kGE) + 1 + k0;
+          for (int k = lane; k < kChunk && k0 + k < p; k += 32) {
+            const float v = rows[r * S + k];
+            out[k] = panel == 0 ? v : out[k] + v;
+          }
+        }
+        __syncwarp();  // the rows are free for the next chunk; the gradient
+                       // is the warp's to read
+      }
+    }
+
+    // lp of chains g, g+8 over the 4 lanes t of the group, in a fixed order
+    lp_g += __shfl_xor_sync(kFull, lp_g, 1);
+    lp_g += __shfl_xor_sync(kFull, lp_g, 2);
+    lp_g8 += __shfl_xor_sync(kFull, lp_g8, 1);
+    lp_g8 += __shfl_xor_sync(kFull, lp_g8, 2);
+    const float a = __shfl_sync(kFull, lp_g, 4 * (lane & 7));
+    const float b = __shfl_sync(kFull, lp_g8, 4 * (lane & 7));
+    return lane < 8 ? a : b;
+  }
+
+  __device__ float aux(float, float ls) const { return expf(-2.f * ls); }
+
+  __device__ float lp(float q, float ls, float inv_s2, float loglik) const {
+    return logistic_lp(p, q, ls, inv_s2, loglik);
+  }
+
+  // element k > 0: the data gradient that `likelihood` left in `ge`
+  __device__ float grad(const float*, const float* ge, int, int k, float th,
+                        float q, float ls, float inv_s2) const {
+    return k == 0 ? logistic_grad0(p, q, ls, inv_s2)
+                  : ge[k] + (-th * inv_s2);
   }
 };
 
@@ -305,8 +540,12 @@ struct alignas(16) Chain {
 constexpr int kChainWords = sizeof(Chain) / sizeof(float);
 
 // --------------------------------------------------------------- kernel
+__device__ __forceinline__ float inv_sqrt_m(float m) {
+  return m > 0.f ? 1.f / fmaxf(sqrtf(m), 1e-30f) : 0.f;
+}
+
 template <class Target>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, Target::kMinBlocks)
 fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
                   const float* __restrict__ m_inv_in, float eps,
                   uint32_t seed, int block_chains, int dp, int n_chains,
@@ -315,19 +554,28 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
                   int* __restrict__ out_stats) {
   extern __shared__ __align__(16) float smem[];
   float* tsm = smem;                                // the target's
-  float* mi = smem + Target::smem_floats(dim);      // M^-1
-  float* isq = mi + dim;                // 1 / sqrt(M^-1), 0 where M^-1 = 0
+  // M^-1 and 1 / sqrt(M^-1) (0 where M^-1 = 0) in shared memory after the
+  // target's floats, or M^-1 where it lies and the root at each draw
+  float* mi_s = smem + Target::smem_floats(dim);
+  float* isq = mi_s + dim;
+  const float* mi = Target::kMInvShared ? mi_s : m_inv_in;
+  auto isq_at = [&](int k) {
+    return Target::kMInvShared ? isq[k] : inv_sqrt_m(mi[k]);
+  };
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nvec = n_vectors(S);
   const int cb0 = kChainsPerWarp * warp;        // the warp's first row
   const int c0 = blockIdx.x * kChains + cb0;    // and its first chain
+  float* const blk = scratch + (size_t)blockIdx.x * kChains * nvec * dim;
   Chain* records = reinterpret_cast<Chain*>(
       scratch + (size_t)gridDim.x * kChains * nvec * dim) + c0;
 
-  for (int k = tid; k < dim; k += kThreads) {
-    const float m = m_inv_in[k];
-    mi[k] = m;
-    isq[k] = m > 0.f ? 1.f / fmaxf(sqrtf(m), 1e-30f) : 0.f;
+  if (Target::kMInvShared) {
+    for (int k = tid; k < dim; k += kThreads) {
+      const float m = m_inv_in[k];
+      mi_s[k] = m;
+      isq[k] = inv_sqrt_m(m);
+    }
   }
   tg.init(tsm);
   __syncthreads();
@@ -391,7 +639,7 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
       records[c].done = real ? 0 : 1;
     }
   }
-  float lik = tg.likelihood(tsm);
+  float lik = tg.likelihood(tsm, blk, dim, nvec);
   __syncwarp();         // the records' lane-0 stores, for every lane
 
   // the first transition's start (momentum at counter base + 0, salt 1),
@@ -409,8 +657,8 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
     float nk = 0.f;
     for (int k = lane; k < dim; k += 32) {
       const float th = V(kThE)[k];
-      const float g = tg.grad(tsm, cb0 + c, k, th, s.q, ls, ax);
-      const float r = normal_at(base, row * (uint32_t)dp + k, 1u) * isq[k];
+      const float g = tg.grad(tsm, V(kGE), cb0 + c, k, th, s.q, ls, ax);
+      const float r = normal_at(base, row * (uint32_t)dp + k, 1u) * isq_at(k);
       nk += r * r * mi[k];
       V(kRE)[k] = r;
       V(kThL)[k] = V(kThR)[k] = V(kThC)[k] = V(kThSc)[k] = th;
@@ -432,7 +680,7 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
   const int max_iters = T * (1 << S) + 16;
   for (int it = 0; it < max_iters; ++it) {
     if (__syncthreads_and(warp_done)) break;
-    lik = tg.likelihood(tsm);
+    lik = tg.likelihood(tsm, blk, dim, nvec);
     warp_done = 1;
 
     for (int c = 0; c < kChainsPerWarp; ++c) {
@@ -461,7 +709,7 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
       if (!isfinite(lp_n)) lp_n = -CUDART_INF_F;
       float nk = 0.f;
       for (int k = lane; k < dim; k += 32) {
-        const float g = tg.grad(tsm, cb0 + c, k, the[k], s.q, ls, ax);
+        const float g = tg.grad(tsm, ge, cb0 + c, k, the[k], s.q, ls, ax);
         const float r = re[k] + half * g;
         ge[k] = g;
         re[k] = r;
@@ -587,7 +835,7 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
           if (!last) {
             const float gv = gc[k];
             const float r = normal_at(ctr, row * (uint32_t)dp + k, 5u) *
-                            isq[k];
+                            isq_at(k);
             nk += r * r * mi[k];
             the[k] = thl[k] = thr[k] = thsc[k] = tv;
             ge[k] = gl[k] = gr[k] = gsc[k] = gv;
@@ -628,7 +876,8 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
 // ---------------------------------------------------------------- launch
 template <class Target>
 size_t smem_bytes(int dim) {
-  return (Target::smem_floats(dim) + 2 * (size_t)dim) * sizeof(float);
+  return (Target::smem_floats(dim) +
+          (Target::kMInvShared ? 2 * (size_t)dim : 0)) * sizeof(float);
 }
 
 // Sets the instance's attributes; gives its resident blocks per SM if
@@ -639,7 +888,7 @@ cudaError_t prepare(int dim, int* per_sm) {
   auto kern = fused_nuts_kernel<Target>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) {   // room for four blocks per SM
+  if (err == cudaSuccess) {   // room for kMinBlocks blocks per SM
     err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -677,9 +926,10 @@ cudaError_t launch(const Target& tg, const Args& a, cudaStream_t stream) {
 // f(target) for the kernel instance of a target kind and dim; `none` where
 // the kernel does not take them. Kinds: 0 = hierarchical logistic (d0 =
 // x^T, >= dim rows by n columns, row 0 zero; d1 = y (n,)), 1 = diagonal
-// Gaussian (d0 = the precisions). The logistic instances, by k-steps of 8
-// columns (13 is the 100-D model's p = 99), are K1's: a call takes the
-// smallest that holds its p <= 128.
+// Gaussian (d0 = the precisions). The narrow logistic instances, by k-steps
+// of 8 columns (13 is the 100-D model's p = 99), are K1's warp tile: a call
+// takes the smallest that holds its p <= 128; every wider p takes the wide
+// instance.
 template <class F, class R>
 R dispatch(int kind, int dim, const float* d0, const float* d1, int n, F f,
            R none) {
@@ -690,7 +940,7 @@ R dispatch(int kind, int dim, const float* d0, const float* d1, int n, F f,
   if (p <= 64) return f(LogisticTarget<8>{d0, d1, n, p});
   if (p <= 104) return f(LogisticTarget<13>{d0, d1, n, p});
   if (p <= 128) return f(LogisticTarget<16>{d0, d1, n, p});
-  return none;
+  return f(WideLogisticTarget{d0, d1, n, p});
 }
 
 }  // namespace

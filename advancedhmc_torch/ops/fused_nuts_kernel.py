@@ -23,14 +23,16 @@ of the stream, and both versions here draw what the Pallas kernel draws:
   energies, the acceptance sum), which no output reads;
 * the CUDA kernel `csrc/fused_nuts.cu`: 64 chains per thread block, 16 per
   warp, which walk their leaves in lock step. The logistic's value and
-  gradient at each leaf run on the tensor cores through K1's warp tile
-  (`csrc/logistic_tile.cuh`: 3xTF32 `mma.sync`, 32-row design tiles staged
-  by `cp.async` and shared by the block); the tree state lies in a device
-  scratch buffer that the wrapper allocates, one contiguous run of
+  gradient at each leaf run on the tensor cores: up to p = 128 through K1's
+  warp tile (`csrc/logistic_tile.cuh`: 3xTF32 `mma.sync`, 32-row design
+  tiles staged by `cp.async` and shared by the block), at any wider p
+  through the column-tiled stages of K1's wide kernel
+  (`csrc/logistic_wide_tile.cuh`: chunks of 128 columns, row panels whose
+  logits stay in shared memory). The tree state lies in a device scratch
+  buffer that the wrapper allocates, one contiguous run of
   15 + 2·max_depth vectors per chain. The target is compiled in: a
   `BlockTarget` of kind "logistic" (`models.logistic.
-  hierarchical_logistic_block`, p ≤ 128) or "gaussian"
-  (`models.gaussian`).
+  hierarchical_logistic_block`, any p) or "gaussian" (`models.gaussian`).
 
 `fused_nuts` dispatches on the device of θ₀: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. `fused_nuts.launches`
@@ -43,7 +45,7 @@ import ctypes
 
 import torch
 
-from ..utils import roadmap, trailing_ones, trailing_zeros
+from ..utils import trailing_ones, trailing_zeros
 from . import _build
 from .counter_rng import (
     _round_up,
@@ -345,11 +347,6 @@ def fused_nuts(target, theta0, m_inv, eps, seed, data, dim,
     lib = _build.load(_LIB)
     fn = _kernel(lib)
     kind = _KINDS[target.kind]
-    if lib.fused_nuts_smem_bytes(kind, dim) == 0:
-        raise NotImplementedError(
-            f"K2's logistic runs K1's warp tile, which keeps a chain's "
-            f"gradient in registers: p = {dim - 1} exceeds 128 "
-            + roadmap("wide"))
     dev, c, T = theta0.device, theta0.shape[0], n_transitions
     thetas = torch.empty(T, c, dim, dtype=torch.float32, device=dev)
     stats = torch.empty(3, T, c, dtype=torch.int32, device=dev)

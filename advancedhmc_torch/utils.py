@@ -33,7 +33,6 @@ ROADMAP_ITEMS = {
     "pair": (1, 1, "The leaf-pair body"),
     "options": (1, 2, "The other options of JAX `sample`"),
     "surface": (1, 3, "The rest of the surface"),
-    "wide": (2, 2, "K2 for p > 128"),
 }
 
 

@@ -59,7 +59,18 @@ Phases (any failure exits non-zero):
    acceptance, K1's launches against the target's value+grad calls, and
    the posterior moments against the JAX package's (scripts/
    wide_reference.py, four runs) within 4 combined MCSEs plus 3 standard
-   deviations between the JAX runs.
+   deviations between the JAX runs;
+10. the megakernel on the 1000-D model (K2's wide instance, p > 128): from
+   phase 9's final state (ε, M⁻¹, the 1024 positions), K2 against its plain
+   version on call 1's inputs, on forced-deep (ε/8, depth 6 of 6) and
+   mostly divergent (3ε) trees of 256 warmed chains, at p = 129 and at
+   p = 200 over n = 997 rows, each with a bitwise repeat; then four calls
+   of 16 transitions with K2's launch count set to 0 just before and read
+   just after, gated on finite draws, divergence, tree depth and launches;
+   then the eager fused draws for 16 transitions from the same state,
+   whose cross-chain moments at transition 16 must agree with K2's. It
+   prints the wide instance's registers, spills, shared memory, blocks per
+   SM and SMs used.
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
@@ -267,9 +278,9 @@ def k1_bound_ms(c, dim, n):
 
 
 def ptxas_instances(lib_name, k_steps_pattern):
-    """(p bound or None, registers, spill-store bytes) of each kernel in a
-    library's ptxas report; the p bound is 8 × the k-steps that
-    `k_steps_pattern` finds in the kernel's mangled name."""
+    """(p bound, registers, spill-store bytes, mangled name) of each kernel
+    in a library's ptxas report; the p bound is 8 × the k-steps that
+    `k_steps_pattern` finds in the kernel's mangled name, or None."""
     import re
 
     from advancedhmc_torch.ops import _build
@@ -277,12 +288,13 @@ def ptxas_instances(lib_name, k_steps_pattern):
     path = _build.library_path(lib_name)
     text = path.with_name(path.name + ".log").read_text()
     for entry in text.split("Compiling entry function")[1:]:
-        ks = re.search(k_steps_pattern, entry.split("\n")[0])
+        name = entry.split("\n")[0]
+        ks = re.search(k_steps_pattern, name)
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores", entry)
         if regs and spill:
             yield (8 * int(ks.group(1)) if ks else None, regs.group(1),
-                   spill.group(1))
+                   spill.group(1), name)
 
 
 def k1_report():
@@ -296,7 +308,7 @@ def k1_report():
 
     lib = _build.load("fused_logistic")
     k1._kernel(lib)
-    for p_max, regs, spill in ptxas_instances(
+    for p_max, regs, spill, _ in ptxas_instances(
             "fused_logistic", r"fused_logistic_kernelILi(\d+)E"):
         name = f"p <= {p_max}" if p_max else "wide (p > 128)"
         log(f"# K1 instance {name}: {regs} registers, {spill} bytes of "
@@ -652,9 +664,10 @@ def k2_report():
 
     lib = _build.load("fused_nuts")
     k2._kernel(lib)
-    for p_max, regs, spill in ptxas_instances(
+    for p_max, regs, spill, mangled in ptxas_instances(
             "fused_nuts", r"LogisticTargetILi(\d+)E"):
-        name = f"logistic p <= {p_max}" if p_max else "gaussian"
+        name = (f"logistic p <= {p_max}" if p_max else "logistic p > 128"
+                if "WideLogisticTarget" in mangled else "gaussian")
         log(f"# K2 instance {name}: {regs} registers, {spill} bytes of "
             "spill stores (ptxas)")
     shape = dict(chains_per_block=lib.fused_nuts_chains_per_block(),
@@ -679,20 +692,28 @@ def lockstep_share(leaves, group):
     return float(tiles.sum() / (group * tiles.amax(2)).sum())
 
 
-def k2_agreement(out, ref):
+def k2_agreement(out, ref, theta_transitions=None):
     """How K2's outputs agree with its plain version's, chain by chain.
 
     `share`: chains whose integer outputs (n_steps, depth, diverged) agree
     at every transition; `share_theta`: chains that also agree in θ within
-    K2_THETA_TOL at every transition (the gated share); `max_abs_err`: max
-    |Δθ| over all chains; `max_abs_err_agreeing`: over the latter. Each
+    K2_THETA_TOL at every transition, or at the first `theta_transitions`
+    (the gated share); `max_abs_err`: max |Δθ| over all chains and
+    transitions; `max_abs_err_agreeing`: over the latter. Each
     chain that departs is counted by what differs at its first departing
     transition: `divergence` (either version diverged there: ΔH crossed
     1000 on one side only, or at another leaf), `candidate` (the same tree,
-    another draw) or `tree` (another tree, no divergence)."""
+    another draw) or `tree` (another tree, no divergence). Over the chains
+    whose integer outputs agree: `dtheta_quantiles`, quantiles of each
+    chain's max |Δθ|, and `dtheta_max_by_transition`, the max over them
+    at each transition."""
     ints = (out[1] != ref[1]) | (out[2] != ref[2]) | (out[3] != ref[3])
     dtheta = (out[0] - ref[0]).abs().amax(2)                     # (T, C)
-    departs = ints | (dtheta > K2_THETA_TOL)
+    same_ints = ~ints.any(0)
+    d_same = dtheta[:, same_ints].double()
+    qs = (0.5, 0.9, 0.99, 1.0)
+    departs = ints.clone()
+    departs[:theta_transitions] |= dtheta[:theta_transitions] > K2_THETA_TOL
     bad = departs.any(0)
     t0 = departs.int().argmax(0)[bad][None]          # first departure
     cols = bad.nonzero()[:, 0][None]
@@ -702,11 +723,18 @@ def k2_agreement(out, ref):
     return dict(
         share=float((~ints.any(0)).double().mean()),
         share_theta=float((~bad).double().mean()),
+        theta_transitions=theta_transitions or out[0].shape[0],
         max_abs_err=float(dmax.max()),
         max_abs_err_agreeing=float(dmax[~bad].max()) if bool(
             (~bad).any()) else 0.0,
         departures=dict(divergence=int(div.sum()), candidate=int(cand.sum()),
-                        tree=int((~div & ~cand).sum())))
+                        tree=int((~div & ~cand).sum())),
+        dtheta_quantiles=dict(zip(qs, torch.quantile(
+            d_same.amax(0), torch.tensor(qs, dtype=torch.float64,
+                                         device=d_same.device)).tolist()))
+        if d_same.numel() else {},
+        dtheta_max_by_transition=d_same.amax(1).tolist()
+        if d_same.numel() else [])
 
 
 def _events_ms(fn):
@@ -870,7 +898,6 @@ def phase_k2_parity(res):
       max_depth 6, T 80, blocks of 8), with that test's moment and depth
       checks."""
     from advancedhmc_torch.models.gaussian import std_gaussian_block
-    from advancedhmc_torch.ops import fused_nuts_kernel as k2
 
     fs = res.final_state
     eps = float(fs.adapt.da.eps)
@@ -882,19 +909,16 @@ def phase_k2_parity(res):
         th0 = fs.z.theta[:c].to(torch.float32).contiguous()
         return (target, th0, m_inv, e, 99, data, DIM, T, s, MEGA_BLOCK)
 
-    def mean_depth(out):
-        return float(out[2].double().mean())
-
     # (name, arguments, what the case must reach)
     cases = [(f"logistic C=4096 T=8 max_depth={s}", logistic(4096, eps, 8, s),
               None) for s in (6, 8)]
     cases += [
         ("logistic deep eps/8 C=512 T=4 max_depth=6",
          logistic(512, eps / 8, 4, 6),
-         ("mean depth >= 5.5", lambda o: mean_depth(o) >= 5.5)),
+         ("mean depth >= 5.5", lambda o: _mean_depth(o) >= 5.5)),
         ("logistic deep eps/32 C=512 T=2 max_depth=8",
          logistic(512, eps / 32, 2, 8),
-         ("mean depth >= 7.5", lambda o: mean_depth(o) >= 7.5)),
+         ("mean depth >= 7.5", lambda o: _mean_depth(o) >= 7.5)),
         ("logistic divergent 3eps C=4096 T=8 max_depth=6",
          logistic(4096, 3 * eps, 8, 6),
          ("divergence rate >= 0.5",
@@ -904,31 +928,51 @@ def phase_k2_parity(res):
           torch.ones(5, device="cuda"), 0.5, 42, g_data, 5, 80, 6, 8),
          ("the JAX test's moments and depth", _gaussian_moments_ok)),
     ]
+    return k2_parity_rows(cases, K2_AGREE_SHARE)
+
+
+def _mean_depth(out):
+    return float(out[2].double().mean())
+
+
+def k2_parity_rows(cases, share, theta_transitions=None):
+    """Each case (name, arguments, what it must reach or None) through K2
+    and its plain version, gated on `share` of the chains agreeing (θ at
+    every transition, or at the first `theta_transitions`), on two K2 calls
+    giving the same bits and on what the case must reach; returns a row per
+    case."""
+    from advancedhmc_torch.ops import fused_nuts_kernel as k2
+
     rows = []
     for name, args, reach in cases:
         out, ms = _events_ms(lambda: k2.fused_nuts(*args))
         ref, plain_ms = _events_ms(lambda: k2.plain_fused_nuts(*args))
-        agree = k2_agreement(out, ref)
+        agree = k2_agreement(out, ref, theta_transitions)
+        del ref
         # no atomics: a second call on the same inputs gives the same bits
         same = all(torch.equal(a, b)
                    for a, b in zip(out, k2.fused_nuts(*args)))
         ok = (bool(torch.isfinite(out[0]).all())
-              and agree["share_theta"] >= K2_AGREE_SHARE and same
+              and agree["share_theta"] >= share and same
               and (reach is None or reach[1](out)))
         log(f"# K2 {name}: chains agreeing in n_steps/depth/diverged "
-            f"{agree['share']:.5f}, and in θ within {K2_THETA_TOL:g} "
-            f"{agree['share_theta']:.5f} (gate >= {K2_AGREE_SHARE}), "
+            f"{agree['share']:.5f}, and in θ within {K2_THETA_TOL:g} (over "
+            f"{agree['theta_transitions']} transitions) "
+            f"{agree['share_theta']:.5f} (gate >= {share}), "
             f"max|Δθ| {agree['max_abs_err']:.3e} (agreeing chains "
             f"{agree['max_abs_err_agreeing']:.3e}), departures "
-            f"{agree['departures']}, mean depth {mean_depth(out):.3f}, "
+            f"{agree['departures']}, mean depth {_mean_depth(out):.3f}, "
             f"divergence {float(out[3].double().mean()):.4f}"
             + (f" (gate {reach[0]})" if reach else "")
             + f", two calls bitwise equal {same}, kernel {ms:.2f} ms, plain "
             f"{plain_ms:.1f} ms: {'ok' if ok else 'FAIL'}")
+        log(f"#   max|Δθ| of the chains whose integers agree: quantiles "
+            f"{json.dumps(agree['dtheta_quantiles'])}; max by transition "
+            f"{json.dumps(agree['dtheta_max_by_transition'])}")
         if not ok:
             raise RuntimeError(f"K2 disagrees with its plain version or "
                                f"with itself: {name}")
-        rows.append(dict(case=name, **agree, mean_depth=mean_depth(out),
+        rows.append(dict(case=name, **agree, mean_depth=_mean_depth(out),
                          same_bits=same, ms=ms, plain_ms=plain_ms))
     return rows
 
@@ -1139,7 +1183,7 @@ def k1_wide_report():
 
     lib = _build.load("fused_logistic")
     k1._kernel(lib)
-    (regs, spill), = [(r, sp) for p_max, r, sp in ptxas_instances(
+    (regs, spill), = [(r, sp) for p_max, r, sp, _ in ptxas_instances(
         "fused_logistic", r"fused_logistic_kernelILi(\d+)E") if p_max is None]
     out = dict(
         registers=int(regs), spill_store_bytes=int(spill),
@@ -1239,7 +1283,8 @@ def _wide_moments(th):
 def phase_wide(seed):
     """Drive sample() on the 1000-D model at 1024 chains, with every
     kernel's launch count set to 0 just before and read just after, and
-    gate the result against the JAX package's posterior."""
+    gate the result against the JAX package's posterior; returns the
+    phase's results and sample()'s."""
     import numpy as np
 
     import advancedhmc_torch as ah
@@ -1327,6 +1372,238 @@ def phase_wide(seed):
     failed = [name for name, ok in gates.items() if not ok]
     if failed:
         raise RuntimeError(f"wide-path gates failed: {failed}")
+    return out, res
+
+
+# ----------------------------------------------------------------- phase 10
+# The megakernel on the 1000-D model (K2's wide instance): from phase 9's
+# final state, WIDE_K2_CALLS calls of MEGA_T transitions at max_depth
+# MAX_DEPTH, threading the positions, a new seed per call.
+WIDE_K2_CALLS, WIDE_K2_SEED0 = 4, 40
+# K2 against its plain version at p > 128. At 1000-D a float32 rounding
+# difference in lp is ~10x the 100-D one (K1's wide kernel: up to 5.1e-4),
+# so near-ties flip more often than K2_AGREE_SHARE allows for: on the card
+# one chain of the 256 divergent ones (0.0039) departed, so the share is
+# the floor, 0.99. And the warmed 1000-D dynamics amplify rounding: from
+# phase 9's state the largest |Δθ| over 1024 chains doubled about every
+# transition, 8e-6 at transition 1, 9e-5 at 4, 8.8e-4 at 8, 4.2e-3 at 11
+# (the median chain's stayed near 1e-6, and the integer outputs of every
+# chain agreed at all 16), so θ is held to K2_THETA_TOL over the first
+# WIDE_K2_THETA_T transitions and the integers over all of them.
+WIDE_K2_AGREE_SHARE = 0.99
+WIDE_K2_THETA_T = 4
+# p = 129 (one column in the last chunk of 128) and p = 200 over a ragged
+# n = 997 rows, 256 chains: a start (log σ, β ~ N(0, 0.05²)), M⁻¹ and ε at
+# which trees of depth ~4 and no divergence occur
+WIDE_K2_MODELS = ((129, 1000), (200, 997))
+WIDE_K2_LOG_SIGMA0, WIDE_K2_M_INV, WIDE_K2_EPS = -1.5, 5e-3, 0.3
+# K2's draws against the eager path's at transition 16: given the start and
+# a frozen ε and M⁻¹ the chains are independent, so each cross-chain moment
+# must agree within this many combined standard errors (both runs start
+# from the same positions, which only narrows their difference)
+WIDE_K2_K_SE = 4.0
+
+
+def k2_wide_report():
+    """The wide instance's registers and spills (ptxas), and at the 1000-D
+    model its shared memory per block, resident blocks per SM, blocks and
+    SMs used (blocks fewer than SMs each take an SM of their own)."""
+    from advancedhmc_torch.ops import _build
+    from advancedhmc_torch.ops import fused_nuts_kernel as k2
+
+    lib = _build.load("fused_nuts")
+    k2._kernel(lib)
+    (regs, spill), = [(r, sp) for _, r, sp, mangled in ptxas_instances(
+        "fused_nuts", r"LogisticTargetILi(\d+)E")
+        if "WideLogisticTarget" in mangled]
+    per_block = lib.fused_nuts_chains_per_block()
+    blocks = -(-WIDE_CHAINS // per_block)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = dict(registers=int(regs), spill_store_bytes=int(spill),
+               chains_per_block=per_block,
+               smem_bytes_per_block=int(lib.fused_nuts_smem_bytes(
+                   0, WIDE_DIM)),
+               blocks_per_sm=lib.fused_nuts_blocks_per_sm(0, WIDE_DIM),
+               blocks=blocks, sms=sms, sms_used=min(blocks, sms))
+    log(f"# K2 wide (p > 128): {regs} registers, {spill} bytes of spill "
+        f"stores (ptxas); dim={WIDE_DIM}: {out['smem_bytes_per_block']} "
+        f"bytes of shared memory per block, {out['blocks_per_sm']} blocks "
+        f"per SM; C={WIDE_CHAINS}: {blocks} blocks of {per_block} chains on "
+        f"{out['sms_used']} of {sms} SMs")
+    return out
+
+
+def cross_chain_moments(th):
+    """Mean log σ, sd log σ and |mean β| across the chains of θ (C, dim),
+    each with its standard error for independent chains: the sd's from the
+    spread of the squared deviations, |mean β|'s by the delta method with
+    the full covariance of β across chains (the spread of each chain's β
+    projected on the mean's direction; β's components move together while
+    the chains drift, so the diagonal alone understates it)."""
+    th = th.double()
+    c = th.shape[0]
+    ls, beta = th[:, 0], th[:, 1:]
+    sd = float(ls.std(correction=0))
+    dev2 = (ls - ls.mean()) ** 2
+    mean_b = beta.mean(0)
+    norm = float(mean_b.norm())
+    along = beta @ (mean_b / norm)                  # (C,)
+    return {
+        "mean_logsigma": (float(ls.mean()), sd / math.sqrt(c)),
+        "sd_logsigma": (sd, float(dev2.std()) / math.sqrt(c) / (2 * sd)),
+        "mean_beta_norm": (norm, float(along.std()) / math.sqrt(c)),
+    }
+
+
+def phase_wide_megakernel(res, wide_out):
+    """K2 on the 1000-D model from phase 9's final state: against its plain
+    version, then its draws (launches counted from 0) against the eager
+    fused draws' law."""
+    import numpy as np
+
+    from advancedhmc_torch import SampleSpec, fused_draw_phase
+    from advancedhmc_torch.models.logistic import hierarchical_logistic_block
+    from advancedhmc_torch.ops import fused_nuts_kernel as k2
+
+    fs = res.final_state
+    eps = float(fs.adapt.da.eps)
+    m_inv = fs.metric.m_inv.to(torch.float32).contiguous()
+    th_start = fs.z.theta.to(torch.float32).contiguous()
+    target, data = hierarchical_logistic_block(
+        n=WIDE_ROWS, p=WIDE_DIM - 1, d_pad=1024, device="cuda")
+    shape = k2_wide_report()
+
+    def warmed(th0, e, T, seed=WIDE_K2_SEED0):
+        return (target, th0.contiguous(), m_inv, e, seed, data, WIDE_DIM, T,
+                MAX_DEPTH, MEGA_BLOCK)
+
+    def model(p, n):
+        tgt, dat = hierarchical_logistic_block(n=n, p=p, d_pad=256,
+                                               device="cuda")
+        th0 = torch.as_tensor(
+            0.05 * np.random.default_rng(p).normal(size=(256, p + 1)),
+            dtype=torch.float32, device="cuda")
+        th0[:, 0] = WIDE_K2_LOG_SIGMA0
+        return (tgt, th0, torch.full((p + 1,), WIDE_K2_M_INV, device="cuda"),
+                WIDE_K2_EPS, 7, dat, p + 1, 8, MAX_DEPTH, MEGA_BLOCK)
+
+    # (a) against the plain version, each case twice through K2
+    rows = k2_parity_rows([
+        (f"wide p=999 C={WIDE_CHAINS} T={MEGA_T} (call 1's inputs)",
+         warmed(th_start, eps, MEGA_T), None),
+        (f"wide deep eps/8 C=256 T=4 max_depth={MAX_DEPTH}",
+         warmed(th_start[:256], eps / 8, 4),
+         ("mean depth >= 5.5", lambda o: _mean_depth(o) >= 5.5)),
+        ("wide divergent 3eps C=256 T=8",
+         warmed(th_start[:256], 3 * eps, 8),
+         ("divergence rate >= 0.5",
+          lambda o: float(o[3].double().mean()) >= 0.5)),
+        *[(f"wide p={p} n={n} C=256 T=8", model(p, n),
+           ("mean depth >= 2", lambda o: _mean_depth(o) >= 2.0))
+          for p, n in WIDE_K2_MODELS],
+    ], WIDE_K2_AGREE_SHARE, WIDE_K2_THETA_T)
+
+    # (b) the draws, with the launch counts set to 0 just before
+    reset_launches()
+    t0 = time.perf_counter()
+    outs, events, th0 = [], [], th_start
+    for rep in range(WIDE_K2_CALLS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = k2.fused_nuts(*warmed(th0, eps, MEGA_T, WIDE_K2_SEED0 + rep))
+        e1.record()
+        outs.append(out)
+        events.append((e0, e1))
+        th0 = out[0][-1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    call_ms = [a.elapsed_time(b) for a, b in events]
+    leaves = torch.stack([o[1].sum(0) for o in outs]).double()   # (calls, C)
+    bounds = [k2_bound_ms(float(lv.sum()), WIDE_CHAINS, WIDE_DIM, WIDE_ROWS,
+                          MEGA_T) for lv in leaves]
+    lockstep = [lockstep_share(lv[None], shape["chains_per_block"])
+                for lv in leaves]
+    # the blocks run side by side, so a call lasts as long as its slowest
+    # block, which iterates as often as its chain with the most leaves
+    iters = leaves.amax(1)
+    depth = [float(o[2].double().mean()) for o in outs]
+    div = float(torch.cat([o[3] for o in outs]).double().mean())
+    finite = all(tuple(o[0].shape) == (MEGA_T, WIDE_CHAINS, WIDE_DIM)
+                 and bool(torch.isfinite(o[0]).all()) for o in outs)
+    k2_last = outs[0][0][-1]
+    del outs
+
+    # (c) the eager fused draws from the same state, ε and M⁻¹
+    w_target, w_kernel, w_adaptor = wide_spec()
+    spec = SampleSpec(target=w_target, kernel=w_kernel, adaptor=w_adaptor,
+                      cross_chain=True)
+    gen = torch.Generator(device="cuda").manual_seed(WIDE_K2_SEED0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, th_eager, st_eager = fused_draw_phase(gen, spec, fs, MEGA_T, MEGA_T)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t1
+    mom_k2 = cross_chain_moments(k2_last)
+    mom_eager = cross_chain_moments(th_eager[-1])
+
+    out = {
+        "phase": "wide megakernel",
+        "calls": WIDE_K2_CALLS, "transitions_per_call": MEGA_T,
+        "chains": WIDE_CHAINS, "dim": WIDE_DIM, "rows": WIDE_ROWS,
+        "max_depth": MAX_DEPTH, "block_chains": MEGA_BLOCK,
+        "step_size": eps, "wall_s": wall,
+        "call_ms": call_ms, "call_ms_mean": sum(call_ms) / len(call_ms),
+        "bound_ms": [b[0] for b in bounds],
+        "bound_ms_mean": sum(b[0] for b in bounds) / len(bounds),
+        "bound_by": bounds[0][1],
+        "n_steps_total": float(leaves.sum()),
+        "lockstep_share": lockstep,
+        "leaf_iterations": iters.tolist(),
+        "ms_per_leaf_iteration": [m / float(i) for m, i in
+                                  zip(call_ms, iters)],
+        "mean_tree_depth_by_call": depth,
+        "mean_tree_depth": sum(depth) / len(depth),
+        "divergence_rate": div,
+        "k2_launches": launches["fused_nuts"], "launches": launches,
+        **shape,
+        "eager_16_transitions_s": eager_s,
+        "eager_mean_tree_depth": float(
+            st_eager["tree_depth"].double().mean()),
+        "moments_k2": mom_k2, "moments_eager": mom_eager,
+        "phase9_mean_tree_depth": wide_out["mean_tree_depth"],
+        "device": torch.cuda.get_device_name(0),
+    }
+    log(json.dumps(out))
+    log(f"# wide megakernel: {out['call_ms_mean']:.1f} ms per call of "
+        f"{MEGA_T} transitions at C={WIDE_CHAINS} (bound "
+        f"{out['bound_ms_mean']:.2f} ms, {out['bound_by']}), "
+        f"{sum(out['ms_per_leaf_iteration']) / WIDE_K2_CALLS:.2f} ms per "
+        f"lock-step leaf iteration; lock-step share "
+        f"{', '.join(f'{x:.4f}' for x in lockstep)}; the eager fused "
+        f"draws took {eager_s:.1f} s for {MEGA_T} transitions")
+    gates = {
+        f"draws finite, shape {(MEGA_T, WIDE_CHAINS, WIDE_DIM)}": finite,
+        "divergence_rate <= 1e-3": div <= 1e-3,
+        f"|mean depth - phase 9's| <= {K2_DEPTH_TOL}":
+            abs(out["mean_tree_depth"] - wide_out["mean_tree_depth"])
+            <= K2_DEPTH_TOL,
+        f"k2 launched {WIDE_K2_CALLS} times":
+            launches["fused_nuts"] == WIDE_K2_CALLS,
+    }
+    for name in WIDE_MOMENTS:
+        (a, se_a), (b, se_b) = mom_k2[name], mom_eager[name]
+        tol = WIDE_K2_K_SE * math.hypot(se_a, se_b)
+        gates[f"|{name} K2 {a:.4f} - eager {b:.4f}| <= {tol:.4f} "
+              f"({WIDE_K2_K_SE:g} combined SEs) at transition {MEGA_T}"] = \
+            abs(a - b) <= tol
+    for name, ok in gates.items():
+        log(f"# gate {name}: {'ok' if ok else 'FAIL'}")
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        raise RuntimeError(f"wide megakernel gates failed: {failed}")
+    out["shapes"] = rows
     return out
 
 
@@ -1359,7 +1636,9 @@ def main(argv=None):
     del res
     defaults, k1_by_chains_defaults = phase_defaults(args.seed)
     wide_rows, wide_err, wide_shape = phase_wide_k1()
-    wide = phase_wide(args.seed)
+    wide, res = phase_wide(args.seed)
+    wide_k2 = phase_wide_megakernel(res, wide)
+    del res
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
@@ -1429,6 +1708,30 @@ def main(argv=None):
         "blocks_per_sm": mega["blocks_per_sm"],
         "lockstep_share": mega["tile_lockstep_share"],
         "shapes": k2_rows,
+    }, {
+        "name": "fused_nuts (wide, p > 128)",
+        "route": "cuda",
+        "source": "advancedhmc_torch/csrc/fused_nuts.cu",
+        "replaces": "advancedhmc_tpu/ops/fused_nuts_kernel.py:417",
+        "launches": wide_k2["k2_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in wide_k2["shapes"]),
+        "max_err": max(r["max_abs_err"] for r in wide_k2["shapes"]),
+        "agree_share": min(r["share_theta"] for r in wide_k2["shapes"]),
+        "agree_share_integers": min(r["share"] for r in wide_k2["shapes"]),
+        "theta_transitions": WIDE_K2_THETA_T,
+        "max_abs_err_agreeing":
+            max(r["max_abs_err_agreeing"] for r in wide_k2["shapes"]),
+        "ms": wide_k2["call_ms_mean"],
+        "kernel_ms": wide_k2["call_ms_mean"],
+        "plain_ms": wide_k2["shapes"][0]["plain_ms"],
+        "bound_ms": wide_k2["bound_ms_mean"],
+        "bound_by": wide_k2["bound_by"],
+        "library_ms": None,
+        **{k: wide_k2[k] for k in (
+            "registers", "spill_store_bytes", "chains_per_block",
+            "smem_bytes_per_block", "blocks_per_sm", "blocks", "sms_used",
+            "lockstep_share")},
+        "shapes": wide_k2["shapes"],
     }, {
         "name": "fused_gaussian_leapfrog",
         "route": "cuda",

@@ -8,7 +8,8 @@ Run from the root of the repository on a machine with one CUDA card:
     python3 scripts/k1_wide_ablation.py
 
 Each variant is a copy of `advancedhmc_torch/csrc/fused_logistic.cu` and
-`csrc/logistic_tile.cuh` with text edits (the script fails if an edit no
+its headers `csrc/logistic_tile.cuh`, `csrc/logistic_wide_tile.cuh` with
+text edits (the script fails if an edit no
 longer applies), built in parallel with the port's nvcc flags into
 `advancedhmc_torch/_build/k1_wide_ablation/`. Each is timed with CUDA
 events over 20 calls, twice, on the hierarchical logistic's synthetic
@@ -59,7 +60,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 from k1_ablation import call, cuda_ms  # noqa: E402
 
-H, CU = "logistic_tile.cuh", "fused_logistic.cu"
+H, W, CU = "logistic_tile.cuh", "logistic_wide_tile.cuh", "fused_logistic.cu"
 _MMA_A = "logistic_tile::mma_3xtf32(d[q][j], a_hi, a_lo, b_hi, b_lo);"
 _MMA_B = "logistic_tile::mma_3xtf32(d[nt], a_hi, a_lo, b_hi, b_lo);"
 _REMOTE = "cluster.map_shared_rank(part, q)[c * S + k]"
@@ -74,13 +75,13 @@ _STAGE_X = "cp_async4(dst + r * S + k, src + (ok ? k0 + k : 0), ok);"
 _STAGE_BETA = "cp_async4(bs + r * S + k, src + (ok ? k0 + k : 0), ok);"
 _BARRIER_A = ("      __syncthreads();  // both buffers are free for the steps "
               "after next\n")
-_GRAD_CALL = "nt0, n_nt, acc);"
+_GRAD_CALL = "xs + buf * kTileRows * S, nt0, n_nt, acc);"
 _BARRIER_B = _GRAD_CALL + "\n        __syncthreads();"
 EDITS = {   # variant: [(file, old text, new text)]
     "kernel": [],
-    "no_mma": [(CU, _MMA_A, ""), (CU, _MMA_B, "")],
-    "no_mma_a": [(CU, _MMA_A, "")],
-    "no_mma_b": [(CU, _MMA_B, "")],
+    "no_mma": [(W, _MMA_A, ""), (W, _MMA_B, "")],
+    "no_mma_a": [(W, _MMA_A, "")],
+    "no_mma_b": [(W, _MMA_B, "")],
     "one_mma": [(H,
         "  mma_tf32(d, a_lo, b_hi);\n  mma_tf32(d, a_hi, b_lo);\n", "")],
     "local_sum": [(CU, _REMOTE, "part[c * S + k]")],
@@ -111,7 +112,7 @@ def build_all():
     out = _build.BUILD_DIR / "k1_wide_ablation"
     procs = {}
     for name, edits in EDITS.items():
-        texts = {f: (csrc / f).read_text() for f in (H, CU)}
+        texts = {f: (csrc / f).read_text() for f in (H, W, CU)}
         for f, old, new in edits:
             if old not in texts[f]:
                 raise RuntimeError(f"variant {name}: edit does not apply")

@@ -4,10 +4,12 @@ with one part changed, timed beside the real one on the same inputs.
 
 Run from the root of the repository on a machine with one CUDA card:
 
-    python3 scripts/k2_ablation.py
+    python3 scripts/k2_ablation.py            # the 100-D model
+    python3 scripts/k2_ablation.py --wide     # the 1000-D model (p > 128)
 
-Each variant is a copy of `advancedhmc_torch/csrc/fused_nuts.cu` and
-`csrc/logistic_tile.cuh` with one text edit (the script fails if an edit no
+Each variant is a copy of `advancedhmc_torch/csrc/fused_nuts.cu` and its
+headers `csrc/logistic_tile.cuh`, `csrc/logistic_wide_tile.cuh` with one
+text edit (the script fails if an edit no
 longer applies). All variants build in parallel with the port's nvcc flags
 into `advancedhmc_torch/_build/k2_ablation/`. Each runs one call of 16
 transitions at max_depth 6 over 32768 chains of the 100-D logistic (1000
@@ -30,6 +32,24 @@ slowest chain's leaves plus one).
                 It samples another density, so its trees differ; compare
                 its time per block iteration
 
+With `--wide` the variants are those of the wide instance
+(`WideLogisticTarget`), on 1024 chains of the 1000-D logistic (p = 999,
+1000 rows) from starts with log σ = −1.5, M⁻¹ = 5e-3 and ε = 0.3 (trees
+of depth ~4), 16 transitions. Its 16 blocks each take an SM, so the time
+per block iteration is over the slowest block's iterations.
+
+  kernel        the kernel as it is
+  no_mma        neither product issues its mma (staging, barriers, the
+                epilogue, the gradient's write-out and the walk remain)
+  one_mma       one TF32 mma per product instead of three
+  no_stage_x    the x tiles' 4-byte cp.async copies are not issued
+  no_stage_beta β's chunks are not copied from the scratch
+  one_barrier   one barrier per step of stage A instead of two (a race,
+                timing only)
+  no_leaf       no chunks (no staging, products or write-out; the
+                gradient vectors keep what the walk left): what the walk
+                and the lock step cost
+
 Prints one line per variant, the card's name and power limit, and last a
 JSON object with the times.
 """
@@ -48,7 +68,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-H, CU = "logistic_tile.cuh", "fused_nuts.cu"
+H, W, CU = "logistic_tile.cuh", "logistic_wide_tile.cuh", "fused_nuts.cu"
+# the narrow logistic instances' launch bound (the Gaussian's reads the same)
+_MIN_BLOCKS = "static constexpr int kMinBlocks = 4;"
 EDITS = {   # variant: [(file, old text, new text)]
     "kernel": [],
     "row_major": [(CU,
@@ -67,26 +89,53 @@ EDITS = {   # variant: [(file, old text, new text)]
         "      }\n"
         "    }\n"
         "    const bool valid = j0 + lane < n;\n")],
-    "three_per_sm": [(CU, "__launch_bounds__(kThreads, 4)",
-                      "__launch_bounds__(kThreads, 3)")],
-    "two_per_sm": [(CU, "__launch_bounds__(kThreads, 4)",
-                    "__launch_bounds__(kThreads, 2)")],
+    "three_per_sm": [(CU, _MIN_BLOCKS,
+                      "static constexpr int kMinBlocks = 3;")],
+    "two_per_sm": [(CU, _MIN_BLOCKS,
+                    "static constexpr int kMinBlocks = 2;")],
     "no_tile": [(CU,
         "    const int n_tiles = (n + kTileRows - 1) / kTileRows;",
         "    const int n_tiles = 0;")],
 }
-N_ROWS, DIM, CHAINS, T, MAX_DEPTH = 1000, 100, 32768, 16, 6
-EPS, M_INV, SEED, BLOCK_CHAINS = 0.3, 0.02, 3, 256
+WIDE_EDITS = {
+    "kernel": [],
+    "no_mma": [(W, "logistic_tile::mma_3xtf32(d[q][j], a_hi, a_lo, b_hi, "
+                "b_lo);", ""),
+               (W, "logistic_tile::mma_3xtf32(d[nt], a_hi, a_lo, b_hi, "
+                "b_lo);", "")],
+    "one_mma": [(H,
+        "  mma_tf32(d, a_lo, b_hi);\n  mma_tf32(d, a_hi, b_lo);\n", "")],
+    "no_stage_x": [(CU,
+        "        logistic_tile::cp_async4(\n"
+        "            dst + lane * S + k,\n"
+        "            xt + (ok ? (size_t)(1 + k0 + k) * n + j0 + lane : 0), "
+        "ok);\n", "")],
+    "no_stage_beta": [(CU,
+        "          logistic_tile::cp_async4(bs + r * S + k, src + (ok ? k0 + "
+        "k : 0),\n                                   ok);\n", "")],
+    "one_barrier": [(CU,
+        "        __syncthreads();  // both buffers are free for the steps "
+        "after next\n", "")],
+    "no_leaf": [(CU, "    const int n_chunks = (p + kChunk - 1) / kChunk;",
+                 "    const int n_chunks = 0;")],
+}
+# (edits, rows, dim, chains, log σ start, M⁻¹, ptxas entry of the instance)
+MODES = {
+    "narrow": (EDITS, 1000, 100, 32768, -0.7, 0.02, "LogisticTargetILi13E"),
+    "wide": (WIDE_EDITS, 1000, 1000, 1024, -1.5, 5e-3, "WideLogisticTarget"),
+}
+T, MAX_DEPTH, EPS, SEED, BLOCK_CHAINS = 16, 6, 0.3, 3, 256
 
 
-def build_all():
+def build_all(mode):
     from advancedhmc_torch.ops import _build
 
+    edits_by_variant, instance = MODES[mode][0], MODES[mode][-1]
     csrc = ROOT / "advancedhmc_torch" / "csrc"
-    out = _build.BUILD_DIR / "k2_ablation"
+    out = _build.BUILD_DIR / "k2_ablation" / mode
     procs = {}
-    for name, edits in EDITS.items():
-        texts = {f: (csrc / f).read_text() for f in (H, CU)}
+    for name, edits in edits_by_variant.items():
+        texts = {f: (csrc / f).read_text() for f in (H, W, CU)}
         for f, old, new in edits:
             if old not in texts[f]:
                 raise RuntimeError(f"variant {name}: edit does not apply")
@@ -108,16 +157,17 @@ def build_all():
             raise RuntimeError(f"nvcc failed for {name}:\n{report}")
         lib = ctypes.CDLL(str(out / name / "lib.so"))
         k2._kernel(lib)
-        libs[name] = (lib, _registers(report))
+        libs[name] = (lib, _registers(report, instance))
     return libs
 
 
-def _registers(report):
-    """Registers and spill stores of the p <= 104 instance (ptxas)."""
+def _registers(report, instance):
+    """Registers and spill stores of the instance whose mangled name holds
+    `instance` (ptxas)."""
     import re
 
     for entry in report.split("Compiling entry function")[1:]:
-        if "LogisticTargetILi13E" in entry.split("\n")[0]:
+        if instance in entry.split("\n")[0]:
             regs = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
             return int(regs.group(1)), int(spill.group(1))
@@ -159,36 +209,42 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("k2_ablation: no CUDA device; this script runs on the card")
     from advancedhmc_torch.models.logistic import hierarchical_logistic_block
+    from advancedhmc_torch.ops.counter_rng import _round_up
 
-    libs = build_all()
-    _, (xt, y) = hierarchical_logistic_block(n=N_ROWS, p=DIM - 1,
-                                             d_pad=128, device="cuda")
-    x = xt[1:DIM].T.contiguous()        # the row_major variant's copy
+    mode = "wide" if "--wide" in sys.argv[1:] else "narrow"
+    _, n_rows, dim, chains, log_sigma, m_inv_value, _ = MODES[mode]
+    libs = build_all(mode)
+    _, (xt, y) = hierarchical_logistic_block(
+        n=n_rows, p=dim - 1, d_pad=_round_up(dim, 128), device="cuda")
+    x = xt[1:dim].T.contiguous()        # the row_major variant's copy
     y = y.reshape(-1)
     theta0 = torch.as_tensor(
-        0.05 * np.random.default_rng(0).normal(size=(CHAINS, DIM)),
+        0.05 * np.random.default_rng(0).normal(size=(chains, dim)),
         dtype=torch.float32, device="cuda")
-    theta0[:, 0] = -0.7
-    m_inv = torch.full((DIM,), M_INV, device="cuda")
+    theta0[:, 0] = log_sigma
+    m_inv = torch.full((dim,), m_inv_value, device="cuda")
     block = libs["kernel"][0].fused_nuts_chains_per_block()
     ref = None
     result = {}
     for name, (lib, (regs, spills)) in libs.items():
         d0 = x if name == "row_major" else xt
-        out = call(lib, theta0, m_inv, d0, y, N_ROWS)
+        out = call(lib, theta0, m_inv, d0, y, n_rows)
         torch.cuda.synchronize()
         if ref is None:
             ref = out
         same = all(torch.equal(a, b) for a, b in zip(out, ref))
         leaves = out[1][0].sum(0).double()                  # (C,)
         iters = leaves.reshape(-1, block).amax(1) + 1
-        ms = [cuda_ms(lambda: call(lib, theta0, m_inv, d0, y, N_ROWS))
+        ms = [cuda_ms(lambda: call(lib, theta0, m_inv, d0, y, n_rows))
               for _ in range(2)]
-        per_sm = lib.fused_nuts_blocks_per_sm(0, DIM)
+        per_sm = lib.fused_nuts_blocks_per_sm(0, dim)
+        # the 100-D model's 512 blocks share the SMs' slots over the call,
+        # the 1000-D model's 16 run side by side until the slowest is done
+        per_call = iters.max() if mode == "wide" else iters.mean()
         result[name] = dict(
             ms=ms, block_iterations_mean=float(iters.mean()),
             block_iterations_max=float(iters.max()),
-            ms_per_block_iteration=ms[0] / float(iters.mean()),
+            ms_per_block_iteration=ms[0] / float(per_call),
             mean_depth=float(out[1][1].double().mean()),
             registers=regs, spill_store_bytes=spills, blocks_per_sm=per_sm,
             same_bits=same)
@@ -203,7 +259,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(gpu)
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "mode": mode,
                       "variants": result}))
 
 

@@ -207,6 +207,53 @@ def test_chains_are_independent():
         assert torch.equal(a[:, :9], b)
 
 
+# ------------------------------------------- wider than the warp tile
+# p > 128 pads θ to Dp = 256 (the CUDA kernel's wide instance); p = 129
+# leaves one column in the last chunk of 128. 97 rows, 16 chains in two
+# blocks of 8, T 4, max_depth 4, at a start, ε and M⁻¹ where trees of
+# several depths and no divergence occur.
+N_WIDE = 97
+
+
+def _wide_start(p, c=16):
+    th0 = (0.05 * np.random.default_rng(p).normal(size=(c, p + 1))).astype(
+        np.float32)
+    th0[:, 0] = -1.5
+    m_inv = (5e-3 * np.linspace(0.5, 1.5, p + 1)).astype(np.float32)
+    return th0, m_inv
+
+
+@pytest.mark.parametrize("p", [129, 200])
+def test_plain_megakernel_matches_pallas_wide_logistic(p):
+    th0, m_inv = _wide_start(p)
+    fn_j, data_j = jax_block(n=N_WIDE, p=p, d_pad=256)
+    out_j = jk.fused_nuts_pallas(
+        fn_j, jnp.asarray(th0), jnp.asarray(m_inv), 0.3, 3, data_j,
+        dim=p + 1, n_transitions=4, max_depth=4, block_chains=8,
+        interpret=True)
+    tgt, data = hierarchical_logistic_block(n=N_WIDE, p=p, d_pad=256,
+                                            device="cpu")
+    out_t = k2.fused_nuts(tgt, torch.as_tensor(th0), torch.as_tensor(m_inv),
+                          0.3, 3, data, p + 1, n_transitions=4, max_depth=4,
+                          block_chains=8)
+    assert out_t[0].shape == (4, 16, p + 1)
+    assert len(set(out_t[2].flatten().tolist())) >= 2
+    _assert_same_draws(out_t, out_j, f"logistic p={p}")
+
+
+def test_wide_chains_are_independent():
+    """At Dp = 256 too a chain's draws depend on its block and row only:
+    the first 9 of 16 chains give the same outputs alone."""
+    th0, m_inv = _wide_start(200)
+    tgt, data = hierarchical_logistic_block(n=N_WIDE, p=200, d_pad=256,
+                                            device="cpu")
+    args = (torch.as_tensor(m_inv), 0.3, 11, data, 201, 4, 4, 8)
+    full = k2.plain_fused_nuts(tgt, torch.as_tensor(th0), *args)
+    part = k2.plain_fused_nuts(tgt, torch.as_tensor(th0[:9]), *args)
+    for a, b in zip(full, part):
+        assert torch.equal(a[:, :9], b)
+
+
 # Two independent runs: per-dimension means (sds) agree within this many
 # combined Monte Carlo standard errors. The sd's error comes from the ESS of
 # the squared deviations (sd/sqrt(2 ESS) assumes a Gaussian and too high an

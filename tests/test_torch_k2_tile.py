@@ -19,6 +19,13 @@ once with the logistic evaluated as the kernel evaluates it (the 3xTF32
 emulation of tests/test_torch_tf32_split.py, with the tile's short
 accumulation chains and the tensor cores' truncating adds) and once in
 float32, and holds the draws to the card's agreement gate at a small size.
+
+The rest model the wide instance (p > 128, `WideLogisticTarget`), whose
+leaf runs the column-tiled stages of `csrc/logistic_wide_tile.cuh` inside
+the block: the chunk, tile and panel bounds, the staging of β from the
+frontiers in the scratch and of x from xᵀ with their zero padding, the
+gradient's write-out into the frontiers' gradient vectors, and the order
+of work in float64 against the direct function.
 """
 
 import re
@@ -29,7 +36,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from advancedhmc_torch.models.logistic import hierarchical_logistic_block
+from advancedhmc_torch.models.logistic import _synthetic_data, \
+    hierarchical_logistic_block
 from advancedhmc_torch.ops import fused_nuts_kernel as k2
 from advancedhmc_torch.ops.counter_rng import _round_up
 from advancedhmc_torch.target import BlockTarget
@@ -38,12 +46,13 @@ from test_torch_tf32_split import TILE_ROWS, _c_pos, _epilogue, \
 
 torch.set_num_threads(2)
 
-SRC = (Path(k2.__file__).resolve().parent.parent / "csrc" /
-       "fused_nuts.cu").read_text()
+CSRC = Path(k2.__file__).resolve().parent.parent / "csrc"
+SRC = (CSRC / "fused_nuts.cu").read_text()
+WIDE_SRC = (CSRC / "logistic_wide_tile.cuh").read_text()
 
 
-def _constant(name):
-    return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
+def _constant(name, src=SRC):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
 def _n_vectors(max_depth):
@@ -254,3 +263,252 @@ def test_k2_tf32_leaf_agrees_with_float32():
     assert float(close.double().mean()) >= 0.99
     assert 3.0 <= float(f32[2].double().mean()) <= 5.0     # real trees
     assert not torch.equal(f32[0], tf32[0])                # not the same sums
+
+
+# ------------------------------------------------------ the wide instance
+W_KSTEPS = _constant("kWideKSteps", WIDE_SRC)
+CHUNK = 8 * W_KSTEPS
+W_STRIDE = CHUNK + 4                               # x_stride(kWideKSteps)
+PANEL_TILES = _constant("kPanelTiles", WIDE_SRC)
+PANEL_ROWS = PANEL_TILES * TILE_ROWS
+RES_STRIDE = PANEL_ROWS + int(re.search(
+    r"constexpr int kResStride = kPanelRows \+ (\d+);", WIDE_SRC).group(1))
+K_THE, K_GE = 0, 2                                 # enum Vec: kThE, kGE
+
+
+def _wide_bounds(p, n):
+    """The kernel's chunks (k0, n_ks = n_nt) and panels (t0, nt_p)."""
+    n_chunks = -(-p // CHUNK)
+    n_tiles = -(-n // TILE_ROWS)
+    n_panels = max(1, -(-n_tiles // PANEL_TILES))
+    chunks = [(c * CHUNK, min(W_KSTEPS, (p - c * CHUNK + 7) // 8))
+              for c in range(n_chunks)]
+    panels = [(q * PANEL_TILES,
+               max(0, min(n_tiles, q * PANEL_TILES + PANEL_TILES)
+                   - q * PANEL_TILES)) for q in range(n_panels)]
+    return chunks, panels
+
+
+def _stage_x(xt, n, p, k0, tile):
+    """`stage_x`: warp w stages the chunk's columns w, w + kWarps, ..; lane
+    l row j0 + l from x^T row 1 + k0 + k; rows past n and columns past p
+    zero-filled. Returns the tile (kTileRows, W_STRIDE), NaN where never
+    written, and how often each element was written."""
+    j0 = tile * TILE_ROWS
+    xs = np.full((TILE_ROWS, W_STRIDE), np.nan)
+    writes = np.zeros((TILE_ROWS, W_STRIDE), int)
+    for warp in range(WARPS):
+        for lane in range(32):
+            for k in range(warp, CHUNK, WARPS):
+                ok = j0 + lane < n and k0 + k < p
+                xs[lane, k] = xt[1 + k0 + k, j0 + lane] if ok else 0.0
+                writes[lane, k] += 1
+    return xs, writes
+
+
+def _stage_beta(scratch, nvec, dim, p, k0):
+    """`stage_beta`: warp w stages rows w, w + kWarps, .. (the block's
+    chains) from their frontier θ at 1 + k0 + k, zero past p."""
+    bs = np.full((BLOCK, W_STRIDE), np.nan)
+    for warp in range(WARPS):
+        for r in range(warp, BLOCK, WARPS):
+            src = (r * nvec + K_THE) * dim + 1
+            for lane in range(32):
+                for k in range(lane, CHUNK, 32):
+                    ok = k0 + k < p
+                    bs[r, k] = scratch[src + k0 + k] if ok else 0.0
+    return bs
+
+
+def test_k2_dispatches_every_wider_p_to_the_wide_instance():
+    """After the narrow instances (p <= 128) the dispatch returns the wide
+    one, with no bound on p; the wide target keeps M⁻¹ out of shared
+    memory and its shared memory fits two blocks on an H100 SM."""
+    body = re.search(r"R dispatch\(.*?\n\}", SRC, re.S).group(0)
+    assert body.rstrip("}").strip().endswith(
+        "return f(WideLogisticTarget{d0, d1, n, p});")
+    assert max(int(b) for b in re.findall(r"p <= (\d+)", body)) == 128
+    wide = re.search(r"struct WideLogisticTarget \{(.*?)\n\};", SRC,
+                     re.S).group(1)
+    assert "kMInvShared = false" in wide and "kMinBlocks = 2" in wide
+    floats = ((BLOCK + 2 * TILE_ROWS) * W_STRIDE + BLOCK * RES_STRIDE
+              + PANEL_ROWS)
+    assert 2 * (4 * floats + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("p,n", [(129, 1000), (999, 1000), (2047, 1000),
+                                 (999, 997), (200, 0)])
+def test_k2_wide_chunks_panels_and_padding(p, n):
+    """Every column lies in one chunk, whose k-steps reach p; every row
+    tile in one panel (at least one panel, also at n = 0); each warp's
+    staging covers the chunk's columns and β's rows once; the last chunk's
+    β and x columns past p and the x rows past n read as zeros; the
+    gradient's write-out covers every column < p of the block's chains
+    once a chunk."""
+    chunks, panels = _wide_bounds(p, n)
+    cols = np.zeros(p, int)
+    for k0, n_ks in chunks:
+        assert 1 <= n_ks <= W_KSTEPS and k0 + 8 * n_ks >= min(p, k0 + CHUNK)
+        cols[k0:min(p, k0 + CHUNK)] += 1
+    assert np.all(cols == 1)
+    if p == 129:
+        assert chunks[-1] == (128, 1)          # one column in the last chunk
+    if p == 999:
+        assert chunks[-1] == (896, 13)         # columns 896..998
+    n_tiles = -(-n // TILE_ROWS)
+    assert len(panels) >= 1
+    assert sum(nt for _, nt in panels) == n_tiles
+    assert [t0 for t0, _ in panels] == list(range(0, len(panels)
+                                                  * PANEL_TILES, PANEL_TILES))
+
+    # the last chunk, the last row tile: staged from x^T as it lies
+    dim = p + 1
+    x, _ = _synthetic_data(max(n, 2), p)
+    xt = np.zeros((-(-dim // 128) * 128, max(n, 2)))
+    xt[1:dim] = x.T
+    k0 = chunks[-1][0]
+    tile = max(0, n_tiles - 1)
+    xs, writes = _stage_x(xt, n, p, k0, tile)
+    assert np.all(writes[:, :CHUNK] == 1) and np.all(writes[:, CHUNK:] == 0)
+    j0 = tile * TILE_ROWS
+    want = np.zeros((TILE_ROWS, CHUNK))
+    rows = max(0, min(n, j0 + TILE_ROWS) - j0)
+    want[:rows, :p - k0] = x[j0:j0 + rows, k0:p]
+    np.testing.assert_array_equal(xs[:, :CHUNK], want)
+
+    # β's last chunk from the frontiers in the scratch (other vectors NaN)
+    nvec = _n_vectors(6)
+    theta = np.random.default_rng(p).normal(size=(BLOCK, dim))
+    scratch = np.full(BLOCK * nvec * dim, np.nan)
+    for r in range(BLOCK):
+        scratch[(r * nvec + K_THE) * dim:(r * nvec + K_THE + 1) * dim] = \
+            theta[r]
+    bs = _stage_beta(scratch, nvec, dim, p, k0)
+    want = np.zeros((BLOCK, CHUNK))
+    want[:, :p - k0] = theta[:, 1 + k0:dim]
+    np.testing.assert_array_equal(bs[:, :CHUNK], want)
+
+    # write-out: warp w's lanes over the chunk's columns of its 16 chains
+    for k0, _ in chunks:
+        out = np.zeros((BLOCK, dim), int)
+        for warp in range(WARPS):
+            for r in range(PER_WARP):
+                for lane in range(32):
+                    for k in range(lane, CHUNK, 32):
+                        if k0 + k < p:
+                            out[PER_WARP * warp + r, 1 + k0 + k] += 1
+        assert np.all(out[:, 0] == 0)
+        assert np.all(out[:, 1 + k0:1 + min(p, k0 + CHUNK)] == 1)
+        assert out.sum() == BLOCK * (min(p, k0 + CHUNK) - k0)
+
+
+def _wide_leaf_model(theta, xt, y, n, p, max_depth=6):
+    """The wide likelihood's order of work in float64, block by block:
+    β and x staged as above, stage A's chunks added into the panel's
+    logits, the epilogue's masked rows, stage B's chunk sums written into
+    the frontiers' gradient vectors (the first panel writes, later panels
+    add), lp over each lane's panels, then over the lanes t in the kernel's
+    xor order. Returns (lp (C,), the gradient vectors (C, dim))."""
+    c, dim = theta.shape
+    nvec = _n_vectors(max_depth)
+    chunks, panels = _wide_bounds(p, n)
+    blocks = -(-c // BLOCK)
+    scratch = np.zeros(blocks * BLOCK * nvec * dim)
+    vec = scratch.reshape(blocks * BLOCK, nvec, dim)
+    vec[:c, K_THE] = theta
+    vec[:, K_GE] = np.nan
+    lp = np.zeros(blocks * BLOCK)
+    for b in range(blocks):
+        blk = scratch[b * BLOCK * nvec * dim:(b + 1) * BLOCK * nvec * dim]
+        lp_lane = np.zeros((BLOCK, 4))          # chain, lane t of its group
+        for panel, (t0, nt_p) in enumerate(panels):
+            res = np.zeros((BLOCK, RES_STRIDE))
+            yp = np.zeros(PANEL_ROWS)
+            for i in range(PANEL_ROWS):
+                row = t0 * TILE_ROWS + i
+                if i < nt_p * TILE_ROWS and row < n:
+                    yp[i] = y[row]
+            tiles = {}
+            for ci, (k0, n_ks) in enumerate(chunks):
+                bs = _stage_beta(blk, nvec, dim, p, k0)
+                for i in range(nt_p):
+                    xs, _ = _stage_x(xt, n, p, k0, t0 + i)
+                    tiles[ci, i] = xs
+                    cols = slice(0, 8 * n_ks)
+                    part = bs[:, cols] @ xs[:, cols].T        # (64, 32)
+                    r = slice(TILE_ROWS * i, TILE_ROWS * (i + 1))
+                    res[:, r] = part if ci == 0 else res[:, r] + part
+            rows_left = n - t0 * TILE_ROWS
+            for i in range(nt_p):
+                for j in range(4):
+                    for t in range(4):
+                        for r0 in (TILE_ROWS * i + 8 * j + 2 * t,
+                                   TILE_ROWS * i + 8 * j + 2 * t + 1):
+                            w = 1.0 if r0 < rows_left else 0.0
+                            lg = res[:, r0]
+                            lp_lane[:, t] += yp[r0] * lg - w * np.logaddexp(
+                                0.0, lg)
+                            res[:, r0] = yp[r0] - w / (1.0 + np.exp(-lg))
+            for ci, (k0, n_ks) in enumerate(chunks):
+                acc = np.zeros((BLOCK, CHUNK))
+                for i in range(nt_p):
+                    xs = tiles[ci, i]
+                    r = slice(TILE_ROWS * i, TILE_ROWS * (i + 1))
+                    acc[:, :8 * n_ks] += res[:, r] @ xs[:, :8 * n_ks]
+                for cb in range(BLOCK):
+                    out = (cb * nvec + K_GE) * dim + 1 + k0
+                    for k in range(min(CHUNK, p - k0)):
+                        blk[out + k] = acc[cb, k] if panel == 0 else \
+                            blk[out + k] + acc[cb, k]
+        # lp_g += shfl_xor(lp_g, 1); lp_g += shfl_xor(lp_g, 2): lane t = 0
+        s1 = lp_lane[:, [0, 1, 2, 3]] + lp_lane[:, [1, 0, 3, 2]]
+        lp[b * BLOCK:(b + 1) * BLOCK] = s1[:, 0] + s1[:, 2]
+    return lp[:c], vec[:c, K_GE].copy()
+
+
+@pytest.mark.parametrize("c,p,n", [(64, 129, 97), (70, 200, 300),
+                                   (5, 260, 0), (16, 999, 40)])
+def test_k2_wide_leaf_order_of_work_matches_the_function(c, p, n):
+    """The wide leaf's tiling, staging and sums in float64 agree with the
+    direct function to 1e-12 of the largest magnitude: no element of the
+    work is dropped or counted twice, at ragged C, p and n, one or several
+    panels, and n = 0. The prior completes it as the walk does (`grad`:
+    element 0 from q, log σ and 1/σ², element k the data gradient the
+    leaf left plus −θ_k/σ²), giving the block target's value+grad."""
+    dim = p + 1
+    d_pad = -(-dim // 128) * 128
+    tgt, _ = hierarchical_logistic_block(n=max(n, 2), p=p, d_pad=d_pad,
+                                         device="cpu")
+    x, y = _synthetic_data(max(n, 2), p)
+    xt = np.zeros((d_pad, max(n, 2)))
+    xt[1:dim] = x.T
+    theta = 0.1 * np.random.default_rng(c + p).normal(size=(c, dim))
+    theta[:, 0] = -1.0
+    lp_d, ge = _wide_leaf_model(theta, xt, y, n, p)
+    assert np.all(np.isnan(ge[:, 0]))                 # element 0 untouched
+    xn, yn = x[:n], y[:n]
+    logits = theta[:, 1:] @ xn.T
+    lp_ref = (yn * logits - np.logaddexp(0.0, logits)).sum(1)
+    g_ref = (yn - 1.0 / (1.0 + np.exp(-logits))) @ xn
+    scale = max(1.0, np.abs(lp_ref).max())
+    assert np.abs(lp_d - lp_ref).max() <= 1e-12 * scale
+    gscale = max(1.0, np.abs(g_ref).max())
+    assert np.abs(ge[:, 1:] - g_ref).max() <= 1e-12 * gscale
+
+    # the walk's completion against the block target (float64 data)
+    if n > 1:
+        ls = theta[:, 0]
+        inv_s2 = np.exp(-2.0 * ls)
+        q = (theta ** 2).sum(1)
+        beta_sq = q - ls * ls
+        lp = -0.5 * ls * ls - 0.5 * beta_sq * inv_s2 - p * ls + lp_d
+        g = np.empty_like(theta)
+        g[:, 0] = -ls + (q - ls * ls) * inv_s2 - p
+        g[:, 1:] = ge[:, 1:] + (-theta[:, 1:] * inv_s2[:, None])
+        th_pad = torch.zeros(c, d_pad, dtype=torch.float64)
+        th_pad[:, :dim] = torch.as_tensor(theta)
+        lp_b, g_b = tgt(th_pad, torch.as_tensor(xt),
+                        torch.as_tensor(y[None]))
+        np.testing.assert_allclose(lp, lp_b[:, 0].numpy(), rtol=1e-10)
+        np.testing.assert_allclose(g, g_b[:, :dim].numpy(), rtol=1e-10,
+                                   atol=1e-10)

@@ -214,22 +214,45 @@ def test_k2_ragged_block_and_repeatable_bits_on_card():
         vectors * 100 + record)
 
 
+# K2's wide instance against its plain version: at 1000-D a float32
+# rounding difference in lp is ~10x the 100-D one (K1's wide kernel: up to
+# 5.1e-4 on lp), so near-ties flip more often; the share chip_smoke.py's
+# phase 10 gates on.
+K2_WIDE_AGREE_SHARE = 0.99
+
+
 @pytest.mark.gpu
-def test_k2_logistic_wider_than_the_warp_tile_raises_on_card():
-    """p = 129 exceeds the warp tile's 128 columns: NotImplementedError
-    naming the K2-only roadmap item (K1 takes any p now), no fallback."""
+@pytest.mark.parametrize("p,n", [(129, 1000), (200, 997), (999, 1000)])
+def test_k2_wide_logistic_matches_plain_on_card(p, n):
+    """Wider than the warp tile (p > 128): K2's wide instance launches (no
+    raise, no fallback), agrees with its plain version at the wide share,
+    and two calls on the same inputs give the same bits. p = 129 leaves one
+    column in the last chunk of 128, n = 997 a ragged row tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    tgt, data = hierarchical_logistic_block(n=200, p=129, d_pad=256,
-                                            device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dim = p + 1
+    tgt, data = hierarchical_logistic_block(n=n, p=p, d_pad=-(-dim // 128)
+                                            * 128, device="cuda")
+    th0 = torch.as_tensor(
+        0.05 * np.random.default_rng(p).normal(size=(256, dim)),
+        dtype=torch.float32, device="cuda")
+    th0[:, 0] = -1.5
+    args = (tgt, th0, torch.full((dim,), 5e-3, device="cuda"), 0.3, 7,
+            data, dim, 4, 6, 256)
     before = k2.fused_nuts.launches
-    with pytest.raises(NotImplementedError,
-                       match=r"p = 129 .*ROADMAP\.md section 2, item 2: K2 "
-                             r"for p > 128"):
-        k2.fused_nuts(tgt, torch.zeros(64, 130, device="cuda"),
-                      torch.ones(130, device="cuda"), 0.01, 1, data, 130,
-                      2, 4, 64)
-    assert k2.fused_nuts.launches == before
+    out = k2.fused_nuts(*args)
+    assert k2.fused_nuts.launches == before + 1
+    again = k2.fused_nuts(*args)
+    ref = k2.plain_fused_nuts(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert bool(torch.isfinite(out[0]).all())
+    assert out[0].shape == (4, 256, dim)
+    share, share_theta = _k2_agreement(out, ref)
+    assert min(share, share_theta) >= K2_WIDE_AGREE_SHARE, (share,
+                                                            share_theta)
+    assert float(out[2].double().mean()) >= 2.0        # real trees
 
 
 @pytest.mark.gpu

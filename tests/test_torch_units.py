@@ -314,8 +314,8 @@ def test_roadmap_items_exist():
         body = body.split("\n### ")[0]
         assert re.search(rf"^{item}\. \*\*{re.escape(title)}", body,
                          flags=re.M), (section, item, title)
-    assert ut.roadmap("wide") == \
-        "(ROADMAP.md section 2, item 2: K2 for p > 128)"
+    assert ut.roadmap("pair") == \
+        "(ROADMAP.md section 1, item 1: The leaf-pair body)"
 
 
 def test_state_constructors_need_cuda_or_explicit_cpu(monkeypatch):

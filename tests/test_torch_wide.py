@@ -1,7 +1,8 @@
 """K1's wide variant (p > 128) and the 1000-D slice, on the CPU.
 
 K1's wide kernel (`advancedhmc_torch/csrc/fused_logistic.cu`,
-`fused_logistic_wide_kernel`) runs only on the card. Here:
+`fused_logistic_wide_kernel`, its stages in `csrc/logistic_wide_tile.cuh`)
+runs only on the card. Here:
 
 * its index arithmetic, with the constants read from the source: the row
   tiles split across a cluster's ranks, the panels every rank walks, the
@@ -49,6 +50,7 @@ torch.set_num_threads(2)
 CSRC = Path(k1.__file__).resolve().parent.parent / "csrc"
 SRC = (CSRC / "fused_logistic.cu").read_text()
 TILE_SRC = (CSRC / "logistic_tile.cuh").read_text()
+WIDE_SRC = (CSRC / "logistic_wide_tile.cuh").read_text()
 
 
 def _constant(name, src=SRC):
@@ -57,13 +59,13 @@ def _constant(name, src=SRC):
 
 TILE_ROWS = _constant("kTileRows", TILE_SRC)
 CHAINS = 16 * _constant("kWarps")                 # chains per block
-KSTEPS = _constant("kWideKSteps")
+KSTEPS = _constant("kWideKSteps", WIDE_SRC)
 CHUNK = 8 * KSTEPS
 STRIDE = 8 * KSTEPS + 4                           # x_stride(kWideKSteps)
-PANEL_TILES = _constant("kPanelTiles")
+PANEL_TILES = _constant("kPanelTiles", WIDE_SRC)
 PANEL_ROWS = PANEL_TILES * TILE_ROWS
 RES_STRIDE = PANEL_ROWS + int(re.search(
-    r"constexpr int kResStride = kPanelRows \+ (\d+);", SRC).group(1))
+    r"constexpr int kResStride = kPanelRows \+ (\d+);", WIDE_SRC).group(1))
 WARPS = _constant("kWideWarps")
 THREADS = 32 * WARPS
 HALVES = WARPS // 4
