@@ -53,29 +53,49 @@
 // lane. No atomics and fixed summation orders: the same inputs give the
 // same bits.
 //
-// Wider than the warp tile (p > 128, any p). Step 1 runs the column-tiled
-// stages of K1's wide kernel (logistic_wide_tile.cuh) in one block, with no
-// cluster: beta's chunks of 128 columns are staged from the frontier's theta
-// in the scratch (a block's beta at p = 999 does not fit in shared memory),
-// x's tiles from x^T where it lies, and a row panel's logits, then
-// residuals, stay in shared memory between the two products. The block's
-// 4 warps each own 16 chains in both stages (K1's wide kernel splits them
-// over 8). Stage B leaves each chunk of the data gradient in the frontier's
-// gradient vector in the scratch (the first panel writes it, later panels
-// add, in panel order), where step 2 reads it; lp is summed over the panels
-// in order. The tiles take ~100 KB of shared memory a block whatever p;
-// M^-1 (dim floats, and as many for its roots) stays in device memory, so
-// that no dim is too wide. Bound as above; at C = 1024 the 16 blocks
-// occupy 16 of the 132 SMs, each walking whole leaves of 64 chains, so the
-// time is one block's serial path, far from the card's rate (H100: 3.8 s
-// a call of 16 transitions on the 1000-D model, chip_smoke.py phase 10).
+// Wider than the warp tile (p > 128, any p). A group of 64 chains is owned
+// by a thread-block cluster of R blocks (ranks), R chosen by occupancy
+// (`cluster_ranks`: up to kMaxRanks, one per row tile at most; 11 at
+// C = 1024 and n = 1000 on an H100, 176 blocks, all 16 groups in one
+// wave), and step 1 runs the column-tiled stages of K1's wide kernel
+// (logistic_wide_tile.cuh) with the rows split across the ranks as K1's
+// wide kernel splits them. Rank r takes a contiguous range of
+// ceil(n_tiles / R) row tiles (the last ranks fewer or none; a rank without
+// rows takes part in every barrier with zero partials). Beta's chunks of
+// 128 columns are staged from the frontiers' theta in the scratch (a
+// group's beta at p = 999 does not fit in shared memory), x's tiles from
+// x^T where it lies, and a row panel's logits, then residuals, stay in
+// shared memory between the two products; a row's logits are whole within
+// its rank. Stage B leaves each rank's partial of a gradient chunk in
+// shared memory; after a cluster barrier the ranks add every rank's
+// partial in rank order through distributed shared memory, each rank for
+// the chains it walks, into the frontiers' gradient vectors in the scratch
+// (the first panel writes, later panels add); lp is summed in rank order
+// the same way. Step 2 is spread over the cluster: its 4R warps walk the 64
+// chains in contiguous runs (`walk_begin`: one or two a warp from R = 8
+// on), so that a warp reads the gradient its own rank wrote; the next
+// leaf's beta, which every rank stages from every chain's frontier, is
+// ordered after the drift by the cluster barrier's release and acquire at
+// the head of step 1. Whether all chains are done is decided for the
+// cluster: each rank publishes a flag, and after a cluster barrier every
+// rank reads all of them, so all leave at the same iteration. No atomics
+// and fixed orders: the same bits in every call. The tiles take ~100 KB of
+// shared memory a block whatever p; M^-1 stays in device memory, so that no
+// dim is too wide. Bound as above; PERF.md has the times on an H100.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <set>
+#include <vector>
+
 #include "logistic_tile.cuh"
 #include "logistic_wide_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 using logistic_tile::kTileRows;
 using logistic_tile::x_stride;
@@ -86,6 +106,11 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChainsPerWarp = 16;              // the warp tile's M rows
 constexpr int kChains = kChainsPerWarp * kWarps;
+// Blocks per cluster of the wide instance, at most: above 8 a non-portable
+// size, which the H100 allows; at most kChains / kWarps, so that every
+// warp of a cluster walks a chain.
+constexpr int kMaxRanks = 16;
+static_assert(kWarps * kMaxRanks <= kChains, "a chain for every warp");
 constexpr float kDeltaMax = 1000.f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -103,6 +128,15 @@ enum Vec {
 };
 
 __host__ __device__ inline int n_vectors(int S) { return kCk + 2 * S; }
+
+// The row in its group of the first chain that warp `gw` of a cluster's
+// `warps` walks: the warps, rank by rank, share the group's chains in
+// contiguous runs (one or two each from 8 ranks on), so that rank r walks,
+// and sums the gradient and lp of, rows walk_begin(kWarps r) ..
+// walk_begin(kWarps (r + 1)) - 1.
+__host__ __device__ inline int walk_begin(int gw, int warps) {
+  return kChains * gw / warps;
+}
 
 // ------------------------------------------------ counter RNG (:44-102)
 __device__ __forceinline__ uint32_t splitmix32(uint32_t x) {
@@ -151,21 +185,25 @@ __device__ __forceinline__ float warp_sum(float v) {
 //     writes them (the chain's `q`), and `put`, which stages an element
 //     for `likelihood`; `clear_pad` after a chain's elements;
 //   - `likelihood(sm, vecs, dim, nvec)`, called by every thread of the
-//     block once the frontiers of all its chains are written (`vecs`: the
-//     tree-state vectors of the block's first chain, chain r's vector v at
-//     vecs + (r * nvec + v) * dim): gives lane c (< 16) of each warp the
-//     data term of the warp's chain c;
+//     block (of the cluster) once the frontiers of all its chains are
+//     written (`vecs`: the tree-state vectors of the group's first chain,
+//     chain r's vector v at vecs + (r * nvec + v) * dim): gives lane c of
+//     each warp the data term of the c-th chain the warp walks;
 //   - `aux(q, ls)` per chain, then `lp` per chain and `grad` per element,
 //     where ls is element 0 of the frontier and `ge` the frontier's
 //     gradient vector.
 // kMinBlocks is the instance's launch bound (resident blocks per SM);
 // kMInvShared false leaves M^-1 in device memory, for a target whose
-// shared memory must not grow with dim.
+// shared memory must not grow with dim; kCluster true launches the
+// instance in clusters of ranks that share each group of kChains chains,
+// and then the target also gives `all_done(sm, warp_done)`, the cluster's
+// decision that every chain is done.
 
 // Diagonal Gaussian: lp = -1/2 sum prec * theta^2, grad = -prec * theta.
 struct GaussianTarget {
   static constexpr int kMinBlocks = 4;
   static constexpr bool kMInvShared = true;
+  static constexpr bool kCluster = false;
   const float* prec;   // (>= dim,)
 
   __host__ __device__ static size_t smem_floats(int) { return 0; }
@@ -208,6 +246,7 @@ template <int KSteps>
 struct LogisticTarget {
   static constexpr int kMinBlocks = 4;
   static constexpr bool kMInvShared = true;
+  static constexpr bool kCluster = false;
   static constexpr int S = x_stride(KSteps);
   static_assert(kTileRows == 32, "a tile's rows are a warp's lanes");
   const float* xt;     // (>= p + 1, n): rows 1..p are the features
@@ -330,32 +369,50 @@ struct LogisticTarget {
 };
 
 // The hierarchical logistic at any p > 128, its likelihood in the column-
-// tiled stages of logistic_wide_tile.cuh (see the head of this file): beta
-// from the frontiers' theta in the scratch, the data gradient into their
-// gradient vectors there.
+// tiled stages of logistic_wide_tile.cuh with the rows split across the
+// cluster's ranks (see the head of this file): beta from the frontiers'
+// theta in the scratch, each rank's partials summed in rank order through
+// distributed shared memory, the data gradient into the frontiers' gradient
+// vectors there.
 struct WideLogisticTarget {
   // ~100 KB of shared memory a block: two blocks per SM, up to 255
   // registers a thread (stage B's 16 x 128 accumulators a warp)
   static constexpr int kMinBlocks = 2;
   static constexpr bool kMInvShared = false;
+  static constexpr bool kCluster = true;
   static_assert(kTileRows == 32, "a tile's rows are a warp's lanes");
   const float* xt;     // (>= p + 1, n): rows 1..p are the features
   const float* y;      // (n,)
   int n, p;
 
-  // beta's chunk of the block's chains (in stage B each warp's rows hold
-  // its chains' gradient chunk), two x tiles of a chunk, the panel's
-  // logits/residuals, its y
+  // beta's chunk of the group's chains (in stage B the rank's partial of a
+  // gradient chunk), two x tiles of a chunk, the panel's logits/residuals,
+  // its y, the rank's partial lp of the group's chains, its "done" flag
   __host__ __device__ static size_t smem_floats(int) {
     using namespace logistic_wide_tile;
     return (size_t)(kChains + 2 * kTileRows) * kWideS +
-           (size_t)kChains * kResStride + kPanelRows;
+           (size_t)kChains * kResStride + kPanelRows + kChains + 4;
   }
 
   __device__ void init(float*) const {}
   __device__ float term(int, float th) const { return th * th; }
   __device__ void put(float*, int, int, float) const {}
   __device__ void clear_pad(float*, int, int) const {}
+
+  // The sum over the cluster's ranks, in rank order, of the float at `at`
+  // in each rank's shared memory.
+  __device__ static float rank_sum(cg::cluster_group& cluster, float* at,
+                                   int ranks) {
+    float part_q[kMaxRanks];
+#pragma unroll
+    for (int q = 0; q < kMaxRanks; ++q) {
+      part_q[q] = q < ranks ? *cluster.map_shared_rank(at, q) : 0.f;
+    }
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxRanks; ++q) v += part_q[q];
+    return v;
+  }
 
   __device__ float likelihood(float* sm, float* vecs, int dim,
                               int nvec) const {
@@ -365,13 +422,27 @@ struct WideLogisticTarget {
     float* xs = bs + kChains * S;                 // [2][kTileRows][S]
     float* res = xs + 2 * kTileRows * S;          // [kChains][kResStride]
     float* yp = res + kChains * kResStride;       // [kPanelRows]
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float* part_lp = yp + kPanelRows;             // [kChains]
+    float* part = bs;                             // [kChains][S], stage B
+    cg::cluster_group cluster = cg::this_cluster();
+    const int ranks = (int)cluster.num_blocks();
+    const int rank = (int)cluster.block_rank();
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     const int cw = kChainsPerWarp * warp + g;     // the lane's chains cw, +8
     const int n_chunks = (p + kChunk - 1) / kChunk;
     const int n_tiles = (n + kTileRows - 1) / kTileRows;
-    // at least one panel, so that the gradient is written also where n is 0
-    const int n_panels = max(1, (n_tiles + kPanelTiles - 1) / kPanelTiles);
+    // the rank's row tiles, a contiguous range of ceil(n_tiles / ranks):
+    // the last ranks may have fewer or none. Every rank walks as many
+    // panels (the cluster meets in every chunk of stage B), at least one,
+    // so that the gradient is written also where n is 0
+    const int per_rank = (n_tiles + ranks - 1) / ranks;
+    const int tile_begin = min(n_tiles, rank * per_rank);
+    const int tile_end = min(n_tiles, tile_begin + per_rank);
+    const int n_panels = max(1, (per_rank + kPanelTiles - 1) / kPanelTiles);
+    // the chains this rank walks, whose gradient and lp it sums
+    const int first = walk_begin(kWarps * rank, kWarps * ranks);
+    const int span = walk_begin(kWarps * (rank + 1), kWarps * ranks) - first;
     auto vec = [&](int r, int v) {
       return vecs + ((size_t)r * nvec + v) * dim;
     };
@@ -391,7 +462,7 @@ struct WideLogisticTarget {
       }
       logistic_tile::cp_async_commit();
     };
-    // beta's chunk of the block's chains: columns 1 + k0 .. of each
+    // beta's chunk of the group's chains: columns 1 + k0 .. of each
     // frontier theta, zero past p
     auto stage_beta = [&](int chunk) {
       const int k0 = chunk * kChunk;
@@ -408,11 +479,13 @@ struct WideLogisticTarget {
 
     float lp_g = 0.f, lp_g8 = 0.f;
     for (int panel = 0; panel < n_panels; ++panel) {
-      const int t0 = panel * kPanelTiles;
-      const int nt_p = max(0, min(n_tiles, t0 + kPanelTiles) - t0);
-      // the frontiers are written (first panel), stage B is done with
+      const int t0 = tile_begin + panel * kPanelTiles;
+      const int nt_p = max(0, min(tile_end, t0 + kPanelTiles) - t0);
+      // the frontiers that every rank's warps wrote are visible (first
+      // panel: the barrier's release and acquire order the drift's stores
+      // before this rank's loads), every rank is done with the partials in
       // beta's buffer (later panels)
-      __syncthreads();
+      cluster.sync();
 
       // ---- stage A: the panel's logits, chunk by chunk
       if (nt_p > 0) {
@@ -448,15 +521,15 @@ struct WideLogisticTarget {
       __syncthreads();
 
       // ---- stage B: the gradient, chunk by chunk
-      float* rows = bs + kChainsPerWarp * warp * S;   // the warp's own
+      float* rows = part + kChainsPerWarp * warp * S;   // the warp's own
       if (nt_p > 0) stage_x(0, t0, 0);
       for (int chunk = 0; chunk < n_chunks; ++chunk) {
         const int k0 = chunk * kChunk;
-        float acc[kWideKSteps][4];
+        float acc[2][kWideKSteps / 2][4];
 #pragma unroll
         for (int nt = 0; nt < kWideKSteps; ++nt) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
+          for (int q = 0; q < 4; ++q) acc[nt / 8][nt % 8][q] = 0.f;
         }
         const int n_nt = min(kWideKSteps, (p - k0 + 7) / 8);
         for (int i = 0; i < nt_p; ++i) {
@@ -468,45 +541,82 @@ struct WideLogisticTarget {
             logistic_tile::cp_async_wait<0>();
           }
           __syncthreads();
-          chunk_grad(res + kChainsPerWarp * warp * kResStride + kTileRows * i,
-                     xs + buf * kTileRows * S, 0, n_nt, acc);
+          // the chunk's columns in two halves (as K1's wide kernel splits
+          // them over two warps), so that only half of product 2's short
+          // chains are live at once: registers for the walk's map
+          const float* rs =
+              res + kChainsPerWarp * warp * kResStride + kTileRows * i;
+          chunk_grad(rs, xs + buf * kTileRows * S, 0, n_nt, acc[0]);
+          chunk_grad(rs, xs + buf * kTileRows * S, kWideKSteps / 2, n_nt,
+                     acc[1]);
           __syncthreads();
         }
-        // the next chunk's first tile loads while the warp writes this one
+        // the next chunk's first tile loads while the cluster sums this one
         if (nt_p > 0 && chunk + 1 < n_chunks) stage_x(chunk + 1, t0, 0);
-        // the C fragments (chains g | g+8, columns 8nt + 2t, +1) over the
-        // warp's rows of beta's buffer, then into the frontiers' gradient
-        // vectors, lanes over columns: the first panel writes, later panels
-        // add; the same lane owns an element in every panel
+        // the rank's partial: the C fragments (chains g | g+8, columns
+        // 8nt + 2t, +1) over the warp's rows of beta's buffer
 #pragma unroll
         for (int nt = 0; nt < kWideKSteps; ++nt) {
           const int k = 8 * nt + 2 * t;
+          const float* a = acc[nt / 8][nt % 8];
           *reinterpret_cast<float2*>(rows + g * S + k) =
-              make_float2(acc[nt][0], acc[nt][1]);
+              make_float2(a[0], a[1]);
           *reinterpret_cast<float2*>(rows + (g + 8) * S + k) =
-              make_float2(acc[nt][2], acc[nt][3]);
+              make_float2(a[2], a[3]);
         }
-        __syncwarp();
-        for (int r = 0; r < kChainsPerWarp; ++r) {
-          float* out = vec(kChainsPerWarp * warp + r, kGE) + 1 + k0;
-          for (int k = lane; k < kChunk && k0 + k < p; k += 32) {
-            const float v = rows[r * S + k];
-            out[k] = panel == 0 ? v : out[k] + v;
+        cluster.sync();  // every rank's partial of the chunk is written
+        // every rank's partial, in rank order, into the gradient vectors of
+        // the chains this rank walks, threads over columns: the first panel
+        // writes, later panels add
+        for (int e = tid; e < span * kChunk; e += kThreads) {
+          const int c = first + e / kChunk, k = e % kChunk;
+          if (k0 + k < p) {
+            const float v = rank_sum(cluster, part + c * S + k, ranks);
+            float* out = vec(c, kGE) + 1 + k0 + k;
+            *out = panel == 0 ? v : *out + v;
           }
         }
-        __syncwarp();  // the rows are free for the next chunk; the gradient
-                       // is the warp's to read
+        cluster.sync();  // no rank writes its partial while another reads it
       }
     }
 
-    // lp of chains g, g+8 over the 4 lanes t of the group, in a fixed order
+    // lp of chains g, g+8 over the 4 lanes t of the group, in a fixed
+    // order, then over the ranks in order: lane c of the warp takes the
+    // c-th chain the warp walks
     lp_g += __shfl_xor_sync(kFull, lp_g, 1);
     lp_g += __shfl_xor_sync(kFull, lp_g, 2);
     lp_g8 += __shfl_xor_sync(kFull, lp_g8, 1);
     lp_g8 += __shfl_xor_sync(kFull, lp_g8, 2);
-    const float a = __shfl_sync(kFull, lp_g, 4 * (lane & 7));
-    const float b = __shfl_sync(kFull, lp_g8, 4 * (lane & 7));
-    return lane < 8 ? a : b;
+    if (t == 0) {
+      part_lp[cw] = lp_g;
+      part_lp[cw + 8] = lp_g8;
+    }
+    cluster.sync();
+    const int gw = kWarps * rank + warp;
+    const int wb = walk_begin(gw, kWarps * ranks);
+    return lane < walk_begin(gw + 1, kWarps * ranks) - wb
+               ? rank_sum(cluster, part_lp + wb + lane, ranks)
+               : 0.f;
+  }
+
+  // Every chain of the group done: each rank publishes whether all its
+  // warps' chains are, and every rank reads all the flags after a cluster
+  // barrier, so that the ranks leave at the same iteration. (A flag is
+  // written again only after the next likelihood's cluster barriers.)
+  __device__ bool all_done(float* sm, int warp_done) const {
+    using namespace logistic_wide_tile;
+    int* flag = reinterpret_cast<int*>(
+        sm + (size_t)(kChains + 2 * kTileRows) * kWideS +
+        (size_t)kChains * kResStride + kPanelRows + kChains);
+    cg::cluster_group cluster = cg::this_cluster();
+    const int block_done = __syncthreads_and(warp_done);
+    if (threadIdx.x == 0) *flag = block_done;
+    cluster.sync();
+    int done = 1;
+    for (int q = 0; q < (int)cluster.num_blocks(); ++q) {
+      done &= *cluster.map_shared_rank(flag, q);
+    }
+    return done != 0;
   }
 
   __device__ float aux(float, float ls) const { return expf(-2.f * ls); }
@@ -535,7 +645,9 @@ struct alignas(16) Chain {
   int n_alpha, depth, leaf, v, t;
   int diverged;
   int done;             // T transitions recorded, or not a chain
-  int pad[3];
+  int sm;               // the SM whose warp walks it (cluster instances,
+                        // written at the start; fused_nuts_sms_used)
+  int pad[2];
 };
 constexpr int kChainWords = sizeof(Chain) / sizeof(float);
 
@@ -544,12 +656,32 @@ __device__ __forceinline__ float inv_sqrt_m(float m) {
   return m > 0.f ? 1.f / fmaxf(sqrtf(m), 1e-30f) : 0.f;
 }
 
+__device__ __forceinline__ int sm_id() {
+  int id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
+
+// The ranks of the block's cluster and the block's rank in it; 1 and 0 for
+// an instance launched without clusters.
+template <bool kCluster>
+__device__ __forceinline__ void cluster_shape(int& ranks, int& rank) {
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    ranks = (int)cluster.num_blocks();
+    rank = (int)cluster.block_rank();
+  } else {
+    ranks = 1;
+    rank = 0;
+  }
+}
+
 template <class Target>
 __global__ void __launch_bounds__(kThreads, Target::kMinBlocks)
 fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
                   const float* __restrict__ m_inv_in, float eps,
                   uint32_t seed, int block_chains, int dp, int n_chains,
-                  int dim, int T, int S, float* scratch,
+                  int dim, int T, int S, int max_iters, float* scratch,
                   float* __restrict__ out_theta,
                   int* __restrict__ out_stats) {
   extern __shared__ __align__(16) float smem[];
@@ -564,11 +696,22 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
   };
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nvec = n_vectors(S);
-  const int cb0 = kChainsPerWarp * warp;        // the warp's first row
-  const int c0 = blockIdx.x * kChains + cb0;    // and its first chain
-  float* const blk = scratch + (size_t)blockIdx.x * kChains * nvec * dim;
+  // a group of kChains chains to a cluster of `ranks` blocks, whose warps
+  // walk them in contiguous runs (`walk_begin`); kChainsPerWarp each
+  // without clusters
+  int ranks, rank;
+  cluster_shape<Target::kCluster>(ranks, rank);
+  const int group = blockIdx.x / ranks;
+  const int gw = kWarps * rank + warp;          // the warp in its cluster
+  const int cb0 = Target::kCluster ? walk_begin(gw, kWarps * ranks)
+                                   : kChainsPerWarp * warp;  // first's row
+  const int cpw = Target::kCluster                // chains the warp walks
+                      ? walk_begin(gw + 1, kWarps * ranks) - cb0
+                      : kChainsPerWarp;
+  const int c0 = group * kChains + cb0;         // and the first's chain
+  float* const blk = scratch + (size_t)group * kChains * nvec * dim;
   Chain* records = reinterpret_cast<Chain*>(
-      scratch + (size_t)gridDim.x * kChains * nvec * dim) + c0;
+      scratch + (size_t)(gridDim.x / ranks) * kChains * nvec * dim) + c0;
 
   if (Target::kMInvShared) {
     for (int k = tid; k < dim; k += kThreads) {
@@ -621,7 +764,7 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
     s.q = warp_sum(q);
   };
 
-  for (int c = 0; c < kChainsPerWarp; ++c) {
+  for (int c = 0; c < cpw; ++c) {
     const int chain = c0 + c;
     const bool real = chain < n_chains;
     float* the = vecs(c) + kThE * dim;
@@ -637,6 +780,8 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
     if (lane == 0) {
       records[c].q = q;
       records[c].done = real ? 0 : 1;
+      // the SM that holds the block (for the caller's count of SMs used)
+      if constexpr (Target::kCluster) records[c].sm = sm_id();
     }
   }
   float lik = tg.likelihood(tsm, blk, dim, nvec);
@@ -645,7 +790,7 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
   // the first transition's start (momentum at counter base + 0, salt 1),
   // then the first leaf's drift
   int warp_done = 1;    // every chain of the warp has recorded T
-  for (int c = 0; c < kChainsPerWarp; ++c) {
+  for (int c = 0; c < cpw; ++c) {
     Chain s = records[c];
     const float loglik = __shfl_sync(kFull, lik, c);
     float* st = vecs(c);
@@ -677,13 +822,16 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
     if (lane == 0) records[c] = s;
   }
 
-  const int max_iters = T * (1 << S) + 16;
   for (int it = 0; it < max_iters; ++it) {
-    if (__syncthreads_and(warp_done)) break;
+    if constexpr (Target::kCluster) {
+      if (tg.all_done(tsm, warp_done)) break;
+    } else {
+      if (__syncthreads_and(warp_done)) break;
+    }
     lik = tg.likelihood(tsm, blk, dim, nvec);
     warp_done = 1;
 
-    for (int c = 0; c < kChainsPerWarp; ++c) {
+    for (int c = 0; c < cpw; ++c) {
       Chain s = records[c];
       const float loglik = __shfl_sync(kFull, lik, c);
       const int chain = c0 + c;
@@ -871,6 +1019,10 @@ fused_nuts_kernel(Target tg, const float* __restrict__ theta0,
       if (lane == 0) records[c] = s;
     }
   }
+  if constexpr (Target::kCluster) {
+    // no rank leaves while another still reads its shared memory
+    cg::this_cluster().sync();
+  }
 }
 
 // ---------------------------------------------------------------- launch
@@ -893,6 +1045,10 @@ cudaError_t prepare(int dim, int* per_sm) {
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
+  if (err == cudaSuccess && Target::kCluster) {   // clusters above 8
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
   if (err == cudaSuccess && per_sm) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern,
                                                         kThreads, smem);
@@ -906,21 +1062,99 @@ struct Args {
   float eps;
   uint32_t seed;
   int block_chains, dp, n_chains, dim, T, S;
+  int max_iters;        // leaf iterations at most: T (2^S) + 16
   float* scratch;
   float* out_theta;
   int* out_stats;
 };
 
+// The launch of a cluster instance: a cluster of `ranks` blocks for each
+// group of kChains chains; `attr` holds the cluster's dimension.
+template <class Target>
+cudaLaunchConfig_t cluster_config(int n_chains, int dim, int ranks,
+                                  cudaLaunchAttribute* attr,
+                                  cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_chains + kChains - 1) / kChains * ranks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<Target>(dim);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Ranks per cluster of a cluster instance for a call's shape, and how many
+// clusters of that size the card holds at once. A group's leaf iteration
+// lasts about as long as its rank with the most row tiles, and the groups
+// that the card cannot hold at once wait for a later wave, so of the sizes
+// up to kMaxRanks (and one rank per row tile) the one with the fewest
+// waves times row tiles a rank, the smallest of those on a tie: the same
+// time on fewer blocks, and every rank holds a row tile. At C = 1024 and
+// n = 1000 an H100 holds 14 clusters of 13-16 blocks but 16 of 11-12, so
+// the 16 groups take 11 ranks of 3 row tiles, one wave (PERF.md has the
+// sweep).
+template <class Target>
+cudaError_t cluster_ranks(int n_chains, int dim, int n, int* ranks,
+                          int* clusters) {
+  cudaError_t err = prepare<Target>(dim, nullptr);
+  if (err != cudaSuccess) return err;
+  const int groups = std::max(1, (n_chains + kChains - 1) / kChains);
+  const int row_tiles = (n + kTileRows - 1) / kTileRows;
+  const int most = std::max(1, std::min(kMaxRanks, row_tiles));
+  int best_cost = 0;
+  *ranks = 1;
+  *clusters = 0;
+  for (int r = 1; r <= most; ++r) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        cluster_config<Target>(n_chains, dim, r, attr, 0);
+    int resident = 0;
+    err = cudaOccupancyMaxActiveClusters(&resident, fused_nuts_kernel<Target>,
+                                         &cfg);
+    if (err != cudaSuccess) return err;
+    if (resident == 0) continue;
+    const int cost = (groups + resident - 1) / resident *
+                     std::max(1, (row_tiles + r - 1) / r);
+    if (best_cost == 0 || cost < best_cost) {
+      best_cost = cost;
+      *ranks = r;
+      *clusters = resident;
+    }
+  }
+  return cudaSuccess;
+}
+
 template <class Target>
 cudaError_t launch(const Target& tg, const Args& a, cudaStream_t stream) {
-  const cudaError_t err = prepare<Target>(a.dim, nullptr);
-  if (err != cudaSuccess) return err;
-  const int blocks = (a.n_chains + kChains - 1) / kChains;
-  fused_nuts_kernel<Target><<<blocks, kThreads, smem_bytes<Target>(a.dim),
-                              stream>>>(
-      tg, a.theta0, a.m_inv, a.eps, a.seed, a.block_chains, a.dp,
-      a.n_chains, a.dim, a.T, a.S, a.scratch, a.out_theta, a.out_stats);
-  return cudaGetLastError();
+  if constexpr (Target::kCluster) {
+    int ranks = 1, clusters = 0;
+    cudaError_t err =
+        cluster_ranks<Target>(a.n_chains, a.dim, tg.n, &ranks, &clusters);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        cluster_config<Target>(a.n_chains, a.dim, ranks, attr, stream);
+    err = cudaLaunchKernelEx(&cfg, fused_nuts_kernel<Target>, tg, a.theta0,
+                             a.m_inv, a.eps, a.seed, a.block_chains, a.dp,
+                             a.n_chains, a.dim, a.T, a.S, a.max_iters,
+                             a.scratch, a.out_theta, a.out_stats);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  } else {
+    const cudaError_t err = prepare<Target>(a.dim, nullptr);
+    if (err != cudaSuccess) return err;
+    const int blocks = (a.n_chains + kChains - 1) / kChains;
+    fused_nuts_kernel<Target><<<blocks, kThreads, smem_bytes<Target>(a.dim),
+                                stream>>>(
+        tg, a.theta0, a.m_inv, a.eps, a.seed, a.block_chains, a.dp,
+        a.n_chains, a.dim, a.T, a.S, a.max_iters, a.scratch, a.out_theta,
+        a.out_stats);
+    return cudaGetLastError();
+  }
 }
 
 // f(target) for the kernel instance of a target kind and dim; `none` where
@@ -947,7 +1181,8 @@ R dispatch(int kind, int dim, const float* d0, const float* d1, int n, F f,
 
 extern "C" {
 
-// Chains per thread block.
+// Chains per lock-step group: a thread block, or a cluster of blocks for
+// the wide instance.
 int fused_nuts_chains_per_block() { return kChains; }
 
 // Floats of device scratch a call needs: the tree state of every chain of
@@ -981,6 +1216,31 @@ int fused_nuts_blocks_per_sm(int kind, int dim) {
   return per_sm;
 }
 
+// Ranks per cluster (blocks per group of chains) of the instance for a
+// call's shape on the current device, and how many such clusters the card
+// holds at once: 1 and 0 for an instance launched without clusters, 0 and
+// 0 if that fails.
+void fused_nuts_cluster_shape(int kind, int n_chains, int dim, int n,
+                              int* ranks, int* clusters) {
+  *ranks = *clusters = 0;
+  const cudaError_t err = dispatch(
+      kind, dim, nullptr, nullptr, n,
+      [&](auto tg) {
+        using Target = decltype(tg);
+        if constexpr (Target::kCluster) {
+          return cluster_ranks<Target>(n_chains, dim, n, ranks, clusters);
+        } else {
+          *ranks = 1;
+          return cudaSuccess;
+        }
+      },
+      cudaErrorInvalidValue);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    *ranks = *clusters = 0;
+  }
+}
+
 // theta0 (n_chains, dim), m_inv (dim,): contiguous float32 device arrays;
 // d0, d1, n: the target's data (see `dispatch`); scratch: at least
 // fused_nuts_scratch_floats(n_chains, dim, max_depth) floats. Outputs:
@@ -994,14 +1254,38 @@ int fused_nuts_f32(int kind, const float* theta0, const float* m_inv,
                    float* out_theta, int* out_stats, void* stream) {
   if (n_chains <= 0 || T <= 0) return 0;
   if (max_depth < 1 || max_depth > 10) return (int)cudaErrorInvalidValue;
+  // (an argument, not computed in the kernel: the loop's bound is then
+  // read where it lies instead of taking a register for the whole loop)
   const Args a{theta0, m_inv, eps, seed, block_chains, dp, n_chains, dim, T,
-               max_depth, scratch, out_theta, out_stats};
+               max_depth, T * (1 << max_depth) + 16, scratch, out_theta,
+               out_stats};
   const cudaError_t err = dispatch(
       kind, dim, d0, d1, n,
       [&](auto tg) { return launch(tg, a, (cudaStream_t)stream); },
       cudaErrorInvalidValue);
   if (err != cudaSuccess) cudaGetLastError();  // not reported again later
   return (int)err;
+}
+
+// The SMs that held a block of the call that left `scratch` (the same
+// n_chains, dim and max_depth): distinct SM ids in the chains' records,
+// which a cluster instance writes at its start; -1 if reading them fails.
+// Waits for the device.
+int fused_nuts_sms_used(int n_chains, int dim, int max_depth,
+                        const float* scratch) {
+  const size_t chains = (size_t)(n_chains + kChains - 1) / kChains * kChains;
+  std::vector<Chain> records(chains);
+  if (cudaDeviceSynchronize() != cudaSuccess ||
+      cudaMemcpy(records.data(),
+                 scratch + chains * n_vectors(max_depth) * (size_t)dim,
+                 chains * sizeof(Chain),
+                 cudaMemcpyDeviceToHost) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  std::set<int> sms;
+  for (const Chain& c : records) sms.insert(c.sm);
+  return (int)sms.size();
 }
 
 const char* fused_nuts_error_string(int code) {

@@ -28,7 +28,10 @@ of the stream, and both versions here draw what the Pallas kernel draws:
   tiles staged by `cp.async` and shared by the block), at any wider p
   through the column-tiled stages of K1's wide kernel
   (`csrc/logistic_wide_tile.cuh`: chunks of 128 columns, row panels whose
-  logits stay in shared memory). The tree state lies in a device scratch
+  logits stay in shared memory), with each group of 64 chains owned by a
+  thread-block cluster whose ranks split the rows and walk the chains
+  (`fused_nuts_cluster_shape` gives the ranks the card takes for a call's
+  shape). The tree state lies in a device scratch
   buffer that the wrapper allocates, one contiguous run of
   15 + 2·max_depth vectors per chain. The target is compiled in: a
   `BlockTarget` of kind "logistic" (`models.logistic.
@@ -296,6 +299,12 @@ def _kernel(lib):
         lib.fused_nuts_smem_bytes.restype = ctypes.c_size_t
         lib.fused_nuts_blocks_per_sm.argtypes = [ctypes.c_int] * 2
         lib.fused_nuts_blocks_per_sm.restype = ctypes.c_int
+        lib.fused_nuts_cluster_shape.argtypes = ([ctypes.c_int] * 4
+                                                 + [ctypes.c_void_p] * 2)
+        lib.fused_nuts_cluster_shape.restype = None
+        lib.fused_nuts_sms_used.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.fused_nuts_sms_used.restype = ctypes.c_int
         lib.fused_nuts_error_string.argtypes = [ctypes.c_int]
         lib.fused_nuts_error_string.restype = ctypes.c_char_p
     return fn
@@ -334,6 +343,36 @@ def _check_inputs(target, theta0, m_inv, data, dim, max_depth):
         raise ValueError("the Gaussian block takes (prec (1, Dp),)")
 
 
+def _launch(lib, kind, theta0, m_inv, eps, seed, d0, d1, n, dim, T,
+            max_depth, block_chains):
+    """One call of `lib`'s kernel on CUDA tensors (d1 None for a target
+    with one data tensor), not counted: (thetas (T, C, dim), stats (3, T,
+    C) int32, the scratch it left)."""
+    fn = _kernel(lib)
+    dev, c = theta0.device, theta0.shape[0]
+    thetas = torch.empty(T, c, dim, dtype=torch.float32, device=dev)
+    stats = torch.empty(3, T, c, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.fused_nuts_scratch_floats(c, dim, max_depth),
+                          dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(kind, theta0.data_ptr(), m_inv.data_ptr(), float(eps),
+             int(seed) & 0xFFFFFFFF, block_chains, _round_up(dim, 128), c,
+             dim, T, max_depth, d0.data_ptr(),
+             None if d1 is None else d1.data_ptr(), n, scratch.data_ptr(),
+             thetas.data_ptr(), stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("fused_nuts kernel launch failed: "
+                           + lib.fused_nuts_error_string(err).decode())
+    return thetas, stats, scratch
+
+
+def _target_args(target, data):
+    """The library's kind, second data tensor and row count of a target."""
+    if target.kind == "logistic":
+        return _KINDS[target.kind], data[1], data[0].shape[1]
+    return _KINDS[target.kind], None, 0
+
+
 def fused_nuts(target, theta0, m_inv, eps, seed, data, dim,
                n_transitions=16, max_depth=8, block_chains=256):
     """Run the NUTS megakernel over all chains: the counterpart of
@@ -344,26 +383,33 @@ def fused_nuts(target, theta0, m_inv, eps, seed, data, dim,
         return plain_fused_nuts(target, theta0, m_inv, eps, seed, data, dim,
                                 n_transitions, max_depth, block_chains)
     _check_inputs(target, theta0, m_inv, data, dim, max_depth)
-    lib = _build.load(_LIB)
-    fn = _kernel(lib)
-    kind = _KINDS[target.kind]
-    dev, c, T = theta0.device, theta0.shape[0], n_transitions
-    thetas = torch.empty(T, c, dim, dtype=torch.float32, device=dev)
-    stats = torch.empty(3, T, c, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.fused_nuts_scratch_floats(c, dim, max_depth),
-                          dtype=torch.float32, device=dev)
-    d1 = data[1].data_ptr() if len(data) > 1 else None
-    n = data[0].shape[1] if target.kind == "logistic" else 0
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(kind, theta0.data_ptr(), m_inv.data_ptr(), float(eps),
-             int(seed) & 0xFFFFFFFF, block_chains, _round_up(dim, 128), c,
-             dim, T, max_depth, data[0].data_ptr(), d1, n,
-             scratch.data_ptr(), thetas.data_ptr(), stats.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("fused_nuts kernel launch failed: "
-                           + lib.fused_nuts_error_string(err).decode())
+    kind, d1, n = _target_args(target, data)
+    thetas, stats, _ = _launch(_build.load(_LIB), kind, theta0, m_inv, eps,
+                               seed, data[0], d1, n, dim, n_transitions,
+                               max_depth, block_chains)
     fused_nuts.launches += 1
     return thetas, stats[0], stats[1], stats[2].bool()
 
 
 fused_nuts.launches = 0
+
+
+def sms_used(target, theta0, m_inv, eps, seed, data, dim, max_depth=8,
+             block_chains=256):
+    """The SMs that held a block of the wide logistic instance (p > 128,
+    the one that records them) in one call of one transition on
+    `fused_nuts`'s arguments (CUDA tensors). Not counted in
+    `fused_nuts.launches`."""
+    _check_inputs(target, theta0, m_inv, data, dim, max_depth)
+    if target.kind != "logistic" or target.p <= 128:
+        raise ValueError("only the wide logistic instance (p > 128) records "
+                         "the SMs that held its blocks")
+    kind, d1, n = _target_args(target, data)
+    lib = _build.load(_LIB)
+    _, _, scratch = _launch(lib, kind, theta0, m_inv, eps, seed, data[0],
+                            d1, n, dim, 1, max_depth, block_chains)
+    used = lib.fused_nuts_sms_used(theta0.shape[0], dim, max_depth,
+                                   scratch.data_ptr())
+    if used < 0:
+        raise RuntimeError("fused_nuts: reading the chains' records failed")
+    return used

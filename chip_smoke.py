@@ -70,7 +70,8 @@ Phases (any failure exits non-zero):
    then the eager fused draws for 16 transitions from the same state,
    whose cross-chain moments at transition 16 must agree with K2's. It
    prints the wide instance's registers, spills, shared memory, blocks per
-   SM and SMs used.
+   SM, ranks (blocks) per cluster of 64 chains, blocks, the clusters the
+   card holds at once and the SMs that held a block.
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
@@ -1404,31 +1405,44 @@ WIDE_K2_LOG_SIGMA0, WIDE_K2_M_INV, WIDE_K2_EPS = -1.5, 5e-3, 0.3
 WIDE_K2_K_SE = 4.0
 
 
-def k2_wide_report():
+def k2_wide_report(args):
     """The wide instance's registers and spills (ptxas), and at the 1000-D
-    model its shared memory per block, resident blocks per SM, blocks and
-    SMs used (blocks fewer than SMs each take an SM of their own)."""
+    model (`args`, phase 10's call 1) its shared memory per block, resident
+    blocks per SM, ranks (blocks) per cluster of 64 chains, blocks,
+    clusters the card holds at once, and the SMs that held a block."""
+    import ctypes
+
     from advancedhmc_torch.ops import _build
     from advancedhmc_torch.ops import fused_nuts_kernel as k2
 
+    target, th0, m_inv, eps, seed, data, dim, _, max_depth, bc = args
     lib = _build.load("fused_nuts")
     k2._kernel(lib)
     (regs, spill), = [(r, sp) for _, r, sp, mangled in ptxas_instances(
         "fused_nuts", r"LogisticTargetILi(\d+)E")
         if "WideLogisticTarget" in mangled]
-    per_block = lib.fused_nuts_chains_per_block()
-    blocks = -(-WIDE_CHAINS // per_block)
+    per_group = lib.fused_nuts_chains_per_block()
+    ranks, clusters = ctypes.c_int(), ctypes.c_int()
+    lib.fused_nuts_cluster_shape(0, WIDE_CHAINS, WIDE_DIM, WIDE_ROWS,
+                                 ctypes.byref(ranks), ctypes.byref(clusters))
+    groups = -(-WIDE_CHAINS // per_group)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = dict(registers=int(regs), spill_store_bytes=int(spill),
-               chains_per_block=per_block,
+               chains_per_block=per_group,
                smem_bytes_per_block=int(lib.fused_nuts_smem_bytes(
                    0, WIDE_DIM)),
                blocks_per_sm=lib.fused_nuts_blocks_per_sm(0, WIDE_DIM),
-               blocks=blocks, sms=sms, sms_used=min(blocks, sms))
+               ranks_per_cluster=ranks.value, groups=groups,
+               blocks=groups * ranks.value,
+               resident_clusters=clusters.value, sms=sms,
+               sms_used=k2.sms_used(target, th0, m_inv, eps, seed, data,
+                                    dim, max_depth, bc))
     log(f"# K2 wide (p > 128): {regs} registers, {spill} bytes of spill "
         f"stores (ptxas); dim={WIDE_DIM}: {out['smem_bytes_per_block']} "
         f"bytes of shared memory per block, {out['blocks_per_sm']} blocks "
-        f"per SM; C={WIDE_CHAINS}: {blocks} blocks of {per_block} chains on "
+        f"per SM; C={WIDE_CHAINS}: {groups} groups of {per_group} chains, "
+        f"each a cluster of {ranks.value} blocks ({out['blocks']} blocks; "
+        f"the card holds {clusters.value} such clusters at once), on "
         f"{out['sms_used']} of {sms} SMs")
     return out
 
@@ -1471,11 +1485,12 @@ def phase_wide_megakernel(res, wide_out):
     th_start = fs.z.theta.to(torch.float32).contiguous()
     target, data = hierarchical_logistic_block(
         n=WIDE_ROWS, p=WIDE_DIM - 1, d_pad=1024, device="cuda")
-    shape = k2_wide_report()
 
     def warmed(th0, e, T, seed=WIDE_K2_SEED0):
         return (target, th0.contiguous(), m_inv, e, seed, data, WIDE_DIM, T,
                 MAX_DEPTH, MEGA_BLOCK)
+
+    shape = k2_wide_report(warmed(th_start, eps, MEGA_T))
 
     def model(p, n):
         tgt, dat = hierarchical_logistic_block(n=n, p=p, d_pad=256,
@@ -1579,7 +1594,7 @@ def phase_wide_megakernel(res, wide_out):
     log(f"# wide megakernel: {out['call_ms_mean']:.1f} ms per call of "
         f"{MEGA_T} transitions at C={WIDE_CHAINS} (bound "
         f"{out['bound_ms_mean']:.2f} ms, {out['bound_by']}), "
-        f"{sum(out['ms_per_leaf_iteration']) / WIDE_K2_CALLS:.2f} ms per "
+        f"{sum(out['ms_per_leaf_iteration']) / WIDE_K2_CALLS:.3f} ms per "
         f"lock-step leaf iteration; lock-step share "
         f"{', '.join(f'{x:.4f}' for x in lockstep)}; the eager fused "
         f"draws took {eager_s:.1f} s for {MEGA_T} transitions")
@@ -1591,6 +1606,10 @@ def phase_wide_megakernel(res, wide_out):
             <= K2_DEPTH_TOL,
         f"k2 launched {WIDE_K2_CALLS} times":
             launches["fused_nuts"] == WIDE_K2_CALLS,
+        f"k2 wide in clusters of more than one block ("
+        f"{shape['ranks_per_cluster']}, {shape['resident_clusters']} "
+        f"resident)": shape["ranks_per_cluster"] > 1
+        and shape["resident_clusters"] >= 1,
     }
     for name in WIDE_MOMENTS:
         (a, se_a), (b, se_b) = mom_k2[name], mom_eager[name]
@@ -1727,9 +1746,11 @@ def main(argv=None):
         "bound_ms": wide_k2["bound_ms_mean"],
         "bound_by": wide_k2["bound_by"],
         "library_ms": None,
+        "ms_per_leaf_iteration": wide_k2["ms_per_leaf_iteration"],
         **{k: wide_k2[k] for k in (
             "registers", "spill_store_bytes", "chains_per_block",
-            "smem_bytes_per_block", "blocks_per_sm", "blocks", "sms_used",
+            "smem_bytes_per_block", "blocks_per_sm", "ranks_per_cluster",
+            "groups", "blocks", "resident_clusters", "sms", "sms_used",
             "lockstep_share")},
         "shapes": wide_k2["shapes"],
     }, {

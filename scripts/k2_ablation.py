@@ -6,6 +6,7 @@ Run from the root of the repository on a machine with one CUDA card:
 
     python3 scripts/k2_ablation.py            # the 100-D model
     python3 scripts/k2_ablation.py --wide     # the 1000-D model (p > 128)
+    python3 scripts/k2_ablation.py --wide --deep   # ... every group deep
 
 Each variant is a copy of `advancedhmc_torch/csrc/fused_nuts.cu` and its
 headers `csrc/logistic_tile.cuh`, `csrc/logistic_wide_tile.cuh` with one
@@ -35,20 +36,45 @@ slowest chain's leaves plus one).
 With `--wide` the variants are those of the wide instance
 (`WideLogisticTarget`), on 1024 chains of the 1000-D logistic (p = 999,
 1000 rows) from starts with log σ = −1.5, M⁻¹ = 5e-3 and ε = 0.3 (trees
-of depth ~4), 16 transitions. Its 16 blocks each take an SM, so the time
-per block iteration is over the slowest block's iterations.
+of depth ~4), 16 transitions. Each of its 16 groups of 64 chains is a
+cluster of R blocks that split the rows and walk the chains (R = 11 on an
+H100, which holds all 16 such clusters at once); the groups run side by
+side, so the time per group iteration is over the slowest group's
+iterations.
 
-  kernel        the kernel as it is
-  no_mma        neither product issues its mma (staging, barriers, the
-                epilogue, the gradient's write-out and the walk remain)
-  one_mma       one TF32 mma per product instead of three
-  no_stage_x    the x tiles' 4-byte cp.async copies are not issued
-  no_stage_beta β's chunks are not copied from the scratch
-  one_barrier   one barrier per step of stage A instead of two (a race,
-                timing only)
-  no_leaf       no chunks (no staging, products or write-out; the
-                gradient vectors keep what the walk left): what the walk
-                and the lock step cost
+  kernel          the kernel as it is
+  no_mma          neither product issues its mma (staging, barriers, the
+                  epilogue, the cluster's sums and the walk remain)
+  one_mma         one TF32 mma per product instead of three
+  no_stage_x      the x tiles' 4-byte cp.async copies are not issued
+  no_stage_beta   β's chunks are not copied from the scratch
+  one_barrier     one barrier per step of stage A instead of two (a race,
+                  timing only)
+  no_leaf         no chunks (no staging, products or sums; the gradient
+                  vectors keep what the walk left): what the walk, the
+                  barriers and the lock step cost
+  one_rank        clusters of one block (kMaxRanks = 1): each group's
+                  rows and walk on one block, as before the cluster design
+  no_cluster_sum  the rank-ordered sums of the gradient chunks through
+                  distributed shared memory are not taken (the barriers
+                  stay; the gradient vectors keep what the walk left)
+  ranks_16        16 ranks a cluster (2 row tiles a rank; the card holds
+                  14 such clusters, so two groups wait for a second wave)
+  ranks_12        12 ranks a cluster (3 row tiles a rank, the last rank
+                  none; one wave)
+  ranks_8         8 ranks a cluster (4 row tiles a rank, one wave)
+  one_per_sm      16 KB more shared memory a block, so that an SM holds
+                  one block; the ranks by the kernel's rule at that
+                  occupancy
+  one_per_sm_8    one block an SM and 8 ranks a cluster (128 blocks)
+
+For the wide instance each line also gives the SMs that held a block (the
+SM ids the kernel leaves in the chains' records, `fused_nuts_sms_used`).
+
+`--deep` takes ε = 0.0375 instead of 0.3: every chain's tree reaches
+max_depth in every transition, so every group iterates 1009 times, as in
+chip_smoke.py's phase 10, and a group that waits for a later wave adds its
+whole time to the call's.
 
 Prints one line per variant, the card's name and power limit, and last a
 JSON object with the times.
@@ -97,6 +123,20 @@ EDITS = {   # variant: [(file, old text, new text)]
         "    const int n_tiles = (n + kTileRows - 1) / kTileRows;",
         "    const int n_tiles = 0;")],
 }
+
+
+def _ranks(r):
+    """The edit that fixes the wide instance's ranks per cluster at r."""
+    return (CU, "  for (int r = 1; r <= most; ++r) {",
+            f"  for (int r = {r}; r <= {r}; ++r) {{")
+
+
+# 16 KB more shared memory a block of the wide instance, so that an SM
+# holds one block (the rank rule then weighs the clusters the card holds
+# at one block an SM)
+_ONE_PER_SM = (CU, "(size_t)kChains * kResStride + kPanelRows + kChains + 4;",
+               "(size_t)kChains * kResStride + kPanelRows + kChains + 4 + "
+               "4096;")
 WIDE_EDITS = {
     "kernel": [],
     "no_mma": [(W, "logistic_tile::mma_3xtf32(d[q][j], a_hi, a_lo, b_hi, "
@@ -118,6 +158,14 @@ WIDE_EDITS = {
         "after next\n", "")],
     "no_leaf": [(CU, "    const int n_chunks = (p + kChunk - 1) / kChunk;",
                  "    const int n_chunks = 0;")],
+    "one_rank": [(CU, "constexpr int kMaxRanks = 16;",
+                  "constexpr int kMaxRanks = 1;")],
+    "no_cluster_sum": [(CU,
+        "for (int e = tid; e < span * kChunk; e += kThreads) {",
+        "for (int e = tid; e < 0; e += kThreads) {")],
+    **{f"ranks_{r}": [_ranks(r)] for r in (16, 12, 8)},
+    "one_per_sm": [_ONE_PER_SM],
+    "one_per_sm_8": [_ONE_PER_SM, _ranks(8)],
 }
 # (edits, rows, dim, chains, log σ start, M⁻¹, ptxas entry of the instance)
 MODES = {
@@ -125,6 +173,7 @@ MODES = {
     "wide": (WIDE_EDITS, 1000, 1000, 1024, -1.5, 5e-3, "WideLogisticTarget"),
 }
 T, MAX_DEPTH, EPS, SEED, BLOCK_CHAINS = 16, 6, 0.3, 3, 256
+DEEP_EPS = 0.0375
 
 
 def build_all(mode):
@@ -174,22 +223,12 @@ def _registers(report, instance):
     return None, None
 
 
-def call(lib, theta0, m_inv, d0, y, n):
-    from advancedhmc_torch.ops.counter_rng import _round_up
+def call(lib, theta0, m_inv, d0, y, n, eps=EPS):
+    """One call of `lib`'s kernel: (thetas, stats, the scratch it left)."""
+    from advancedhmc_torch.ops import fused_nuts_kernel as k2
 
-    c, dim = theta0.shape
-    thetas = torch.empty(T, c, dim, device="cuda")
-    stats = torch.empty(3, T, c, dtype=torch.int32, device="cuda")
-    scratch = torch.empty(lib.fused_nuts_scratch_floats(c, dim, MAX_DEPTH),
-                          device="cuda")
-    err = lib.fused_nuts_f32(
-        0, theta0.data_ptr(), m_inv.data_ptr(), EPS, SEED, BLOCK_CHAINS,
-        _round_up(dim, 128), c, dim, T, MAX_DEPTH, d0.data_ptr(),
-        y.data_ptr(), n, scratch.data_ptr(), thetas.data_ptr(),
-        stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"launch failed with CUDA error {err}")
-    return thetas, stats
+    return k2._launch(lib, 0, theta0, m_inv, eps, SEED, d0, y, n,
+                      theta0.shape[1], T, MAX_DEPTH, BLOCK_CHAINS)
 
 
 def cuda_ms(fn, reps=3):
@@ -212,6 +251,7 @@ def main():
     from advancedhmc_torch.ops.counter_rng import _round_up
 
     mode = "wide" if "--wide" in sys.argv[1:] else "narrow"
+    eps = DEEP_EPS if "--deep" in sys.argv[1:] else EPS
     _, n_rows, dim, chains, log_sigma, m_inv_value, _ = MODES[mode]
     libs = build_all(mode)
     _, (xt, y) = hierarchical_logistic_block(
@@ -228,18 +268,27 @@ def main():
     result = {}
     for name, (lib, (regs, spills)) in libs.items():
         d0 = x if name == "row_major" else xt
-        out = call(lib, theta0, m_inv, d0, y, n_rows)
+        out = call(lib, theta0, m_inv, d0, y, n_rows, eps)
         torch.cuda.synchronize()
         if ref is None:
             ref = out
-        same = all(torch.equal(a, b) for a, b in zip(out, ref))
+        same = all(torch.equal(a, b) for a, b in zip(out[:2], ref[:2]))
+        # the wide instance leaves each chain's SM in the scratch
+        sms = (lib.fused_nuts_sms_used(chains, dim, MAX_DEPTH,
+                                       out[2].data_ptr())
+               if mode == "wide" else None)
         leaves = out[1][0].sum(0).double()                  # (C,)
         iters = leaves.reshape(-1, block).amax(1) + 1
-        ms = [cuda_ms(lambda: call(lib, theta0, m_inv, d0, y, n_rows))
+        ms = [cuda_ms(lambda: call(lib, theta0, m_inv, d0, y, n_rows, eps))
               for _ in range(2)]
         per_sm = lib.fused_nuts_blocks_per_sm(0, dim)
+        ranks, clusters = ctypes.c_int(), ctypes.c_int()
+        lib.fused_nuts_cluster_shape(0, chains, dim, n_rows,
+                                     ctypes.byref(ranks),
+                                     ctypes.byref(clusters))
         # the 100-D model's 512 blocks share the SMs' slots over the call,
-        # the 1000-D model's 16 run side by side until the slowest is done
+        # the 1000-D model's 16 groups run side by side until the slowest
+        # is done
         per_call = iters.max() if mode == "wide" else iters.mean()
         result[name] = dict(
             ms=ms, block_iterations_mean=float(iters.mean()),
@@ -247,20 +296,23 @@ def main():
             ms_per_block_iteration=ms[0] / float(per_call),
             mean_depth=float(out[1][1].double().mean()),
             registers=regs, spill_store_bytes=spills, blocks_per_sm=per_sm,
-            same_bits=same)
-        print(f"# {name:12s} {ms[0]:8.2f} {ms[1]:8.2f} ms per call, "
+            ranks_per_cluster=ranks.value, resident_clusters=clusters.value,
+            sms_used=sms, same_bits=same)
+        print(f"# {name:14s} {ms[0]:8.2f} {ms[1]:8.2f} ms per call, "
               f"{1e3 * result[name]['ms_per_block_iteration']:7.1f} µs per "
               f"block iteration ({float(iters.mean()):.1f} mean, "
               f"{float(iters.max()):.0f} max), depth "
               f"{result[name]['mean_depth']:.3f}, {regs} registers, "
-              f"{spills} B spill stores, {per_sm} blocks per SM, same bits "
-              f"as the kernel {same}", flush=True)
+              f"{spills} B spill stores, {per_sm} blocks per SM, "
+              f"{ranks.value} ranks a cluster ({clusters.value} resident), "
+              f"{sms} SMs used, "
+              f"same bits as the kernel {same}", flush=True)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(gpu)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "mode": mode,
-                      "variants": result}))
+                      "eps": eps, "variants": result}))
 
 
 if __name__ == "__main__":

@@ -21,11 +21,14 @@ accumulation chains and the tensor cores' truncating adds) and once in
 float32, and holds the draws to the card's agreement gate at a small size.
 
 The rest model the wide instance (p > 128, `WideLogisticTarget`), whose
-leaf runs the column-tiled stages of `csrc/logistic_wide_tile.cuh` inside
-the block: the chunk, tile and panel bounds, the staging of β from the
-frontiers in the scratch and of x from xᵀ with their zero padding, the
-gradient's write-out into the frontiers' gradient vectors, and the order
-of work in float64 against the direct function.
+leaf runs the column-tiled stages of `csrc/logistic_wide_tile.cuh` on a
+thread-block cluster of R ranks per group of 64 chains: the chunk, tile
+and panel bounds with the rows split over the ranks (uneven ranges, ranks
+with no tile), the staging of β from the frontiers in the scratch and of x
+from xᵀ with their zero padding, the gradient's rank-ordered sum into the
+frontiers' gradient vectors, the order of work in float64 against the
+direct function, and the walk spread over the cluster's warps with each
+chain's counter stream unchanged.
 """
 
 import re
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 from advancedhmc_torch.models.logistic import _synthetic_data, \
     hierarchical_logistic_block
 from advancedhmc_torch.ops import fused_nuts_kernel as k2
-from advancedhmc_torch.ops.counter_rng import _round_up
+from advancedhmc_torch.ops.counter_rng import _round_up, rng_base
 from advancedhmc_torch.target import BlockTarget
 from test_torch_tf32_split import TILE_ROWS, _c_pos, _epilogue, \
     _mma_chain, _split
@@ -274,18 +277,39 @@ PANEL_ROWS = PANEL_TILES * TILE_ROWS
 RES_STRIDE = PANEL_ROWS + int(re.search(
     r"constexpr int kResStride = kPanelRows \+ (\d+);", WIDE_SRC).group(1))
 K_THE, K_GE = 0, 2                                 # enum Vec: kThE, kGE
+MAX_RANKS = _constant("kMaxRanks")                 # blocks per cluster
+RANKS = (1, 2, 11, 12, MAX_RANKS)
 
 
-def _wide_bounds(p, n):
-    """The kernel's chunks (k0, n_ks = n_nt) and panels (t0, nt_p)."""
+def _walk_begin(gw, warps):
+    """`walk_begin`: the row in its group of the first chain that warp gw
+    of a cluster's `warps` walks (contiguous runs, in order)."""
+    return BLOCK * gw // warps
+
+
+def _rank_chains(ranks, rank):
+    """The rows in its group of the chains rank `rank` walks, whose
+    gradient and lp sums it takes."""
+    return range(_walk_begin(WARPS * rank, WARPS * ranks),
+                 _walk_begin(WARPS * (rank + 1), WARPS * ranks))
+
+
+def _wide_bounds(p, n, ranks=1, rank=0):
+    """The kernel's chunks (k0, n_ks = n_nt) and the panels (t0, nt_p) of
+    rank `rank` of `ranks`: a contiguous range of ceil(n_tiles / ranks) row
+    tiles, the last ranks fewer or none; every rank walks as many panels,
+    at least one."""
     n_chunks = -(-p // CHUNK)
     n_tiles = -(-n // TILE_ROWS)
-    n_panels = max(1, -(-n_tiles // PANEL_TILES))
+    per_rank = -(-n_tiles // ranks)
+    begin = min(n_tiles, rank * per_rank)
+    end = min(n_tiles, begin + per_rank)
+    n_panels = max(1, -(-per_rank // PANEL_TILES))
     chunks = [(c * CHUNK, min(W_KSTEPS, (p - c * CHUNK + 7) // 8))
               for c in range(n_chunks)]
-    panels = [(q * PANEL_TILES,
-               max(0, min(n_tiles, q * PANEL_TILES + PANEL_TILES)
-                   - q * PANEL_TILES)) for q in range(n_panels)]
+    panels = [(begin + q * PANEL_TILES,
+               max(0, min(end, begin + q * PANEL_TILES + PANEL_TILES)
+                   - begin - q * PANEL_TILES)) for q in range(n_panels)]
     return chunks, panels
 
 
@@ -331,21 +355,81 @@ def test_k2_dispatches_every_wider_p_to_the_wide_instance():
     wide = re.search(r"struct WideLogisticTarget \{(.*?)\n\};", SRC,
                      re.S).group(1)
     assert "kMInvShared = false" in wide and "kMinBlocks = 2" in wide
+    assert "kCluster = true" in wide
+    # the tiles, the panel's y, the partial lp of the group's chains, the
+    # "done" flag
     floats = ((BLOCK + 2 * TILE_ROWS) * W_STRIDE + BLOCK * RES_STRIDE
-              + PANEL_ROWS)
+              + PANEL_ROWS + BLOCK + 4)
     assert 2 * (4 * floats + 1024) <= 228 * 1024
+    # ranks per cluster: a chain for every warp of a cluster, non-portable
+    # above 8, at most 16 on an H100
+    assert WARPS * MAX_RANKS <= BLOCK and MAX_RANKS <= 16
 
 
+# Clusters of the wide instance the card holds at once, by ranks R: what
+# cudaOccupancyMaxActiveClusters gives on an H100 SXM (132 SMs, two blocks
+# of ~101 KB an SM); a cluster's blocks share one GPC, so the large sizes
+# leave slots empty.
+H100_RESIDENT = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30,
+                 9: 23, 10: 21, 11: 16, 12: 16, 13: 14, 14: 14, 15: 14,
+                 16: 14}
+
+
+def _cluster_ranks(chains, n, resident=H100_RESIDENT):
+    """`cluster_ranks`: of R up to kMaxRanks and one per row tile, the one
+    with the fewest waves of clusters times row tiles a rank, the smallest
+    on a tie. Returns (R, resident clusters)."""
+    groups = max(1, -(-chains // BLOCK))
+    tiles = -(-n // TILE_ROWS)
+    best = None
+    for r in range(1, max(1, min(MAX_RANKS, tiles)) + 1):
+        if resident[r] == 0:
+            continue
+        cost = -(-groups // resident[r]) * max(1, -(-tiles // r))
+        if best is None or cost < best[0]:
+            best = (cost, r, resident[r])
+    return best[1:]
+
+
+def test_k2_wide_rank_choice():
+    """On an H100: phase 10's 16 groups (C = 1024, n = 1000) take 11
+    ranks of 3 row tiles, all 16 clusters at once (12 ranks cost the same
+    with a rank that holds no tile; 16 would leave two groups for a second
+    wave); four groups (the card test's 256 chains) take 13 ranks at 25
+    row tiles (the last rank one tile) and 16 at 32; n = 97 (4 row tiles)
+    4; n = 0 one; 64 groups seven (two waves of 5 tiles, tied with 16's
+    five waves of 2); 512 groups (C = 32768) one, tied with two."""
+    body = re.search(r"cudaError_t cluster_ranks\(.*?\n\}", SRC,
+                     re.S).group(0)
+    for line in ("std::min(kMaxRanks, row_tiles)",
+                 "const int cost = (groups + resident - 1) / resident *",
+                 "std::max(1, (row_tiles + r - 1) / r);",
+                 "if (best_cost == 0 || cost < best_cost) {"):
+        assert line in body, line
+    assert _cluster_ranks(1024, 1000) == (11, 16)
+    assert _cluster_ranks(256, 797) == (13, 14)
+    assert _cluster_ranks(256, 1000) == (16, 14)
+    assert _cluster_ranks(64, 1000) == (16, 14)
+    assert _cluster_ranks(4096, 1000) == (7, 32)
+    assert _cluster_ranks(256, 97) == (4, 62)
+    assert _cluster_ranks(256, 0) == (1, 264)
+    assert _cluster_ranks(32768, 1000) == (1, 264)
+
+
+@pytest.mark.parametrize("ranks", RANKS)
 @pytest.mark.parametrize("p,n", [(129, 1000), (999, 1000), (2047, 1000),
-                                 (999, 997), (200, 0)])
-def test_k2_wide_chunks_panels_and_padding(p, n):
+                                 (999, 997), (200, 797), (200, 97),
+                                 (200, 0)])
+def test_k2_wide_chunks_panels_and_padding(p, n, ranks):
     """Every column lies in one chunk, whose k-steps reach p; every row
-    tile in one panel (at least one panel, also at n = 0); each warp's
-    staging covers the chunk's columns and β's rows once; the last chunk's
-    β and x columns past p and the x rows past n read as zeros; the
-    gradient's write-out covers every column < p of the block's chains
-    once a chunk."""
-    chunks, panels = _wide_bounds(p, n)
+    tile in one panel of one rank, the ranks' ranges contiguous and in
+    rank order, every rank with as many panels (at least one, also at
+    n = 0), some ranks with fewer tiles or none where the ranges do not
+    divide; each warp's staging covers the chunk's columns and β's rows
+    once; the last chunk's β and x columns past p and the x rows past n
+    read as zeros; the gradient's write-out covers every column < p of the
+    group's chains once a chunk."""
+    chunks, _ = _wide_bounds(p, n)
     cols = np.zeros(p, int)
     for k0, n_ks in chunks:
         assert 1 <= n_ks <= W_KSTEPS and k0 + 8 * n_ks >= min(p, k0 + CHUNK)
@@ -356,10 +440,29 @@ def test_k2_wide_chunks_panels_and_padding(p, n):
     if p == 999:
         assert chunks[-1] == (896, 13)         # columns 896..998
     n_tiles = -(-n // TILE_ROWS)
-    assert len(panels) >= 1
-    assert sum(nt for _, nt in panels) == n_tiles
-    assert [t0 for t0, _ in panels] == list(range(0, len(panels)
-                                                  * PANEL_TILES, PANEL_TILES))
+    by_rank = [_wide_bounds(p, n, ranks, r)[1] for r in range(ranks)]
+    assert len({len(panels) for panels in by_rank}) == 1
+    assert len(by_rank[0]) >= 1
+    tiles = [t for panels in by_rank for t0, nt in panels
+             for t in range(t0, t0 + nt)]
+    assert tiles == list(range(n_tiles))       # once each, in rank order
+    for panels in by_rank:
+        t0s = [t0 for t0, _ in panels]
+        assert t0s == list(range(t0s[0], t0s[0] + len(panels) * PANEL_TILES,
+                                 PANEL_TILES))
+    per_rank = [sum(nt for _, nt in panels) for panels in by_rank]
+    assert max(per_rank) == -(-n_tiles // ranks)
+    if (ranks, n) == (16, 797):
+        # 25 tiles: ranks 0-11 take 2, rank 12 takes 1, ranks 13-15 none
+        assert per_rank == [2] * 12 + [1] + [0] * 3
+    if (ranks, n) == (16, 1000):
+        assert per_rank == [2] * 16
+    if (ranks, n) == (11, 1000):
+        assert per_rank == [3] * 10 + [2]      # phase 10's split
+    if (ranks, n) == (12, 1000):
+        assert per_rank == [3] * 10 + [2, 0]
+    if ranks == 16 and n == 97:
+        assert per_rank == [1] * 4 + [0] * 12
 
     # the last chunk, the last row tile: staged from x^T as it lies
     dim = p + 1
@@ -388,91 +491,121 @@ def test_k2_wide_chunks_panels_and_padding(p, n):
     want[:, :p - k0] = theta[:, 1 + k0:dim]
     np.testing.assert_array_equal(bs[:, :CHUNK], want)
 
-    # write-out: warp w's lanes over the chunk's columns of its 16 chains
+    # write-out: each rank's threads over the columns of the chains it
+    # walks (e = tid, tid + kThreads, .. < span * kChunk)
     for k0, _ in chunks:
         out = np.zeros((BLOCK, dim), int)
-        for warp in range(WARPS):
-            for r in range(PER_WARP):
-                for lane in range(32):
-                    for k in range(lane, CHUNK, 32):
-                        if k0 + k < p:
-                            out[PER_WARP * warp + r, 1 + k0 + k] += 1
+        for rank in range(ranks):
+            mine = _rank_chains(ranks, rank)
+            e = np.arange(len(mine) * CHUNK)
+            c, k = mine.start + e // CHUNK, e % CHUNK
+            ok = k0 + k < p
+            np.add.at(out, (c[ok], 1 + k0 + k[ok]), 1)
         assert np.all(out[:, 0] == 0)
         assert np.all(out[:, 1 + k0:1 + min(p, k0 + CHUNK)] == 1)
         assert out.sum() == BLOCK * (min(p, k0 + CHUNK) - k0)
 
 
-def _wide_leaf_model(theta, xt, y, n, p, max_depth=6):
-    """The wide likelihood's order of work in float64, block by block:
-    β and x staged as above, stage A's chunks added into the panel's
-    logits, the epilogue's masked rows, stage B's chunk sums written into
-    the frontiers' gradient vectors (the first panel writes, later panels
-    add), lp over each lane's panels, then over the lanes t in the kernel's
-    xor order. Returns (lp (C,), the gradient vectors (C, dim))."""
+def _wide_leaf_model(theta, xt, y, n, p, ranks=1, max_depth=6):
+    """The wide likelihood's order of work in float64, group by group, on a
+    cluster of `ranks`: β (every rank stages the whole group's) and x
+    staged as above; in each rank, over its panels, stage A's chunks added
+    into the panel's logits, the epilogue's masked rows, stage B's chunk
+    sums over its tiles left as the rank's partial; then each rank adds
+    every rank's partial in rank order (from 0) into the gradient vectors
+    of the chains it walks (the first panel writes, later panels add); lp
+    over each lane's panels, then over the lanes t in the kernel's xor
+    order, then over the ranks in order. Returns (lp (C,), the gradient
+    vectors (C, dim))."""
     c, dim = theta.shape
     nvec = _n_vectors(max_depth)
-    chunks, panels = _wide_bounds(p, n)
+    chunks, _ = _wide_bounds(p, n)
     blocks = -(-c // BLOCK)
     scratch = np.zeros(blocks * BLOCK * nvec * dim)
     vec = scratch.reshape(blocks * BLOCK, nvec, dim)
     vec[:c, K_THE] = theta
     vec[:, K_GE] = np.nan
     lp = np.zeros(blocks * BLOCK)
+    x_tiles = {}
     for b in range(blocks):
         blk = scratch[b * BLOCK * nvec * dim:(b + 1) * BLOCK * nvec * dim]
-        lp_lane = np.zeros((BLOCK, 4))          # chain, lane t of its group
-        for panel, (t0, nt_p) in enumerate(panels):
-            res = np.zeros((BLOCK, RES_STRIDE))
-            yp = np.zeros(PANEL_ROWS)
-            for i in range(PANEL_ROWS):
-                row = t0 * TILE_ROWS + i
-                if i < nt_p * TILE_ROWS and row < n:
-                    yp[i] = y[row]
-            tiles = {}
-            for ci, (k0, n_ks) in enumerate(chunks):
-                bs = _stage_beta(blk, nvec, dim, p, k0)
+        betas = [_stage_beta(blk, nvec, dim, p, k0) for k0, _ in chunks]
+        lp_rank = np.zeros((ranks, BLOCK))
+        parts = {}                               # (panel, chunk): by rank
+        for rank in range(ranks):
+            _, panels = _wide_bounds(p, n, ranks, rank)
+            lp_lane = np.zeros((BLOCK, 4))       # chain, lane t of its group
+            for panel, (t0, nt_p) in enumerate(panels):
+                res = np.zeros((BLOCK, RES_STRIDE))
+                yp = np.zeros(PANEL_ROWS)
+                for i in range(PANEL_ROWS):
+                    row = t0 * TILE_ROWS + i
+                    if i < nt_p * TILE_ROWS and row < n:
+                        yp[i] = y[row]
+                for ci, (k0, n_ks) in enumerate(chunks):
+                    for i in range(nt_p):
+                        if (ci, t0 + i) not in x_tiles:
+                            x_tiles[ci, t0 + i] = _stage_x(xt, n, p, k0,
+                                                           t0 + i)[0]
+                        xs = x_tiles[ci, t0 + i]
+                        cols = slice(0, 8 * n_ks)
+                        part = betas[ci][:, cols] @ xs[:, cols].T  # (64, 32)
+                        r = slice(TILE_ROWS * i, TILE_ROWS * (i + 1))
+                        res[:, r] = part if ci == 0 else res[:, r] + part
+                rows_left = n - t0 * TILE_ROWS
                 for i in range(nt_p):
-                    xs, _ = _stage_x(xt, n, p, k0, t0 + i)
-                    tiles[ci, i] = xs
-                    cols = slice(0, 8 * n_ks)
-                    part = bs[:, cols] @ xs[:, cols].T        # (64, 32)
-                    r = slice(TILE_ROWS * i, TILE_ROWS * (i + 1))
-                    res[:, r] = part if ci == 0 else res[:, r] + part
-            rows_left = n - t0 * TILE_ROWS
-            for i in range(nt_p):
-                for j in range(4):
-                    for t in range(4):
-                        for r0 in (TILE_ROWS * i + 8 * j + 2 * t,
-                                   TILE_ROWS * i + 8 * j + 2 * t + 1):
-                            w = 1.0 if r0 < rows_left else 0.0
-                            lg = res[:, r0]
-                            lp_lane[:, t] += yp[r0] * lg - w * np.logaddexp(
-                                0.0, lg)
-                            res[:, r0] = yp[r0] - w / (1.0 + np.exp(-lg))
-            for ci, (k0, n_ks) in enumerate(chunks):
-                acc = np.zeros((BLOCK, CHUNK))
-                for i in range(nt_p):
-                    xs = tiles[ci, i]
-                    r = slice(TILE_ROWS * i, TILE_ROWS * (i + 1))
-                    acc[:, :8 * n_ks] += res[:, r] @ xs[:, :8 * n_ks]
-                for cb in range(BLOCK):
-                    out = (cb * nvec + K_GE) * dim + 1 + k0
-                    for k in range(min(CHUNK, p - k0)):
-                        blk[out + k] = acc[cb, k] if panel == 0 else \
-                            blk[out + k] + acc[cb, k]
-        # lp_g += shfl_xor(lp_g, 1); lp_g += shfl_xor(lp_g, 2): lane t = 0
-        s1 = lp_lane[:, [0, 1, 2, 3]] + lp_lane[:, [1, 0, 3, 2]]
-        lp[b * BLOCK:(b + 1) * BLOCK] = s1[:, 0] + s1[:, 2]
+                    for j in range(4):
+                        for t in range(4):
+                            for r0 in (TILE_ROWS * i + 8 * j + 2 * t,
+                                       TILE_ROWS * i + 8 * j + 2 * t + 1):
+                                w = 1.0 if r0 < rows_left else 0.0
+                                lg = res[:, r0]
+                                lp_lane[:, t] += yp[r0] * lg \
+                                    - w * np.logaddexp(0.0, lg)
+                                res[:, r0] = yp[r0] - w / (1.0 + np.exp(-lg))
+                for ci, (k0, n_ks) in enumerate(chunks):
+                    acc = np.zeros((BLOCK, CHUNK))
+                    for i in range(nt_p):
+                        xs = x_tiles[ci, t0 + i]
+                        r = slice(TILE_ROWS * i, TILE_ROWS * (i + 1))
+                        acc[:, :8 * n_ks] += res[:, r] @ xs[:, :8 * n_ks]
+                    parts.setdefault((panel, ci), []).append(acc)
+            # lp_g += shfl_xor(lp_g, 1); lp_g += shfl_xor(lp_g, 2): lane 0
+            s1 = lp_lane[:, [0, 1, 2, 3]] + lp_lane[:, [1, 0, 3, 2]]
+            lp_rank[rank] = s1[:, 0] + s1[:, 2]
+        # the rank-ordered sums, each rank over the chains it walks
+        written = np.zeros((BLOCK, dim), int)
+        for (panel, ci), by_rank in sorted(parts.items()):
+            assert len(by_rank) == ranks
+            k0 = chunks[ci][0]
+            total = np.zeros((BLOCK, CHUNK))
+            for part in by_rank:
+                total = total + part
+            for rank in range(ranks):
+                cb = np.array(_rank_chains(ranks, rank))[:, None]
+                k = np.arange(min(CHUNK, p - k0))[None]
+                out = (cb * nvec + K_GE) * dim + 1 + k0 + k
+                blk[out] = total[cb, k] if panel == 0 else \
+                    blk[out] + total[cb, k]
+                np.add.at(written, (np.broadcast_to(cb, out.shape),
+                                    1 + k0 + k), 1)
+        assert np.all(written[:, 1:] == len(parts) // len(chunks))
+        total = np.zeros(BLOCK)
+        for rank in range(ranks):
+            total = total + lp_rank[rank]
+        lp[b * BLOCK:(b + 1) * BLOCK] = total
     return lp[:c], vec[:c, K_GE].copy()
 
 
+@pytest.mark.parametrize("ranks", RANKS)
 @pytest.mark.parametrize("c,p,n", [(64, 129, 97), (70, 200, 300),
                                    (5, 260, 0), (16, 999, 40)])
-def test_k2_wide_leaf_order_of_work_matches_the_function(c, p, n):
-    """The wide leaf's tiling, staging and sums in float64 agree with the
-    direct function to 1e-12 of the largest magnitude: no element of the
-    work is dropped or counted twice, at ragged C, p and n, one or several
-    panels, and n = 0. The prior completes it as the walk does (`grad`:
+def test_k2_wide_leaf_order_of_work_matches_the_function(c, p, n, ranks):
+    """The wide leaf's tiling, staging, row split and rank-ordered sums in
+    float64 agree with the direct function to 1e-12 of the largest
+    magnitude: no element of the work is dropped or counted twice, at
+    ragged C, p and n, one or several panels, ranks with uneven ranges or
+    no tile, and n = 0. The prior completes it as the walk does (`grad`:
     element 0 from q, log σ and 1/σ², element k the data gradient the
     leaf left plus −θ_k/σ²), giving the block target's value+grad."""
     dim = p + 1
@@ -484,7 +617,7 @@ def test_k2_wide_leaf_order_of_work_matches_the_function(c, p, n):
     xt[1:dim] = x.T
     theta = 0.1 * np.random.default_rng(c + p).normal(size=(c, dim))
     theta[:, 0] = -1.0
-    lp_d, ge = _wide_leaf_model(theta, xt, y, n, p)
+    lp_d, ge = _wide_leaf_model(theta, xt, y, n, p, ranks)
     assert np.all(np.isnan(ge[:, 0]))                 # element 0 untouched
     xn, yn = x[:n], y[:n]
     logits = theta[:, 1:] @ xn.T
@@ -512,3 +645,67 @@ def test_k2_wide_leaf_order_of_work_matches_the_function(c, p, n):
         np.testing.assert_allclose(lp, lp_b[:, 0].numpy(), rtol=1e-10)
         np.testing.assert_allclose(g, g_b[:, :dim].numpy(), rtol=1e-10,
                                    atol=1e-10)
+
+
+@pytest.mark.parametrize("ranks", range(1, MAX_RANKS + 1))
+def test_k2_cluster_walk_and_counter_indices(ranks, chains=1000, dim=1000,
+                                             block_chains=256, seed=12):
+    """The kWarps·R warps of a cluster walk its group's 64 chains in
+    contiguous runs: every chain by exactly one warp, which belongs to the
+    rank whose stage-B and lp sums take that chain, one or two chains a
+    warp from R = 8 on; lane c of a warp receives the lp of the c-th chain
+    it walks. A chain's counter indices (its row, its block's base, the
+    momentum lanes row·Dp + k) come from its index in the launch alone, so
+    they are those of the one-block design and of the plain twin."""
+    for line in (
+            "const int group = blockIdx.x / ranks;",
+            "const int gw = kWarps * rank + warp;",
+            "const int cb0 = Target::kCluster ? walk_begin(gw, kWarps * ranks)",
+            "? walk_begin(gw + 1, kWarps * ranks) - cb0",
+            "const int c0 = group * kChains + cb0;",
+            "scratch + (size_t)(gridDim.x / ranks) * kChains * nvec * dim) + c0;",
+            "return kChains * gw / warps;",
+            "const int first = walk_begin(kWarps * rank, kWarps * ranks);",
+            "const int span = walk_begin(kWarps * (rank + 1), kWarps * ranks) "
+            "- first;",
+            "const int wb = walk_begin(gw, kWarps * ranks);",
+            "return lane < walk_begin(gw + 1, kWarps * ranks) - wb",
+            "? rank_sum(cluster, part_lp + wb + lane, ranks)",
+            "const int c = first + e / kChunk, k = e % kChunk;",
+            "return (uint32_t)((c0 + c) % block_chains);",
+            "return seed * 7919u + (uint32_t)((c0 + c) / block_chains) * "
+            "104729u;"):
+        assert line in SRC, line
+    groups, warps = -(-chains // BLOCK), WARPS * ranks
+    dp = _round_up(dim, 128)
+    walker = {}
+    for g in range(groups):
+        for rank in range(ranks):
+            mine = _rank_chains(ranks, rank)
+            for w in range(WARPS):
+                gw = WARPS * rank + w
+                cb0 = _walk_begin(gw, warps)
+                cpw = _walk_begin(gw + 1, warps) - cb0
+                assert 1 <= cpw <= -(-BLOCK // warps)
+                assert ranks < 8 or cpw <= 2
+                c0 = g * BLOCK + cb0
+                for c in range(cpw):
+                    assert cb0 + c in mine       # summed by the walking rank
+                    row = (c0 + c) % block_chains
+                    base = (seed * 7919 + (c0 + c) // block_chains
+                            * 104729) % 2 ** 32
+                    assert c0 + c not in walker
+                    walker[c0 + c] = (row, base, row * dp + np.arange(dim))
+    assert sorted(walker) == list(range(groups * BLOCK))
+    # the one-block design (block b, warp w, its chain c of 16) and the
+    # plain twin's stream for the same chains
+    for b in range(groups):
+        for w in range(WARPS):
+            for c in range(PER_WARP):
+                chain = b * BLOCK + PER_WARP * w + c
+                row, base, lanes = walker[chain]
+                assert row == chain % block_chains
+                assert base == int(rng_base(seed, torch.tensor(
+                    chain // block_chains)))
+                np.testing.assert_array_equal(
+                    lanes, (chain % block_chains) * dp + np.arange(dim))

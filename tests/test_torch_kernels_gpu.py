@@ -7,6 +7,8 @@ JAX, so that on the card it runs without the JAX package:
         -o addopts="" -p no:cacheprovider
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -222,12 +224,15 @@ K2_WIDE_AGREE_SHARE = 0.99
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p,n", [(129, 1000), (200, 997), (999, 1000)])
+@pytest.mark.parametrize("p,n", [(129, 1000), (200, 997), (999, 1000),
+                                 (200, 797)])
 def test_k2_wide_logistic_matches_plain_on_card(p, n):
-    """Wider than the warp tile (p > 128): K2's wide instance launches (no
-    raise, no fallback), agrees with its plain version at the wide share,
-    and two calls on the same inputs give the same bits. p = 129 leaves one
-    column in the last chunk of 128, n = 997 a ragged row tile."""
+    """Wider than the warp tile (p > 128): K2's wide instance launches in
+    clusters of several ranks (no raise, no fallback), agrees with its
+    plain version at the wide share, and two calls on the same inputs give
+    the same bits. p = 129 leaves one column in the last chunk of 128,
+    n = 997 a ragged row tile; at n = 797 the 25 row tiles do not divide
+    over the ranks, so some rank takes fewer tiles or none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -240,6 +245,14 @@ def test_k2_wide_logistic_matches_plain_on_card(p, n):
     th0[:, 0] = -1.5
     args = (tgt, th0, torch.full((dim,), 5e-3, device="cuda"), 0.3, 7,
             data, dim, 4, 6, 256)
+    lib = k2._build.load("fused_nuts")
+    k2._kernel(lib)
+    ranks, clusters = ctypes.c_int(), ctypes.c_int()
+    lib.fused_nuts_cluster_shape(0, 256, dim, n, ctypes.byref(ranks),
+                                 ctypes.byref(clusters))
+    assert ranks.value > 1 and clusters.value > 0
+    if n == 797:     # ceil(25 / R) tiles a rank: the last ranks fewer
+        assert ranks.value * -(-25 // ranks.value) > 25
     before = k2.fused_nuts.launches
     out = k2.fused_nuts(*args)
     assert k2.fused_nuts.launches == before + 1
