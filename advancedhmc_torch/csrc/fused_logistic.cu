@@ -42,39 +42,21 @@
 // Inputs and sums are float32 (the TPU kernel's bfloat16 inputs were a TPU
 // default). Ragged C and n are masked here. The narrow kernel takes p up to
 // 8 * 16 = 128: the gradient's columns are compiled into register arrays
-// (KSteps instances). A wider p goes to the wide kernel below, which has no
-// limit on p: it tiles the columns.
+// (KSteps instances).
 //
-// The wide kernel (p > 128) runs the column-tiled stages of
-// logistic_wide_tile.cuh: column chunks of 128, row panels of 128 whose
-// logits and residuals stay in shared memory between the two products. A
-// block still owns 64 chains (16 a warp) and a cluster rank's contiguous
-// share of the row tiles, as above. After stage B of each chunk the
-// cluster's ranks sum their partials of the chunk in rank order through
-// distributed shared memory and add the sum to the gradient in device
-// memory (the first panel writes it). The same thread owns an output
-// element in every panel, so the panels add in a fixed order too.
-//
-// A block has 8 warps, two for each 16 chains: in stage A the two split the
-// tile's rows, in stage B the chunk's columns. Shared memory is ~101 KB a
-// block, so two blocks (16 warps) share an SM, and the row split across a
-// cluster (up to 16 blocks, a size the H100 allows beyond the portable 8)
-// fills the card as above: at C = 1024, 16 chain tiles x 16 ranks = 256
-// blocks; at C = 1 (the step-size search) 16 blocks of 2 row tiles each.
-// No atomics: identical inputs give identical bits. Bound at C = 1024,
-// p = 999, n = 1000: 3 * 4 * C*p*n operations at the TF32 rate, 24.8 us;
-// the design matrix is read from L2 twice per chain tile (stages A and B),
-// 8 MB a tile. Measured on an H100 (scripts/k1_wide_ablation.py), the time
-// at C <= 1024 is one block's serial path, not the card's rate: C = 1 takes
-// 0.13 ms against 0.32 ms at C = 1024.
+// A wider p goes to the wide path (section "wide kernel" below): both
+// products as pipelined wgmma GEMMs, in two launches, their B operands fed
+// by TMA from a design the wrapper lays out once per model.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstring>
+#include <mutex>
 
 #include "logistic_tile.cuh"
-#include "logistic_wide_tile.cuh"
 
 namespace cg = cooperative_groups;
 using logistic_tile::cp_async4;
@@ -330,327 +312,739 @@ const Instance* instance_for(int dim) {
 }
 
 // ------------------------------------------------------------ wide kernel
-using logistic_wide_tile::kChunk;
-using logistic_wide_tile::kPanelRows;
-using logistic_wide_tile::kPanelTiles;
-using logistic_wide_tile::kResStride;
-using logistic_wide_tile::kWideKSteps;
-using logistic_wide_tile::kWideS;
-// Warps per block: kHalves warps share each 16 chains; in stage A they
-// split the tile's n-tiles (rows), in stage B the chunk's n-tiles (columns),
-// so that their outputs are disjoint. At C <= 1024 a block's serial path
-// sets the time, and the halves halve it.
-constexpr int kWideWarps = 8;
-constexpr int kWideThreads = 32 * kWideWarps;
-constexpr int kHalves = kWideWarps / 4;
-constexpr int kNJ = 4 / kHalves;                   // product 1's n-tiles
-constexpr int kNNT = kWideKSteps / kHalves;        // product 2's n-tiles
-// Two blocks per SM (launch bounds: at most 128 registers a thread; ~101 KB
-// of shared memory a block): at C = 1024 the card then takes 16 chain tiles
-// x 16 ranks in one wave, 0.315 ms against 0.485 at one block per SM
-// (scripts/k1_wide_ablation.py, H100).
-constexpr int kWideMinBlocks = 2;
-// Blocks per cluster: above 8 a non-portable size, which the H100 allows.
-constexpr int kWideMaxSplit = 16;
-static_assert(kWideWarps % 4 == 0 && 4 % kHalves == 0, "warps per block");
+// p > 128: both products as GEMMs on Hopper's warpgroup tensor-core
+// instructions (wgmma), their B operands fed by the tensor memory
+// accelerator (TMA). Two launches a call, in stream order:
+//
+//   stage A  logits = beta . x^T, M = chains, N = rows, K = k_pad; the
+//            epilogue writes each chain's lp partial of the row tile and
+//            the residuals R (C, n_pad);
+//   stage B  grad = R . x, M = chains, N = k_pad columns of theta, K =
+//            n_pad rows; the blocks of column tile 0 also sum lp over the
+//            row tiles in order.
+//
+// B operands: the design's planes, laid out once per model by the wrapper
+// (ops/fused_logistic.py `wide_layout`): x as (2, n_pad, k_pad), stage A's,
+// and x^T as (2, k_pad, n_pad), stage B's (wgmma takes 32-bit operands only
+// K-major), each the TF32 part hi and the float32 remainder lo. Column 0 of
+// x (row 0 of x^T) is zero, so theta's column 0 (log sigma) drops out of
+// the logits and grad[:, 0] is 0; rows past n and columns past dim are
+// zero. Their TMA maps are encoded once (`fused_logistic_wide_prepare`).
+//
+// A operands: theta itself in stage A and R in stage B, in float32 (half
+// the bytes of hi and lo planes), into shared memory by TMA as well where
+// their rows are 16-byte aligned (R's always, theta's where dim is a
+// multiple of 4; a map for each call), else by the producer warpgroup's
+// cp.async, counted on the stage's barrier beside B's bytes; the consumers
+// read their fragments from it into registers, split them into hi and lo
+// there, and pass them to wgmma as its register operand (the RS form).
+//
+// A block is two consumer warpgroups (a 128 x 128 output tile, 64 rows a
+// warpgroup, wgmma m64n128k8) and a producer warpgroup, one thread of
+// which keeps B's stages full by TMA (K = 32 a stage, the 128-byte
+// swizzle's row) and A's (or all of it copies A's), in a ring of kStages
+// stages with an mbarrier pair each; the producer gives most of its
+// registers to the consumers. Each stage runs the 3xTF32 products (lo.hi,
+// hi.lo, then hi.hi) from zero into a register accumulator and, once that
+// group is done, adds it into a float32 accumulator: the tensor cores
+// truncate where they accumulate, so no sum runs longer than 32 of K inside
+// them (the promotion). The bytes each SM takes in, not the tensor cores,
+// set the pace (scripts/k1_wide_ablation.py), hence the tall tile (each B
+// byte serves 128 chains) and A in float32. Where the tiles do not fill the
+// card, the K range is split across the blocks of a cluster (up to
+// kMaxSplit; 2 at C = 1024), whose partial tiles are summed in rank order
+// through distributed shared memory. No atomics: identical inputs give
+// identical bits.
+//
+// Bound at C = 1024, p = 999, n = 1000: 3 * 4 * C*p*n operations at the
+// TF32 rate, 24.8 us. Each 128-chain tile reads the design's hi and lo
+// planes once in each stage from L2 (~8 MB a stage at p = 999).
+namespace wide {
 
-__host__ __device__ constexpr size_t wide_smem_floats() {
-  // beta's chunk (after stage A the block's partial gradient chunk), two x
-  // tiles of a chunk, the panel's logits/residuals, its y, the partial lp
-  return (size_t)kChains * kWideS + 2 * kTileRows * kWideS +
-         (size_t)kChains * kResStride + kPanelRows + kHalves * kChains;
+constexpr int kBM = 128;             // chains a tile: 64 a warpgroup
+constexpr int kBN = 128;             // output columns a tile: wgmma N
+constexpr int kBK = 32;              // K a stage: one 128-byte swizzle row
+constexpr int kKSteps = kBK / 8;     // wgmma k-steps a stage
+constexpr int kStages = 4;           // stages in the ring
+constexpr int kMaxSplit = 8;         // split-K ranks a cluster (portable)
+constexpr int kConsumers = 2 * kBM;  // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;    // and a producer warpgroup
+// Registers a thread: 168 at launch (384 threads in 65,536), then the
+// producer gives its share to the consumers (setmaxnreg); the two sums
+// match, 128 x 40 + 256 x 232 = 384 x 168.
+constexpr int kLaunchRegs = 168, kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs ==
+                  kThreads * kLaunchRegs,
+              "the registers the producer frees are the consumers' gain");
+constexpr int kAcc = kBN / 2;        // accumulator floats a thread
+constexpr uint32_t kBTile = kBN * kBK * 4;    // bytes of a plane's B tile
+constexpr uint32_t kBBytes = 2 * kBTile;      // B's hi and lo: TMA's bytes
+// A's tile of a stage, float32: by TMA in 128-byte rows with the 128-byte
+// swizzle, or by cp.async in rows of kBK + 4 floats; either way the
+// fragment reads of a warp (8 rows g at column t) fall in 32 different
+// banks
+constexpr int kAStride = kBK + 4;
+constexpr uint32_t kATmaBytes = kBM * kBK * 4;
+constexpr uint32_t kABytes = kBM * kAStride * 4;
+constexpr uint32_t kStageBytes = kBBytes + kABytes;
+constexpr int kEpiStride = kBN + 8;  // floats a row of the epilogue tile
+constexpr size_t kSmemBytes = 1024 + (size_t)kStages * kStageBytes +
+                              2 * kStages * sizeof(uint64_t);
+constexpr int kMaxDevices = 64;
+static_assert(kBK * 4 == 128, "a stage's row is one 128-byte swizzle row");
+static_assert(kStageBytes % 1024 == 0, "every stage's B on 1024 bytes");
+static_assert((size_t)kBM * kEpiStride * 4 <= (size_t)kStages * kStageBytes,
+              "the epilogue tile fits in the ring");
+
+// What the kernels read and write besides the operands' tensor maps.
+struct Args {
+  const float* a;      // the A operand: theta (stage A), R (stage B)
+  int lda, k_valid;    // its row stride; columns from k_valid on read 0
+  const float* y;      // (n,)
+  float* resid;        // (C, n_pad): stage A writes, stage B reads
+  float* lp_part;      // (n_tiles_a, C): stage A writes, stage B sums
+  float* lp;           // (C,)
+  float* grad;         // (C, dim)
+  int n_chains, dim, n, n_pad, k_blocks, n_tiles_a;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
-fused_logistic_wide_kernel(const float* __restrict__ theta,
-                           const float* __restrict__ x,
-                           const float* __restrict__ y,
-                           float* __restrict__ lp, float* __restrict__ grad,
-                           int n_chains, int dim, int n) {
-  constexpr int S = kWideS;
-  extern __shared__ __align__(16) float smem[];
-  float* bs = smem;                             // [kChains][S]
-  float* xs = bs + kChains * S;                 // [2][kTileRows][S]
-  float* res = xs + 2 * kTileRows * S;          // [kChains][kResStride]
-  float* yp = res + kChains * kResStride;       // [kPanelRows]
-  float* part_lp = yp + kPanelRows;             // [kHalves][kChains]
-  float* part = bs;                             // [kChains][S], stage B
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::
+          "r"(smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete. A wait that has not
+// ended after 4 s is a fault: it traps (the launch fails with an error)
+// rather than hold the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (t0 == 0) {
+      t0 = now;
+    } else if (now - t0 > 4000000000ull) {
+      __trap();
+    }
+  }
+}
+
+// One box of a 3-D tensor map at (k, row, plane) into shared memory; its
+// bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int k, int row,
+                                         int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k),
+      "r"(row), "r"(plane)
+      : "memory");
+}
+
+// The wgmma descriptor of a K-major tile in shared memory with the 128-byte
+// swizzle, as TMA writes it: rows of 128 bytes, 8-row groups 1024 bytes
+// apart. A k-step of 8 floats further along K is 32 bytes on: 2 in the
+// address field's 16-byte units.
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that own it.
+__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) asm volatile("" : "+f"(d[r])::"memory");
+}
+
+// d (+)= A . B for a 64 x 128 tile and one k-step of 8: A's TF32 fragment
+// in registers (a0 row g, a1 row g + 8 at column t; a2, a3 the same rows
+// at column t + 4; g = lane / 4, t = lane % 4, rows of the warp's 16), B
+// from shared memory; scale_d 0 writes, 1 adds.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kAcc],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// The barrier counts one arrival once this thread's copies so far landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+
+// The producer warpgroup's share (thread p of 128) of a stage's A tile
+// where its rows are not aligned for TMA: rows m0.. of the operand at
+// columns k0 .. k0 + kBK - 1 into `dst` (rows of kAStride floats), zero
+// past its rows and from column k_valid on.
+__device__ __forceinline__ void copy_a(uint32_t dst, const Args& a, int m0,
+                                       int k0, int p) {
+  const int col = p % 32;
+#pragma unroll 8
+  for (int i = 0; i < kBM * kBK / 128; ++i) {
+    const int row = p / 32 + 4 * i, c = m0 + row;
+    const bool ok = c < a.n_chains && k0 + col < a.k_valid;
+    cp_async4(dst + (row * kAStride + col) * 4,
+              a.a + (ok ? (size_t)c * a.lda + k0 + col : 0), ok);
+  }
+}
+
+// This lane's A fragments of a stage from its tile `as` (rows `row` and
+// `row` + 8 at columns 8 kk + t and + 4; TMA's tile has rows of kBK floats
+// whose 16-byte chunks are swizzled by the row mod 8, the copies' rows of
+// kAStride), split into their TF32 part hi and the float32 remainder lo
+// (the tensor cores read lo's TF32 part).
+template <bool kTmaA>
+__device__ __forceinline__ void split_stage(const float* as, int row,
+                                            uint32_t (&hi)[kKSteps][4],
+                                            uint32_t (&lo)[kKSteps][4]) {
+  const int t = threadIdx.x & 3;
+  constexpr int stride = kTmaA ? kBK : kAStride;
+  const int swz = kTmaA ? row & 7 : 0;
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int chunk = (2 * kk + (i >> 1)) ^ swz;   // row + 8: same swizzle
+      const float x = as[(row + 8 * (i & 1)) * stride + 4 * chunk + t];
+      hi[kk][i] = logistic_tile::to_tf32(x);
+      lo[kk][i] = __float_as_uint(x - __uint_as_float(hi[kk][i]));
+    }
+  }
+}
+
+// Keeps a stage's A fragments in their registers until its wgmma, which
+// read them asynchronously, are done.
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[kKSteps][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
+  }
+}
+
+// One stage's products into d as one wgmma group, from zero: for each
+// k-step lo.hi, hi.lo, then hi.hi (the small terms first).
+__device__ __forceinline__ void issue_stage(float (&d)[kAcc],
+                                            uint32_t (&hi)[kKSteps][4],
+                                            uint32_t (&lo)[kKSteps][4],
+                                            uint32_t st) {
+  fence_frag(hi);
+  fence_frag(lo);
+  fence_acc(d);
+  wgmma_fence();
+  const uint64_t b_hi = tile_desc(st), b_lo = tile_desc(st + kBTile);
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk) {
+    const uint64_t o = 2 * kk;
+    const int add = kk == 0 ? 0 : 1;   // the first product writes d
+    wgmma_tf32(d, lo[kk], b_hi + o, add);
+    wgmma_tf32(d, hi[kk], b_lo + o, 1);
+    wgmma_tf32(d, hi[kk], b_hi + o, 1);
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void promote(float (&acc)[kAcc],
+                                        float (&d)[kAcc]) {
+  fence_acc(d);
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) acc[r] += d[r];
+}
+
+// The epilogue of a tile: this rank's rows (kBM / split of them), each
+// element the ranks' partial sums added in rank order. Threads share a row
+// (2 * split of them), each takes every (2 * split)-th 4 columns. Stage A
+// turns logits into residuals and lp partials, stage B writes the gradient
+// and, in column tile 0, lp.
+template <int kStage>
+__device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
+                                         float* epi, int split, int rank,
+                                         int m0, int n0, const Args& a) {
+  const int tid = threadIdx.x;
+  const int rows = kBM / split, tpr = kConsumers / rows;
+  const int row = rank * rows + tid / tpr, q = tid % tpr;
+  const int c = m0 + row;
+  const bool chain_ok = c < a.n_chains;
+  float lp = 0.f;
+  for (int col = 4 * q; col < kBN; col += 4 * tpr) {
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < split; ++r) {
+      const float4 u = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(epi, r) + row * kEpiStride +
+          col);
+      v[0] += u.x;
+      v[1] += u.y;
+      v[2] += u.z;
+      v[3] += u.w;
+    }
+    const int j = n0 + col;
+    if constexpr (kStage == 0) {
+      // rows j.. j+3 of the design: residuals and lp terms (rows past n
+      // weigh 0 and have y 0, so their residual is 0)
+      float r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = j + e < a.n;
+        r[e] = logistic_tile::logit_term(
+            v[e], in ? __ldg(a.y + j + e) : 0.f, in ? 1.f : 0.f, lp);
+      }
+      if (chain_ok && j < a.n_pad) {
+        *reinterpret_cast<float4*>(a.resid + (size_t)c * a.n_pad + j) =
+            make_float4(r[0], r[1], r[2], r[3]);
+      }
+    } else {
+      if (chain_ok) {
+        float* out = a.grad + (size_t)c * a.dim;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j + e < a.dim) out[j + e] = j + e == 0 ? 0.f : v[e];
+        }
+      }
+    }
+  }
+  if constexpr (kStage == 0) {
+    // the row's lp over its threads, in a fixed order
+    for (int o = 1; o < tpr; o <<= 1) {
+      lp += __shfl_xor_sync(0xffffffffu, lp, o);
+    }
+    if (q == 0 && chain_ok) {
+      a.lp_part[(size_t)(n0 / kBN) * a.n_chains + c] = lp;
+    }
+  } else {
+    if (n0 == 0 && q == 0 && chain_ok) {
+      float s = 0.f;
+      for (int t = 0; t < a.n_tiles_a; ++t) {
+        s += a.lp_part[(size_t)t * a.n_chains + c];
+      }
+      a.lp[c] = s;
+    }
+  }
+}
+
+// Stage A (kStage 0) or B (1): the 128 x 128 output tile (blockIdx.y,
+// blockIdx.x / split), whose K blocks the cluster's `split` ranks share
+// (small C). b_map holds the B planes (2, N, K) in boxes of both planes'
+// kBN rows; kTmaA: A comes by TMA from a_map (boxes of kBM rows), else the
+// producer warpgroup copies it.
+template <int kStage, bool kTmaA>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap b_map,
+            const __grid_constant__ CUtensorMap a_map, const Args args) {
+  extern __shared__ unsigned char smem_raw[];
+  // the ring starts on 1024 bytes, the 128-byte swizzle's period
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  float* epi = reinterpret_cast<float*>(ring);   // after the main loop
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int n_ranks = (int)cluster.num_blocks();
+  const int split = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int c0 = (int)(blockIdx.x / n_ranks) * kChains;
-  const int p = dim - 1;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int group = warp % 4, half = warp / 4;  // 16 chains, share of them
-  const int g = lane / 4, t = lane % 4;
-  const int cw = 16 * group + g;                // the lane's chains cw, cw+8
-  const int j0 = kNJ * half;                    // stage A: rows 8 j0 + ..
-  const int nt0 = kNNT * half;                  // stage B: columns 8 nt0 + ..
+  const int n0 = (int)(blockIdx.x / split) * kBN;
+  const int m0 = (int)blockIdx.y * kBM;
+  const int kb0 = rank * args.k_blocks / split;
+  const int nk = (rank + 1) * args.k_blocks / split - kb0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const int n_chunks = (p + kChunk - 1) / kChunk;
-  const int n_tiles = (n + kTileRows - 1) / kTileRows;
-  const int tile_begin = rank * n_tiles / n_ranks;
-  const int tile_end = (rank + 1) * n_tiles / n_ranks;
-  // every rank walks as many panels as the rank with the most tiles (the
-  // cluster meets at every chunk of stage B), at least one, so that the
-  // gradient is written also where n is 0
-  const int max_tiles = (n_tiles + n_ranks - 1) / n_ranks;
-  const int n_panels = max(1, (max_tiles + kPanelTiles - 1) / kPanelTiles);
-
-  // x[tile, chunk] into buffer `buf`: warps over rows, lanes over columns;
-  // rows past n and columns past p are zero-filled
-  auto stage_x = [&](int chunk, int tile, int buf) {
-    const int r0 = tile * kTileRows, k0 = chunk * kChunk;
-    float* dst = xs + buf * kTileRows * S;
-    for (int r = warp; r < kTileRows; r += kWideWarps) {
-      const bool row_ok = r0 + r < n;
-      const float* src = x + (size_t)(row_ok ? r0 + r : 0) * p;
-      for (int k = lane; k < kChunk; k += 32) {
-        const bool ok = row_ok && k0 + k < p;
-        cp_async4(dst + r * S + k, src + (ok ? k0 + k : 0), ok);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread's arrival and, where A is copied, the copies of the
+      // 128 producer threads
+      mbar_init(&full[s], kTmaA ? 1 : 1 + 128);
+      // every consumer warp frees it
+      mbar_init(&empty[s], kConsumers / 32);
     }
-    cp_async_commit();
-  };
-  // beta's chunk of the block's chains (zero past n_chains and past p)
-  auto stage_beta = [&](int chunk) {
-    const int k0 = chunk * kChunk;
-    for (int r = warp; r < kChains; r += kWideWarps) {
-      const bool chain_ok = c0 + r < n_chains;
-      const float* src = theta + (size_t)(chain_ok ? c0 + r : 0) * dim + 1;
-      for (int k = lane; k < kChunk; k += 32) {
-        const bool ok = chain_ok && k0 + k < p;
-        cp_async4(bs + r * S + k, src + (ok ? k0 + k : 0), ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float lp_g = 0.f, lp_g8 = 0.f;
-  for (int panel = 0; panel < n_panels; ++panel) {
-    const int t0 = tile_begin + panel * kPanelTiles;
-    const int nt_p = max(0, min(tile_end, t0 + kPanelTiles) - t0);
-
-    // ---- stage A: the panel's logits, chunk by chunk
-    if (nt_p > 0) {
-      for (int i = tid; i < kPanelRows; i += kWideThreads) {
-        const int row = t0 * kTileRows + i;
-        const bool ok = i < nt_p * kTileRows && row < n;
-        cp_async4(yp + i, y + (ok ? row : 0), ok);
-      }
-      stage_beta(0);  // one group with the panel's y
-      stage_x(0, t0, 0);
-    }
-    const int steps = n_chunks * nt_p;
-    for (int s = 0; s < steps; ++s) {
-      const int chunk = s / nt_p, i = s % nt_p, buf = s & 1;
-      // beta's buffer is free: the previous step ended in a barrier
-      if (i == 0 && s > 0) stage_beta(chunk);
-      if (s + 1 < steps) {
-        stage_x((s + 1) / nt_p, t0 + (s + 1) % nt_p, buf ^ 1);
-        cp_async_wait<1>();  // this step's tile and beta have landed
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      float d[kNJ][4];
-      logistic_wide_tile::chunk_logits(
-          bs + 16 * group * S, xs + (buf * kTileRows + 8 * j0) * S,
-          min(kWideKSteps, (p - chunk * kChunk + 7) / 8), d);
-      logistic_wide_tile::add_logits(res, cw, kTileRows * i + 8 * j0 + 2 * t,
-                                     d, chunk == 0);
-      __syncthreads();  // both buffers are free for the steps after next
-    }
-    // epilogue: each lane turns its own logits into residuals, in place
-    logistic_wide_tile::panel_epilogue<kNJ>(res, yp, cw, j0, nt_p,
-                                            n - t0 * kTileRows, lp_g, lp_g8);
-    // product 2 reads every row of the tile: the other halves' residuals
-    __syncthreads();
-
-    // ---- stage B: the gradient, chunk by chunk
-    if (nt_p > 0) stage_x(0, t0, 0);
-    for (int chunk = 0; chunk < n_chunks; ++chunk) {
-      const int k0 = chunk * kChunk;
-      float acc[kNNT][4];
-#pragma unroll
-      for (int nt = 0; nt < kNNT; ++nt) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
-      }
-      const int n_nt = min(kWideKSteps, (p - k0 + 7) / 8);
-      for (int i = 0; i < nt_p; ++i) {
-        const int buf = i & 1;
-        if (i + 1 < nt_p) {
-          stage_x(chunk, t0 + i + 1, buf ^ 1);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        logistic_wide_tile::chunk_grad(
-            res + 16 * group * kResStride + kTileRows * i,
-            xs + buf * kTileRows * S, nt0, n_nt, acc);
-        __syncthreads();
-      }
-      // the next chunk's first tile loads while the cluster sums this one
-      if (nt_p > 0 && chunk + 1 < n_chunks) stage_x(chunk + 1, t0, 0);
-#pragma unroll
-      for (int nt = 0; nt < kNNT; ++nt) {
-        const int k = 8 * (nt0 + nt) + 2 * t;
-        *reinterpret_cast<float2*>(part + cw * S + k) =
-            make_float2(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<float2*>(part + (cw + 8) * S + k) =
-            make_float2(acc[nt][2], acc[nt][3]);
-      }
-      cluster.sync();
-      // every rank's partial, in rank order, added to the gradient; the
-      // cluster's ranks share the chunk's outputs
-      for (int e = rank * kWideThreads + tid; e < kChains * kChunk;
-           e += n_ranks * kWideThreads) {
-        const int c = e / kChunk, k = e % kChunk;
-        if (c0 + c < n_chains && k0 + k < p) {
-          float part_q[kWideMaxSplit];
-#pragma unroll
-          for (int q = 0; q < kWideMaxSplit; ++q) {
-            part_q[q] =
-                q < n_ranks ? cluster.map_shared_rank(part, q)[c * S + k]
-                            : 0.f;
-          }
-          float v = 0.f;
-#pragma unroll
-          for (int q = 0; q < kWideMaxSplit; ++q) v += part_q[q];
-          float* out = grad + (size_t)(c0 + c) * dim + 1 + k0 + k;
-          *out = panel == 0 ? v : *out + v;
-        }
-      }
-      cluster.sync();  // no rank writes its partial while another reads it
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  // lp of chains g, g+8 over the 4 lanes t of the group, in a fixed order,
-  // then over the halves and the ranks in order
-  lp_g += __shfl_xor_sync(0xffffffffu, lp_g, 1);
-  lp_g += __shfl_xor_sync(0xffffffffu, lp_g, 2);
-  lp_g8 += __shfl_xor_sync(0xffffffffu, lp_g8, 1);
-  lp_g8 += __shfl_xor_sync(0xffffffffu, lp_g8, 2);
-  if (t == 0) {
-    part_lp[half * kChains + cw] = lp_g;
-    part_lp[half * kChains + cw + 8] = lp_g8;
-  }
+  // the barriers are ready before any thread uses them
   cluster.sync();
-  for (int c = rank * kWideThreads + tid; c < kChains;
-       c += n_ranks * kWideThreads) {
-    if (c0 + c < n_chains) {
-      float part_q[kWideMaxSplit];
-#pragma unroll
-      for (int q = 0; q < kWideMaxSplit; ++q) {
-        float v = 0.f;
-        if (q < n_ranks) {
-          const float* pq = cluster.map_shared_rank(part_lp, q);
-#pragma unroll
-          for (int h = 0; h < kHalves; ++h) v += pq[h * kChains + c];
-        }
-        part_q[q] = v;
+
+  if (warp >= kConsumers / 32) {
+    // producer: one thread keeps the ring full. The branches do not meet
+    // again (each ends in its own cluster barriers), so that the register
+    // counts hold.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    const int p = tid - kConsumers;
+    constexpr bool copies = !kTmaA;   // A by the warpgroup's cp.async
+    for (int it = 0; it < nk && (p == 0 || copies); ++it) {
+      const int s = it % kStages;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      unsigned char* st = ring + s * kStageBytes;
+      const int k = (kb0 + it) * kBK;
+      if (p == 0) {
+        mbar_expect_tx(&full[s], kBBytes + (copies ? 0 : kATmaBytes));
+        if (!copies) tma_load(st + kBBytes, &a_map, &full[s], k, m0, 0);
+        tma_load(st, &b_map, &full[s], k, n0, 0);   // both planes
       }
-      float v = 0.f;
+      if (copies) {
+        copy_a(smem_u32(st + kBBytes), args, m0, k, p);
+        cp_async_arrive(&full[s]);
+      }
+    }
+    cluster.sync();   // as the consumers' two barriers below
+    cluster.sync();
+    return;
+  }
+  {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    // consumers: the lane's A rows (of warpgroup warp / 4's 64) are rows
+    // 16 warp + g and + 8 of the tile; a stage's products go into d and
+    // then into acc
+    const int row = 16 * warp + lane / 4;
+    float acc[kAcc], d[kAcc];
+    uint32_t hi[kKSteps][4], lo[kKSteps][4];
 #pragma unroll
-      for (int q = 0; q < kWideMaxSplit; ++q) v += part_q[q];
-      lp[c0 + c] = v;
-      grad[(size_t)(c0 + c) * dim] = 0.f;
+    for (int r = 0; r < kAcc; ++r) acc[r] = d[r] = 0.f;
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      unsigned char* st = ring + s * kStageBytes;
+      split_stage<kTmaA>(reinterpret_cast<const float*>(st + kBBytes), row,
+                         hi, lo);
+      issue_stage(d, hi, lo, smem_u32(st));
+      wgmma_wait();
+      fence_frag(hi);
+      fence_frag(lo);
+      promote(acc, d);
+      if (lane == 0) mbar_arrive(&empty[s]);   // stage s is free
+    }
+    // every wgmma of the warpgroups is done with the ring: the tile goes
+    // into it, the wgmma C fragment layout (rows 16 warp + g, + 8; columns
+    // 8 i + 2 (lane % 4), + 1)
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+    const int g = lane / 4, col0 = 2 * (lane % 4), erow = 16 * warp + g;
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+      const int col = 8 * i + col0;
+      *reinterpret_cast<float2*>(epi + erow * kEpiStride + col) =
+          make_float2(acc[4 * i], acc[4 * i + 1]);
+      *reinterpret_cast<float2*>(epi + (erow + 8) * kEpiStride + col) =
+          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
     }
   }
-  cluster.sync();  // no block leaves while another reads its partials
+  // every rank's partial tile is in its shared memory
+  cluster.sync();
+  epilogue<kStage>(cluster, epi, split, rank, m0, n0, args);
+  cluster.sync();   // no block leaves while another reads its tile
 }
 
-// Blocks per cluster of the wide kernel: as row_split, up to kWideMaxSplit.
-int wide_split(int n_chains, int n, int slots) {
-  const int chain_tiles = (n_chains + kChains - 1) / kChains;
-  const int row_tiles = (n + kTileRows - 1) / kTileRows;
-  return std::max(1,
-                  std::min({slots / chain_tiles, kWideMaxSplit, row_tiles}));
+// ---- host side
+// A prepared design, kept in a buffer the caller owns (the wrapper's
+// prepared layout): the TMA maps of its x and x^T planes and its shape.
+struct Design {
+  unsigned char x_map[sizeof(CUtensorMap)];    // (2, n_pad, k_pad)
+  unsigned char xt_map[sizeof(CUtensorMap)];   // (2, k_pad, n_pad)
+  int n, dim, n_pad, k_pad;
+};
+
+int round_up(int v, int to) { return (v + to - 1) / to * to; }
+int n_pad_of(int n) { return round_up(std::max(n, 1), kBK); }
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime (the
+// library does not link libcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
-cudaError_t prepare_wide(int* sms, int* per_sm) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+// The TMA map of `planes` planes (planes, rows, inner) of floats at `base`,
+// `inner` a multiple of 4: boxes of kBK x box_rows x box_planes with the
+// 128-byte swizzle; what lies outside reads as zero.
+cudaError_t encode_map(CUtensorMap* map, const float* base, int inner,
+                       int rows, int planes, int box_rows, int box_planes) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 4,
+                                 (cuuint64_t)inner * rows * 4};
+  const cuuint32_t box[3] = {kBK, (cuuint32_t)box_rows,
+                             (cuuint32_t)box_planes};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<float*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Once per device: the kernels' attributes, the SMs, blocks per SM and the
+// clusters of each size the card can hold at once.
+struct DeviceSetup {
+  bool ready;
+  cudaError_t err;
+  int sms, per_sm;
+  int clusters[2][kMaxSplit + 1];
+};
+std::mutex g_setup_mutex;
+DeviceSetup g_setup[kMaxDevices];
+
+template <int kStage, bool kTmaA>
+cudaError_t setup_kernel(DeviceSetup& s) {
+  // setmaxnreg's totals assume the kernel was compiled at kLaunchRegs; at
+  // another count the consumers' request could wait forever
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, gemm_kernel<kStage, kTmaA>);
+  if (err == cudaSuccess && fa.numRegs != kLaunchRegs) {
+    return cudaErrorInvalidKernelImage;
   }
-  const size_t smem = wide_smem_floats() * sizeof(float);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_logistic_wide_kernel,
+    err = cudaFuncSetAttribute(gemm_kernel<kStage, kTmaA>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               (int)kSmemBytes);
   }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_logistic_wide_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  }
-  if (err == cudaSuccess && kWideMaxSplit > kMaxSplit) {
-    err = cudaFuncSetAttribute(fused_logistic_wide_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  }
-  if (err == cudaSuccess) {
+  if (err == cudaSuccess && kStage == 0) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, fused_logistic_wide_kernel, kWideThreads, smem);
+        &s.per_sm, gemm_kernel<kStage, kTmaA>, kThreads, kSmemBytes);
+  }
+  for (int size = 1; err == cudaSuccess && size <= kMaxSplit; size *= 2) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(size);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmemBytes;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = size;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&s.clusters[kStage][size],
+                                         gemm_kernel<kStage, kTmaA>, &cfg);
   }
   return err;
 }
 
-// The launch configuration of the wide kernel at `split` blocks per
-// cluster; `attr` holds the cluster's dimension.
-cudaLaunchConfig_t wide_config(int n_chains, int split,
-                               cudaLaunchAttribute* attr,
-                               cudaStream_t stream) {
+const DeviceSetup* device_setup() {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 ||
+      device >= kMaxDevices) {
+    return nullptr;
+  }
+  std::lock_guard<std::mutex> lock(g_setup_mutex);
+  DeviceSetup& s = g_setup[device];
+  if (!s.ready) {
+    s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    // stage A's two instances (A by TMA or copied), stage B's one
+    if (s.err == cudaSuccess) s.err = setup_kernel<0, false>(s);
+    if (s.err == cudaSuccess) s.err = setup_kernel<0, true>(s);
+    if (s.err == cudaSuccess) s.err = setup_kernel<1, true>(s);
+    s.ready = true;
+  }
+  return &s;
+}
+
+// Ranks a cluster splits K over: the largest power of two up to kMaxSplit
+// with which the tiles still fit on the card at once, each rank keeps a K
+// block, and the card can place such a cluster.
+int split_for(const DeviceSetup& s, int stage, int tiles, int k_blocks) {
+  int split = 1;
+  while (2 * split <= kMaxSplit && tiles * 2 * split <= s.sms &&
+         2 * split <= k_blocks && s.clusters[stage][2 * split] > 0) {
+    split *= 2;
+  }
+  return split;
+}
+
+struct Shape {
+  int k_pad, n_pad, m_tiles, n_tiles_a, n_tiles_b, split_a, split_b;
+};
+
+Shape shape_of(const DeviceSetup& s, int n_chains, int dim, int n) {
+  Shape sh;
+  sh.k_pad = round_up(dim, kBK);
+  sh.n_pad = n_pad_of(n);
+  sh.m_tiles = (n_chains + kBM - 1) / kBM;
+  sh.n_tiles_a = (sh.n_pad + kBN - 1) / kBN;
+  sh.n_tiles_b = (sh.k_pad + kBN - 1) / kBN;
+  sh.split_a = split_for(s, 0, sh.m_tiles * sh.n_tiles_a, sh.k_pad / kBK);
+  sh.split_b = split_for(s, 1, sh.m_tiles * sh.n_tiles_b, sh.n_pad / kBK);
+  return sh;
+}
+
+size_t scratch_floats(int n_chains, int n) {
+  const int n_pad = n_pad_of(n);
+  return (size_t)n_chains * n_pad +
+         (size_t)((n_pad + kBN - 1) / kBN) * n_chains;
+}
+
+template <int kStage, bool kTmaA>
+cudaError_t launch_gemm(const CUtensorMap& b_map, const CUtensorMap& a_map,
+                        const Args& args, int m_tiles, int n_tiles,
+                        int split, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((n_chains + kChains - 1) / kChains) * split);
-  cfg.blockDim = dim3(kWideThreads);
-  cfg.dynamicSmemBytes = wide_smem_floats() * sizeof(float);
+  cfg.gridDim = dim3(n_tiles * split, m_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
   cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cfg;
+  return cudaLaunchKernelEx(&cfg, gemm_kernel<kStage, kTmaA>, b_map, a_map,
+                            args);
 }
 
-// Blocks per cluster for a call's shape: wide_split, halved until the card
-// can place such a cluster at all (a cluster's blocks share one GPC).
-cudaError_t wide_launch_split(int n_chains, int n, int* split) {
-  int sms = 0, per_sm = 0;
-  cudaError_t err = prepare_wide(&sms, &per_sm);
-  if (err != cudaSuccess) return err;
-  *split = wide_split(n_chains, n, sms * std::max(per_sm, 1));
-  while (*split > 1) {
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = wide_config(n_chains, *split, attr, 0);
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters,
-                                         fused_logistic_wide_kernel, &cfg);
+}  // namespace wide
+
+// The wide path of a call: stage A, stage B on `stream`, each launch
+// counted in `launches`. `design` is a prepared design of this x
+// (fused_logistic_wide_prepare), `scratch` holds
+// wide::scratch_floats(n_chains, n) floats.
+cudaError_t launch_wide(const void* design, const float* theta,
+                        const float* y, float* lp, float* grad,
+                        float* scratch, int n_chains, int dim, int n,
+                        cudaStream_t stream, int* launches) {
+  using namespace wide;
+  if (design == nullptr || scratch == nullptr) return cudaErrorInvalidValue;
+  Design d;
+  std::memcpy(&d, design, sizeof d);
+  if (d.dim != dim || d.n != n) return cudaErrorInvalidValue;
+  const DeviceSetup* s = device_setup();
+  if (s == nullptr) return cudaErrorInvalidDevice;
+  if (s->err != cudaSuccess) return s->err;
+  const Shape sh = shape_of(*s, n_chains, dim, n);
+  float* resid = scratch;                                 // (C, n_pad)
+  float* lp_part = resid + (size_t)n_chains * sh.n_pad;   // (tiles, C)
+  CUtensorMap x_map, xt_map, a_map;
+  std::memcpy(&x_map, d.x_map, sizeof x_map);
+  std::memcpy(&xt_map, d.xt_map, sizeof xt_map);
+  cudaError_t err = cudaSuccess;
+  {   // stage A: A = theta, K = its columns
+    // theta by TMA where its rows are 16-byte aligned, else copied
+    const bool tma = dim % 4 == 0 && (uintptr_t)theta % 16 == 0;
+    a_map = x_map;        // (not read where theta is copied)
+    if (tma) err = encode_map(&a_map, theta, dim, n_chains, 1, kBM, 1);
+    const Args args = {theta, dim,     dim, y,    resid,
+                       lp_part, lp,    grad, n_chains, dim,
+                       n,     sh.n_pad, sh.k_pad / kBK, sh.n_tiles_a};
+    if (err == cudaSuccess) {
+      err = (tma ? launch_gemm<0, true> : launch_gemm<0, false>)(
+          x_map, a_map, args, sh.m_tiles, sh.n_tiles_a, sh.split_a, stream);
+    }
     if (err != cudaSuccess) return err;
-    if (clusters > 0) break;
-    *split /= 2;
+    ++*launches;
   }
-  return cudaSuccess;
-}
-
-cudaError_t launch_wide(const float* theta, const float* x, const float* y,
-                        float* lp, float* grad, int n_chains, int dim, int n,
-                        cudaStream_t stream) {
-  int split = 1;
-  const cudaError_t err = wide_launch_split(n_chains, n, &split);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = wide_config(n_chains, split, attr, stream);
-  return cudaLaunchKernelEx(&cfg, fused_logistic_wide_kernel, theta, x, y,
-                            lp, grad, n_chains, dim, n);
+  {   // stage B: A = R, K = the rows; its rows are aligned
+    err = encode_map(&a_map, resid, sh.n_pad, n_chains, 1, kBM, 1);
+    const Args args = {resid,   sh.n_pad, sh.n_pad, y,        resid,
+                       lp_part, lp,       grad,     n_chains, dim,
+                       n,       sh.n_pad, sh.n_pad / kBK, sh.n_tiles_a};
+    if (err == cudaSuccess) {
+      err = launch_gemm<1, true>(xt_map, a_map, args, sh.m_tiles,
+                                 sh.n_tiles_b, sh.split_b, stream);
+    }
+    if (err == cudaSuccess) ++*launches;
+  }
+  return err;
 }
 
 }  // namespace
@@ -658,49 +1052,120 @@ cudaError_t launch_wide(const float* theta, const float* x, const float* y,
 extern "C" {
 
 // Dynamic shared memory of one block for a given dim (bytes): the narrow
-// instance's up to dim 129, the wide kernel's beyond.
+// instance's up to dim 129, the wide kernels' (stages A and B) beyond.
 size_t fused_logistic_smem_bytes(int dim) {
   const Instance* inst = instance_for(dim);
-  return (inst ? smem_floats(inst->ksteps) : wide_smem_floats()) *
-         sizeof(float);
+  return inst ? smem_floats(inst->ksteps) * sizeof(float) : wide::kSmemBytes;
 }
 
-// Resident blocks per SM and blocks per cluster (row splits per chain tile)
-// for a call's shape on the current device; 0 and 0 if that fails.
+// Resident blocks per SM and blocks per cluster (the narrow instances' row
+// splits per chain tile; the wide path's stage A split-K ranks) for a call's
+// shape on the current device; 0 and 0 if that fails.
 void fused_logistic_launch_shape(int n_chains, int dim, int n, int* per_sm,
                                  int* split) {
   const Instance* inst = instance_for(dim);
   int sms = 0;
   *per_sm = *split = 0;
-  const cudaError_t err =
-      inst ? inst->prepare(&sms, per_sm) : prepare_wide(&sms, per_sm);
-  if (err == cudaSuccess && inst) {
-    *split = row_split(n_chains, n, sms * std::max(*per_sm, 1));
-    return;
-  }
-  if (err == cudaSuccess &&
-      wide_launch_split(n_chains, n, split) == cudaSuccess) {
-    return;
+  if (inst) {
+    if (inst->prepare(&sms, per_sm) == cudaSuccess) {
+      *split = row_split(n_chains, n, sms * std::max(*per_sm, 1));
+      return;
+    }
+  } else {
+    const wide::DeviceSetup* s = wide::device_setup();
+    if (s != nullptr && s->err == cudaSuccess) {
+      *per_sm = s->per_sm;
+      *split = wide::shape_of(*s, n_chains, dim, n).split_a;
+      return;
+    }
   }
   cudaGetLastError();
   *per_sm = *split = 0;
 }
 
+// The wide path's launch shape for a call (p > 128), on the current
+// device: out[0..1] stage A's blocks and split-K ranks a cluster, out[2..3]
+// stage B's, out[4] resident blocks per SM, out[5] shared memory bytes a
+// block, out[6] threads a block, out[7] chain tiles, out[8..9] the output
+// column tiles of stages A and B. Returns the CUDA error code.
+int fused_logistic_wide_shape(int n_chains, int dim, int n, int* out) {
+  const wide::DeviceSetup* s = wide::device_setup();
+  if (s == nullptr) return (int)cudaErrorInvalidDevice;
+  if (s->err != cudaSuccess) return (int)s->err;
+  const wide::Shape sh = wide::shape_of(*s, n_chains, dim, n);
+  out[0] = sh.m_tiles * sh.n_tiles_a * sh.split_a;
+  out[1] = sh.split_a;
+  out[2] = sh.m_tiles * sh.n_tiles_b * sh.split_b;
+  out[3] = sh.split_b;
+  out[4] = s->per_sm;
+  out[5] = (int)wide::kSmemBytes;
+  out[6] = wide::kThreads;
+  out[7] = sh.m_tiles;
+  out[8] = sh.n_tiles_a;
+  out[9] = sh.n_tiles_b;
+  return 0;
+}
+
+// Bytes of a prepared design (the buffer fused_logistic_wide_prepare fills).
+size_t fused_logistic_wide_design_bytes() { return sizeof(wide::Design); }
+
+// Floats of the per-call scratch of the wide path: the residuals and the
+// lp partials.
+size_t fused_logistic_wide_scratch_floats(int n_chains, int n) {
+  return wide::scratch_floats(n_chains, n);
+}
+
+// Prepares the design of an (n, dim - 1) x for the wide path into `out`
+// (fused_logistic_wide_design_bytes): the TMA maps of its planes, laid out
+// by the wrapper as `planes` (2, n_pad, k_pad) and `t_planes` (2, k_pad,
+// n_pad), contiguous float32 device arrays that must outlive every call
+// with this design. Returns the CUDA error code (0 on success).
+int fused_logistic_wide_prepare(void* out, const float* planes,
+                                const float* t_planes, int n, int dim,
+                                int n_pad, int k_pad) {
+  using namespace wide;
+  if (n_pad != n_pad_of(n) || k_pad != round_up(dim, kBK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Design d = {};
+  CUtensorMap map;
+  cudaError_t err = encode_map(&map, planes, k_pad, n_pad, 2, kBN, 2);
+  std::memcpy(d.x_map, &map, sizeof map);
+  if (err == cudaSuccess) {
+    err = encode_map(&map, t_planes, n_pad, k_pad, 2, kBN, 2);
+  }
+  std::memcpy(d.xt_map, &map, sizeof map);
+  d.n = n;
+  d.dim = dim;
+  d.n_pad = n_pad;
+  d.k_pad = k_pad;
+  std::memcpy(out, &d, sizeof d);
+  return (int)err;
+}
+
 // theta (n_chains, dim), x (n, dim - 1), y (n,), lp (n_chains,),
-// grad (n_chains, dim): contiguous float32 device arrays. Launches on
-// `stream` and returns the CUDA error code of the launch (0 on success).
+// grad (n_chains, dim): contiguous float32 device arrays. For dim > 129
+// also `design` (fused_logistic_wide_prepare, of this x) and `scratch`
+// (fused_logistic_wide_scratch_floats floats); the narrow instances take
+// neither. Launches on `stream`, writes the number of kernels it launched
+// to `launches` (one narrow instance, or the wide path's two GEMMs) and
+// returns the CUDA error code of the launches (0 on success).
 int fused_logistic_value_grad_f32(const float* theta, const float* x,
                                   const float* y, float* lp, float* grad,
-                                  int n_chains, int dim, int n, void* stream) {
+                                  int n_chains, int dim, int n,
+                                  const void* design, float* scratch,
+                                  void* stream, int* launches) {
+  *launches = 0;
   if (n_chains <= 0) return 0;
   // p <= 128 takes the narrow instance that holds it, a wider p the wide
-  // kernel
+  // kernels
   const Instance* inst = instance_for(dim);
   const cudaError_t err =
       inst ? inst->launch(theta, x, y, lp, grad, n_chains, dim, n,
                           (cudaStream_t)stream)
-           : launch_wide(theta, x, y, lp, grad, n_chains, dim, n,
-                         (cudaStream_t)stream);
+           : launch_wide(design, theta, y, lp, grad, scratch, n_chains, dim,
+                         n, (cudaStream_t)stream, launches);
+  if (inst && err == cudaSuccess) *launches = 1;
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that it is not reported again later
     return (int)err;

@@ -8,9 +8,10 @@ fixed-seed synthetic design and the same model):
 θ = (log σ, β₁..β_p), dim = p + 1. The batched value+grad dispatches
 before the call, as the JAX model's `fused=True` gate does: a float32 θ on
 CUDA (`ops.fused_logistic.kernel_route`) gets the prior in torch plus the
-likelihood of the CUDA kernel K1, at any p (its wide variant tiles the
-columns above p = 128); any other θ (the CPU, float64) the analytic
-value+grad, the counterpart of the JAX model's `logdensity_and_grad`.
+likelihood of the CUDA kernel K1, at any p (above p = 128 its wide path,
+over the design laid out once per target); any other θ (the CPU,
+float64) the analytic value+grad, the counterpart of the JAX model's
+`logdensity_and_grad`.
 
 `hierarchical_logistic_block` is the same model in the block form of the
 NUTS megakernel K2 (`ops/fused_nuts_kernel.py`).

@@ -8,28 +8,38 @@ it returns
     loglik[c] = Σ_j y_j·logit_cj − softplus(logit_cj),   logit = β·xᵀ
     grad[c]   = (0, Σ_j (y_j − σ(logit_cj))·x_j)
 
-The kernel (`csrc/fused_logistic.cu`, its warp tile in
-`csrc/logistic_tile.cuh`) runs both products on the tensor cores at float32
-accuracy (3xTF32: each operand split into two TF32 parts, three products
-summed in float32), so it is bound by 3·4·C·p·n operations at the TF32 rate.
-Like the TPU kernel it keeps the (C, n) logits out of device memory: a
-block owns 64 chains, streams the observations through shared memory in
-tiles of 32 rows and carries the logits in registers from the first product
-to the residuals of the second. For small C the rows are split across the
-blocks of a cluster, whose partial sums are added in a fixed order: no
-atomics, so identical inputs give identical bits. Inputs and sums are
-float32 (the TPU kernel's bfloat16 inputs were a TPU default).
+Both products run on the tensor cores at float32 accuracy (3xTF32: each
+operand split into two TF32 parts, three products summed in float32), so
+the kernels are bound by 3·4·C·p·n operations at the TF32 rate. Inputs and
+sums are float32 (the TPU kernel's bfloat16 inputs were a TPU default), and
+every sum is taken in a fixed order (no atomics), so identical inputs give
+identical bits.
 
-The kernel takes any p, as the TPU kernel does. Up to p = 128 a chain's
-gradient stays in registers (the narrow instances); a wider p goes to the
-wide variant in the same source, which cuts the columns into chunks of 128
-and the rows into panels of 128, keeps a panel's logits and residuals in
-shared memory between its two products, and sums a chunk's partials across
-the cluster in rank order.
+Up to p = 128 a narrow instance (`csrc/fused_logistic.cu`, its warp tile in
+`csrc/logistic_tile.cuh`) keeps the (C, n) logits out of device memory, as
+the TPU kernel does: a block owns 64 chains, streams the observations
+through shared memory and carries the logits in registers from the first
+product to the residuals of the second; for small C the rows are split
+across a cluster whose partials are added in rank order.
+
+A wider p takes the wide path: both products as pipelined `wgmma` GEMMs in
+two launches (stage A's logits, lp partials and residuals; stage B's
+gradient and lp). Their B operands, fed by TMA, are the design laid out
+once per model by `wide_layout`: x and xᵀ padded to the K tile, with a zero
+column for θ's column 0, split into TF32 hi and lo planes, as the JAX
+function pads and transposes its design once
+(`advancedhmc_tpu/ops/fused_logistic.py:62-70`). Their A operands (θ, the
+residuals) stay float32 and are split in registers, after shared memory.
+`fused_logistic_value_grad` prepares the design (planes and their TMA
+maps, `WideDesign`) at its first CUDA call and again only after x is
+written in place; `logistic_value_grad` called with a raw x and no
+`design` prepares one for the call.
 
 `logistic_value_grad` dispatches on the device of θ: a CPU tensor takes the
-plain PyTorch version below, a CUDA tensor launches the kernel or raises.
-`logistic_value_grad.launches` counts the kernel launches.
+plain PyTorch version below, a CUDA tensor launches the kernels or raises.
+On the card, `logistic_value_grad.calls` counts its value+grad calls and
+`logistic_value_grad.launches` the kernels they launched, as the library
+reports them: one a call up to p = 128, two (the two GEMMs) above.
 """
 
 from __future__ import annotations
@@ -64,16 +74,31 @@ def _kernel(lib):
     fn = lib.fused_logistic_value_grad_f32
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         lib.fused_logistic_smem_bytes.argtypes = [ctypes.c_int]
         lib.fused_logistic_smem_bytes.restype = ctypes.c_size_t
         lib.fused_logistic_launch_shape.argtypes = [ctypes.c_int] * 3 + [
             ctypes.POINTER(ctypes.c_int)] * 2
         lib.fused_logistic_launch_shape.restype = None
+        lib.fused_logistic_wide_shape.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.fused_logistic_wide_shape.restype = ctypes.c_int
+        lib.fused_logistic_wide_design_bytes.argtypes = []
+        lib.fused_logistic_wide_design_bytes.restype = ctypes.c_size_t
+        lib.fused_logistic_wide_scratch_floats.argtypes = [ctypes.c_int] * 2
+        lib.fused_logistic_wide_scratch_floats.restype = ctypes.c_size_t
+        lib.fused_logistic_wide_prepare.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 4
+        lib.fused_logistic_wide_prepare.restype = ctypes.c_int
         lib.fused_logistic_error_string.argtypes = [ctypes.c_int]
         lib.fused_logistic_error_string.restype = ctypes.c_char_p
     return fn
+
+
+def _raise(lib, what, err):
+    raise RuntimeError(f"fused_logistic {what} failed: "
+                       + lib.fused_logistic_error_string(err).decode())
 
 
 def _check_inputs(theta, x, y):
@@ -93,27 +118,124 @@ def _check_inputs(theta, x, y):
                          "(n,)")
 
 
-def logistic_value_grad(theta, x, y):
+# ---- the wide path's design, laid out once per model
+# The narrow instances' widest p (8 · kMaxKSteps in csrc/fused_logistic.cu);
+# a wider p takes the wide path.
+NARROW_MAX_P = 128
+# The wide path's K tile (kBK): x and xᵀ are padded to multiples of it.
+WIDE_K_TILE = 32
+
+
+def _round_up(v, to):
+    return -(-v // to) * to
+
+
+def tf32_round(v):
+    """float32 `v` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero: the bits of `cvt.rna.tf32.f32`, in the integer operations of
+    the kernels' `to_tf32`."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def wide_layout(x):
+    """x (n, p) float32 laid out for the wide path: `(planes, t_planes)`.
+    `planes` (2, n_pad, k_pad) holds the TF32 part hi and the float32
+    remainder lo = x − hi (so hi + lo == x exactly) of [0 | x]: column 0 is
+    zero (θ's column 0, log σ, drops out of the logits and gradient), as
+    are the rows past n and the columns past dim = p + 1. `t_planes` (2,
+    k_pad, n_pad) is its transpose, the K-major operand of the gradient's
+    product. n_pad and k_pad are n (at least 1) and dim rounded up to
+    WIDE_K_TILE, so every row is 16-byte aligned for TMA."""
+    n, p = x.shape
+    padded = x.new_zeros(_round_up(max(n, 1), WIDE_K_TILE),
+                         _round_up(p + 1, WIDE_K_TILE))
+    padded[:n, 1:p + 1] = x
+    hi = tf32_round(padded)
+    planes = torch.stack([hi, padded - hi])
+    return planes, planes.transpose(1, 2).contiguous()
+
+
+class WideDesign:
+    """A float32 CUDA design x (n, p), p > NARROW_MAX_P, prepared for the
+    wide path: the planes of `wide_layout` and their TMA maps, which the
+    library encodes once into `maps` (the planes must outlive the maps: the
+    object holds both). `WideDesign.builds` counts the designs prepared."""
+
+    builds = 0
+
+    def __init__(self, x):
+        lib = _build.load(_LIB)
+        _kernel(lib)
+        self.n, p = x.shape
+        self.dim = p + 1
+        self.planes, self.t_planes = wide_layout(x)
+        self.maps = ctypes.create_string_buffer(
+            lib.fused_logistic_wide_design_bytes())
+        err = lib.fused_logistic_wide_prepare(
+            ctypes.addressof(self.maps), self.planes.data_ptr(),
+            self.t_planes.data_ptr(), self.n, self.dim,
+            self.planes.shape[1], self.planes.shape[2])
+        if err != 0:
+            _raise(lib, "design preparation", err)
+        WideDesign.builds += 1
+
+
+# the fields of fused_logistic_wide_shape, in its order
+WIDE_SHAPE_FIELDS = (
+    "stage_a_blocks", "stage_a_ranks", "stage_b_blocks", "stage_b_ranks",
+    "blocks_per_sm", "smem_bytes_per_block", "threads_per_block",
+    "chain_tiles", "stage_a_column_tiles", "stage_b_column_tiles")
+
+
+def wide_launch_shape(n_chains, dim, n):
+    """The wide path's launches for a call's shape on the current card: a
+    dict of WIDE_SHAPE_FIELDS (blocks and split-K ranks a cluster of each
+    launch, blocks per SM, shared memory and threads a block, tiles)."""
+    lib = _build.load(_LIB)
+    _kernel(lib)
+    out = (ctypes.c_int * len(WIDE_SHAPE_FIELDS))()
+    err = lib.fused_logistic_wide_shape(n_chains, dim, n, out)
+    if err != 0:
+        _raise(lib, "launch shape", err)
+    return dict(zip(WIDE_SHAPE_FIELDS, out))
+
+
+def logistic_value_grad(theta, x, y, design=None):
     """Likelihood part of the hierarchical logistic: `theta (C, dim)`,
-    `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`."""
+    `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`. Above p =
+    NARROW_MAX_P a CUDA call takes x's prepared `design` (a WideDesign of
+    this x), prepared here for the call when not given. Each call on the
+    card counts one in `.calls` and its kernels in `.launches`."""
     if theta.device.type == "cpu":
         return plain_logistic_value_grad(theta, x, y)
     _check_inputs(theta, x, y)
     lib = _build.load(_LIB)
     fn = _kernel(lib)
-    c, dim = theta.shape
+    (c, dim), n = theta.shape, x.shape[0]
+    scratch = None
+    if dim - 1 > NARROW_MAX_P:
+        if design is None:
+            design = WideDesign(x)
+        scratch = torch.empty(lib.fused_logistic_wide_scratch_floats(c, n),
+                              dtype=torch.float32, device=theta.device)
     loglik = torch.empty(c, dtype=torch.float32, device=theta.device)
     grad = torch.empty(c, dim, dtype=torch.float32, device=theta.device)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
+    launched = ctypes.c_int(0)
     err = fn(theta.data_ptr(), x.data_ptr(), y.data_ptr(), loglik.data_ptr(),
-             grad.data_ptr(), c, dim, x.shape[0], stream)
+             grad.data_ptr(), c, dim, n,
+             None if scratch is None else ctypes.addressof(design.maps),
+             None if scratch is None else scratch.data_ptr(), stream,
+             ctypes.byref(launched))
     if err != 0:
-        raise RuntimeError("fused_logistic kernel launch failed: "
-                           + lib.fused_logistic_error_string(err).decode())
-    logistic_value_grad.launches += 1
+        _raise(lib, "kernel launch", err)
+    logistic_value_grad.calls += 1
+    logistic_value_grad.launches += launched.value
     return loglik, grad
 
 
+logistic_value_grad.calls = 0
 logistic_value_grad.launches = 0
 
 
@@ -122,11 +244,20 @@ def fused_logistic_value_grad(x, y):
     (n, p) design matrix `x` and (n,) 0/1 responses `y` (dim = p + 1, the
     gradient's component 0 is 0; the caller adds the prior), as the JAX
     function of the same name does. The data stays on its device in its own
-    dtype; the kernel is chosen by the device of `thetas` at each call."""
+    dtype; the kernel is chosen by the device of `thetas` at each call.
+    Above p = NARROW_MAX_P the design is prepared for the wide path at the
+    first call on the card (`apply.design`), and again only once x has been
+    written in place (its version counter moved), so that every route reads
+    the x of the moment."""
     x = x.contiguous()
     y = y.to(x.dtype).contiguous()
 
     def apply(thetas):
-        return logistic_value_grad(thetas, x, y)
+        if (thetas.is_cuda and x.shape[1] > NARROW_MAX_P
+                and (apply.design is None or apply.version != x._version)):
+            _check_inputs(thetas, x, y)
+            apply.design, apply.version = WideDesign(x), x._version
+        return logistic_value_grad(thetas, x, y, apply.design)
 
+    apply.design = apply.version = None
     return apply

@@ -56,7 +56,8 @@ Phases (any failure exits non-zero):
    warmup (128 iterations, the whole batch, no fan-out) and 64 fused
    draws (16 per call), with every kernel's launch count set to 0 just
    before and read just after. Gated on finite draws, divergence,
-   acceptance, K1's launches against the target's value+grad calls, and
+   acceptance, K1's calls against the target's value+grad calls and its
+   launches against two a call (the wide path's two GEMMs), and
    the posterior moments against the JAX package's (scripts/
    wide_reference.py, four runs) within 4 combined MCSEs plus 3 standard
    deviations between the JAX runs;
@@ -172,8 +173,8 @@ def device_ms(fn, reps, replays=3):
         for _ in range(reps):
             fn()
     graph.replay()
-    for name, wrapper in _wrappers().items():
-        wrapper.launches = counts[name]
+    for name, wrapper, attr in _counters():
+        setattr(wrapper, attr, counts[name])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -187,25 +188,36 @@ def device_ms(fn, reps, replays=3):
     return ms
 
 
-def _wrappers():
+def _counters():
+    """(name, wrapper, attribute) of every kernel's launch count, and of
+    K1's count of calls (the wide path launches two kernels a call)."""
     from advancedhmc_torch.ops import fused_leapfrog, fused_logistic, \
         fused_nuts_kernel
 
-    return {"fused_logistic_value_grad": fused_logistic.logistic_value_grad,
-            "fused_nuts": fused_nuts_kernel.fused_nuts,
-            "fused_gaussian_leapfrog": fused_leapfrog.fused_gaussian_leapfrog}
+    k1 = fused_logistic.logistic_value_grad
+    return (("fused_logistic_value_grad", k1, "launches"),
+            (K1_CALLS, k1, "calls"),
+            ("fused_nuts", fused_nuts_kernel.fused_nuts, "launches"),
+            ("fused_gaussian_leapfrog",
+             fused_leapfrog.fused_gaussian_leapfrog, "launches"))
+
+
+K1_CALLS = "fused_logistic_value_grad calls"
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0 (just before a path runs)."""
-    for fn in _wrappers().values():
-        fn.launches = 0
+    """Set every kernel's launch count, and K1's calls, to 0 (just before
+    a path runs)."""
+    for _, wrapper, attr in _counters():
+        setattr(wrapper, attr, 0)
 
 
 def read_launches():
-    """Every kernel's launch count (just after a path ran)."""
+    """Every kernel's launch count, and K1's calls (just after a path
+    ran)."""
     torch.cuda.synchronize()
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(wrapper, attr)
+            for name, wrapper, attr in _counters()}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -231,22 +243,26 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 2
-def time_k1(theta, x, y):
+def time_k1(theta, x, y, design=None):
     """K1's timing row at one shape: device time (a CUDA graph of its
     launches), the wrapper's back-to-back time, the plain version's device
     time, the two float32 cuBLAS products alone (logits = β·xᵀ, grad =
-    r·x; a yardstick the port never calls), and the bound."""
+    r·x; a yardstick the port never calls), and the bound. Above p = 128
+    `design` is x's prepared WideDesign."""
     from advancedhmc_torch.ops import fused_logistic as k1
 
     (c, dim), n = theta.shape, x.shape[0]
     reps = 20 if c >= N_CHAINS else 50
     beta = theta[:, 1:].contiguous()
     resid = torch.rand(c, n, device=theta.device)
+
+    def kernel():
+        return k1.logistic_value_grad(theta, x, y, design)
+
     row = dict(
         chains=c, dim=dim, n=n,
-        ms=device_ms(lambda: k1.logistic_value_grad(theta, x, y), reps),
-        wrapper_ms=wrapper_ms(lambda: k1.logistic_value_grad(theta, x, y),
-                              reps),
+        ms=device_ms(kernel, reps),
+        wrapper_ms=wrapper_ms(kernel, reps),
         plain_ms=device_ms(lambda: k1.plain_logistic_value_grad(theta, x, y),
                            reps),
         cublas_ms=device_ms(lambda: (beta @ x.T, resid @ x), reps))
@@ -311,9 +327,9 @@ def k1_report():
     k1._kernel(lib)
     for p_max, regs, spill, _ in ptxas_instances(
             "fused_logistic", r"fused_logistic_kernelILi(\d+)E"):
-        name = f"p <= {p_max}" if p_max else "wide (p > 128)"
-        log(f"# K1 instance {name}: {regs} registers, {spill} bytes of "
-            "spill stores (ptxas)")
+        if p_max:       # the wide path's kernels: k1_wide_report
+            log(f"# K1 instance p <= {p_max}: {regs} registers, {spill} "
+                "bytes of spill stores (ptxas)")
     per_sm, split = ctypes.c_int(), ctypes.c_int()
     for c in (N_CHAINS, WARMUP_CHAINS, 1):
         lib.fused_logistic_launch_shape(c, DIM, N_ROWS, ctypes.byref(per_sm),
@@ -450,7 +466,8 @@ def phase_k3():
 # ------------------------------------------------------------------ phase 3
 def count_by_chains(target):
     """`target` with its value+grad calls tallied by chain count
-    (θ.shape[0]); on the card each of them is one K1 launch."""
+    (θ.shape[0]); on the card each of them is one K1 call (one launch up
+    to p = 128, two above)."""
     tally = collections.Counter()
     value_and_grad = target.logdensity_and_grad
 
@@ -1173,53 +1190,70 @@ def wide_reference():
     return ref, sum(run[3] for run in WIDE_REF_RUNS) / n
 
 
-def k1_wide_report():
-    """The wide kernel's registers and spills (ptxas) and, at the path's
-    shapes, its shared memory per block, resident blocks per SM and blocks
-    per cluster."""
-    import ctypes
+# the wide path's kernels, by a part of their mangled names
+WIDE_K1_KERNELS = (("stage_a", "gemm_kernelILi0ELb1E"),
+                   ("stage_a_copies", "gemm_kernelILi0ELb0E"),
+                   ("stage_b", "gemm_kernelILi1E"))
 
+
+def k1_wide_report(launched):
+    """The wide path's kernels (stage A with θ by TMA, where its rows are
+    aligned, and copied, and stage B): registers and
+    spills (ptxas), whether ptxas serialised the wgmma, and at the path's
+    shapes each launch's blocks, split-K ranks, blocks per SM, shared
+    memory and threads a block, and the launches a call (`launched`, by
+    chain count: counted by the wrapper in phase_wide_k1)."""
     from advancedhmc_torch.ops import _build
     from advancedhmc_torch.ops import fused_logistic as k1
 
-    lib = _build.load("fused_logistic")
-    k1._kernel(lib)
-    (regs, spill), = [(r, sp) for p_max, r, sp, _ in ptxas_instances(
-        "fused_logistic", r"fused_logistic_kernelILi(\d+)E") if p_max is None]
-    out = dict(
-        registers=int(regs), spill_store_bytes=int(spill),
-        smem_bytes_per_block=int(lib.fused_logistic_smem_bytes(WIDE_DIM)))
-    per_sm, split = ctypes.c_int(), ctypes.c_int()
+    entries = list(ptxas_instances("fused_logistic", r"^$"))
+    out = {}
+    for label, pattern in WIDE_K1_KERNELS:
+        (regs, spill), = [(r, sp) for _, r, sp, name in entries
+                          if pattern in name]
+        out[label] = dict(registers=int(regs), spill_store_bytes=int(spill))
+    path = _build.library_path("fused_logistic")
+    out["wgmma_serialized"] = "serialized" in path.with_name(
+        path.name + ".log").read_text()
     for c, p, n in WIDE_TIMED:
-        lib.fused_logistic_launch_shape(c, p + 1, n, ctypes.byref(per_sm),
-                                        ctypes.byref(split))
-        out[f"C={c}"] = dict(blocks_per_sm=per_sm.value,
-                             blocks_per_cluster=split.value)
-    log(f"# K1 wide: {out['registers']} registers, "
-        f"{out['spill_store_bytes']} bytes of spill stores (ptxas), "
-        f"{out['smem_bytes_per_block']} bytes of shared memory per block; "
-        + ", ".join(f"C={c}: {out[f'C={c}']['blocks_per_sm']} blocks per "
-                    f"SM, {out[f'C={c}']['blocks_per_cluster']} blocks per "
-                    "cluster" for c, _, _ in WIDE_TIMED))
+        out[f"C={c}"] = dict(k1.wide_launch_shape(c, p + 1, n),
+                             launches_per_call=launched[c])
+    log("# K1 wide: " + ", ".join(
+        f"{k} {out[k]['registers']} registers, {out[k]['spill_store_bytes']} "
+        "bytes of spill stores" for k, _ in WIDE_K1_KERNELS)
+        + f" (ptxas; wgmma serialised: {out['wgmma_serialized']})")
+    for c, _, _ in WIDE_TIMED:
+        sh = out[f"C={c}"]
+        log(f"# K1 wide C={c}: {sh['launches_per_call']} launches a call "
+            f"(counted); stage A {sh['stage_a_blocks']} blocks (clusters of "
+            f"{sh['stage_a_ranks']} split-K ranks), stage B "
+            f"{sh['stage_b_blocks']} ({sh['stage_b_ranks']}); "
+            f"{sh['threads_per_block']} threads, "
+            f"{sh['smem_bytes_per_block']} bytes of shared memory and "
+            f"{sh['blocks_per_sm']} blocks per SM")
     return out
 
 
 def phase_wide_k1():
     """K1's wide kernel against float64 and its plain version on the card,
-    two calls bitwise equal, at WIDE_SHAPES; timing rows at the path's
-    shapes; returns (rows, largest error, report)."""
+    two calls bitwise equal and two launches a call, at WIDE_SHAPES, over
+    the design prepared once a shape; timing rows at the path's shapes;
+    returns (rows, largest error, report)."""
     from advancedhmc_torch.models.logistic import _synthetic_data
     from advancedhmc_torch.ops import fused_logistic as k1
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    rows, worst = [], 0.0
+    rows, worst, launched = [], 0.0, {}
     for c, p, n in WIDE_SHAPES:
         x_np, y_np = _synthetic_data(n, p)
         x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
         y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+        design = k1.WideDesign(x)
         theta = 0.1 * torch.randn(c, p + 1, generator=gen, device="cuda")
-        lp, g = k1.logistic_value_grad(theta, x, y)
-        lp2, g2 = k1.logistic_value_grad(theta, x, y)
+        before = k1.logistic_value_grad.launches
+        lp, g = k1.logistic_value_grad(theta, x, y, design)
+        per_call = k1.logistic_value_grad.launches - before
+        lp2, g2 = k1.logistic_value_grad(theta, x, y, design)
         lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y)
         lp_64, g_64 = k1.plain_logistic_value_grad(
             theta.double(), x.double(), y.double())
@@ -1233,18 +1267,20 @@ def phase_wide_k1():
         ok = (lp.shape == (c,) and g.shape == (c, p + 1)
               and bool(torch.isfinite(lp).all() and torch.isfinite(g).all())
               and err_g <= tol_g and err_lp <= tol_lp
-              and bool((g[:, 0] == 0).all()) and same)
+              and bool((g[:, 0] == 0).all()) and same and per_call == 2)
         log(f"# K1 wide C={c} p={p} n={n}: vs float64 max|Δgrad| "
             f"{err_g:.3e} (tol {tol_g:.3e}; plain float32 {plain_g:.3e}), "
             f"max|Δlp| {err_lp:.3e} (tol {tol_lp:.3e}), two calls bitwise "
-            f"equal {same}: {'ok' if ok else 'FAIL'}")
+            f"equal {same}, {per_call} launches a call: "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"K1's wide kernel disagrees at C={c}, p={p}, "
                                f"n={n}")
         worst = max(worst, err_g, err_lp)
         if (c, p, n) in WIDE_TIMED:
-            rows.append(time_k1(theta, x, y))
-    return rows, worst, k1_wide_report()
+            launched[c] = per_call
+            rows.append(time_k1(theta, x, y, design))
+    return rows, worst, k1_wide_report(launched)
 
 
 def wide_spec():
@@ -1312,7 +1348,8 @@ def phase_wide(seed):
     launches = read_launches()
     by_chains = dict(sorted(by_chains.items(), reverse=True))
     k1_launches = launches["fused_logistic_value_grad"]
-    log(f"# wide path: K1 launches by chain count {by_chains}")
+    k1_calls = launches[K1_CALLS]
+    log(f"# wide path: K1 calls by chain count {by_chains}")
 
     th, st = res.thetas, res.stats
     t_draw = res.timings["draws_s"]
@@ -1337,7 +1374,8 @@ def phase_wide(seed):
             float(st["n_steps"].amax(1).double().mean()),
         "step_size": float(res.final_state.adapt.da.eps),
         **moments, "mcse": mcse,
-        "k1_launches": k1_launches, "k1_launches_by_chains": by_chains,
+        "k1_launches": k1_launches, "k1_calls": k1_calls,
+        "k1_calls_by_chains": by_chains,
         "launches": launches, "seed": seed,
         "device": torch.cuda.get_device_name(0),
     }
@@ -1345,7 +1383,7 @@ def phase_wide(seed):
     log(f"# wide path: init {out['init_s']:.1f} s, warmup "
         f"{out['warmup_s']:.1f} s, draws {t_draw:.1f} s, "
         f"{out['leaf_iterations_per_transition']:.1f} leaf iterations per "
-        f"draw transition, K1 launches {k1_launches}")
+        f"draw transition, K1 calls {k1_calls}, launches {k1_launches}")
     ref, ref_accept = wide_reference()
     out["reference"] = dict(moments=ref, accept_mean=ref_accept)
     gates = {
@@ -1356,8 +1394,9 @@ def phase_wide(seed):
         f"|accept - JAX's {ref_accept:.4f}| <= {WIDE_TOL_ACCEPT}":
             abs(out["accept_mean"] - ref_accept) <= WIDE_TOL_ACCEPT,
         "k1 launched": k1_launches > 0,
-        "k1 launches = value+grad calls": sum(by_chains.values())
-        == k1_launches,
+        "k1 calls = value+grad calls": sum(by_chains.values()) == k1_calls,
+        "k1 launches = 2 a call (stage A, stage B)":
+            k1_launches == 2 * k1_calls,
         "no other kernel launched": launches["fused_nuts"] == 0
         and launches["fused_gaussian_leapfrog"] == 0,
     }
@@ -1688,7 +1727,8 @@ def main(argv=None):
         "source": "advancedhmc_torch/csrc/fused_logistic.cu",
         "replaces": "advancedhmc_tpu/ops/fused_logistic.py:53",
         "launches": wide["k1_launches"],
-        "launches_by_chains": wide["k1_launches_by_chains"],
+        "calls": wide["k1_calls"],
+        "calls_by_chains": wide["k1_calls_by_chains"],
         "max_abs_err": wide_err,
         "max_err": wide_err,
         "ms": wide_row["ms"],

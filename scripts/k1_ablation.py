@@ -112,6 +112,7 @@ PROBE_BLOCKS, PROBE_THREADS, PROBE_ITERS = 132 * 16, 128, 512
 
 def build_all():
     from advancedhmc_torch.ops import _build
+    from advancedhmc_torch.ops import fused_logistic as k1
 
     csrc = ROOT / "advancedhmc_torch" / "csrc"
     out = _build.BUILD_DIR / "k1_ablation"
@@ -146,9 +147,7 @@ def build_all():
             lib.run_probe.argtypes = [ctypes.c_void_p] + [
                 ctypes.c_int] * 3 + [ctypes.c_void_p]
         else:
-            lib.fused_logistic_value_grad_f32.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 +
-                [ctypes.c_void_p])
+            k1._kernel(lib)     # the entry's argument types
         libs[name] = lib
     return libs
 
@@ -175,8 +174,9 @@ def call(lib, theta, x, y):
     grad = torch.empty(c, dim, device="cuda")
     err = lib.fused_logistic_value_grad_f32(
         theta.data_ptr(), x.data_ptr(), y.data_ptr(), lp.data_ptr(),
-        grad.data_ptr(), c, dim, x.shape[0],
-        torch.cuda.current_stream().cuda_stream)
+        grad.data_ptr(), c, dim, x.shape[0], None, None,
+        torch.cuda.current_stream().cuda_stream,
+        ctypes.byref(ctypes.c_int()))
     if err != 0:
         raise RuntimeError(f"launch failed with CUDA error {err}")
     return lp, grad

@@ -75,8 +75,8 @@ def test_logistic_model_beyond_k1_runs_on_card(p, dtype):
     the JAX model does, launching nothing, and agrees with the float64
     analytic value on the CPU to 1e-10 of the largest magnitude. A float32
     model wider than K1's narrow instances (p = 200 > 128) is K1's to
-    compute, as it is the Pallas kernel's: one launch of the wide kernel,
-    agreeing with the float64 value at K1's float32 gate (1e-4 of the
+    compute, as it is the Pallas kernel's: one call of its wide path (two
+    launches: the two GEMMs), agreeing with the float64 value at K1's float32 gate (1e-4 of the
     largest magnitude, as chip_smoke.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -84,11 +84,13 @@ def test_logistic_model_beyond_k1_runs_on_card(p, dtype):
     th = 0.1 * np.random.default_rng(6).normal(size=(4096, p + 1))
     tgt = hierarchical_logistic(n=1000, p=p, dtype=dtype, device="cuda")
     before = k1.logistic_value_grad.launches
+    calls = k1.logistic_value_grad.calls
     th_card = torch.as_tensor(th, dtype=dtype, device="cuda")
     lp, g = tgt.logdensity_and_grad(th_card)
     torch.cuda.synchronize()
-    launched = 1 if dtype == torch.float32 else 0
-    assert k1.logistic_value_grad.launches == before + launched
+    called = 1 if dtype == torch.float32 else 0
+    assert k1.logistic_value_grad.calls == calls + called
+    assert k1.logistic_value_grad.launches == before + 2 * called
     assert lp.dtype == g.dtype == dtype and g.shape == (4096, p + 1)
     ref = hierarchical_logistic(n=1000, p=p, dtype=torch.float64,
                                 device="cpu")
@@ -101,30 +103,84 @@ def test_logistic_model_beyond_k1_runs_on_card(p, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,p,n", [(1024, 999, 1000), (1, 999, 1000),
-                                   (1000, 999, 997), (64, 2047, 333)])
-def test_k1_wide_matches_float64_and_repeats_on_card(c, p, n):
-    """K1's wide kernel at the 1000-D model's width (its path's 1024 chains
-    and the step-size search's one chain), at ragged C and n, and at
-    p = 2047: within 1e-4 of float64's largest magnitude, component 0 zero,
-    one launch per call, and two calls give the same bits (no atomics)."""
+@pytest.mark.parametrize("p", [129, 200, 999, 2047])
+@pytest.mark.parametrize("c", [1, 63, 64, 65, 1000, 4096])
+def test_k1_wide_matches_float64_and_repeats_on_card(c, p):
+    """K1's wide path at the step-size search's one chain, around the
+    64-chain tile (63, 64, 65), at ragged and large C, from one column past
+    the narrow instances (p = 129) to p = 2047, over n = 997 and 1000 rows:
+    within 1e-4 of float64's largest magnitude, component 0 zero, one call
+    and two launches (the two GEMMs) counted a call, and two calls, the
+    first preparing its own design and the second given one prepared
+    before, give the same bits (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    x_np, y_np = _synthetic_data(n, p)
+    gen = torch.Generator(device="cuda").manual_seed(c + p)
+    for n in (997, 1000):
+        x_np, y_np = _synthetic_data(n, p)
+        x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
+        y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+        th = 0.1 * torch.randn(c, p + 1, generator=gen, device="cuda")
+        design = k1.WideDesign(x)
+        before = k1.logistic_value_grad.launches
+        calls = k1.logistic_value_grad.calls
+        lp, g = k1.logistic_value_grad(th, x, y)
+        assert k1.logistic_value_grad.calls == calls + 1
+        assert k1.logistic_value_grad.launches == before + 2
+        lp2, g2 = k1.logistic_value_grad(th, x, y, design)
+        lp64, g64 = k1.plain_logistic_value_grad(th.double(), x.double(),
+                                                 y.double())
+        torch.cuda.synchronize()
+        assert torch.equal(lp, lp2) and torch.equal(g, g2), n
+        assert bool((g[:, 0] == 0).all())
+        assert float((g.double() - g64).abs().max()) <= 1e-4 * float(
+            g64.abs().max()), n
+        assert float((lp.double() - lp64).abs().max()) <= 1e-4 * max(
+            1.0, float(lp64.abs().max())), n
+    shape = k1.wide_launch_shape(c, p + 1, 1000)
+    assert shape["chain_tiles"] == -(-c // 128)
+    assert shape["stage_a_blocks"] == (shape["chain_tiles"] * shape[
+        "stage_a_column_tiles"] * shape["stage_a_ranks"])
+
+
+@pytest.mark.gpu
+def test_k1_wide_design_is_prepared_once_per_model():
+    """The model's likelihood (`fused_logistic_value_grad(x, y)`'s apply)
+    lays out its design for the wide path at its first call on the card and
+    not again while x is unchanged; once x is written in place it lays it
+    out anew, so that it computes with the new x as the plain version does.
+    `logistic_value_grad` with a raw x and no design prepares one a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x_np, y_np = _synthetic_data(300, 999)
     x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
     y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(c + p)
-    th = 0.1 * torch.randn(c, p + 1, generator=gen, device="cuda")
-    before = k1.logistic_value_grad.launches
-    lp, g = k1.logistic_value_grad(th, x, y)
-    assert k1.logistic_value_grad.launches == before + 1
-    lp2, g2 = k1.logistic_value_grad(th, x, y)
+    th = 0.1 * torch.randn(64, 1000, device="cuda")
+    apply = k1.fused_logistic_value_grad(x, y)
+    before = k1.WideDesign.builds
+    first = apply(th)
+    design = apply.design
+    assert k1.WideDesign.builds == before + 1 and design is not None
+    for _ in range(3):
+        again = apply(th)
+    torch.cuda.synchronize()
+    assert k1.WideDesign.builds == before + 1 and apply.design is design
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+    raw = k1.logistic_value_grad(th, x, y)
+    k1.logistic_value_grad(th, x, y)
+    assert k1.WideDesign.builds == before + 3
+    assert torch.equal(raw[1], first[1])
+    x.mul_(2.0)          # a new version of x: its design is laid out anew
+    lp, g = apply(th)
+    assert k1.WideDesign.builds == before + 4 and apply.design is not design
+    apply(th)
+    assert k1.WideDesign.builds == before + 4
     lp64, g64 = k1.plain_logistic_value_grad(th.double(), x.double(),
                                              y.double())
     torch.cuda.synchronize()
-    assert torch.equal(lp, lp2) and torch.equal(g, g2)
-    assert bool((g[:, 0] == 0).all())
     assert float((g.double() - g64).abs().max()) <= 1e-4 * float(
         g64.abs().max())
     assert float((lp.double() - lp64).abs().max()) <= 1e-4 * max(

@@ -1,27 +1,14 @@
-"""K1's wide variant (p > 128) and the 1000-D slice, on the CPU.
+"""The 1000-D slice on the CPU: K1's plain version at p = 999 against the
+JAX package, and `sample()` past the narrow kernel's width.
 
-K1's wide kernel (`advancedhmc_torch/csrc/fused_logistic.cu`,
-`fused_logistic_wide_kernel`, its stages in `csrc/logistic_wide_tile.cuh`)
-runs only on the card. Here:
+K1's wide path (p > 128) runs only on the card; its prepared layout and its
+order of work are modelled in tests/test_torch_k1_wgmma.py. Here:
 
-* its index arithmetic, with the constants read from the source: the row
-  tiles split across a cluster's ranks, the panels every rank walks, the
-  column chunks and their ragged last k-steps, the lanes' fragment offsets
-  into the panel's logits/residuals and into the partial gradient (each
-  element written once, the float2 accesses free of bank conflicts), and
-  the output elements the ranks share in the cluster's sums;
-* the kernel's order of work at block granularity in float64 (chunks added
-  into the panel's logits, the epilogue's masked rows, product 2 by warp
-  halves, the rank-ordered sums, the panels added into the gradient),
-  against the direct function, at ragged shapes;
 * the plain version at p = 999 against the JAX model in float64 and the
   Pallas kernel in interpret mode;
 * the slice as a whole: the port's `sample()` on a 151-D hierarchical
   logistic against the JAX package's, in distribution.
 """
-
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,271 +33,6 @@ from advancedhmc_torch.models.logistic import _prior, _synthetic_data
 from advancedhmc_torch.ops import fused_logistic as k1
 
 torch.set_num_threads(2)
-
-CSRC = Path(k1.__file__).resolve().parent.parent / "csrc"
-SRC = (CSRC / "fused_logistic.cu").read_text()
-TILE_SRC = (CSRC / "logistic_tile.cuh").read_text()
-WIDE_SRC = (CSRC / "logistic_wide_tile.cuh").read_text()
-
-
-def _constant(name, src=SRC):
-    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-
-
-TILE_ROWS = _constant("kTileRows", TILE_SRC)
-CHAINS = 16 * _constant("kWarps")                 # chains per block
-KSTEPS = _constant("kWideKSteps", WIDE_SRC)
-CHUNK = 8 * KSTEPS
-STRIDE = 8 * KSTEPS + 4                           # x_stride(kWideKSteps)
-PANEL_TILES = _constant("kPanelTiles", WIDE_SRC)
-PANEL_ROWS = PANEL_TILES * TILE_ROWS
-RES_STRIDE = PANEL_ROWS + int(re.search(
-    r"constexpr int kResStride = kPanelRows \+ (\d+);", WIDE_SRC).group(1))
-WARPS = _constant("kWideWarps")
-THREADS = 32 * WARPS
-HALVES = WARPS // 4
-NJ, NNT = 4 // HALVES, KSTEPS // HALVES
-MAX_SPLIT = _constant("kWideMaxSplit")
-
-
-# --- the kernel's index arithmetic, in Python --------------------------
-def rank_tiles(n, ranks, rank):
-    n_tiles = -(-n // TILE_ROWS)
-    return rank * n_tiles // ranks, (rank + 1) * n_tiles // ranks
-
-
-def n_panels(n, ranks):
-    max_tiles = -(-(-(-n // TILE_ROWS)) // ranks)
-    return max(1, -(-max_tiles // PANEL_TILES))
-
-
-def panel_tiles(panel, begin, end):
-    t0 = begin + panel * PANEL_TILES
-    return t0, max(0, min(end, t0 + PANEL_TILES) - t0)
-
-
-def wide_split(c, n, slots):
-    chain_tiles = -(-c // CHAINS)
-    row_tiles = -(-n // TILE_ROWS)
-    return max(1, min(slots // chain_tiles, MAX_SPLIT, row_tiles))
-
-
-def lanes():
-    """(warp, group, half, g, t) of every lane of a block."""
-    for warp in range(WARPS):
-        for lane in range(32):
-            yield warp, warp % 4, warp // 4, lane // 4, lane % 4
-
-
-def res_offsets(i):
-    """Stage A's float2 offsets into the panel's logits for tile i, by lane:
-    (chain cw | cw+8, rows r0, r0+1), r0 = 32 i + 8 (j0 + j) + 2 t."""
-    for warp, group, half, g, t in lanes():
-        for j in range(NJ):
-            r0 = TILE_ROWS * i + 8 * (NJ * half + j) + 2 * t
-            cw = 16 * group + g
-            yield warp, g, t, cw * RES_STRIDE + r0, (cw + 8) * RES_STRIDE + r0
-
-
-def test_source_constants():
-    """The constants the wide kernel's design rests on."""
-    assert (KSTEPS, CHUNK, STRIDE) == (16, 128, 132)
-    assert RES_STRIDE % 32 == 8 and PANEL_ROWS % TILE_ROWS == 0
-    assert WARPS in (4, 8) and 4 % HALVES == 0
-    assert 8 <= MAX_SPLIT <= 16
-    # the narrow instances hold p <= 128; every wider p is the wide kernel's
-    assert 8 * _constant("kMaxKSteps") == CHUNK
-    floats = (CHAINS * STRIDE + 2 * TILE_ROWS * STRIDE
-              + CHAINS * RES_STRIDE + PANEL_ROWS + HALVES * CHAINS)
-    assert 4 * floats <= 227 * 1024     # a block's shared memory on an H100
-
-
-@pytest.mark.parametrize("c,p,n,ranks", [
-    (1, 999, 1000, 16), (1000, 999, 997, 16), (4096, 999, 1000, 4),
-    (1024, 2047, 1000, 16), (4096, 200, 1000, 4), (13, 129, 300, 8),
-    (64, 130, 33, 2), (5, 300, 0, 1), (70, 300, 5000, 3)])
-def test_rows_chunks_and_ranks_cover_the_work(c, p, n, ranks):
-    """Every row tile belongs to one rank and one of its panels, every rank
-    walks the same number of panels (the cluster meets at each chunk of
-    stage B), every column lies in one chunk, and the cluster's sums give
-    every output element of a chunk to one thread of one rank."""
-    n_tiles = -(-n // TILE_ROWS)
-    seen = np.zeros(n_tiles, int)
-    panels = n_panels(n, ranks)
-    assert panels >= 1
-    for rank in range(ranks):
-        begin, end = rank_tiles(n, ranks, rank)
-        assert end - begin <= -(-n_tiles // ranks)
-        covered = []
-        for panel in range(panels):
-            t0, nt_p = panel_tiles(panel, begin, end)
-            assert 0 <= nt_p <= PANEL_TILES
-            covered += list(range(t0, t0 + nt_p))
-        assert covered == list(range(begin, end))
-        seen[begin:end] += 1
-    assert np.all(seen == 1)
-    # columns: chunks of 128, the last one's k-steps and n-tiles cut at p
-    n_chunks = -(-p // CHUNK)
-    cols = np.zeros(p, int)
-    for chunk in range(n_chunks):
-        k0 = chunk * CHUNK
-        n_ks = min(KSTEPS, (p - k0 + 7) // 8)
-        assert n_ks >= 1 and k0 + 8 * n_ks >= min(p, k0 + CHUNK)
-        cols[k0:min(p, k0 + CHUNK)] += 1
-    assert np.all(cols == 1)
-    # the cluster's sums: element e of a chunk goes to rank e // THREADS %
-    # ranks and thread e % THREADS, once
-    owner = np.zeros(CHAINS * CHUNK, int)
-    for rank in range(ranks):
-        for tid in range(THREADS):
-            owner[rank * THREADS + tid::ranks * THREADS] += 1
-    assert np.all(owner == 1)
-    # a split the launch can take
-    assert 1 <= wide_split(c, n, 132) <= MAX_SPLIT
-
-
-def test_fragment_offsets_cover_the_panel_without_bank_conflicts():
-    """Stage A's C fragments (and the epilogue, which rewrites the same
-    elements) cover the panel's 64 chains × 128 rows once; stage B's A
-    fragments of a warp read its group's 16 chains × the tile's 32 rows;
-    its partial gradient covers 64 chains × 128 columns once. Each float2
-    access of a half-warp touches 32 distinct banks."""
-    logits = np.zeros((CHAINS, RES_STRIDE), int)
-    for i in range(PANEL_TILES):
-        by_warp = {}
-        for warp, g, t, o0, o8 in res_offsets(i):
-            assert o0 % 2 == 0 and o8 % 2 == 0
-            for o in (o0, o8):
-                logits[o // RES_STRIDE, o % RES_STRIDE] += 1
-                logits[o // RES_STRIDE, o % RES_STRIDE + 1] += 1
-            by_warp.setdefault(warp, []).append((4 * g + t, o0, o8))
-        for items in by_warp.values():
-            # per j, lanes in order: half-warps of 16 lanes
-            for j in range(NJ):
-                row = sorted(items)[j::NJ] if NJ > 1 else sorted(items)
-                for half_warp in (row[:16], row[16:]):
-                    for pick in (1, 2):
-                        banks = set()
-                        for _, o0, o8 in half_warp:
-                            o = o0 if pick == 1 else o8
-                            banks |= {o % 32, (o + 1) % 32}
-                        assert len(banks) == 32
-    assert np.all(logits[:, :PANEL_ROWS] == 1)
-    assert np.all(logits[:, PANEL_ROWS:] == 0)
-    # stage B: the warp's A fragments over the tile's rows (all four j)
-    for group in range(4):
-        reads = np.zeros((16, TILE_ROWS), int)
-        for g in range(8):
-            for t in range(4):
-                for j in range(4):
-                    r0 = 8 * j + 2 * t
-                    reads[[g, g, g + 8, g + 8], [r0, r0 + 1, r0, r0 + 1]] \
-                        += 1
-        assert np.all(reads == 1)
-    part = np.zeros((CHAINS, STRIDE), int)
-    for warp, group, half, g, t in lanes():
-        cw = 16 * group + g
-        for nt in range(NNT):
-            k = 8 * (NNT * half + nt) + 2 * t
-            for c in (cw, cw + 8):
-                part[c, k:k + 2] += 1
-    assert np.all(part[:, :CHUNK] == 1) and np.all(part[:, CHUNK:] == 0)
-
-
-def _wide_kernel_model(theta, x, y, ranks):
-    """The wide kernel's order of work in float64, block by block: chunks
-    added into the panel's logits, the epilogue with its row weights, the
-    warp halves' products, the rank-ordered sums of each chunk and the
-    panels added into the gradient, the lp over the lanes' halves and the
-    ranks in order."""
-    c, dim = theta.shape
-    n, p = x.shape
-    n_chunks = -(-p // CHUNK)
-    lp = np.zeros(c)
-    grad = np.full((c, dim), np.nan)
-    for c0 in range(0, c, CHAINS):
-        beta = np.zeros((CHAINS, p))
-        rows = min(CHAINS, c - c0)
-        beta[:rows] = theta[c0:c0 + rows, 1:]
-        lp_part = np.zeros((ranks, HALVES, CHAINS))
-        panels = n_panels(n, ranks)
-        for panel in range(panels):
-            parts = np.zeros((ranks, n_chunks, CHAINS, CHUNK))
-            for rank in range(ranks):
-                t0, nt_p = panel_tiles(panel, *rank_tiles(n, ranks, rank))
-                r_lo = t0 * TILE_ROWS
-                res = np.zeros((CHAINS, PANEL_ROWS))
-                xp = np.zeros((PANEL_ROWS, n_chunks * CHUNK))
-                yp = np.zeros(PANEL_ROWS)
-                w = np.zeros(PANEL_ROWS)
-                r_hi = min(n, (t0 + nt_p) * TILE_ROWS)
-                if r_hi > r_lo:
-                    xp[:r_hi - r_lo, :p] = x[r_lo:r_hi]
-                    yp[:r_hi - r_lo] = y[r_lo:r_hi]
-                    w[:r_hi - r_lo] = 1.0
-                bp = np.zeros((CHAINS, n_chunks * CHUNK))
-                bp[:, :p] = beta
-                for chunk in range(n_chunks):
-                    cols = slice(chunk * CHUNK, (chunk + 1) * CHUNK)
-                    for i in range(nt_p):
-                        for half in range(HALVES):
-                            r = slice(TILE_ROWS * i + 8 * NJ * half,
-                                      TILE_ROWS * i + 8 * NJ * (half + 1))
-                            res[:, r] += bp[:, cols] @ xp[r, cols].T
-                used = TILE_ROWS * nt_p
-                lg = res[:, :used]
-                softplus = np.logaddexp(0.0, lg)
-                sig = 1.0 / (1.0 + np.exp(-lg))
-                for half in range(HALVES):
-                    for i in range(nt_p):
-                        r = slice(TILE_ROWS * i + 8 * NJ * half,
-                                  TILE_ROWS * i + 8 * NJ * (half + 1))
-                        lp_part[rank, half] += (
-                            yp[r] * lg[:, r] - w[r] * softplus[:, r]).sum(1)
-                resid = yp[:used] - w[:used] * sig
-                for chunk in range(n_chunks):
-                    cols = slice(chunk * CHUNK, (chunk + 1) * CHUNK)
-                    for half in range(HALVES):
-                        cc = slice(chunk * CHUNK + 8 * NNT * half,
-                                   chunk * CHUNK + 8 * NNT * (half + 1))
-                        parts[rank, chunk, :, cc.start - cols.start:
-                              cc.stop - cols.start] = \
-                            resid @ xp[:used, cc]
-            for chunk in range(n_chunks):
-                k0 = chunk * CHUNK
-                k1_ = min(p, k0 + CHUNK)
-                total = np.zeros((CHAINS, CHUNK))
-                for rank in range(ranks):
-                    total = total + parts[rank, chunk]
-                out = grad[c0:c0 + rows, 1 + k0:1 + k1_]
-                add = total[:rows, :k1_ - k0]
-                grad[c0:c0 + rows, 1 + k0:1 + k1_] = \
-                    add if panel == 0 else out + add
-        lp[c0:c0 + rows] = lp_part.sum((0, 1))[:rows]
-        grad[c0:c0 + rows, 0] = 0.0
-    return lp, grad
-
-
-@pytest.mark.parametrize("c,p,n,ranks", [
-    (70, 300, 555, 3), (13, 129, 300, 8), (64, 130, 33, 2), (5, 200, 0, 1),
-    (3, 260, 1000, 1)])
-def test_wide_kernel_order_of_work_matches_the_function(c, p, n, ranks):
-    """The kernel's tiling and sums, in float64, agree with the direct
-    float64 function to 1e-12 of the largest magnitude: no element of the
-    work is dropped or counted twice, at ragged C, p and n, one or several
-    ranks and one or two panels."""
-    x, y = _synthetic_data(max(n, 2), p, 3)
-    x, y = x[:n], y[:n]
-    theta = 0.1 * np.random.default_rng(c + p + n).normal(size=(c, p + 1))
-    lp, grad = _wide_kernel_model(theta, x, y, ranks)
-    lp_ref, g_ref = k1.plain_logistic_value_grad(
-        torch.as_tensor(theta), torch.as_tensor(x), torch.as_tensor(y))
-    scale = max(1.0, float(lp_ref.abs().max()))
-    assert np.abs(lp - lp_ref.numpy()).max() <= 1e-12 * scale
-    assert np.all(np.isfinite(grad))
-    gscale = max(1.0, float(g_ref.abs().max()))
-    assert np.abs(grad - g_ref.numpy()).max() <= 1e-12 * gscale
-
 
 # --- the plain version at p = 999 against the JAX package --------------
 N_WIDE, P_WIDE = 1000, 999
