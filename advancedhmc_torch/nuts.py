@@ -6,7 +6,10 @@ and full momentum refreshment. As in the JAX package the recursive
 `build_tree` is flattened into a loop that takes ONE leapfrog step per
 iteration, with the doubling bookkeeping done in O(max_depth) masked
 arithmetic; here the loop is a Python `while` over the batched state
-(chains on the leading axis) instead of a vmapped `lax.while_loop`.
+(chains on the leading axis) instead of a vmapped `lax.while_loop`. The
+leaf-pair body (`_leaf_pair`) takes two leapfrog steps an iteration, the
+aligned (even, odd) leaf pair of a doubling, and runs the checks, the
+checkpoint write and the merge once for both.
 
 Checkpoint stacks (see the JAX module docstring): the even-visit leaf i of a
 doubling stores r_i and d_i = r_i − Σ_{j≤i} r_j at slot tz(i)−1 (the top
@@ -15,8 +18,8 @@ a..i then needs only dot products with the stored rows:
 dot(ρ, M⁻¹r_a) = dot(M⁻¹ρ_sub, r_a) + dot(d_a, M⁻¹r_a) and
 dot(ρ, M⁻¹r_i) = dot(ρ_sub, M⁻¹r_i) + dot(d_a, M⁻¹r_i), ρ_sub being the
 running momentum sum of the current doubling. The stacks are updated in
-place; they carry one spare slot that odd leaves write to, so the write is a
-single scatter for every chain.
+place; they carry one spare slot that odd leaves (and chains that store
+nothing) write to, so the write is a single scatter for every chain.
 """
 
 from __future__ import annotations
@@ -80,62 +83,64 @@ def _initial_state(z: PhasePoint, max_depth: int):
     return st
 
 
-def _leaf(st, h, eps, max_depth, delta_max, generator,
-          force_directions=None, act=None):
-    """Advance every chain by one leaf: the body of the iterative NUTS loop
-    (single-leaf form of `advancedhmc_tpu/nuts.py` `body`)."""
-    z_prev = st["z_edge"]
-    c, d = z_prev.theta.shape
-    dtype, dev = z_prev.theta.dtype, z_prev.theta.device
-    ck_r, ck_d, sck_ad = st["ck_r"], st["ck_d"], st["sck_ad"]
-    n_slots = ck_r.shape[1] - 1
-    i = st["leaf"]
-    h0 = st["h0"]
-    start = i == 0
-
-    # --- begin a new doubling: direction, edge, subtree reset ---
-    if force_directions is None:
-        v_draw = rand_sign(generator, (c,), dev)
-    else:
-        fd = torch.as_tensor(force_directions, dtype=torch.int32, device=dev)
-        v_draw = fd[torch.clamp(st["depth"], max=max_depth - 1).long()]
+def _start(st, v_draw):
+    """Begin a new doubling where the chain is at leaf 0: its direction, the
+    tree edge it grows from, and the subtree's fields reset. Returns (v,
+    fwd, z_edge, sub), `sub` the subtree fields (`s_*`)."""
+    start = st["leaf"] == 0
     v = torch.where(start, v_draw, st["v"])
     fwd = v > 0
-    z_edge = _sel(start, _sel(fwd, st["t_zright"], st["t_zleft"]), z_prev)
-    s_rho = st["s_rho"].masked_fill(start[:, None], 0.0)
-    s_w = st["s_w"].masked_fill(start, float("-inf"))
-    s_sum_alpha = st["s_sum_alpha"].masked_fill(start, 0.0)
-    s_n_alpha = st["s_n_alpha"].masked_fill(start, 0)
-    s_dh_max = st["s_dh_max"].masked_fill(start, 0.0)
-    s_turning = st["s_turning"] & ~start
-    s_diverged = st["s_diverged"] & ~start
+    z_edge = _sel(start, _sel(fwd, st["t_zright"], st["t_zleft"]),
+                  st["z_edge"])
+    sub = dict(
+        s_rho=st["s_rho"].masked_fill(start[:, None], 0.0),
+        s_w=st["s_w"].masked_fill(start, float("-inf")),
+        s_zcand=st["s_zcand"],
+        s_sum_alpha=st["s_sum_alpha"].masked_fill(start, 0.0),
+        s_n_alpha=st["s_n_alpha"].masked_fill(start, 0),
+        s_dh_max=st["s_dh_max"].masked_fill(start, 0.0),
+        s_turning=st["s_turning"] & ~start,
+        s_diverged=st["s_diverged"] & ~start,
+    )
+    return v, fwd, z_edge, sub
 
-    # --- one leapfrog step in direction v ---
-    z_new = leapfrog_step(h, z_edge, eps * v.to(dtype))
+
+def _step(h, z_edge, eps_v, h0, delta_max, sub, generator):
+    """One leapfrog step from `z_edge` (signed step `eps_v`) and the
+    multinomial leaf sampler: reservoir update (one uniform draw) and
+    divergence. Returns (z_new, vel_new, sub with the leaf added)."""
+    c, dtype, dev = h0.shape[0], h0.dtype, h0.device
+    z_new = leapfrog_step(h, z_edge, eps_v)
     vel_new = h.velocity(z_new.r)
     h_new = z_new.energy()
     dh = h_new - h0
     alpha_leaf = torch.nan_to_num(torch.exp(torch.clamp(-dh, max=0.0)),
                                   nan=0.0)
-
-    # --- multinomial leaf sampler: reservoir update and divergence ---
     lw_leaf = h0 - h_new
-    s_w_new = torch.logaddexp(s_w, lw_leaf)
+    s_w = torch.logaddexp(sub["s_w"], lw_leaf)
     u = torch.rand(c, generator=generator, dtype=dtype, device=dev)
-    take = torch.log(u) < lw_leaf - s_w_new
+    take = torch.log(u) < lw_leaf - s_w
     diverging = ~(-h0 < delta_max - h_new)
-    s_w = s_w_new
-    s_zcand = _sel(take, z_new, st["s_zcand"])
-    s_rho = s_rho + z_new.r
-    s_sum_alpha = s_sum_alpha + alpha_leaf
-    s_n_alpha = s_n_alpha + 1
-    s_dh_max = maxabs(s_dh_max, dh)
+    return z_new, vel_new, dict(
+        sub,
+        s_w=s_w,
+        s_zcand=_sel(take, z_new, sub["s_zcand"]),
+        s_rho=sub["s_rho"] + z_new.r,
+        s_sum_alpha=sub["s_sum_alpha"] + alpha_leaf,
+        s_n_alpha=sub["s_n_alpha"] + 1,
+        s_dh_max=maxabs(sub["s_dh_max"], dh),
+        s_diverged=sub["s_diverged"] | diverging,
+    )
 
-    # --- U-turn checks of the aligned subtrees that end at leaf i ---
-    i_even = (i % 2) == 0
-    ks = torch.arange(1, max_depth, dtype=torch.int32, device=dev)   # (K,)
+
+def _span_turn(st, h, i, s_rho, vel_new, max_depth, odd):
+    """Whether a U-turn closes one of the aligned subtrees that end at leaf
+    `i` (only odd leaves end one; `odd` says which chains are at one)."""
+    ck_r, ck_d, sck_ad = st["ck_r"], st["ck_d"], st["sck_ad"]
+    n_slots = ck_r.shape[1] - 1
+    ks = torch.arange(1, max_depth, dtype=torch.int32, device=i.device)
     a_s = i[:, None] - torch.bitwise_left_shift(torch.ones_like(ks), ks) + 1
-    active = (~i_even)[:, None] & (ks <= trailing_ones(i)[:, None]) & (a_s >= 0)
+    active = odd[:, None] & (ks <= trailing_ones(i)[:, None]) & (a_s >= 0)
     a_safe = torch.clamp(a_s, min=0)
     # (an odd a gives slot -1; such spans are never active, clamp to gather)
     slot_a = torch.where(
@@ -147,28 +152,39 @@ def _leaf(st, h, eps, max_depth, delta_max, generator,
     srv = torch.sum(s_rho * vel_new, -1)
     turn_slot = (u_a <= 0) | (u_b <= -srv[:, None])                   # (C, S+1)
     turn_k = torch.gather(turn_slot, 1, slot_a.long())
-    s_turning = s_turning | torch.any(active & turn_k, 1)
-    s_diverged = s_diverged | diverging
+    return torch.any(active & turn_k, 1)
 
-    # --- store the even leaf's checkpoint (odd leaves: the spare slot) ---
+
+def _store(st, i, z_new, s_rho, vel_new, write):
+    """Store leaf `i`'s checkpoint where `write` holds (even leaves), in
+    place; the other chains write to the spare slot, which nothing reads."""
+    ck_r, ck_d, sck_ad = st["ck_r"], st["ck_d"], st["sck_ad"]
+    c, n_slots1, d = ck_r.shape
+    n_slots = n_slots1 - 1
     slot_even = torch.where(
         i == 0, n_slots - 1,
         torch.clamp(trailing_zeros(torch.clamp(i, min=1)) - 1,
                     max=n_slots - 1))
-    slot_w = torch.where(i_even, slot_even, n_slots).long()
+    slot_w = torch.where(write, slot_even, n_slots).long()
     idx = slot_w[:, None, None].expand(c, 1, d)
     d_row = z_new.r - s_rho
     ck_r.scatter_(1, idx, z_new.r[:, None])
     ck_d.scatter_(1, idx, d_row[:, None])
     sck_ad.scatter_(1, slot_w[:, None], torch.sum(d_row * vel_new, -1)[:, None])
 
-    # --- is the doubling finished?  then merge it into the tree ---
+
+def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
+    """The end of an iteration whose last leaf is leaf `i` (`z_new`,
+    `vel_new`), the subtree's fields `sub` final: is the doubling finished?
+    Then merge it into the tree (biased progressive sampling with `e_mh`,
+    masked by `act`). Returns the new state without the stacks."""
     n_leaves = torch.bitwise_left_shift(torch.ones_like(i), st["depth"])
+    s_turning, s_diverged, s_w = sub["s_turning"], sub["s_diverged"], \
+        sub["s_w"]
     sub_done = s_turning | s_diverged
     complete = sub_done | (i >= n_leaves - 1)
     not_term = ~sub_done
     # biased progressive sampling at the top level
-    e_mh = rand_exponential(generator, (c,), dtype, dev)
     take_top = complete & not_term & (st["t_w"] < s_w + e_mh)
     if act is not None:
         take_top = take_top & act
@@ -178,20 +194,21 @@ def _leaf(st, h, eps, max_depth, delta_max, generator,
     t_vright = h.velocity(st["t_zright"].r)
     c_vleft = torch.where(fwd[:, None], t_vleft, vel_new)
     c_vright = torch.where(fwd[:, None], vel_new, t_vright)
-    c_rho = st["t_rho"] + s_rho
+    c_rho = st["t_rho"] + sub["s_rho"]
     full_turn = (torch.sum(c_rho * c_vleft, -1) <= 0) | (
         torch.sum(c_rho * c_vright, -1) <= 0)
     depth = st["depth"] + (complete & not_term).to(torch.int32)
     return dict(
-        h0=h0,
+        h0=st["h0"],
         t_zleft=_sel(complete & ~fwd, z_new, st["t_zleft"]),
         t_zright=_sel(complete & fwd, z_new, st["t_zright"]),
         t_rho=_sel(complete, c_rho, st["t_rho"]),
-        zcand=_sel(take_top, s_zcand, st["zcand"]),
+        zcand=_sel(take_top, sub["s_zcand"], st["zcand"]),
         t_w=_sel(complete, torch.logaddexp(st["t_w"], s_w), st["t_w"]),
-        sum_alpha=st["sum_alpha"] + s_sum_alpha * complete,
-        n_alpha=st["n_alpha"] + s_n_alpha * complete,
-        dh_max=_sel(complete, maxabs(st["dh_max"], s_dh_max), st["dh_max"]),
+        sum_alpha=st["sum_alpha"] + sub["s_sum_alpha"] * complete,
+        n_alpha=st["n_alpha"] + sub["s_n_alpha"] * complete,
+        dh_max=_sel(complete, maxabs(st["dh_max"], sub["s_dh_max"]),
+                    st["dh_max"]),
         depth=depth,
         turning=st["turning"] | (complete & (s_turning | full_turn)),
         diverged=st["diverged"] | (complete & s_diverged),
@@ -199,16 +216,84 @@ def _leaf(st, h, eps, max_depth, delta_max, generator,
         v=v,
         leaf=torch.where(complete, 0, i + 1),
         z_edge=z_new,
-        s_rho=s_rho,
+        s_rho=sub["s_rho"],
         s_w=s_w.masked_fill(complete, float("-inf")),
-        s_zcand=s_zcand,
-        s_sum_alpha=s_sum_alpha.masked_fill(complete, 0.0),
-        s_n_alpha=s_n_alpha.masked_fill(complete, 0),
-        s_dh_max=s_dh_max.masked_fill(complete, 0.0),
+        s_zcand=sub["s_zcand"],
+        s_sum_alpha=sub["s_sum_alpha"].masked_fill(complete, 0.0),
+        s_n_alpha=sub["s_n_alpha"].masked_fill(complete, 0),
+        s_dh_max=sub["s_dh_max"].masked_fill(complete, 0.0),
         s_turning=s_turning & ~complete,
         s_diverged=s_diverged & ~complete,
-        ck_r=ck_r, ck_d=ck_d, sck_ad=sck_ad,
+        ck_r=st["ck_r"], ck_d=st["ck_d"], sck_ad=st["sck_ad"],
     )
+
+
+def _leaf(st, h, eps, max_depth, delta_max, generator,
+          force_directions=None, act=None):
+    """Advance every chain by one leaf: the body of the iterative NUTS loop
+    (single-leaf form of `advancedhmc_tpu/nuts.py` `body`). It draws a
+    direction sign, the reservoir's uniform and the merge's exponential,
+    one of each for every chain. Chains outside `act` (if given) take no
+    candidate and store no checkpoint."""
+    c = st["leaf"].shape[0]
+    dtype, dev = st["h0"].dtype, st["h0"].device
+    i = st["leaf"]
+    if force_directions is None:
+        v_draw = rand_sign(generator, (c,), dev)
+    else:
+        fd = torch.as_tensor(force_directions, dtype=torch.int32, device=dev)
+        v_draw = fd[torch.clamp(st["depth"], max=max_depth - 1).long()]
+    v, fwd, z_edge, sub = _start(st, v_draw)
+    z_new, vel_new, sub = _step(h, z_edge, eps * v.to(dtype), st["h0"],
+                                delta_max, sub, generator)
+    i_even = (i % 2) == 0
+    sub["s_turning"] = sub["s_turning"] | _span_turn(
+        st, h, i, sub["s_rho"], vel_new, max_depth, ~i_even)
+    _store(st, i, z_new, sub["s_rho"], vel_new,
+           i_even if act is None else i_even & act)
+    e_mh = rand_exponential(generator, (c,), dtype, dev)
+    return _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh,
+                  act)
+
+
+def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None):
+    """Advance every chain by the aligned (even, odd) leaf pair of its
+    current doubling, or by the lone leaf of a depth-0 doubling: the
+    leaf-pair body (`advancedhmc_tpu/nuts.py` `body_pair`). Every chain is
+    at leaf 0 or at an even leaf mid-doubling (a doubling of depth ≥ 1 is
+    whole pairs), so the pair never straddles two doublings.
+
+    Leaf A (even) stores the checkpoint; only leaf B (odd) runs the span
+    checks, and at most one completion and merge happens. A divergence at
+    A, or a depth-0 doubling, ends the pair at A: B is computed and fully
+    masked. The draws are those of two `_leaf` calls, in their order, for
+    every chain: A's sign, uniform and exponential, then B's (B's sign is
+    never used); the merge takes B's exponential when the pair goes on and
+    A's when it ends at A."""
+    c = st["leaf"].shape[0]
+    dtype, dev = st["h0"].dtype, st["h0"].device
+    h0, i_a = st["h0"], st["leaf"]
+    v, fwd, z_edge, sub = _start(st, rand_sign(generator, (c,), dev))
+    eps_v = eps * v.to(dtype)
+    # leaf A (even): its checkpoint; no span ends at an even leaf
+    z_a, vel_a, sub_a = _step(h, z_edge, eps_v, h0, delta_max, sub,
+                              generator)
+    e_a = rand_exponential(generator, (c,), dtype, dev)
+    n_leaves = torch.bitwise_left_shift(torch.ones_like(i_a), st["depth"])
+    pair_go = ~(sub_a["s_diverged"] | (i_a >= n_leaves - 1))
+    _store(st, i_a, z_a, sub_a["s_rho"], vel_a,
+           torch.ones_like(pair_go) if act is None else act)
+    # leaf B (odd): the span checks
+    rand_sign(generator, (c,), dev)
+    z_b, vel_b, sub_b = _step(h, z_a, eps_v, h0, delta_max, sub_a, generator)
+    e_b = rand_exponential(generator, (c,), dtype, dev)
+    i_b = i_a + 1
+    sub_b["s_turning"] = sub_b["s_turning"] | _span_turn(
+        st, h, i_b, sub_b["s_rho"], vel_b, max_depth, pair_go)
+    sub = {k: _sel(pair_go, sub_b[k], sub_a[k]) for k in sub_a}
+    return _merge(st, h, max_depth, v, fwd, torch.where(pair_go, i_b, i_a),
+                  _sel(pair_go, z_b, z_a), _sel(pair_go, vel_b, vel_a), sub,
+                  torch.where(pair_go, e_b, e_a), act)
 
 
 def _stats(zcand: PhasePoint, h0, n_alpha, sum_alpha, dh_max, depth,
@@ -231,28 +316,44 @@ def _stats(zcand: PhasePoint, h0, n_alpha, sum_alpha, dh_max, depth,
 
 
 def nuts_transition(generator, h, traj, z0: PhasePoint,
-                    force_directions=None, return_debug=False, **options):
+                    force_directions=None, return_debug=False,
+                    _pair=False, **options):
     """One NUTS transition of every chain of `z0`; returns (z_next, stats).
 
     The integrator's step size is a scalar or one per chain (C,), and so is
     the stats' `step_size`; a per-chain M⁻¹ comes with `h`'s metric. The
-    loop runs until every chain's tree is done.
+    loop runs until every chain's tree is done; a finished chain keeps its
+    state and stores no further checkpoint.
 
-    Test hook: `force_directions` ((max_depth,) array of ±1) overrides the
+    Test hooks: `force_directions` ((max_depth,) array of ±1) overrides the
     per-doubling direction draw; `return_debug` also returns the final loop
-    state (tree edges, ρ, log weight). The JAX function's other options
-    (`coupled_key`, the leaf-pair body) are not ported yet."""
+    state (tree edges, ρ, log weight, stacks). `_pair` runs the leaf-pair
+    body (`_leaf_pair`) after the first iteration, which is every chain's
+    lone depth-0 leaf and runs as one `_leaf`: so the generator is drawn
+    exactly as with the single-leaf body, and the transition gives the same
+    bits, every field and every stack slot that a check reads (the spare
+    slot is a write-only sink). The JAX function's `coupled_key` is not
+    ported yet."""
     not_ported("nuts_transition", options)
     _check_trajectory(traj)
+    if _pair and force_directions is not None:
+        raise ValueError("force_directions is unsupported on the leaf-pair "
+                         "body; use the single-leaf body (_pair=False)")
     crit = traj.criterion
     max_depth = int(crit.max_depth)
     eps = torch.as_tensor(traj.integrator.current_step_size,
                           dtype=z0.theta.dtype, device=z0.theta.device)
     st = _initial_state(z0, max_depth)
+    first = True
     while not bool(st["done"].all()):
-        new = _leaf(st, h, eps, max_depth, crit.delta_max, generator,
-                    force_directions)
         running = ~st["done"]     # finished chains keep their state
+        if _pair and not first:
+            new = _leaf_pair(st, h, eps, max_depth, crit.delta_max,
+                             generator, act=running)
+        else:
+            new = _leaf(st, h, eps, max_depth, crit.delta_max, generator,
+                        force_directions, act=running)
+        first = False
         st = {k: v if k.startswith(("ck_", "sck_")) else _sel(running, v, st[k])
               for k, v in new.items()}
     stats = _stats(st["zcand"], st["h0"], st["n_alpha"], st["sum_alpha"],
@@ -270,7 +371,8 @@ _STAT_FIELDS = ("n_steps", "acceptance_rate", "log_density",
 
 def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                            n_transitions: int, refreshment,
-                           batched: bool = True, **options):
+                           batched: bool = True, pair: bool = False,
+                           **options):
     """Run `n_transitions` NUTS transitions per chain inside ONE loop.
 
     Chains advance through their own transition sequences asynchronously:
@@ -283,6 +385,14 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     Returns (z_final, thetas (C, n_transitions, dim), stats of
     (C, n_transitions)). `z_final` is each chain's last candidate; its
     momentum is stale and is refreshed before any further use.
+
+    `pair=True` runs the leaf-pair body (`_leaf_pair`): two leaves an
+    iteration, the per-iteration work (stats, records, refresh) once per
+    pair. Its transitions follow the same law as the single-leaf body's but
+    not the same bits: the chains share one generator, and a chain whose
+    transition ends at leaf A starts its next one an iteration later, so
+    the streams shift (in the JAX package each chain carries its own key,
+    and the two bodies agree bitwise there).
     """
     not_ported("nuts_transitions_fused",
                options if batched else dict(options, batched=batched))
@@ -304,7 +414,8 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     it = 0
     while True:
         act = ~all_done
-        st2 = _leaf(st, h, eps, max_depth, crit.delta_max, generator, act=act)
+        st2 = (_leaf_pair if pair else _leaf)(
+            st, h, eps, max_depth, crit.delta_max, generator, act=act)
         boundary = st2["done"] & act
         zc = st2["zcand"]
         s = _stats(zc, st2["h0"], st2["n_alpha"], st2["sum_alpha"],

@@ -7,15 +7,21 @@ with a diagonal M⁻¹ and a fixed step size, returning θ′, r′ and the
 potential ½Σ prec·θ² and kinetic ½Σ m_inv·r² energies per chain — the
 "vectorized chains" regime of many chains of a small state.
 
-The kernel (`csrc/fused_leapfrog.cu`) keeps each element's L steps in
-registers and writes θ′, r′ once; a chain's lane group sums its energies
-with warp shuffles. It is bound by the float32 rate at L = 100 (about
-8·C·D·L operations against 16·C·D bytes).
+The kernel (`csrc/fused_leapfrog.cu`) gives each lane one dim index: a
+warp's lanes cover 32 dims of a chain (the chain in chunks of 32) or whole
+chains of fewer dims, and a lane holds that dim of E chains, so its
+elements share a = ε·m_inv and b = ε·prec and every lane's elements exist
+(`launch_shape`: E from C·D). Their L steps run in registers with the
+half-kicks of consecutive steps merged into full kicks: two FMAs an
+element and step, θ′ and r′ written once. Each chain's energies are summed
+by warp shuffles (and, for D > 256, across the warps that split the chain)
+in a fixed order, so two calls give the same bits. It is bound by the
+float32 rate at L = 100 (about 4·C·D·L operations against 16·C·D bytes).
 
 `fused_gaussian_leapfrog` dispatches on the device of θ: a CPU tensor
 takes `reference_gaussian_leapfrog`, the plain PyTorch loop; a CUDA tensor
-launches the kernel or raises. `fused_gaussian_leapfrog.launches` counts
-the kernel launches.
+launches the kernel (one launch a call) or raises.
+`fused_gaussian_leapfrog.launches` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -49,9 +55,35 @@ def _kernel(lib):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float]
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
+        lib.fused_leapfrog_launch_shape.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.fused_leapfrog_launch_shape.restype = ctypes.c_int
         lib.fused_leapfrog_error_string.argtypes = [ctypes.c_int]
         lib.fused_leapfrog_error_string.restype = ctypes.c_char_p
     return fn
+
+
+def _raise(lib, what, err):
+    raise RuntimeError(f"fused_leapfrog {what} failed: "
+                       + lib.fused_leapfrog_error_string(err).decode())
+
+
+# what `launch_shape` reports: rows a task (E, the elements a lane holds),
+# whole chains a row, warps a task, threads a block, blocks
+SHAPE_FIELDS = ("rows_per_task", "chains_per_row", "warps_per_task",
+                "threads_per_block", "blocks")
+
+
+def launch_shape(n_chains, dim):
+    """The kernel's launch for (n_chains, dim) on the current card, a dict
+    of SHAPE_FIELDS."""
+    lib = _build.load(_LIB)
+    _kernel(lib)
+    out = (ctypes.c_int * len(SHAPE_FIELDS))()
+    err = lib.fused_leapfrog_launch_shape(n_chains, dim, out)
+    if err != 0:
+        _raise(lib, "launch shape", err)
+    return dict(zip(SHAPE_FIELDS, out))
 
 
 def _check_inputs(theta, r, prec, m_inv):
@@ -92,8 +124,7 @@ def fused_gaussian_leapfrog(theta, r, prec, m_inv, eps, n_steps: int):
              th_out.data_ptr(), r_out.data_ptr(), pot.data_ptr(),
              kin.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("fused_leapfrog kernel launch failed: "
-                           + lib.fused_leapfrog_error_string(err).decode())
+        _raise(lib, "kernel launch", err)
     fused_gaussian_leapfrog.launches += 1
     return th_out, r_out, pot, kin
 

@@ -8,10 +8,11 @@ over the chain batch (the Welford moments pooled over it). The draws run
 step by step or, with `fuse_draws`, through `fused_draw_phase`; a
 cross-chain warmup runs in fused blocks with `fuse_warmup`
 (`fused_warmup_phase_crosschain`), optionally on a sub-pool that
-`fanout_warmup_state` fans out. Randomness comes from one `torch.Generator`
-on the sampler's device, passed to each function; the state carries no
-key. The per-chain fused warmup and the thinned, online, coupled and mesh
-paths are not ported; each raises, naming its ROADMAP.md item.
+`fanout_warmup_state` fans out; `fuse_pair` runs the fused phases on the
+leaf-pair body. Randomness comes from one `torch.Generator` on the
+sampler's device, passed to each function; the state carries no key. The
+per-chain fused warmup and the thinned, online, coupled and mesh paths are
+not ported; each raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -82,13 +83,13 @@ def _hamiltonian(spec, state):
                        kinetic=spec.kinetic)
 
 
-def _run_fused(generator, spec, state, n_transitions):
-    """One fused call at the state's frozen ε and M⁻¹, shared or per chain;
-    outputs (T, C, ...)."""
+def _run_fused(generator, spec, state, n_transitions, pair=False):
+    """One fused call at the state's frozen ε and M⁻¹, shared or per chain,
+    on the leaf-pair body if `pair`; outputs (T, C, ...)."""
     traj = spec.kernel.trajectory.with_nom_step_size(state.adapt.da.eps)
     z, ths, stats = nuts_transitions_fused(
         generator, _hamiltonian(spec, state), traj, state.z, n_transitions,
-        spec.kernel.refreshment)
+        spec.kernel.refreshment, pair=pair)
     return z, ths.transpose(0, 1), {k: v.transpose(0, 1)
                                     for k, v in stats.items()}
 
@@ -124,17 +125,18 @@ def fanout_warmup_state(spec: SampleSpec, state: HMCState,
 
 
 def fused_draw_phase(generator, spec: SampleSpec, state: HMCState,
-                     n_draws: int, fuse: int, **options):
+                     n_draws: int, fuse: int, pair: bool = False, **options):
     """Post-warmup draws, `fuse` transitions per fused call, adaptation
-    frozen, at the state's ε and M⁻¹ (shared, or each chain's own).
-    Returns (state, thetas (n_draws, C, dim), stats (n_draws, C))."""
+    frozen, at the state's ε and M⁻¹ (shared, or each chain's own), on the
+    leaf-pair body if `pair`. Returns (state, thetas (n_draws, C, dim),
+    stats (n_draws, C))."""
     not_ported("fused_draw_phase", options)
     if n_draws % fuse:
         raise ValueError("fuse must divide the draw count")
     z, ths, stats = state.z, [], []
     for _ in range(n_draws // fuse):
         z, th, st = _run_fused(generator, spec,
-                               dataclasses.replace(state, z=z), fuse)
+                               dataclasses.replace(state, z=z), fuse, pair)
         ths.append(th)
         stats.append(st)
     stats = _cat_stats(stats)
@@ -146,8 +148,9 @@ def fused_draw_phase(generator, spec: SampleSpec, state: HMCState,
 
 def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
                                   state: HMCState, n_adapts: int, block: int,
-                                  flags=None, **options):
-    """Cross-chain warmup with `block` transitions per fused call.
+                                  flags=None, pair: bool = False, **options):
+    """Cross-chain warmup with `block` transitions per fused call (on the
+    leaf-pair body if `pair`).
 
     Within a block, ε and M⁻¹ stay frozen at the block start. At each block
     boundary the Welford pushes and the Stan window logic are replayed for
@@ -165,7 +168,7 @@ def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
         flags = adapt_flags(cfg, n_adapts, n_adapts)
     ths, stats = [], []
     for b in range(n_adapts // block):
-        z, th, st = _run_fused(generator, spec, state, block)
+        z, th, st = _run_fused(generator, spec, state, block, pair)
         alpha_blk = torch.mean(torch.clamp(st["acceptance_rate"], max=1.0))
         da, mm = state.adapt.da, state.adapt.mm
         for t in range(block):
@@ -356,6 +359,7 @@ def sample(
     drop_warmup: bool = False,
     warmup_chains: int = 0,
     fanout_decorrelate: int = 32,
+    fuse_pair: bool = False,
     device=None,
     **options,
 ) -> SampleResult:
@@ -371,9 +375,10 @@ def sample(
     warmup's stats apart and no warmup draws. `warmup_chains = W <
     n_chains` (cross-chain, `drop_warmup=True`) warms the first W chains,
     fans the warmed state out to all chains and runs `fanout_decorrelate`
-    discarded transitions before the draws. The JAX function's other
-    options raise, as does the per-chain fused warmup (`fuse_warmup=True`
-    without `cross_chain`).
+    discarded transitions before the draws. `fuse_pair` runs the fused
+    warmup blocks, the decorrelation and the fused draws on the leaf-pair
+    body. The JAX function's other options raise, as does the per-chain
+    fused warmup (`fuse_warmup=True` without `cross_chain`).
     """
     not_ported("sample", options)
     if n_adapts is None:
@@ -433,7 +438,8 @@ def sample(
     warm_stats = None
     if use_fused_warmup_cc:
         state, th, st = fused_warmup_phase_crosschain(
-            generator, spec, state, n_adapts, fuse_warmup_block)
+            generator, spec, state, n_adapts, fuse_warmup_block,
+            pair=fuse_pair)
         if drop_warmup:
             warm_stats = st
         else:
@@ -449,7 +455,7 @@ def sample(
         if fanout_decorrelate > 0:
             state, _, _ = fused_draw_phase(generator, spec, state,
                                            fanout_decorrelate,
-                                           fanout_decorrelate)
+                                           fanout_decorrelate, fuse_pair)
     _synchronize(device)
     timings["warmup_s"] = time.perf_counter() - t0
 
@@ -457,7 +463,7 @@ def sample(
     draws = _part(rows, keep, keep + n_draw)
     if use_fused:
         state, th, st = fused_draw_phase(generator, spec, state, n_draw,
-                                         fuse_draws)
+                                         fuse_draws, fuse_pair)
         _fill(draws, th, st)
     else:
         state = _step_loop(generator, spec, state, flags, n_adapts,

@@ -30,9 +30,8 @@ def resolve_device(device=None) -> torch.device:
 # The one place in the package that knows the roadmap's numbering; a test
 # holds every entry to ROADMAP.md.
 ROADMAP_ITEMS = {
-    "pair": (1, 1, "The leaf-pair body"),
-    "options": (1, 2, "The other options of JAX `sample`"),
-    "surface": (1, 3, "The rest of the surface"),
+    "options": (1, 1, "The other options of JAX `sample`"),
+    "surface": (1, 2, "The rest of the surface"),
 }
 
 
@@ -44,11 +43,10 @@ def roadmap(key):
 
 def not_ported(what, options):
     """Raise for options of the JAX function `what` that the port lacks:
-    the leaf-pair body (`pair`, `fuse_pair`), `mesh` (multi-GPU, with the
-    rest of the surface) and the other options each have their item."""
+    `mesh` (multi-GPU, with the rest of the surface) and the other options
+    each have their item."""
     if options:
-        key = ("pair" if {"pair", "fuse_pair"} & set(options)
-               else "surface" if "mesh" in options else "options")
+        key = "surface" if "mesh" in options else "options"
         raise NotImplementedError(
             f"{what} options {sorted(options)} are not ported yet "
             + roadmap(key))

@@ -15,18 +15,28 @@ Phases (any failure exits non-zero):
    same bits, print its registers, spills and shared memory per block, and
    time both;
 2b. hold K3 against its plain version at the four shapes of the Pallas
-   microbenchmark and a ragged one, then time it there (its path);
-3. drive the main path through `advancedhmc_torch.sample`: NUTS
-   (multinomial, generalised no-U-turn, max_depth 6, diagonal metric) on the
+   microbenchmark, the JAX test's ragged one, the reference's GPU test
+   (1000 chains × 5-D), a D that does not divide a block and a D longer
+   than a block, check one launch a call and that two calls give the same
+   bits, print each instance's registers and spills and each shape's
+   launch, then time it at every shape (its path);
+3. drive the main path through `advancedhmc_torch.sample`: NUTS on the
+   leaf-pair body, as bench.py runs it (multinomial, generalised no-U-turn,
+   max_depth 6, diagonal metric) on the
    100-D hierarchical logistic over 1000 rows, Stan cross-chain warmup
    (δ 0.55, κ 0.8, 128 iterations in blocks of 8, gradient-seeded M⁻¹) on a
    4096-chain pool fanned out to 32768 chains, 32 decorrelation transitions,
    then 256 fused draws (16 per call), with every kernel's launch count set
    to 0 just before and read just after, and the target's value+grad
-   calls (each one K1 launch) tallied by chain count;
+   calls (each one K1 launch) tallied by chain count, and the leaf-loop
+   iterations per transition;
+3b. from phase 3's final state, the draw phase with the leaf-pair body on
+   and off in turns (on, off, off, on): each run's wall, leaf-loop
+   iterations per transition and ESS/s, each gated as phase 4;
 4. check the results: finite draws of the expected shape, divergence,
    acceptance and posterior-moment gates;
-5. profile one fused draw call (device time by kernel, idle share);
+5. profile one fused draw call on each body (device time by kernel, idle
+   share);
 6. the megakernel draw phase: from phase 3's warmed state (ε, M⁻¹, the
    32768 positions), 16 calls of K2 with 16 transitions each, threading the
    positions, with divergence, moment and tree-depth gates (the first
@@ -114,6 +124,7 @@ N_ROWS, DIM = 1000, 100
 N_CHAINS, WARMUP_CHAINS = 32768, 4096
 N_WARMUP, WARMUP_BLOCK, N_DECOR = 128, 8, 32
 N_DRAWS, FUSE, MAX_DEPTH = 256, 16, 6
+PAIR = True        # bench.py's AHMC_BENCH_PAIR default: the leaf-pair body
 ESS_CHAINS = 512
 
 
@@ -393,19 +404,24 @@ def phase_k1():
 
 
 # ----------------------------------------------------------------- phase 2b
-# (chains, dims, steps, ε): scripts/microbench_pallas.py's four shapes, then
-# tests/test_pallas_ops.py's ragged case
+# (chains, dims, steps, ε): scripts/microbench_pallas.py's four shapes,
+# tests/test_pallas_ops.py's ragged case, the reference's GPU test (1000
+# chains of a 5-D target), a D that does not divide a block, and a D longer
+# than a block (a block a chain, in chunks)
 K3_SHAPES = ((1024, 8, 100, 0.05), (4096, 128, 100, 0.05),
              (16384, 128, 100, 0.05), (65536, 8, 100, 0.05),
-             (20, 5, 17, 0.12))
+             (20, 5, 17, 0.12), (1000, 5, 100, 0.05), (333, 37, 50, 0.05),
+             (64, 5000, 20, 0.05))
 K3_TOL = 2e-5      # relative and absolute, as tests/test_pallas_ops.py
 
 
 def k3_bound_ms(c, d, n_steps):
-    """Least time for one K3 call: ~8 float32 operations per element and
-    step over the CUDA-core peak, against θ, r in and θ′, r′, pot, kin out
-    (and prec, m_inv) over the memory rate."""
-    flops = 8.0 * c * d * n_steps
+    """Least time for one K3 call: the function's least work, (2L + 1) FMAs
+    an element (the half-kicks of consecutive steps merged) and the two
+    energy terms (3 operations each), over the float32 CUDA-core peak,
+    against θ, r, prec, m_inv in and θ′, r′, pot, kin out over the memory
+    rate."""
+    flops = c * d * (2.0 * (2 * n_steps + 1) + 6)
     nbytes = 4.0 * (4 * c * d + 2 * c + 2 * d)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -413,10 +429,22 @@ def k3_bound_ms(c, d, n_steps):
 
 
 def phase_k3():
-    """K3 against its plain version on the card; returns its timing rows
-    and the largest error."""
+    """K3 against its plain version on the card, two calls bitwise equal,
+    one launch a call; returns its timing rows, the largest error and the
+    launches of the timed eager calls."""
     from advancedhmc_torch.ops import fused_leapfrog as k3
 
+    # registers and spill stores of each instance, by elements a thread
+    # (0: the long-chain kernel)
+    import re
+
+    ptxas = {}
+    for _, regs, spill, name in ptxas_instances("fused_leapfrog", r"^$"):
+        e = re.search(r"leapfrog_rowsILi(\d+)E", name)
+        if e:
+            ptxas[int(e.group(1))] = (int(regs), int(spill))
+    log("# K3 instances (rows a task: registers, spill-store bytes; "
+        f"ptxas): {ptxas}")
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases, worst = [], 0.0
     for c, d, n_steps, eps in K3_SHAPES:
@@ -425,41 +453,50 @@ def phase_k3():
         prec = torch.linspace(0.5, 2.0, d, device="cuda")
         m_inv = torch.linspace(0.8, 1.2, d, device="cuda")
         args = (th, r, prec, m_inv, eps, n_steps)
+        before = k3.fused_gaussian_leapfrog.launches
         out = k3.fused_gaussian_leapfrog(*args)
+        one_launch = k3.fused_gaussian_leapfrog.launches == before + 1
+        again = k3.fused_gaussian_leapfrog(*args)
         ref = k3.reference_gaussian_leapfrog(*args)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
-        ok = all(bool(torch.isfinite(a).all()) and bool(
-            ((a - b).abs() <= K3_TOL + K3_TOL * b.abs()).all())
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        ok = one_launch and same and all(
+            bool(torch.isfinite(a).all()) and bool(
+                ((a - b).abs() <= K3_TOL + K3_TOL * b.abs()).all())
             for a, b in zip(out, ref))
+        shape = k3.launch_shape(c, d)
         log(f"# K3 C={c} D={d} L={n_steps}: max|Δ| {err:.3e} (tol "
-            f"{K3_TOL:g} abs + rel): {'ok' if ok else 'FAIL'}")
+            f"{K3_TOL:g} abs + rel), two calls bitwise equal {same}, one "
+            f"launch a call {one_launch}; launch {shape}: "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise RuntimeError(f"K3 disagrees with its plain version at "
-                               f"C={c}, D={d}")
+            raise RuntimeError(f"K3 failed its checks at C={c}, D={d}")
         worst = max(worst, err)
-        if c >= 1024:
-            cases.append((c, d, n_steps, args))
+        cases.append((c, d, n_steps, args, shape))
 
-    rows = [dict(chains=c, dims=d, steps=n_steps, ms=device_ms(
+    rows = [dict(chains=c, dims=d, steps=n_steps, **shape, ms=device_ms(
         lambda: k3.fused_gaussian_leapfrog(*args), 20))
-        for c, d, n_steps, args in cases]
+        for c, d, n_steps, args, shape in cases]
     # the microbenchmark's path: the kernel called eagerly through its
-    # wrapper at its four shapes (3 + 20 calls each), with the launch counts
+    # wrapper at every shape (3 + 20 calls each), with the launch counts
     # set to 0 just before and read just after
     reset_launches()
-    for row, (c, d, n_steps, args) in zip(rows, cases):
+    for row, (c, d, n_steps, args, _) in zip(rows, cases):
         row["wrapper_ms"] = wrapper_ms(
             lambda: k3.fused_gaussian_leapfrog(*args), 20)
     launches = read_launches()
-    for row, (c, d, n_steps, args) in zip(rows, cases):
+    for row, (c, d, n_steps, args, _) in zip(rows, cases):
         row["plain_ms"] = device_ms(
             lambda: k3.reference_gaussian_leapfrog(*args), 5, replays=1)
         row["bound_ms"], row["bound_by"] = k3_bound_ms(c, d, n_steps)
-        log(f"# K3 C={c} D={d}: kernel {row['ms']:.4f} ms on the device "
-            f"({row['wrapper_ms']:.4f} ms back to back through the wrapper),"
-            f" plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-            f"ms ({row['bound_by']})")
+        row["registers"], row["spill_store_bytes"] = \
+            ptxas[row["rows_per_task"]]
+        log(f"# K3 C={c} D={d} L={n_steps}: kernel {row['ms']:.4f} ms on the "
+            f"device ({row['wrapper_ms']:.4f} ms back to back through the "
+            f"wrapper), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.2f} of the bound")
     return rows, worst, launches["fused_gaussian_leapfrog"]
 
 
@@ -515,16 +552,22 @@ def phase_main(seed):
         cross_chain=True, fuse_draws=FUSE, fuse_warmup=True,
         fuse_warmup_block=WARMUP_BLOCK, drop_warmup=True,
         warmup_chains=WARMUP_CHAINS, fanout_decorrelate=N_DECOR,
-        device="cuda")
+        fuse_pair=PAIR, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()["fused_logistic_value_grad"]
     by_chains = dict(sorted(by_chains.items(), reverse=True))
-    log(f"# main path: K1 launches by chain count {by_chains}")
+    # every leaf is one K1 call, and the pair body runs two leaves an
+    # iteration; at the full width run the decorrelation and the draws
+    iters = by_chains.get(N_CHAINS, 0) / (2 if PAIR else 1) / (
+        N_DECOR + N_DRAWS)
+    log(f"# main path (pair body {PAIR}): K1 launches by chain count "
+        f"{by_chains}; {iters:.2f} leaf-loop iterations per transition of "
+        f"the decorrelation and the draws")
     if sum(by_chains.values()) != launches:
         raise RuntimeError(f"K1 calls by chain count {by_chains} do not add "
                            f"up to its {launches} launches")
-    return res, launches, wall, by_chains
+    return res, launches, wall, by_chains, iters
 
 
 # ------------------------------------------------------------------ phase 4
@@ -546,7 +589,16 @@ def _moment_gates(th):
     return out, gates
 
 
-def phase_results(res, launches, wall, seed):
+def _draw_gates(out, moment_gates):
+    """Phase 4's gates on the draws' divergence, acceptance and moments."""
+    return {
+        "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
+        f"|accept - {DELTA}| <= 0.1": abs(out["accept_mean"] - DELTA) <= 0.1,
+        **moment_gates,
+    }
+
+
+def phase_results(res, launches, wall, seed, iters):
     from advancedhmc_torch.diagnostics import effective_sample_size
 
     th = res.thetas
@@ -581,6 +633,8 @@ def phase_results(res, launches, wall, seed):
         "draws_s": t_draw,
         "wall_s": wall,
         "k1_launches": launches,
+        "pair": PAIR,
+        "leaf_iterations_per_transition": iters,
         "seed": seed, "chains": N_CHAINS, "warmup_chains": WARMUP_CHAINS,
         "warmup": N_WARMUP, "draws": N_DRAWS, "fuse": FUSE,
         "device": torch.cuda.get_device_name(0),
@@ -588,9 +642,7 @@ def phase_results(res, launches, wall, seed):
     log(json.dumps(out))
     gates = {
         "k1 launched": launches > 0,
-        "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
-        f"|accept - {DELTA}| <= 0.1": abs(out["accept_mean"] - DELTA) <= 0.1,
-        **moment_gates,
+        **_draw_gates(out, moment_gates),
         "ESS finite": math.isfinite(median_ess) and median_ess > 0,
     }
     for name, ok in gates.items():
@@ -601,10 +653,76 @@ def phase_results(res, launches, wall, seed):
     return out
 
 
+# ----------------------------------------------------------------- phase 3b
+# The draw phase from phase 3's final state with the leaf-pair body on and
+# off, in turns (on, off, off, on), a seed each
+PAIR_TURNS = (True, False, False, True)
+
+
+def phase_pair_turns(res):
+    """Times phase 3's draw phase (N_DRAWS transitions, FUSE a call) from
+    its final state on each body in turns; each run's wall, leaf-loop
+    iterations per transition (its K1 calls over the leaves an iteration),
+    ESS/s and the gates of phase 4. Returns the rows."""
+    from advancedhmc_torch import SampleSpec, fused_draw_phase
+    from advancedhmc_torch.diagnostics import effective_sample_size
+
+    target, kernel, adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    spec = SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
+                      cross_chain=True)
+    rows, failed = [], []
+    for turn, pair in enumerate(PAIR_TURNS):
+        gen = torch.Generator(device="cuda").manual_seed(30 + turn)
+        by_chains.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, th, st = fused_draw_phase(gen, spec, res.final_state, N_DRAWS,
+                                     FUSE, pair)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ess = effective_sample_size(th[:, :ESS_CHAINS]) * (
+            N_CHAINS / ESS_CHAINS)
+        median_ess = float(ess.quantile(0.5))
+        moments, gates = _moment_gates(th)
+        row = {
+            "pair": pair, "wall_s": wall,
+            "leaf_iterations_per_transition":
+                by_chains[N_CHAINS] / (2 if pair else 1) / N_DRAWS,
+            "k1_calls": by_chains[N_CHAINS],
+            "effective_samples_per_s_per_chip": median_ess / wall,
+            "median_pooled_ess": median_ess,
+            "leapfrog_steps_per_s":
+                float(st["n_steps"].double().sum()) / wall,
+            "accept_mean": float(st["acceptance_rate"].double().mean()),
+            "divergence_rate": float(st["numerical_error"].double().mean()),
+            "mean_tree_depth": float(st["tree_depth"].double().mean()),
+            **moments,
+        }
+        gates = {"draws finite": bool(torch.isfinite(th).all()),
+                 **_draw_gates(row, gates)}
+        del th, st
+        log(f"# pair body {pair}: draws {wall:.2f} s, "
+            f"{row['leaf_iterations_per_transition']:.2f} leaf-loop "
+            f"iterations per transition, ESS/s "
+            f"{row['effective_samples_per_s_per_chip']:.0f}, accept "
+            f"{row['accept_mean']:.4f}, depth {row['mean_tree_depth']:.3f}")
+        for name, ok in gates.items():
+            log(f"# gate (pair body {pair}) {name}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"pair body {pair}: {name}")
+        rows.append(row)
+    log(json.dumps({"pair_turns": rows}))
+    if failed:
+        raise RuntimeError(f"phase 3b gates failed: {failed}")
+    return rows
+
+
 # ------------------------------------------------------------------ phase 5
 def phase_profile(res):
     """Device time by kernel over one fused draw call of 16 transitions on
-    the final state, and the share of the wall the device was idle."""
+    the final state, on each body, and the share of the wall the device
+    was idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -613,30 +731,34 @@ def phase_profile(res):
     target, kernel, adaptor = main_path_spec()
     spec = SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
                       cross_chain=True)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fused_draw_phase(gen, spec, res.final_state, FUSE, FUSE)
+    for pair in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(2)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side kernel events only: an operator's entry repeats the time
-    # of the kernels it launched
-    rows = [(e.key, e.device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    busy_ms = sum(r[1] for r in rows)
-    if busy_ms == 0:
-        log("# profile: no device time recorded (not measured)")
-        return
-    rows.sort(key=lambda r: -r[1])
-    log(f"# profile of one fused draw call: wall {wall_ms:.1f} ms, device "
-        f"busy {busy_ms:.1f} ms (sum of kernel times), idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
-    for key, ms, count in rows[:12]:
-        log(f"#   {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  x{count:<6d} "
-            f"{key[:90]}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fused_draw_phase(gen, spec, res.final_state, FUSE, FUSE, pair)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        # device-side kernel events only: an operator's entry repeats the
+        # time of the kernels it launched
+        rows = [(e.key, e.device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.device_time_total > 0]
+        busy_ms = sum(r[1] for r in rows)
+        if busy_ms == 0:
+            log(f"# profile (pair body {pair}): no device time recorded "
+                "(not measured)")
+            continue
+        rows.sort(key=lambda r: -r[1])
+        log(f"# profile of one fused draw call (pair body {pair}): wall "
+            f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (sum of kernel "
+            f"times), idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, "
+            f"{sum(r[2] for r in rows)} kernels")
+        for key, ms, count in rows[:12]:
+            log(f"#   {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  x{count:<6d} "
+                f"{key[:90]}")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1677,10 +1799,11 @@ def main(argv=None):
     phase_build()
     k1_rows, k1_err = phase_k1()
     k3_rows, k3_err, k3_launches = phase_k3()
-    res, launches, wall, k1_by_chains = phase_main(args.seed)
-    out = phase_results(res, launches, wall, args.seed)
+    res, launches, wall, k1_by_chains, iters = phase_main(args.seed)
+    out = phase_results(res, launches, wall, args.seed, iters)
     log(f"# main path: warmup {out['warmup_s']:.1f} s, draws "
         f"{out['draws_s']:.1f} s, K1 launches {launches}")
+    phase_pair_turns(res)
     phase_profile(res)
     mega = phase_megakernel(res, out)
     k2_rows = [dict(case=f"logistic C={N_CHAINS} T={MEGA_T} "

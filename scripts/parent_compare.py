@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A parent commit's kernels against this tree's on one card: K1's wide path
-timed in turns (parent, this, this, parent) at the 1000-D path's shapes,
-and the kernels held bit for bit against the parent's.
+and K3 timed in turns (parent, this, this, parent) at their paths' shapes,
+and the other kernels held bit for bit against the parent's.
 
 Run from the root of the repository on a machine with one CUDA card, with
 the parent's tree unpacked in a directory that .gitignore lists:
@@ -21,6 +21,9 @@ built by its own `ops/_build.py` into its own `_build` directory. Then:
   prepared at the first call): each side's device time (a CUDA graph of 20
   calls replayed between CUDA events), in the order parent, this, this,
   parent, beside each side's error against float64;
+* K3 at chip_smoke.K3_SHAPES, through each side's
+  `fused_gaussian_leapfrog`: the same turns, beside each side's largest
+  error against this tree's plain loop;
 * K1 narrow (the 100-D model, `logistic_value_grad`) at C = 32768, 4096,
   13 and 1 over 1000 and 300 rows, K2 narrow (the 100-D logistic at three
   step sizes and the Gaussian) and K2 wide (p = 999 and p = 200 over 997
@@ -28,8 +31,8 @@ built by its own `ops/_build.py` into its own `_build` directory. Then:
   bitwise equal or not.
 
 Prints one line per comparison, the card's name and power limit, and last
-a JSON object with the results. It exits with 1 if a kernel that this
-tree was to leave unchanged gives other bits.
+a JSON object with the results. It exits with 1 if K1 or K2 gives other
+bits than the parent's.
 """
 
 from __future__ import annotations
@@ -49,11 +52,12 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
-from chip_smoke import WIDE_TIMED  # noqa: E402
+from chip_smoke import K3_SHAPES, WIDE_TIMED  # noqa: E402
 from k1_wide_ablation import graph_ms  # noqa: E402
 
 PARENT = "parent_advancedhmc_torch"
 MODULES = {"k1": "ops.fused_logistic", "k2": "ops.fused_nuts_kernel",
+           "k3": "ops.fused_leapfrog",
            "logistic": "models.logistic", "gaussian": "models.gaussian"}
 
 
@@ -65,7 +69,7 @@ def side(package):
 
 
 def load_parent(parent):
-    """The parent's package, imported as PARENT, its K1 and K2 built in
+    """The parent's package, imported as PARENT, its kernels built in
     parallel by its own build module."""
     pkg = pathlib.Path(parent).resolve() / "advancedhmc_torch"
     spec = importlib.util.spec_from_file_location(
@@ -74,7 +78,7 @@ def load_parent(parent):
     sys.modules[PARENT] = module
     spec.loader.exec_module(module)
     importlib.import_module(f"{PARENT}.ops._build").build(
-        "fused_logistic", "fused_nuts")
+        "fused_logistic", "fused_nuts", "fused_leapfrog")
     return side(PARENT)
 
 
@@ -148,6 +152,29 @@ def main():
               f"{row['this']['grad_err64']:.3e}, lp "
               f"{row['parent']['lp_err64']:.3e} / "
               f"{row['this']['lp_err64']:.3e}", flush=True)
+    for c, d, n_steps, eps in K3_SHAPES:
+        args = (torch.randn(c, d, generator=gen, device="cuda"),
+                torch.randn(c, d, generator=gen, device="cuda"),
+                torch.linspace(0.5, 2.0, d, device="cuda"),
+                torch.linspace(0.8, 1.2, d, device="cuda"), eps, n_steps)
+        ref = sides["this"].k3.reference_gaussian_leapfrog(*args)
+        calls = {name: (lambda f=m.k3.fused_gaussian_leapfrog: f(*args))
+                 for name, m in sides.items()}
+        ms = {name: [] for name in sides}
+        for name in ("parent", "this", "this", "parent"):
+            ms[name].append(graph_ms(calls[name]))
+        row = {}
+        for name, fn in calls.items():
+            out = fn()
+            torch.cuda.synchronize()
+            row[name] = dict(ms=ms[name], max_abs_err=max(
+                float((a - b).abs().max()) for a, b in zip(out, ref)))
+        result[f"K3 C={c} D={d} L={n_steps}"] = row
+        print(f"# K3 C={c} D={d} L={n_steps}: parent {ms['parent'][0]:.4f} "
+              f"{ms['parent'][1]:.4f} ms, this {ms['this'][0]:.4f} "
+              f"{ms['this'][1]:.4f} ms (parent, this, this, parent); max|Δ| "
+              f"vs the plain loop {row['parent']['max_abs_err']:.3e} / "
+              f"{row['this']['max_abs_err']:.3e}", flush=True)
     for n in (1000, 300):
         x, y = design(n, 99)
         for c in (32768, 4096, 13, 1):

@@ -327,10 +327,14 @@ def test_k2_wide_logistic_matches_plain_on_card(p, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("c,d,n_steps,eps", [
     (1024, 8, 100, 0.05), (4096, 128, 100, 0.05), (16384, 128, 100, 0.05),
-    (65536, 8, 100, 0.05), (20, 5, 17, 0.12)])
+    (65536, 8, 100, 0.05), (20, 5, 17, 0.12), (1000, 5, 100, 0.05),
+    (333, 37, 50, 0.05), (64, 5000, 20, 0.05)])
 def test_k3_kernel_matches_plain_on_card(c, d, n_steps, eps):
-    """The microbenchmark's four shapes and the JAX test's ragged case, at
-    its tolerance (2e-5, relative and absolute)."""
+    """The microbenchmark's four shapes, the JAX test's ragged case, the
+    reference's GPU test (1000 chains of a 5-D target), a D that does not
+    divide a block and a D longer than a block (a block a chain, in
+    chunks), at the JAX test's tolerance (2e-5, relative and absolute); one
+    launch a call, and two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -341,7 +345,53 @@ def test_k3_kernel_matches_plain_on_card(c, d, n_steps, eps):
     before = k3.fused_gaussian_leapfrog.launches
     out = k3.fused_gaussian_leapfrog(th, r, prec, m_inv, eps, n_steps)
     assert k3.fused_gaussian_leapfrog.launches == before + 1
+    again = k3.fused_gaussian_leapfrog(th, r, prec, m_inv, eps, n_steps)
     ref = k3.reference_gaussian_leapfrog(th, r, prec, m_inv, eps, n_steps)
     torch.cuda.synchronize()
-    for a, b in zip(out, ref):
+    for a, b, c2 in zip(out, ref, again):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        assert torch.equal(a, c2)
+
+
+@pytest.mark.gpu
+def test_pair_transition_is_bitwise_the_single_one_on_card():
+    """The leaf-pair body on the card: one transition of 256 chains of the
+    100-D hierarchical logistic (K1 at every leaf) gives the single-leaf
+    body's bits, every field and every stack slot a check reads (the spare
+    slot is a write-only sink)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import advancedhmc_torch as ah
+    from advancedhmc_torch import nuts
+
+    target = hierarchical_logistic(n=1000, p=99, dtype=torch.float32,
+                                   device="cuda")
+    h = ah.Hamiltonian(metric=ah.make_metric("diagonal", 100, device="cuda"),
+                       target=target)
+    traj = ah.Trajectory(
+        ah.Leapfrog(step_size=torch.tensor(0.01, device="cuda")),
+        ah.GeneralisedNoUTurn(max_depth=6))
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(0).normal(size=(256, 100)),
+        dtype=torch.float32, device="cuda")
+    z0 = h.init_phasepoint(torch.Generator(device="cuda").manual_seed(1),
+                           theta0)
+    before = k1.logistic_value_grad.calls
+    (z1, s1, d1), (z2, s2, d2) = [
+        nuts.nuts_transition(torch.Generator(device="cuda").manual_seed(2),
+                             h, traj, z0, return_debug=True, _pair=pair)
+        for pair in (False, True)]
+    assert k1.logistic_value_grad.calls > before
+    n_slots = d1["ck_r"].shape[1] - 1
+    for k in d1:
+        a, b = d1[k], d2[k]
+        if k.startswith(("ck_", "sck_")):
+            a, b = a[:, :n_slots], b[:, :n_slots]
+        if isinstance(a, ah.PhasePoint):
+            assert torch.equal(a.theta, b.theta) and torch.equal(a.r, b.r) \
+                and torch.equal(a.grad, b.grad), k
+        else:
+            assert torch.equal(a, b), k
+    assert all(torch.equal(s1[k], s2[k]) for k in s1)
+    assert torch.equal(z1.theta, z2.theta)
+    assert float(s1["tree_depth"].double().mean()) >= 3.0    # real trees

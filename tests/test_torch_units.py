@@ -278,8 +278,6 @@ def test_unported_options_raise_not_implemented():
                                          device="cpu"),
         lambda: ah.nuts_transition(gen, h, kernel.trajectory, z,
                                    coupled_key=1),
-        lambda: ah.nuts_transitions_fused(gen, h, kernel.trajectory, z, 2,
-                                          kernel.refreshment, pair=True),
         lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
                           adaptor=ah.AdaptorConfig(), cross_chain=True,
                           fuse_draws=4, fuse_warmup=True,
@@ -294,9 +292,6 @@ def test_unported_options_raise_not_implemented():
         lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
                           adaptor=ah.AdaptorConfig(), drop_warmup=True,
                           collect="online", device="cpu"),
-        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
-                          adaptor=ah.AdaptorConfig(), cross_chain=True,
-                          fuse_draws=4, fuse_pair=True, device="cpu"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError,
@@ -314,8 +309,8 @@ def test_roadmap_items_exist():
         body = body.split("\n### ")[0]
         assert re.search(rf"^{item}\. \*\*{re.escape(title)}", body,
                          flags=re.M), (section, item, title)
-    assert ut.roadmap("pair") == \
-        "(ROADMAP.md section 1, item 1: The leaf-pair body)"
+    assert ut.roadmap("options") == \
+        "(ROADMAP.md section 1, item 1: The other options of JAX `sample`)"
 
 
 def test_state_constructors_need_cuda_or_explicit_cpu(monkeypatch):
