@@ -3,7 +3,8 @@
 The JAX package `advancedhmc_tpu` is the reference; this package carries its
 main path on one NVIDIA GPU (Hopper): NUTS (generalised no-U-turn,
 multinomial, unit or diagonal metric) with per-chain or cross-chain Stan
-adaptation, step by step or fused, on the hierarchical logistic, with
+adaptation, step by step or fused, with every option of JAX `sample` but
+`mesh`, on the hierarchical logistic (float32 or bfloat16 design), with
 the likelihood value+grad in a hand-written CUDA kernel
 (`ops/fused_logistic.py`, `csrc/fused_logistic.cu`), and the JAX package's
 two other kernels: the NUTS megakernel on block targets
@@ -22,10 +23,21 @@ from .adaptation import (
     adapt_flags,
     adapt_step,
     adapt_step_batch,
+    adapt_step_masked,
     da_update,
     stan_schedule,
 )
-from .diagnostics import effective_sample_size, ess_bulk, rhat
+from .diagnostics import (
+    OnlineMoments,
+    ebfmi,
+    effective_sample_size,
+    ess_bulk,
+    online_init,
+    online_summary,
+    online_update,
+    rhat,
+    summarize,
+)
 from .hamiltonian import FullMomentumRefreshment, Hamiltonian, PhasePoint
 from .integrators import Leapfrog, leapfrog_step
 from .kinetic import GaussianKinetic
@@ -38,8 +50,10 @@ from .sampler import (
     HMCState,
     SampleResult,
     SampleSpec,
+    depth_cap_schedule,
     fanout_warmup_state,
     fused_draw_phase,
+    fused_warmup_phase,
     fused_warmup_phase_crosschain,
     init_state,
     sample,
@@ -66,6 +80,7 @@ __all__ = [
     "Leapfrog",
     "LogDensityTarget",
     "Metric",
+    "OnlineMoments",
     "PhasePoint",
     "SampleResult",
     "SampleSpec",
@@ -75,13 +90,17 @@ __all__ = [
     "adapt_flags",
     "adapt_step",
     "adapt_step_batch",
+    "adapt_step_masked",
     "da_update",
+    "depth_cap_schedule",
+    "ebfmi",
     "effective_sample_size",
     "ess_bulk",
     "fanout_warmup_state",
     "find_good_stepsize",
     "find_good_stepsizes",
     "fused_draw_phase",
+    "fused_warmup_phase",
     "fused_warmup_phase_crosschain",
     "hierarchical_logistic",
     "hierarchical_logistic_block",
@@ -91,8 +110,12 @@ __all__ = [
     "mh_accept_ratio",
     "nuts_transition",
     "nuts_transitions_fused",
+    "online_init",
+    "online_summary",
+    "online_update",
     "rhat",
     "sample",
     "sample_step",
     "stan_schedule",
+    "summarize",
 ]

@@ -18,6 +18,7 @@ from .stan import (
     adapt_flags,
     adapt_step,
     adapt_step_batch,
+    adapt_step_masked,
     stan_schedule,
 )
 from .stepsize import DualAveragingConfig, DualAveragingState, da_update
@@ -41,6 +42,7 @@ __all__ = [
     "adapt_flags",
     "adapt_step",
     "adapt_step_batch",
+    "adapt_step_masked",
     "da_update",
     "stan_schedule",
 ]

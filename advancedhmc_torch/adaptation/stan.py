@@ -5,7 +5,9 @@ PyTorch counterpart of `advancedhmc_tpu/adaptation/stan.py:48,76,94,161,207`.
 The window schedule is computed on the host as boolean numpy arrays indexed
 by iteration, so the sampler decides on the host which adaptation steps run:
 `adapt_step` and `adapt_step_batch` take one iteration's flags as Python
-booleans where the JAX functions mask with traced ones.
+booleans where the JAX functions mask with traced ones. Inside the fused
+loop each chain is at its own iteration: `adapt_step_masked` takes each
+chain's flags as (C,) boolean tensors and masks, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -123,28 +125,45 @@ def adapt_flags(cfg: AdaptorConfig, n_adapts: int, n_total: int):
             "window_end": window_end, "is_last": is_last}
 
 
+def _mask(pred, new, old):
+    """Per chain, the fields of `new` where `pred (C,)` holds, else those
+    of `old` (a dataclass of (C, ...) tensors)."""
+    out = {}
+    for f in dataclasses.fields(old):
+        a, b = getattr(new, f.name), getattr(old, f.name)
+        if isinstance(a, torch.Tensor):
+            p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
+            out[f.name] = torch.where(p, a, b)
+    return dataclasses.replace(old, **out)
+
+
 def _adapt_core(cfg: AdaptorConfig, st: AdaptState, push, alpha, flags):
     """One adaptation step, in the JAX package's order: dual-averaging
     update → Welford push (in a window) → estimate (window end) → reset of
     both (window end) → finalize (last adaptation step). `flags` holds one
-    iteration's flags as booleans."""
-    if not flags["is_adapt"]:
-        return st
+    iteration's flags as booleans (a step that does not run is skipped), or
+    each chain's as (C,) boolean tensors (every step is then masked chain
+    by chain, as the JAX function masks with traced flags)."""
+
+    def step(pred, update, old):
+        if not isinstance(pred, torch.Tensor):
+            return update(old) if pred else old
+        return _mask(pred, update(old), old)
+
+    is_adapt, window_end = flags["is_adapt"], flags["window_end"]
     da, mm = st.da, st.mm
     if cfg.uses_da:
-        da = da_update(cfg.da, da, alpha)
+        da = step(is_adapt, lambda d: da_update(cfg.da, d, alpha), da)
     if cfg.uses_mm:
-        if flags["in_window"]:
-            mm = push(mm)
-        if flags["in_window" if cfg.kind in (NAIVE, MASSMATRIX)
-                 else "window_end"]:
-            mm = mm.update_estimate()
-        if flags["window_end"]:
-            mm = mm.reset()
-    if cfg.uses_da and cfg.kind == STAN and flags["window_end"]:
-        da = da.reset()
-    if cfg.uses_da and flags["is_last"]:
-        da = da.finalize()
+        mm = step(is_adapt & flags["in_window"], push, mm)
+        upd = flags["in_window" if cfg.kind in (NAIVE, MASSMATRIX)
+                    else "window_end"]
+        mm = step(is_adapt & upd, lambda m: m.update_estimate(), mm)
+        mm = step(is_adapt & window_end, lambda m: m.reset(), mm)
+    if cfg.uses_da and cfg.kind == STAN:
+        da = step(is_adapt & window_end, lambda d: d.reset(), da)
+    if cfg.uses_da:
+        da = step(is_adapt & flags["is_last"], lambda d: d.finalize(), da)
     return AdaptState(da=da, mm=mm)
 
 
@@ -155,6 +174,16 @@ def adapt_step(cfg: AdaptorConfig, st: AdaptState, theta, grad, alpha,
     `theta (C, dim)` (the JAX package's `vmap(adapt_step)`). `grad` is
     there for the nutpie estimator, which is not ported."""
     return _adapt_core(cfg, st, lambda mm: mm.push(theta), alpha, flags)
+
+
+def adapt_step_masked(cfg: AdaptorConfig, st: AdaptState, theta, alpha,
+                      flags, where):
+    """Per-chain adaptation with each chain's own flags: `flags` holds (C,)
+    boolean tensors, and only the chains in `where (C,)` step (the JAX
+    package's traced `adapt_step`, vmapped, then masked by the chains at a
+    transition boundary)."""
+    return _adapt_core(cfg, st, lambda mm: mm.push(theta), alpha,
+                       dict(flags, is_adapt=flags["is_adapt"] & where))
 
 
 def adapt_step_batch(cfg: AdaptorConfig, st: AdaptState, thetas, grads,

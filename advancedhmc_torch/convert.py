@@ -13,9 +13,13 @@ import numpy as np
 import torch
 
 from .adaptation import AdaptState, DualAveragingState, WelfordVarState
+from .diagnostics import OnlineMoments
 from .hamiltonian import PhasePoint
+from .integrators import Leapfrog
 from .metrics import DiagEuclideanMetric
 from .sampler import HMCState
+from .termination import GeneralisedNoUTurn
+from .trajectory import Trajectory
 from .utils import resolve_device
 
 
@@ -50,6 +54,39 @@ def welford_var_state(mm, device=None) -> WelfordVarState:
         n_min=int(mm.n_min))
 
 
+def adapt_state(ad, device=None) -> AdaptState:
+    """A diagonal-Welford adaptation state, shared or per chain (the state
+    `fused_warmup_phase` returns: ε (C,), Welford n (C,), moments (C,
+    dim))."""
+    return AdaptState(da=dual_averaging_state(ad.da, device),
+                      mm=welford_var_state(ad.mm, device))
+
+
+def online_moments(om, device=None) -> OnlineMoments:
+    """An `OnlineMoments` summary (n, mean, m2, the lag window and its
+    products)."""
+    return OnlineMoments(*(tensor(getattr(om, f), device) for f in
+                           ("n", "mean", "m2", "lag_buf", "lag_acc")))
+
+
+def trajectory(traj, device=None) -> Trajectory:
+    """A plain-`Leapfrog`, generalised no-U-turn, multinomial trajectory
+    with its step size, max_depth, Δ_max and precision switches
+    (`stack_dtype`, `uturn_precision`, given by name)."""
+    crit = traj.criterion
+    prec = traj.uturn_precision
+    return Trajectory(
+        Leapfrog(step_size=tensor(traj.integrator.step_size, device)),
+        GeneralisedNoUTurn(max_depth=int(crit.max_depth),
+                           delta_max=float(crit.delta_max)),
+        traj.ts_kind,
+        stack_dtype=(traj.stack_dtype if traj.stack_dtype is None
+                     or isinstance(traj.stack_dtype, str)
+                     else np.dtype(traj.stack_dtype).name),
+        uturn_precision=None if prec is None
+        else getattr(prec, "name", str(prec)).lower())
+
+
 def hmc_state(state, device=None) -> HMCState:
     """A whole `HMCState` with a diagonal metric: cross-chain (ε 0-d, M⁻¹
     (dim,), Welford n 0-d) or per chain (ε (C,), M⁻¹ (C, dim), Welford n
@@ -58,6 +95,5 @@ def hmc_state(state, device=None) -> HMCState:
         iteration=int(np.asarray(state.iteration)),
         z=phasepoint(state.z, device),
         metric=diag_metric(state.metric.m_inv, device),
-        adapt=AdaptState(da=dual_averaging_state(state.adapt.da, device),
-                         mm=welford_var_state(state.adapt.mm, device)),
+        adapt=adapt_state(state.adapt, device),
     )

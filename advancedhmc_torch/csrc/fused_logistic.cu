@@ -40,7 +40,16 @@
 // inputs give identical bits.
 //
 // Inputs and sums are float32 (the TPU kernel's bfloat16 inputs were a TPU
-// default). Ragged C and n are masked here. The narrow kernel takes p up to
+// default). Ragged C and n are masked here.
+//
+// Modes (logistic_tile.cuh `Mode`), the JAX model's reduced-precision
+// switches: kF32 as above; kBf16 (`x_dtype="bfloat16"`) rounds theta, x
+// and the residual to bfloat16 where they are loaded into registers and
+// runs one TF32 product where kF32 runs three, which is exact for such
+// operands: what the JAX model, and the Pallas kernel, which always casts
+// theta and the residual to bfloat16, compute; kResidBf16
+// (`resid_dtype="bfloat16"`) rounds the residual alone. Each mode is its
+// own set of instances. The narrow kernel takes p up to
 // 8 * 16 = 128: the gradient's columns are compiled into register arrays
 // (KSteps instances).
 //
@@ -62,6 +71,9 @@ namespace cg = cooperative_groups;
 using logistic_tile::cp_async4;
 using logistic_tile::cp_async_commit;
 using logistic_tile::cp_async_wait;
+using logistic_tile::kBf16;
+using logistic_tile::kF32;
+using logistic_tile::kResidBf16;
 using logistic_tile::kTileRows;
 using logistic_tile::x_stride;
 
@@ -85,7 +97,7 @@ __host__ __device__ constexpr size_t smem_floats(int ksteps) {
 // memory at p = 99. The kernel is bound by latency more than by any one
 // unit, so it gains more from the fourth block than it loses to a few
 // spilled registers.
-template <int KSteps>
+template <int KSteps, int Mode>
 __global__ void __launch_bounds__(kThreads, 4)
 fused_logistic_kernel(const float* __restrict__ theta,
                       const float* __restrict__ x,
@@ -165,7 +177,7 @@ fused_logistic_kernel(const float* __restrict__ theta,
       cp_async_wait<0>();
     }
     __syncthreads();
-    logistic_tile::warp_tile<KSteps>(
+    logistic_tile::warp_tile<KSteps, Mode>(
         bs + 16 * warp * S, xs + buf * kTileRows * S, ys + buf * kTileRows,
         min(kTileRows, n - tile * kTileRows), acc, lp_g, lp_g8);
     __syncthreads();  // the buffer is free for the tile after next
@@ -237,7 +249,7 @@ int row_split(int n_chains, int n, int slots) {
 
 // Sets the instance's attributes; gives the card's SMs and the instance's
 // resident blocks per SM.
-template <int KSteps>
+template <int KSteps, int Mode>
 cudaError_t prepare(int* sms, int* per_sm) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -247,28 +259,28 @@ cudaError_t prepare(int* sms, int* per_sm) {
   }
   const size_t smem = smem_floats(KSteps) * sizeof(float);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_logistic_kernel<KSteps>,
+    err = cudaFuncSetAttribute(fused_logistic_kernel<KSteps, Mode>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   }
   if (err == cudaSuccess) {  // room for four blocks per SM
-    err = cudaFuncSetAttribute(fused_logistic_kernel<KSteps>,
+    err = cudaFuncSetAttribute(fused_logistic_kernel<KSteps, Mode>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, fused_logistic_kernel<KSteps>, kThreads, smem);
+        per_sm, fused_logistic_kernel<KSteps, Mode>, kThreads, smem);
   }
   return err;
 }
 
-template <int KSteps>
+template <int KSteps, int Mode>
 cudaError_t launch(const float* theta, const float* x, const float* y,
                    float* lp, float* grad, int n_chains, int dim, int n,
                    cudaStream_t stream) {
   int sms = 0, per_sm = 0;
-  const cudaError_t err = prepare<KSteps>(&sms, &per_sm);
+  const cudaError_t err = prepare<KSteps, Mode>(&sms, &per_sm);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_floats(KSteps) * sizeof(float);
   const int split = row_split(n_chains, n, sms * std::max(per_sm, 1));
@@ -285,27 +297,37 @@ cudaError_t launch(const float* theta, const float* x, const float* y,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, fused_logistic_kernel<KSteps>, theta, x, y,
-                            lp, grad, n_chains, dim, n);
+  return cudaLaunchKernelEx(&cfg, fused_logistic_kernel<KSteps, Mode>, theta,
+                            x, y, lp, grad, n_chains, dim, n);
 }
 
-// The compiled instances, by k-steps of 8 columns: 13 is the 100-D model's
-// p = 99. A call takes the smallest that holds its p.
+// The compiled instances of each mode, by k-steps of 8 columns: 13 is the
+// 100-D model's p = 99. A call takes the smallest that holds its p.
 struct Instance {
   int ksteps;
   cudaError_t (*prepare)(int*, int*);
   cudaError_t (*launch)(const float*, const float*, const float*, float*,
                         float*, int, int, int, cudaStream_t);
 };
-constexpr Instance kInstances[] = {
-    {4, prepare<4>, launch<4>},
-    {8, prepare<8>, launch<8>},
-    {13, prepare<13>, launch<13>},
-    {kMaxKSteps, prepare<kMaxKSteps>, launch<kMaxKSteps>},
+template <int Mode>
+struct Instances {
+  static constexpr Instance kAll[] = {
+      {4, prepare<4, Mode>, launch<4, Mode>},
+      {8, prepare<8, Mode>, launch<8, Mode>},
+      {13, prepare<13, Mode>, launch<13, Mode>},
+      {kMaxKSteps, prepare<kMaxKSteps, Mode>, launch<kMaxKSteps, Mode>},
+  };
 };
+constexpr int kModes = 3;
+constexpr const Instance* kInstances[kModes] = {
+    Instances<kF32>::kAll, Instances<kBf16>::kAll,
+    Instances<kResidBf16>::kAll};
+constexpr int kPerMode = 4;
 
-const Instance* instance_for(int dim) {
-  for (const Instance& inst : kInstances) {
+const Instance* instance_for(int dim, int mode) {
+  if (mode < 0 || mode >= kModes) return nullptr;
+  for (int i = 0; i < kPerMode; ++i) {
+    const Instance& inst = kInstances[mode][i];
     if (dim - 1 <= 8 * inst.ksteps) return &inst;
   }
   return nullptr;
@@ -359,6 +381,13 @@ const Instance* instance_for(int dim) {
 // Bound at C = 1024, p = 999, n = 1000: 3 * 4 * C*p*n operations at the
 // TF32 rate, 24.8 us. Each 128-chain tile reads the design's hi and lo
 // planes once in each stage from L2 (~8 MB a stage at p = 999).
+//
+// Modes: in kBf16 the wrapper lays the design out rounded to bfloat16 (hi
+// holds it exactly, lo is zero), the consumers round their A fragments
+// (theta; R) to bfloat16 and issue only hi.hi, one wgmma a k-step; stage A
+// of kBf16 and kResidBf16 rounds the residuals to bfloat16 as it writes R.
+// The planes, the ring and the tiles are those of kF32 (the lo plane is
+// still loaded: keeping the design in bf16 is later work).
 namespace wide {
 
 constexpr int kBM = 128;             // chains a tile: 64 a warpgroup
@@ -573,7 +602,7 @@ __device__ __forceinline__ void copy_a(uint32_t dst, const Args& a, int m0,
 // whose 16-byte chunks are swizzled by the row mod 8, the copies' rows of
 // kAStride), split into their TF32 part hi and the float32 remainder lo
 // (the tensor cores read lo's TF32 part).
-template <bool kTmaA>
+template <bool kTmaA, int Mode>
 __device__ __forceinline__ void split_stage(const float* as, int row,
                                             uint32_t (&hi)[kKSteps][4],
                                             uint32_t (&lo)[kKSteps][4]) {
@@ -586,8 +615,12 @@ __device__ __forceinline__ void split_stage(const float* as, int row,
     for (int i = 0; i < 4; ++i) {
       const int chunk = (2 * kk + (i >> 1)) ^ swz;   // row + 8: same swizzle
       const float x = as[(row + 8 * (i & 1)) * stride + 4 * chunk + t];
-      hi[kk][i] = logistic_tile::to_tf32(x);
-      lo[kk][i] = __float_as_uint(x - __uint_as_float(hi[kk][i]));
+      if constexpr (Mode == kBf16) {
+        hi[kk][i] = __float_as_uint(logistic_tile::round_bf16(x));
+      } else {
+        hi[kk][i] = logistic_tile::to_tf32(x);
+        lo[kk][i] = __float_as_uint(x - __uint_as_float(hi[kk][i]));
+      }
     }
   }
 }
@@ -603,13 +636,15 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[kKSteps][4]) {
 }
 
 // One stage's products into d as one wgmma group, from zero: for each
-// k-step lo.hi, hi.lo, then hi.hi (the small terms first).
+// k-step lo.hi, hi.lo, then hi.hi (the small terms first); in kBf16 hi.hi
+// alone.
+template <int Mode>
 __device__ __forceinline__ void issue_stage(float (&d)[kAcc],
                                             uint32_t (&hi)[kKSteps][4],
                                             uint32_t (&lo)[kKSteps][4],
                                             uint32_t st) {
   fence_frag(hi);
-  fence_frag(lo);
+  if constexpr (Mode != kBf16) fence_frag(lo);
   fence_acc(d);
   wgmma_fence();
   const uint64_t b_hi = tile_desc(st), b_lo = tile_desc(st + kBTile);
@@ -617,6 +652,10 @@ __device__ __forceinline__ void issue_stage(float (&d)[kAcc],
   for (int kk = 0; kk < kKSteps; ++kk) {
     const uint64_t o = 2 * kk;
     const int add = kk == 0 ? 0 : 1;   // the first product writes d
+    if constexpr (Mode == kBf16) {
+      wgmma_tf32(d, hi[kk], b_hi + o, add);
+      continue;
+    }
     wgmma_tf32(d, lo[kk], b_hi + o, add);
     wgmma_tf32(d, hi[kk], b_lo + o, 1);
     wgmma_tf32(d, hi[kk], b_hi + o, 1);
@@ -636,7 +675,7 @@ __device__ __forceinline__ void promote(float (&acc)[kAcc],
 // (2 * split of them), each takes every (2 * split)-th 4 columns. Stage A
 // turns logits into residuals and lp partials, stage B writes the gradient
 // and, in column tile 0, lp.
-template <int kStage>
+template <int kStage, int Mode>
 __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
                                          float* epi, int split, int rank,
                                          int m0, int n0, const Args& a) {
@@ -667,6 +706,7 @@ __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
         const bool in = j + e < a.n;
         r[e] = logistic_tile::logit_term(
             v[e], in ? __ldg(a.y + j + e) : 0.f, in ? 1.f : 0.f, lp);
+        if constexpr (Mode != kF32) r[e] = logistic_tile::round_bf16(r[e]);
       }
       if (chain_ok && j < a.n_pad) {
         *reinterpret_cast<float4*>(a.resid + (size_t)c * a.n_pad + j) =
@@ -706,7 +746,7 @@ __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
 // (small C). b_map holds the B planes (2, N, K) in boxes of both planes'
 // kBN rows; kTmaA: A comes by TMA from a_map (boxes of kBM rows), else the
 // producer warpgroup copies it.
-template <int kStage, bool kTmaA>
+template <int kStage, bool kTmaA, int Mode>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap b_map,
             const __grid_constant__ CUtensorMap a_map, const Args args) {
@@ -782,12 +822,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap b_map,
       const int s = it % kStages;
       mbar_wait(&full[s], (it / kStages) & 1);
       unsigned char* st = ring + s * kStageBytes;
-      split_stage<kTmaA>(reinterpret_cast<const float*>(st + kBBytes), row,
-                         hi, lo);
-      issue_stage(d, hi, lo, smem_u32(st));
+      split_stage<kTmaA, Mode>(reinterpret_cast<const float*>(st + kBBytes),
+                               row, hi, lo);
+      issue_stage<Mode>(d, hi, lo, smem_u32(st));
       wgmma_wait();
       fence_frag(hi);
-      fence_frag(lo);
+      if constexpr (Mode != kBf16) fence_frag(lo);
       promote(acc, d);
       if (lane == 0) mbar_arrive(&empty[s]);   // stage s is free
     }
@@ -807,7 +847,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap b_map,
   }
   // every rank's partial tile is in its shared memory
   cluster.sync();
-  epilogue<kStage>(cluster, epi, split, rank, m0, n0, args);
+  epilogue<kStage, Mode>(cluster, epi, split, rank, m0, n0, args);
   cluster.sync();   // no block leaves while another reads its tile
 }
 
@@ -872,8 +912,8 @@ cudaError_t encode_map(CUtensorMap* map, const float* base, int inner,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Once per device: the kernels' attributes, the SMs, blocks per SM and the
-// clusters of each size the card can hold at once.
+// Once per device and mode: the kernels' attributes, the SMs, blocks per SM
+// and the clusters of each size the card can hold at once.
 struct DeviceSetup {
   bool ready;
   cudaError_t err;
@@ -881,25 +921,30 @@ struct DeviceSetup {
   int clusters[2][kMaxSplit + 1];
 };
 std::mutex g_setup_mutex;
-DeviceSetup g_setup[kMaxDevices];
+DeviceSetup g_setup[kMaxDevices][kModes];
 
-template <int kStage, bool kTmaA>
+// Stage B's instance for a mode: kResidBf16's R is already rounded, so its
+// products are kF32's.
+constexpr int stage_b_mode(int mode) { return mode == kBf16 ? kBf16 : kF32; }
+
+template <int kStage, bool kTmaA, int Mode>
 cudaError_t setup_kernel(DeviceSetup& s) {
   // setmaxnreg's totals assume the kernel was compiled at kLaunchRegs; at
   // another count the consumers' request could wait forever
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, gemm_kernel<kStage, kTmaA>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&fa, gemm_kernel<kStage, kTmaA, Mode>);
   if (err == cudaSuccess && fa.numRegs != kLaunchRegs) {
     return cudaErrorInvalidKernelImage;
   }
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(gemm_kernel<kStage, kTmaA>,
+    err = cudaFuncSetAttribute(gemm_kernel<kStage, kTmaA, Mode>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kSmemBytes);
   }
   if (err == cudaSuccess && kStage == 0) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &s.per_sm, gemm_kernel<kStage, kTmaA>, kThreads, kSmemBytes);
+        &s.per_sm, gemm_kernel<kStage, kTmaA, Mode>, kThreads, kSmemBytes);
   }
   for (int size = 1; err == cudaSuccess && size <= kMaxSplit; size *= 2) {
     cudaLaunchConfig_t cfg = {};
@@ -913,27 +958,38 @@ cudaError_t setup_kernel(DeviceSetup& s) {
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(&s.clusters[kStage][size],
-                                         gemm_kernel<kStage, kTmaA>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(
+        &s.clusters[kStage][size], gemm_kernel<kStage, kTmaA, Mode>, &cfg);
   }
   return err;
 }
 
-const DeviceSetup* device_setup() {
+// A mode's three instances: stage A's two (A by TMA or copied), stage B's
+// one.
+template <int Mode>
+cudaError_t setup_mode(DeviceSetup& s) {
+  cudaError_t err = setup_kernel<0, false, Mode>(s);
+  if (err == cudaSuccess) err = setup_kernel<0, true, Mode>(s);
+  if (err == cudaSuccess) err = setup_kernel<1, true, stage_b_mode(Mode)>(s);
+  return err;
+}
+
+const DeviceSetup* device_setup(int mode) {
   int device = 0;
   if (cudaGetDevice(&device) != cudaSuccess || device < 0 ||
-      device >= kMaxDevices) {
+      device >= kMaxDevices || mode < 0 || mode >= kModes) {
     return nullptr;
   }
   std::lock_guard<std::mutex> lock(g_setup_mutex);
-  DeviceSetup& s = g_setup[device];
+  DeviceSetup& s = g_setup[device][mode];
   if (!s.ready) {
     s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount,
                                    device);
-    // stage A's two instances (A by TMA or copied), stage B's one
-    if (s.err == cudaSuccess) s.err = setup_kernel<0, false>(s);
-    if (s.err == cudaSuccess) s.err = setup_kernel<0, true>(s);
-    if (s.err == cudaSuccess) s.err = setup_kernel<1, true>(s);
+    if (s.err == cudaSuccess) {
+      s.err = mode == kBf16       ? setup_mode<kBf16>(s)
+              : mode == kResidBf16 ? setup_mode<kResidBf16>(s)
+                                   : setup_mode<kF32>(s);
+    }
     s.ready = true;
   }
   return &s;
@@ -973,7 +1029,7 @@ size_t scratch_floats(int n_chains, int n) {
          (size_t)((n_pad + kBN - 1) / kBN) * n_chains;
 }
 
-template <int kStage, bool kTmaA>
+template <int kStage, bool kTmaA, int Mode>
 cudaError_t launch_gemm(const CUtensorMap& b_map, const CUtensorMap& a_map,
                         const Args& args, int m_tiles, int n_tiles,
                         int split, cudaStream_t stream) {
@@ -989,17 +1045,18 @@ cudaError_t launch_gemm(const CUtensorMap& b_map, const CUtensorMap& a_map,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gemm_kernel<kStage, kTmaA>, b_map, a_map,
-                            args);
+  return cudaLaunchKernelEx(&cfg, gemm_kernel<kStage, kTmaA, Mode>, b_map,
+                            a_map, args);
 }
 
 }  // namespace wide
 
-// The wide path of a call: stage A, stage B on `stream`, each launch
-// counted in `launches`. `design` is a prepared design of this x
-// (fused_logistic_wide_prepare), `scratch` holds
+// The wide path of a call in mode `Mode`: stage A, stage B on `stream`,
+// each launch counted in `launches`. `design` is a prepared design of this
+// x (fused_logistic_wide_prepare, laid out for the mode), `scratch` holds
 // wide::scratch_floats(n_chains, n) floats.
-cudaError_t launch_wide(const void* design, const float* theta,
+template <int Mode>
+cudaError_t launch_wide_mode(const void* design, const float* theta,
                         const float* y, float* lp, float* grad,
                         float* scratch, int n_chains, int dim, int n,
                         cudaStream_t stream, int* launches) {
@@ -1008,7 +1065,7 @@ cudaError_t launch_wide(const void* design, const float* theta,
   Design d;
   std::memcpy(&d, design, sizeof d);
   if (d.dim != dim || d.n != n) return cudaErrorInvalidValue;
-  const DeviceSetup* s = device_setup();
+  const DeviceSetup* s = device_setup(Mode);
   if (s == nullptr) return cudaErrorInvalidDevice;
   if (s->err != cudaSuccess) return s->err;
   const Shape sh = shape_of(*s, n_chains, dim, n);
@@ -1027,7 +1084,7 @@ cudaError_t launch_wide(const void* design, const float* theta,
                        lp_part, lp,    grad, n_chains, dim,
                        n,     sh.n_pad, sh.k_pad / kBK, sh.n_tiles_a};
     if (err == cudaSuccess) {
-      err = (tma ? launch_gemm<0, true> : launch_gemm<0, false>)(
+      err = (tma ? launch_gemm<0, true, Mode> : launch_gemm<0, false, Mode>)(
           x_map, a_map, args, sh.m_tiles, sh.n_tiles_a, sh.split_a, stream);
     }
     if (err != cudaSuccess) return err;
@@ -1039,12 +1096,33 @@ cudaError_t launch_wide(const void* design, const float* theta,
                        lp_part, lp,       grad,     n_chains, dim,
                        n,       sh.n_pad, sh.n_pad / kBK, sh.n_tiles_a};
     if (err == cudaSuccess) {
-      err = launch_gemm<1, true>(xt_map, a_map, args, sh.m_tiles,
-                                 sh.n_tiles_b, sh.split_b, stream);
+      err = launch_gemm<1, true, stage_b_mode(Mode)>(
+          xt_map, a_map, args, sh.m_tiles, sh.n_tiles_b, sh.split_b, stream);
     }
     if (err == cudaSuccess) ++*launches;
   }
   return err;
+}
+
+// The wide path of a call in `mode` (launch_wide_mode); an unknown mode is
+// refused.
+cudaError_t launch_wide(int mode, const void* design, const float* theta,
+                        const float* y, float* lp, float* grad,
+                        float* scratch, int n_chains, int dim, int n,
+                        cudaStream_t stream, int* launches) {
+  switch (mode) {
+    case kF32:
+      return launch_wide_mode<kF32>(design, theta, y, lp, grad, scratch,
+                                    n_chains, dim, n, stream, launches);
+    case kBf16:
+      return launch_wide_mode<kBf16>(design, theta, y, lp, grad, scratch,
+                                     n_chains, dim, n, stream, launches);
+    case kResidBf16:
+      return launch_wide_mode<kResidBf16>(design, theta, y, lp, grad,
+                                          scratch, n_chains, dim, n, stream,
+                                          launches);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1054,16 +1132,16 @@ extern "C" {
 // Dynamic shared memory of one block for a given dim (bytes): the narrow
 // instance's up to dim 129, the wide kernels' (stages A and B) beyond.
 size_t fused_logistic_smem_bytes(int dim) {
-  const Instance* inst = instance_for(dim);
+  const Instance* inst = instance_for(dim, kF32);
   return inst ? smem_floats(inst->ksteps) * sizeof(float) : wide::kSmemBytes;
 }
 
 // Resident blocks per SM and blocks per cluster (the narrow instances' row
 // splits per chain tile; the wide path's stage A split-K ranks) for a call's
-// shape on the current device; 0 and 0 if that fails.
-void fused_logistic_launch_shape(int n_chains, int dim, int n, int* per_sm,
-                                 int* split) {
-  const Instance* inst = instance_for(dim);
+// shape and mode on the current device; 0 and 0 if that fails.
+void fused_logistic_launch_shape(int n_chains, int dim, int n, int mode,
+                                 int* per_sm, int* split) {
+  const Instance* inst = instance_for(dim, mode);
   int sms = 0;
   *per_sm = *split = 0;
   if (inst) {
@@ -1072,7 +1150,7 @@ void fused_logistic_launch_shape(int n_chains, int dim, int n, int* per_sm,
       return;
     }
   } else {
-    const wide::DeviceSetup* s = wide::device_setup();
+    const wide::DeviceSetup* s = wide::device_setup(mode);
     if (s != nullptr && s->err == cudaSuccess) {
       *per_sm = s->per_sm;
       *split = wide::shape_of(*s, n_chains, dim, n).split_a;
@@ -1087,9 +1165,10 @@ void fused_logistic_launch_shape(int n_chains, int dim, int n, int* per_sm,
 // device: out[0..1] stage A's blocks and split-K ranks a cluster, out[2..3]
 // stage B's, out[4] resident blocks per SM, out[5] shared memory bytes a
 // block, out[6] threads a block, out[7] chain tiles, out[8..9] the output
-// column tiles of stages A and B. Returns the CUDA error code.
-int fused_logistic_wide_shape(int n_chains, int dim, int n, int* out) {
-  const wide::DeviceSetup* s = wide::device_setup();
+// column tiles of stages A and B, for a mode. Returns the CUDA error code.
+int fused_logistic_wide_shape(int n_chains, int dim, int n, int mode,
+                              int* out) {
+  const wide::DeviceSetup* s = wide::device_setup(mode);
   if (s == nullptr) return (int)cudaErrorInvalidDevice;
   if (s->err != cudaSuccess) return (int)s->err;
   const wide::Shape sh = wide::shape_of(*s, n_chains, dim, n);
@@ -1144,27 +1223,29 @@ int fused_logistic_wide_prepare(void* out, const float* planes,
 }
 
 // theta (n_chains, dim), x (n, dim - 1), y (n,), lp (n_chains,),
-// grad (n_chains, dim): contiguous float32 device arrays. For dim > 129
-// also `design` (fused_logistic_wide_prepare, of this x) and `scratch`
-// (fused_logistic_wide_scratch_floats floats); the narrow instances take
-// neither. Launches on `stream`, writes the number of kernels it launched
-// to `launches` (one narrow instance, or the wide path's two GEMMs) and
-// returns the CUDA error code of the launches (0 on success).
+// grad (n_chains, dim): contiguous float32 device arrays; `mode` kF32,
+// kBf16 or kResidBf16 (logistic_tile.cuh). For dim > 129 also `design`
+// (fused_logistic_wide_prepare, of this x laid out for the mode) and
+// `scratch` (fused_logistic_wide_scratch_floats floats); the narrow
+// instances take neither. Launches on `stream`, writes the number of
+// kernels it launched to `launches` (one narrow instance, or the wide
+// path's two GEMMs) and returns the CUDA error code of the launches (0 on
+// success).
 int fused_logistic_value_grad_f32(const float* theta, const float* x,
                                   const float* y, float* lp, float* grad,
-                                  int n_chains, int dim, int n,
+                                  int n_chains, int dim, int n, int mode,
                                   const void* design, float* scratch,
                                   void* stream, int* launches) {
   *launches = 0;
   if (n_chains <= 0) return 0;
   // p <= 128 takes the narrow instance that holds it, a wider p the wide
   // kernels
-  const Instance* inst = instance_for(dim);
+  const Instance* inst = instance_for(dim, mode);
   const cudaError_t err =
       inst ? inst->launch(theta, x, y, lp, grad, n_chains, dim, n,
                           (cudaStream_t)stream)
-           : launch_wide(design, theta, y, lp, grad, scratch, n_chains, dim,
-                         n, (cudaStream_t)stream, launches);
+           : launch_wide(mode, design, theta, y, lp, grad, scratch, n_chains,
+                         dim, n, (cudaStream_t)stream, launches);
   if (inst && err == cudaSuccess) *launches = 1;
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that it is not reported again later

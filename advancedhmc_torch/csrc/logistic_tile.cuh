@@ -20,6 +20,14 @@
 // misses the 1e-4 gate on the gradient (tests/test_torch_tf32_split.py).
 // Operands are split in registers as they are loaded.
 //
+// Modes (the JAX model's reduced-precision switches, `Mode` below): kF32
+// is the above. kBf16 (`x_dtype` bfloat16) rounds beta, x and the residual
+// to bfloat16 as they are loaded: a bfloat16 value is exact in TF32 and
+// the product of two is exact in float32, so one TF32 product per k-step
+// computes what the JAX model computes (bf16 operands, float32 sums), with
+// no lo passes. kResidBf16 (`resid_dtype` bfloat16 on a float32 design)
+// rounds the residual alone, before product 2's 3xTF32 split.
+//
 // Fragment layouts (PTX ISA, m16n8k8 .tf32; lane = 4 g + t): A holds
 // (row g | g+8, k t | t+4), B holds (k t | t+4, col g), C holds (row g | g+8,
 // col 2t | 2t+1). The reduction index of a product may be permuted freely,
@@ -37,11 +45,16 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include <cstdint>
 
 namespace logistic_tile {
 
 constexpr int kTileRows = 32;  // 4 n-tiles of product 1, 4 k-steps of 2
+
+// Which operands are rounded to bfloat16; the numbers of the C interface.
+enum Mode : int { kF32 = 0, kBf16 = 1, kResidBf16 = 2 };
 
 // The row stride of a staged x tile: 8 * ksteps floats and 4 more, so 4
 // mod 8.
@@ -78,6 +91,25 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = to_tf32(v);
   lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// v rounded to bfloat16 (to nearest, ties to even, as torch's and JAX's
+// casts), as a float32 value
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// An operand as the mode takes it: split into its TF32 parts, or rounded
+// to bfloat16, which TF32 holds exactly (lo is then not used).
+template <int Mode>
+__device__ __forceinline__ void operand(float v, uint32_t& hi,
+                                        uint32_t& lo) {
+  if constexpr (Mode == kBf16) {
+    hi = __float_as_uint(round_bf16(v));
+    lo = 0u;
+  } else {
+    split_tf32(v, hi, lo);
+  }
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4],
@@ -124,7 +156,7 @@ __device__ __forceinline__ float logit_term(float l, float y, float w,
 // gradients of ~270 with one chain through all of n). Each product
 // therefore runs short chains from zero and adds them in float32: product 1
 // two k-steps at a time, product 2 one tile (32 rows) at a time.
-template <int KSteps>
+template <int KSteps, int Mode = kF32>
 __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
                                           const float* __restrict__ xs,
                                           const float* __restrict__ ys,
@@ -153,10 +185,10 @@ __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
     for (int q = 0; q < kPair; ++q) {
       if (q < n_ks) {
         const float* br = bs + g * S + 8 * (ks0 + q) + t;
-        split_tf32(br[0], a_hi[q][0], a_lo[q][0]);
-        split_tf32(br[8 * S], a_hi[q][1], a_lo[q][1]);
-        split_tf32(br[4], a_hi[q][2], a_lo[q][2]);
-        split_tf32(br[8 * S + 4], a_hi[q][3], a_lo[q][3]);
+        operand<Mode>(br[0], a_hi[q][0], a_lo[q][0]);
+        operand<Mode>(br[8 * S], a_hi[q][1], a_lo[q][1]);
+        operand<Mode>(br[4], a_hi[q][2], a_lo[q][2]);
+        operand<Mode>(br[8 * S + 4], a_hi[q][3], a_lo[q][3]);
       }
     }
     // the four n-tiles' chains side by side, so that the warp has four
@@ -169,9 +201,13 @@ __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
         for (int j = 0; j < kNT; ++j) {
           const float* xr = xs + (8 * j + g) * S + 8 * (ks0 + q) + t;
           uint32_t b_hi[2], b_lo[2];
-          split_tf32(xr[0], b_hi[0], b_lo[0]);
-          split_tf32(xr[4], b_hi[1], b_lo[1]);
-          mma_3xtf32(d[j], a_hi[q], a_lo[q], b_hi, b_lo);
+          operand<Mode>(xr[0], b_hi[0], b_lo[0]);
+          operand<Mode>(xr[4], b_hi[1], b_lo[1]);
+          if constexpr (Mode == kBf16) {
+            mma_tf32(d[j], a_hi[q], b_hi);
+          } else {
+            mma_3xtf32(d[j], a_hi[q], a_lo[q], b_hi, b_lo);
+          }
         }
       }
     }
@@ -198,7 +234,10 @@ __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
     r[2] = logit_term(logit[j][1], y1, w1, lp_g);
     r[3] = logit_term(logit[j][3], y1, w1, lp_g8);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(r[i], r_hi[j][i], r_lo[j][i]);
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (Mode == kResidBf16) r[i] = round_bf16(r[i]);
+      operand<Mode>(r[i], r_hi[j][i], r_lo[j][i]);
+    }
   }
 
   // product 2: the tile's share of every gradient column block nt, all
@@ -210,9 +249,13 @@ __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
     for (int nt = 0; nt < KSteps; ++nt) {
       const float* xc = xs + (8 * j + 2 * t) * S + 8 * nt + g;
       uint32_t b_hi[2], b_lo[2];
-      split_tf32(xc[0], b_hi[0], b_lo[0]);
-      split_tf32(xc[S], b_hi[1], b_lo[1]);
-      mma_3xtf32(d[nt], r_hi[j], r_lo[j], b_hi, b_lo);
+      operand<Mode>(xc[0], b_hi[0], b_lo[0]);
+      operand<Mode>(xc[S], b_hi[1], b_lo[1]);
+      if constexpr (Mode == kBf16) {
+        mma_tf32(d[nt], r_hi[j], b_hi);
+      } else {
+        mma_3xtf32(d[nt], r_hi[j], r_lo[j], b_hi, b_lo);
+      }
     }
   }
 #pragma unroll

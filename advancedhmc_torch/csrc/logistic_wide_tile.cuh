@@ -1,8 +1,9 @@
 // The column-tiled logistic likelihood for p > 128: the stages of a row
-// panel, as device code shared by the kernels that evaluate the Bernoulli-
-// logit likelihood at any width (K1's wide kernel, fused_logistic.cu; K2's
-// wide target, fused_nuts.cu). Built on the warp tile's 3xTF32 mma and
-// cp.async helpers (logistic_tile.cuh).
+// panel, as device code for K2's wide target (fused_nuts.cu), the one
+// kernel that evaluates the Bernoulli-logit likelihood at any width this
+// way (K1's wide path is two wgmma GEMMs of its own, fused_logistic.cu).
+// Built on the warp tile's 3xTF32 mma and cp.async helpers
+// (logistic_tile.cuh).
 //
 // At p = 999 a block's beta and two x tiles at full width would need ~514
 // KB of shared memory, and a chain's gradient would not fit in registers.

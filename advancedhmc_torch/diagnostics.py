@@ -1,12 +1,16 @@
-"""Diagnostics: pooled bulk ESS, rank-normalised bulk ESS and split-R̂.
+"""Diagnostics: pooled bulk ESS, rank-normalised bulk ESS and split-R̂, the
+storage-free online summary and the end-of-run report.
 
-PyTorch counterpart of `advancedhmc_tpu/diagnostics.py:38,162,185`. Draws are
-(n_samples, n_chains, dim); everything is computed in float64 on the draws'
-device, with FFT autocovariances (`torch.fft`).
+PyTorch counterpart of `advancedhmc_tpu/diagnostics.py:16,38,162,185,245,
+311`. Draws are (n_samples, n_chains, dim); the ESS and R̂ are computed in
+float64 on the draws' device, with FFT autocovariances (`torch.fft`). The
+online summary (`collect="online"`) keeps per-chain running moments and a
+window of lagged products in the draws' dtype, as the JAX package does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -91,3 +95,111 @@ def rhat(x):
     bulk = split_rhat(_rank_normalize(x))
     folded = torch.abs(x - _median0(x.reshape(-1, x.shape[-1])))
     return torch.maximum(bulk, split_rhat(_rank_normalize(folded)))
+
+
+def ebfmi(energies):
+    """E-BFMI = mean(diff(E)²) / var(E) along the draws, per chain."""
+    e = torch.as_tensor(energies).to(torch.float64)
+    return torch.mean(torch.diff(e, dim=0) ** 2, 0) / torch.var(
+        e, 0, correction=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class OnlineMoments:
+    """Running per-chain moments and a window of lagged products, folded
+    one draw batch at a time (no draw is stored)."""
+
+    n: torch.Tensor          # () int32, draws folded in
+    mean: torch.Tensor       # (C, D)
+    m2: torch.Tensor         # (C, D), Σ of squared deviations
+    lag_buf: torch.Tensor    # (K, C, D), the last K draws, newest first
+    lag_acc: torch.Tensor    # (K, C, D), running Σ_t x_t·x_{t-k-1}
+
+
+def online_init(n_chains: int, dim: int, n_lags: int = 16,
+                dtype=torch.float32, device=None) -> OnlineMoments:
+    """An empty summary on `device` (None means CUDA)."""
+    from .utils import resolve_device
+
+    device = resolve_device(device)
+    z = torch.zeros(n_chains, dim, dtype=dtype, device=device)
+    zk = torch.zeros(n_lags, n_chains, dim, dtype=dtype, device=device)
+    return OnlineMoments(torch.zeros((), dtype=torch.int32, device=device),
+                         z, z.clone(), zk, zk.clone())
+
+
+def online_update(om: OnlineMoments, x) -> OnlineMoments:
+    """Fold one draw batch `x (n_chains, dim)` into the running summary."""
+    k = om.lag_buf.shape[0]
+    valid = (om.n > torch.arange(k, device=x.device))[:, None, None]
+    lag_acc = om.lag_acc + torch.where(valid, x[None] * om.lag_buf, 0.0)
+    lag_buf = torch.cat([x[None], om.lag_buf[:-1]], 0)
+    n1 = om.n + 1
+    delta = x - om.mean
+    mean = om.mean + delta / n1.to(x.dtype)
+    m2 = om.m2 + delta * (x - mean)
+    return OnlineMoments(n1, mean, m2, lag_buf, lag_acc)
+
+
+def online_summary(om: OnlineMoments):
+    """Per-chain mean and variance, and the pooled bulk ESS from the K-lag
+    window (the Geyer sum truncated at K lags: exact when the chain mixes
+    within K lags, an upper bound otherwise)."""
+    dtype = om.mean.dtype
+    n = om.n.to(dtype)
+    k, n_chains, dim = om.lag_buf.shape
+    var = om.m2 / torch.clamp(n - 1.0, min=1.0)           # (C, D)
+    # autocovariance at lag k+1: S_k/(n-k-1) - mean² (final-mean approx)
+    lags = torch.arange(1, k + 1, dtype=dtype, device=om.mean.device)
+    acov = om.lag_acc / torch.clamp(n - lags, min=1.0)[:, None, None] \
+        - (om.mean ** 2)[None]
+    w = torch.mean(var, 0)                                # (D,)
+    var_plus = w * (n - 1.0) / n
+    if n_chains > 1:
+        var_plus = var_plus + torch.var(om.mean, 0, correction=1)
+    rho = 1.0 - (w[None] - torch.mean(acov, 1)) / var_plus[None]   # (K, D)
+    rho = torch.cat([torch.ones_like(rho[:1]), rho], 0)
+    n_pairs = (k + 1) // 2
+    even = rho[0:2 * n_pairs:2]
+    odd = rho[1:1 + 2 * n_pairs:2]
+    pair = even + odd[:even.shape[0]]
+    # the JAX scan: a running minimum, summed while positive
+    prev = torch.full_like(pair[0], float("inf"))
+    alive = torch.ones_like(pair[0], dtype=torch.bool)
+    total_pairs = torch.zeros_like(pair[0])
+    for p in pair:
+        p = torch.minimum(p, prev)
+        alive = alive & (p > 0)
+        prev = torch.where(alive, p, prev)
+        total_pairs = total_pairs + torch.where(alive, p, 0.0)
+    tau = torch.clamp(-1.0 + 2.0 * total_pairs, min=1.0)
+    return {"n": om.n, "mean": om.mean, "var": var,
+            "ess": n * n_chains / tau}
+
+
+def summarize(result, verbose: bool = True):
+    """End-of-run report: E-BFMI, mean acceptance and divergence rate per
+    chain, and the bulk ESS and R̂ of the draws (or the online summary's
+    ESS). The JAX report's tail ESS is not ported."""
+    stats = result.stats
+    report = {
+        "ebfmi": ebfmi(stats["hamiltonian_energy"]),
+        "mean_acceptance_rate": torch.mean(
+            stats["acceptance_rate"].to(torch.float64), 0),
+        "divergence_rate": torch.mean(
+            stats["numerical_error"].to(torch.float64), 0),
+    }
+    if result.thetas is not None:
+        report["ess"] = ess_bulk(result.thetas)
+        report["rhat"] = rhat(result.thetas)
+    elif result.online is not None:
+        report["ess"] = result.online["ess"]
+    if verbose:
+        msg = {k: float(torch.mean(v.to(torch.float64)))
+               for k, v in report.items()}
+        print(f"[advancedhmc_torch] sampling finished: {msg}")
+        if msg["divergence_rate"] > 0.25:
+            print("[advancedhmc_torch] WARNING: the level of numerical "
+                  "errors is high (>25% divergent transitions). Please "
+                  "check the model carefully.")
+    return report

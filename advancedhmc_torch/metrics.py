@@ -44,6 +44,11 @@ class Metric:
         (a metric without tensors is already per chain)."""
         return self
 
+    def take(self, chains):
+        """The metric of the chains `chains` (a slice): a per-chain M⁻¹'s
+        rows; a shared metric is every chain's."""
+        return self
+
 
 @dataclasses.dataclass(frozen=True)
 class UnitEuclideanMetric(Metric):
@@ -118,6 +123,12 @@ class DiagEuclideanMetric(Metric):
         return DiagEuclideanMetric(
             m_inv=self.m_inv.expand(n_chains, -1).contiguous(),
             sqrt_m_inv=self.sqrt_m_inv.expand(n_chains, -1).contiguous())
+
+    def take(self, chains):
+        if self.m_inv.dim() == 1:
+            return self
+        return DiagEuclideanMetric(m_inv=self.m_inv[chains],
+                                   sqrt_m_inv=self.sqrt_m_inv[chains])
 
 
 def make_metric(kind: str, dim: int, dtype=torch.float32,

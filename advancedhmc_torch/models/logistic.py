@@ -13,6 +13,14 @@ over the design laid out once per target); any other θ (the CPU,
 float64) the analytic value+grad, the counterpart of the JAX model's
 `logdensity_and_grad`.
 
+The JAX model's reduced-precision switches are here too. `x_dtype=
+"bfloat16"` stores the design rounded to bfloat16 (from the float64 data,
+as the JAX model does) and rounds β to it in both products and the
+residual before the gradient's, with float32 (at least the model's dtype)
+sums: the perturbed posterior is then sampled exactly. `resid_dtype=
+"bfloat16"` rounds the residual alone. The prior takes the unrounded θ. On
+CUDA K1 runs the same rounding (its modes, `ops.fused_logistic.mode_of`).
+
 `hierarchical_logistic_block` is the same model in the block form of the
 NUTS megakernel K2 (`ops/fused_nuts_kernel.py`).
 """
@@ -25,9 +33,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_logistic import fused_logistic_value_grad, kernel_route
+from ..ops.fused_logistic import fused_logistic_value_grad, kernel_route, \
+    mode_of
 from ..target import BlockTarget, LogDensityTarget
-from ..utils import resolve_device, roadmap
+from ..utils import reduced_dtype, resolve_device, round_to
 
 
 @lru_cache(maxsize=None)
@@ -56,31 +65,34 @@ def _prior(theta, p):
 def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
                           dtype=torch.float32, resid_dtype=None, x_dtype=None,
                           device=None) -> LogDensityTarget:
-    """The hierarchical logistic target on `device` (None means CUDA)."""
-    if resid_dtype is not None or x_dtype is not None:
-        raise NotImplementedError(
-            "reduced-precision residuals / design matrix are not ported yet "
-            + roadmap("options"))
+    """The hierarchical logistic target on `device` (None means CUDA), with
+    the design in `x_dtype` and the residual in `resid_dtype` (None, or
+    "bfloat16"; any other dtype raises, naming its ROADMAP.md item)."""
+    xd = reduced_dtype(x_dtype, "x_dtype")
+    rd = reduced_dtype(resid_dtype, "resid_dtype")
     device = resolve_device(device)
     x_np, y_np = _synthetic_data(n, p, seed)
-    x = torch.as_tensor(x_np, dtype=dtype, device=device).contiguous()
+    # rounded on the host, from float64 as the JAX model rounds it
+    x = round_to(torch.as_tensor(x_np), xd).to(dtype)
+    x = x.to(device).contiguous()
     y = torch.as_tensor(y_np, dtype=dtype, device=device)
-    likelihood = fused_logistic_value_grad(x, y)
+    likelihood = fused_logistic_value_grad(x, y, mode_of(xd, rd))
 
     def loglik(logits):
         return torch.sum(
             y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
 
     def logdensity(theta):
-        return _prior(theta, p)[0] + loglik(theta[:, 1:] @ x.T)
+        return _prior(theta, p)[0] + loglik(round_to(theta[:, 1:], xd) @ x.T)
 
     def logdensity_and_grad(theta):
         lp_pri, g_pri = _prior(theta, p)
         if kernel_route(theta):
             lp_lik, g_lik = likelihood(theta)
             return lp_pri + lp_lik, g_pri + g_lik
-        logits = theta[:, 1:] @ x.T
-        g_beta = (y - torch.sigmoid(logits)) @ x
+        logits = round_to(theta[:, 1:], xd) @ x.T
+        resid = round_to(round_to(y - torch.sigmoid(logits), rd), xd)
+        g_beta = resid @ x
         return lp_pri + loglik(logits), g_pri + F.pad(g_beta, (1, 0))
 
     return LogDensityTarget(logdensity, p + 1, logdensity_and_grad)

@@ -19,15 +19,20 @@ dot(ρ, M⁻¹r_a) = dot(M⁻¹ρ_sub, r_a) + dot(d_a, M⁻¹r_a) and
 dot(ρ, M⁻¹r_i) = dot(ρ_sub, M⁻¹r_i) + dot(d_a, M⁻¹r_i), ρ_sub being the
 running momentum sum of the current doubling. The stacks are updated in
 place; they carry one spare slot that odd leaves (and chains that store
-nothing) write to, so the write is a single scatter for every chain.
+nothing) write to, so the write is a single scatter for every chain. They
+are kept in the trajectory's `stack_dtype` (see `trajectory.py`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from .hamiltonian import PhasePoint, select_phasepoint
 from .integrators import leapfrog_step
+from .metrics import DiagEuclideanMetric
 from .termination import GeneralisedNoUTurn, MULTINOMIAL
 from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
     roadmap, trailing_ones, trailing_zeros
@@ -73,14 +78,26 @@ def _fresh_fields(z: PhasePoint, h0):
     )
 
 
-def _initial_state(z: PhasePoint, max_depth: int):
+def _initial_state(z: PhasePoint, max_depth: int, stack_dtype=None):
+    """The loop state of a transition from `z`: its tree fields and the
+    checkpoint stacks, ck_r and ck_d in `stack_dtype` (None: θ's dtype)."""
     c, d = z.theta.shape
     n_slots = max(1, max_depth - 1)
     st = _fresh_fields(z, z.energy())
-    st["ck_r"] = z.theta.new_zeros(c, n_slots + 1, d)
-    st["ck_d"] = z.theta.new_zeros(c, n_slots + 1, d)
+    sd = stack_dtype or z.theta.dtype
+    st["ck_r"] = z.theta.new_zeros(c, n_slots + 1, d, dtype=sd)
+    st["ck_d"] = z.theta.new_zeros(c, n_slots + 1, d, dtype=sd)
     st["sck_ad"] = z.theta.new_zeros(c, n_slots + 1)
     return st
+
+
+def _stack_dots(ck, v):
+    """dot(ck[c, s], v[c]) for every chain c and slot s: in θ's dtype on
+    full-precision stacks; on reduced ones with `v` rounded to the stacks'
+    dtype and the result rounded to it, as the JAX check's einsum."""
+    if ck.dtype == v.dtype:
+        return torch.bmm(ck, v[:, :, None])[:, :, 0]
+    return torch.bmm(ck, v.to(ck.dtype)[:, :, None])[:, :, 0].to(v.dtype)
 
 
 def _start(st, v_draw):
@@ -147,8 +164,8 @@ def _span_turn(st, h, i, s_rho, vel_new, max_depth, odd):
         a_safe == 0, n_slots - 1,
         torch.clamp(trailing_zeros(torch.clamp(a_safe, min=1)) - 1,
                     min=0, max=n_slots - 1))                           # (C, K)
-    u_a = torch.bmm(ck_r, h.velocity(s_rho)[:, :, None])[:, :, 0] + sck_ad
-    u_b = torch.bmm(ck_d, vel_new[:, :, None])[:, :, 0]
+    u_a = _stack_dots(ck_r, h.velocity(s_rho)) + sck_ad
+    u_b = _stack_dots(ck_d, vel_new)
     srv = torch.sum(s_rho * vel_new, -1)
     turn_slot = (u_a <= 0) | (u_b <= -srv[:, None])                   # (C, S+1)
     turn_k = torch.gather(turn_slot, 1, slot_a.long())
@@ -168,8 +185,8 @@ def _store(st, i, z_new, s_rho, vel_new, write):
     slot_w = torch.where(write, slot_even, n_slots).long()
     idx = slot_w[:, None, None].expand(c, 1, d)
     d_row = z_new.r - s_rho
-    ck_r.scatter_(1, idx, z_new.r[:, None])
-    ck_d.scatter_(1, idx, d_row[:, None])
+    ck_r.scatter_(1, idx, z_new.r[:, None].to(ck_r.dtype))
+    ck_d.scatter_(1, idx, d_row[:, None].to(ck_d.dtype))
     sck_ad.scatter_(1, slot_w[:, None], torch.sum(d_row * vel_new, -1)[:, None])
 
 
@@ -198,6 +215,7 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
     full_turn = (torch.sum(c_rho * c_vleft, -1) <= 0) | (
         torch.sum(c_rho * c_vright, -1) <= 0)
     depth = st["depth"] + (complete & not_term).to(torch.int32)
+    cap = st.get("cap", max_depth)     # a per-chain cap, where one is set
     return dict(
         h0=st["h0"],
         t_zleft=_sel(complete & ~fwd, z_new, st["t_zleft"]),
@@ -212,7 +230,7 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
         depth=depth,
         turning=st["turning"] | (complete & (s_turning | full_turn)),
         diverged=st["diverged"] | (complete & s_diverged),
-        done=(complete & (sub_done | full_turn)) | (depth >= max_depth),
+        done=(complete & (sub_done | full_turn)) | (depth >= cap),
         v=v,
         leaf=torch.where(complete, 0, i + 1),
         z_edge=z_new,
@@ -225,6 +243,7 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
         s_turning=s_turning & ~complete,
         s_diverged=s_diverged & ~complete,
         ck_r=st["ck_r"], ck_d=st["ck_d"], sck_ad=st["sck_ad"],
+        **({"cap": cap} if "cap" in st else {}),
     )
 
 
@@ -238,11 +257,8 @@ def _leaf(st, h, eps, max_depth, delta_max, generator,
     c = st["leaf"].shape[0]
     dtype, dev = st["h0"].dtype, st["h0"].device
     i = st["leaf"]
-    if force_directions is None:
-        v_draw = rand_sign(generator, (c,), dev)
-    else:
-        fd = torch.as_tensor(force_directions, dtype=torch.int32, device=dev)
-        v_draw = fd[torch.clamp(st["depth"], max=max_depth - 1).long()]
+    v_draw = (rand_sign(generator, (c,), dev) if force_directions is None
+              else _direction(st, force_directions, max_depth))
     v, fwd, z_edge, sub = _start(st, v_draw)
     z_new, vel_new, sub = _step(h, z_edge, eps * v.to(dtype), st["h0"],
                                 delta_max, sub, generator)
@@ -256,7 +272,15 @@ def _leaf(st, h, eps, max_depth, delta_max, generator,
                   act)
 
 
-def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None):
+def _direction(st, directions, max_depth):
+    """Each chain's direction from a (max_depth,) table of ±1, at its depth."""
+    fd = torch.as_tensor(directions, dtype=torch.int32,
+                         device=st["depth"].device)
+    return fd[torch.clamp(st["depth"], max=max_depth - 1).long()]
+
+
+def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None,
+               directions=None):
     """Advance every chain by the aligned (even, odd) leaf pair of its
     current doubling, or by the lone leaf of a depth-0 doubling: the
     leaf-pair body (`advancedhmc_tpu/nuts.py` `body_pair`). Every chain is
@@ -269,11 +293,14 @@ def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None):
     masked. The draws are those of two `_leaf` calls, in their order, for
     every chain: A's sign, uniform and exponential, then B's (B's sign is
     never used); the merge takes B's exponential when the pair goes on and
-    A's when it ends at A."""
+    A's when it ends at A. With a table of `directions` (coupled chains)
+    no sign is drawn, as in `_leaf`."""
     c = st["leaf"].shape[0]
     dtype, dev = st["h0"].dtype, st["h0"].device
     h0, i_a = st["h0"], st["leaf"]
-    v, fwd, z_edge, sub = _start(st, rand_sign(generator, (c,), dev))
+    v, fwd, z_edge, sub = _start(
+        st, rand_sign(generator, (c,), dev) if directions is None
+        else _direction(st, directions, max_depth))
     eps_v = eps * v.to(dtype)
     # leaf A (even): its checkpoint; no span ends at an even leaf
     z_a, vel_a, sub_a = _step(h, z_edge, eps_v, h0, delta_max, sub,
@@ -284,7 +311,8 @@ def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None):
     _store(st, i_a, z_a, sub_a["s_rho"], vel_a,
            torch.ones_like(pair_go) if act is None else act)
     # leaf B (odd): the span checks
-    rand_sign(generator, (c,), dev)
+    if directions is None:
+        rand_sign(generator, (c,), dev)
     z_b, vel_b, sub_b = _step(h, z_a, eps_v, h0, delta_max, sub_a, generator)
     e_b = rand_exponential(generator, (c,), dtype, dev)
     i_b = i_a + 1
@@ -317,7 +345,7 @@ def _stats(zcand: PhasePoint, h0, n_alpha, sum_alpha, dh_max, depth,
 
 def nuts_transition(generator, h, traj, z0: PhasePoint,
                     force_directions=None, return_debug=False,
-                    _pair=False, **options):
+                    coupled_key=None, _pair=False, **options):
     """One NUTS transition of every chain of `z0`; returns (z_next, stats).
 
     The integrator's step size is a scalar or one per chain (C,), and so is
@@ -325,15 +353,21 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
     loop runs until every chain's tree is done; a finished chain keeps its
     state and stores no further checkpoint.
 
+    `coupled_key`, a `torch.Generator` on the chains' device, couples the
+    chains' doubling directions (the reference's `rand_coupled` mode, the
+    JAX function's `coupled_key`): a table of one sign per depth is drawn
+    from it once, at the start of the transition, and every chain takes the
+    table's sign at its depth, so all chains at one depth go the same way.
+    No per-chain sign is drawn then.
+
     Test hooks: `force_directions` ((max_depth,) array of ±1) overrides the
-    per-doubling direction draw; `return_debug` also returns the final loop
-    state (tree edges, ρ, log weight, stacks). `_pair` runs the leaf-pair
-    body (`_leaf_pair`) after the first iteration, which is every chain's
-    lone depth-0 leaf and runs as one `_leaf`: so the generator is drawn
-    exactly as with the single-leaf body, and the transition gives the same
-    bits, every field and every stack slot that a check reads (the spare
-    slot is a write-only sink). The JAX function's `coupled_key` is not
-    ported yet."""
+    per-doubling direction draw (and `coupled_key`); `return_debug` also
+    returns the final loop state (tree edges, ρ, log weight, stacks).
+    `_pair` runs the leaf-pair body (`_leaf_pair`) after the first
+    iteration, which is every chain's lone depth-0 leaf and runs as one
+    `_leaf`: so the generator is drawn exactly as with the single-leaf
+    body, and the transition gives the same bits, every field and every
+    stack slot that a check reads (the spare slot is a write-only sink)."""
     not_ported("nuts_transition", options)
     _check_trajectory(traj)
     if _pair and force_directions is not None:
@@ -341,18 +375,22 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
                          "body; use the single-leaf body (_pair=False)")
     crit = traj.criterion
     max_depth = int(crit.max_depth)
+    dev = z0.theta.device
     eps = torch.as_tensor(traj.integrator.current_step_size,
-                          dtype=z0.theta.dtype, device=z0.theta.device)
-    st = _initial_state(z0, max_depth)
+                          dtype=z0.theta.dtype, device=dev)
+    directions = force_directions
+    if directions is None and coupled_key is not None:
+        directions = rand_sign(coupled_key, (max_depth,), dev)
+    st = _initial_state(z0, max_depth, traj.stack_torch_dtype)
     first = True
     while not bool(st["done"].all()):
         running = ~st["done"]     # finished chains keep their state
         if _pair and not first:
             new = _leaf_pair(st, h, eps, max_depth, crit.delta_max,
-                             generator, act=running)
+                             generator, act=running, directions=directions)
         else:
             new = _leaf(st, h, eps, max_depth, crit.delta_max, generator,
-                        force_directions, act=running)
+                        directions, act=running)
         first = False
         st = {k: v if k.startswith(("ck_", "sck_")) else _sel(running, v, st[k])
               for k, v in new.items()}
@@ -371,8 +409,9 @@ _STAT_FIELDS = ("n_steps", "acceptance_rate", "log_density",
 
 def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                            n_transitions: int, refreshment,
-                           batched: bool = True, pair: bool = False,
-                           **options):
+                           adapt_cfg=None, adapt_state=None,
+                           adapt_flags=None, batched: bool = True,
+                           depth_caps=None, pair: bool = False, **options):
     """Run `n_transitions` NUTS transitions per chain inside ONE loop.
 
     Chains advance through their own transition sequences asynchronously:
@@ -385,6 +424,21 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     Returns (z_final, thetas (C, n_transitions, dim), stats of
     (C, n_transitions)). `z_final` is each chain's last candidate; its
     momentum is stale and is refreshed before any further use.
+
+    Warmup mode (the JAX function's): with `adapt_cfg`, `adapt_state`
+    (per-chain AdaptState: ε (C,), Welford n (C,)) and `adapt_flags` (the
+    flag arrays of `adapt_flags`, at least `n_transitions` long), each
+    chain's adaptation step runs inside the loop at its own transition
+    boundary, indexed by its own transition count (`adapt_step_masked`):
+    dual averaging, the Welford push, the Stan window reset, and the metric
+    renewal. The chain's next transition runs at its new ε and, with a
+    diagonal metric and an adapted mass matrix, its new M⁻¹. `h` then
+    carries a unit or a per-chain diagonal metric and `traj` each chain's
+    ε. Returns (z_final, thetas, stats, adapt_state_final).
+
+    `depth_caps` ((n_transitions,) ints) caps the tree depth of a chain's
+    t-th transition at depth_caps[t], clamped to the criterion's max_depth
+    (the stacks are sized for it).
 
     `pair=True` runs the leaf-pair body (`_leaf_pair`): two leaves an
     iteration, the per-iteration work (stats, records, refresh) once per
@@ -404,8 +458,29 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     eps = torch.as_tensor(traj.integrator.current_step_size, dtype=dtype,
                           device=dev)
     n_t = n_transitions
+    adaptive = adapt_cfg is not None
+    adapt_metric = adaptive and adapt_cfg.uses_mm
+    if adaptive:
+        from .adaptation import adapt_step_masked
 
-    st = _initial_state(refreshment.refresh(generator, h, z0), max_depth)
+        flags = {k: torch.as_tensor(np.asarray(adapt_flags[k])[:n_t],
+                                    device=dev)
+                 for k in ("is_adapt", "in_window", "window_end", "is_last")}
+        ad = adapt_state
+        eps = torch.broadcast_to(eps, (c,)).clone()
+        if adapt_metric and not isinstance(h.metric, DiagEuclideanMetric):
+            raise ValueError("in-loop mass-matrix adaptation needs a "
+                             "diagonal metric")
+
+    st = _initial_state(refreshment.refresh(generator, h, z0), max_depth,
+                        traj.stack_torch_dtype)
+    if depth_caps is not None:
+        caps = torch.clamp(torch.as_tensor(np.asarray(depth_caps),
+                                           dtype=torch.int32, device=dev),
+                           max=max_depth)
+        if caps.shape != (n_t,):
+            raise ValueError(f"depth_caps must have shape ({n_t},)")
+        st["cap"] = caps[0].expand(c).clone()
     t = torch.zeros(c, dtype=torch.int32, device=dev)
     all_done = torch.zeros(c, dtype=torch.bool, device=dev)
     # one spare row: chains that record nothing write there
@@ -425,16 +500,34 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         out_theta.scatter_(1, row.expand(c, 1, d), zc.theta[:, None])
         out_stats.scatter_(1, row.expand(c, 1, len(_STAT_FIELDS)),
                            vals[:, None])
+        t_done = t
         t = t + boundary.to(torch.int32)
         all_done = t >= n_t
-
-        # prepare the next transition of the chains that just finished one
-        z_next = h.phasepoint(zc.theta, h.rand_momentum(generator, c),
-                              logdensity=zc.logdensity, grad=zc.grad)
-        fresh = _fresh_fields(z_next, z_next.energy())
         reset = boundary & ~all_done
+
+        h_next = h
+        if adaptive:
+            # each finishing chain's adaptation step, at its own count
+            idx = torch.clamp(t_done, max=n_t - 1).long()
+            ad = adapt_step_masked(
+                adapt_cfg, ad, zc.theta, s["acceptance_rate"],
+                {k: v[idx] for k, v in flags.items()}, boundary)
+            eps = torch.where(reset, ad.da.eps, eps)
+            if adapt_metric:
+                h_next = dataclasses.replace(h, metric=DiagEuclideanMetric.create(
+                    torch.where(reset[:, None], ad.mm.m_inv, h.metric.m_inv)))
+        # prepare the next transition of the chains that just finished one
+        z_next = h_next.phasepoint(zc.theta,
+                                   h_next.rand_momentum(generator, c),
+                                   logdensity=zc.logdensity, grad=zc.grad)
+        fresh = _fresh_fields(z_next, z_next.energy())
         st = {k: _sel(reset, fresh[k], v) if k in fresh else v
               for k, v in st2.items()}
+        if depth_caps is not None:
+            st["cap"] = torch.where(
+                boundary, caps[torch.clamp(t, max=n_t - 1).long()],
+                st2["cap"])
+        h = h_next
         it += 1
         if it % _CHECK_EVERY == 0 and bool(all_done.all()):
             break
@@ -446,4 +539,6 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     stats["numerical_error"] = stats["numerical_error"] > 0
     stats["is_accept"] = torch.ones_like(stats["numerical_error"])
     stats["nom_step_size"] = stats["step_size"]
+    if adaptive:
+        return st["zcand"], out_theta[:, :n_t], stats, ad
     return st["zcand"], out_theta[:, :n_t], stats

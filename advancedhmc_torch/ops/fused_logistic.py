@@ -35,11 +35,24 @@ maps, `WideDesign`) at its first CUDA call and again only after x is
 written in place; `logistic_value_grad` called with a raw x and no
 `design` prepares one for the call.
 
+Modes, the JAX model's reduced-precision switches: MODE_F32 is the above.
+MODE_BF16 (`x_dtype="bfloat16"`) rounds θ, x and the residual to bfloat16,
+products exact, sums in float32: what the JAX model computes with a bf16
+design, and what the Pallas kernel always computes (it casts θ and the
+residual to bfloat16). A bfloat16 value is exact in TF32, so the kernels
+run one TF32 product where MODE_F32 runs three (no lo passes); the narrow
+instances round θ and x where they load them, the wide path's design is
+laid out rounded (its lo plane zero). MODE_RESID_BF16 (`resid_dtype=
+"bfloat16"` on a float32 design) rounds the residual alone. On the card a
+mode runs its own kernel instances; there is no route to the plain
+version.
+
 `logistic_value_grad` dispatches on the device of θ: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the kernels or raises.
 On the card, `logistic_value_grad.calls` counts its value+grad calls and
 `logistic_value_grad.launches` the kernels they launched, as the library
-reports them: one a call up to p = 128, two (the two GEMMs) above.
+reports them: one a call up to p = 128, two (the two GEMMs) above, in every
+mode; `.bf16_calls` and `.bf16_launches` count those of MODE_BF16 apart.
 """
 
 from __future__ import annotations
@@ -49,8 +62,20 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils import round_to
 
 _LIB = "fused_logistic"
+# the modes, numbered as the C interface numbers them (logistic_tile.cuh)
+MODE_F32, MODE_BF16, MODE_RESID_BF16 = 0, 1, 2
+
+
+def mode_of(x_dtype, resid_dtype):
+    """K1's mode for the model's switches (torch dtypes or None): a
+    bfloat16 design rounds the residual too, as the JAX model casts it to
+    the design's dtype for the gradient's product."""
+    if x_dtype is not None:
+        return MODE_BF16
+    return MODE_RESID_BF16 if resid_dtype is not None else MODE_F32
 
 
 def kernel_route(theta):
@@ -61,27 +86,69 @@ def kernel_route(theta):
     return theta.is_cuda and theta.dtype == torch.float32
 
 
-def plain_logistic_value_grad(theta, x, y):
-    """The same function in plain PyTorch: two matmuls and elementwise ops."""
-    logits = theta[:, 1:] @ x.T                                # (C, n)
+def plain_logistic_value_grad(theta, x, y, mode=MODE_F32):
+    """The same function in plain PyTorch: two matmuls and elementwise ops,
+    with the mode's operands rounded to bfloat16 (the products of rounded
+    operands are exact in θ's dtype)."""
+    bf16 = torch.bfloat16 if mode == MODE_BF16 else None
+    beta, x = round_to(theta[:, 1:], bf16), round_to(x, bf16)
+    logits = beta @ x.T                                        # (C, n)
     loglik = torch.sum(
         y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
-    g = (y - torch.sigmoid(logits)) @ x                        # (C, p)
+    resid = round_to(y - torch.sigmoid(logits),
+                     None if mode == MODE_F32 else torch.bfloat16)
+    g = resid @ x                                              # (C, p)
     return loglik, torch.cat([torch.zeros_like(g[:, :1]), g], 1)
+
+
+def rounding_reference(theta, x, y, mode, logit_slack=2.0 ** -14):
+    """The function of `mode` in float64 (its roundings, exact sums), and
+    how far a float32 evaluation of it can lie from that through the
+    residual's rounding alone. Float32 sums of the logits in another order
+    move a logit by far less than `logit_slack`, so a residual y − σ(l) by
+    less than `logit_slack`·σ(l)(1 − σ(l)) (and its own float32 rounding);
+    where that reaches a bfloat16 rounding midpoint, the residual can round
+    to its other neighbour, one bfloat16 step away, and move the gradient
+    by that step times |x|. Returns (loglik, grad, allowance (C, dim),
+    residuals near a midpoint); the allowance is zero in MODE_F32 and for
+    every chain with no residual near a midpoint."""
+    th, x, y = theta.double(), x.double(), y.double()
+    lp, g = plain_logistic_value_grad(th, x, y, mode)
+    if mode == MODE_F32:
+        return lp, g, torch.zeros_like(g), 0
+    bf16 = torch.bfloat16 if mode == MODE_BF16 else None
+    xr = round_to(x, bf16)
+    sig = torch.sigmoid(round_to(th[:, 1:], bf16) @ xr.T)
+    r = y - sig
+    slack = logit_slack * sig * (1.0 - sig) + 2.0 ** -22 * r.abs()
+    rb = r.to(torch.bfloat16)
+    bits = rb.view(torch.int16)
+    near_mid, step = None, None
+    for nb in ((bits + 1).view(torch.bfloat16), (bits - 1).view(
+            torch.bfloat16)):
+        gap = (nb.double() - rb.double()).abs()
+        dist = (r - 0.5 * (nb.double() + rb.double())).abs()
+        ok = torch.isfinite(gap) & (dist <= slack)
+        near_mid = ok if near_mid is None else near_mid | ok
+        add = torch.where(ok, gap, 0.0)
+        step = add if step is None else torch.maximum(step, add)
+    allowance = step @ xr.abs()
+    allowance = torch.cat([torch.zeros_like(allowance[:, :1]), allowance], 1)
+    return lp, g, allowance, int(near_mid.sum())
 
 
 def _kernel(lib):
     fn = lib.fused_logistic_value_grad_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         lib.fused_logistic_smem_bytes.argtypes = [ctypes.c_int]
         lib.fused_logistic_smem_bytes.restype = ctypes.c_size_t
-        lib.fused_logistic_launch_shape.argtypes = [ctypes.c_int] * 3 + [
+        lib.fused_logistic_launch_shape.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)] * 2
         lib.fused_logistic_launch_shape.restype = None
-        lib.fused_logistic_wide_shape.argtypes = [ctypes.c_int] * 3 + [
+        lib.fused_logistic_wide_shape.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.fused_logistic_wide_shape.restype = ctypes.c_int
         lib.fused_logistic_wide_design_bytes.argtypes = []
@@ -138,12 +205,13 @@ def tf32_round(v):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def wide_layout(x):
+def wide_layout(x, mode=MODE_F32):
     """x (n, p) float32 laid out for the wide path: `(planes, t_planes)`.
     `planes` (2, n_pad, k_pad) holds the TF32 part hi and the float32
     remainder lo = x − hi (so hi + lo == x exactly) of [0 | x]: column 0 is
     zero (θ's column 0, log σ, drops out of the logits and gradient), as
-    are the rows past n and the columns past dim = p + 1. `t_planes` (2,
+    are the rows past n and the columns past dim = p + 1. In MODE_BF16, hi
+    is x rounded to bfloat16 (exact in TF32) and lo is zero. `t_planes` (2,
     k_pad, n_pad) is its transpose, the K-major operand of the gradient's
     product. n_pad and k_pad are n (at least 1) and dim rounded up to
     WIDE_K_TILE, so every row is 16-byte aligned for TMA."""
@@ -151,25 +219,31 @@ def wide_layout(x):
     padded = x.new_zeros(_round_up(max(n, 1), WIDE_K_TILE),
                          _round_up(p + 1, WIDE_K_TILE))
     padded[:n, 1:p + 1] = x
-    hi = tf32_round(padded)
-    planes = torch.stack([hi, padded - hi])
+    if mode == MODE_BF16:
+        hi = round_to(padded, torch.bfloat16)
+        planes = torch.stack([hi, torch.zeros_like(hi)])
+    else:
+        hi = tf32_round(padded)
+        planes = torch.stack([hi, padded - hi])
     return planes, planes.transpose(1, 2).contiguous()
 
 
 class WideDesign:
     """A float32 CUDA design x (n, p), p > NARROW_MAX_P, prepared for the
-    wide path: the planes of `wide_layout` and their TMA maps, which the
-    library encodes once into `maps` (the planes must outlive the maps: the
-    object holds both). `WideDesign.builds` counts the designs prepared."""
+    wide path in `mode`: the planes of `wide_layout` and their TMA maps,
+    which the library encodes once into `maps` (the planes must outlive the
+    maps: the object holds both). `WideDesign.builds` counts the designs
+    prepared."""
 
     builds = 0
 
-    def __init__(self, x):
+    def __init__(self, x, mode=MODE_F32):
         lib = _build.load(_LIB)
         _kernel(lib)
         self.n, p = x.shape
         self.dim = p + 1
-        self.planes, self.t_planes = wide_layout(x)
+        self.mode = mode
+        self.planes, self.t_planes = wide_layout(x, mode)
         self.maps = ctypes.create_string_buffer(
             lib.fused_logistic_wide_design_bytes())
         err = lib.fused_logistic_wide_prepare(
@@ -188,27 +262,30 @@ WIDE_SHAPE_FIELDS = (
     "chain_tiles", "stage_a_column_tiles", "stage_b_column_tiles")
 
 
-def wide_launch_shape(n_chains, dim, n):
-    """The wide path's launches for a call's shape on the current card: a
-    dict of WIDE_SHAPE_FIELDS (blocks and split-K ranks a cluster of each
-    launch, blocks per SM, shared memory and threads a block, tiles)."""
+def wide_launch_shape(n_chains, dim, n, mode=MODE_F32):
+    """The wide path's launches for a call's shape and mode on the current
+    card: a dict of WIDE_SHAPE_FIELDS (blocks and split-K ranks a cluster
+    of each launch, blocks per SM, shared memory and threads a block,
+    tiles)."""
     lib = _build.load(_LIB)
     _kernel(lib)
     out = (ctypes.c_int * len(WIDE_SHAPE_FIELDS))()
-    err = lib.fused_logistic_wide_shape(n_chains, dim, n, out)
+    err = lib.fused_logistic_wide_shape(n_chains, dim, n, mode, out)
     if err != 0:
         _raise(lib, "launch shape", err)
     return dict(zip(WIDE_SHAPE_FIELDS, out))
 
 
-def logistic_value_grad(theta, x, y, design=None):
+def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32):
     """Likelihood part of the hierarchical logistic: `theta (C, dim)`,
-    `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`. Above p =
-    NARROW_MAX_P a CUDA call takes x's prepared `design` (a WideDesign of
-    this x), prepared here for the call when not given. Each call on the
-    card counts one in `.calls` and its kernels in `.launches`."""
+    `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`, in `mode`.
+    Above p = NARROW_MAX_P a CUDA call takes x's prepared `design` (a
+    WideDesign of this x in this mode), prepared here for the call when not
+    given. Each call on the card counts one in `.calls` and its kernels in
+    `.launches` (and, in MODE_BF16, in `.bf16_calls` and
+    `.bf16_launches`)."""
     if theta.device.type == "cpu":
-        return plain_logistic_value_grad(theta, x, y)
+        return plain_logistic_value_grad(theta, x, y, mode)
     _check_inputs(theta, x, y)
     lib = _build.load(_LIB)
     fn = _kernel(lib)
@@ -216,7 +293,10 @@ def logistic_value_grad(theta, x, y, design=None):
     scratch = None
     if dim - 1 > NARROW_MAX_P:
         if design is None:
-            design = WideDesign(x)
+            design = WideDesign(x, mode)
+        if design.mode != mode:
+            raise ValueError(f"the design was laid out for mode "
+                             f"{design.mode}, the call is in mode {mode}")
         scratch = torch.empty(lib.fused_logistic_wide_scratch_floats(c, n),
                               dtype=torch.float32, device=theta.device)
     loglik = torch.empty(c, dtype=torch.float32, device=theta.device)
@@ -224,7 +304,7 @@ def logistic_value_grad(theta, x, y, design=None):
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     launched = ctypes.c_int(0)
     err = fn(theta.data_ptr(), x.data_ptr(), y.data_ptr(), loglik.data_ptr(),
-             grad.data_ptr(), c, dim, n,
+             grad.data_ptr(), c, dim, n, mode,
              None if scratch is None else ctypes.addressof(design.maps),
              None if scratch is None else scratch.data_ptr(), stream,
              ctypes.byref(launched))
@@ -232,23 +312,28 @@ def logistic_value_grad(theta, x, y, design=None):
         _raise(lib, "kernel launch", err)
     logistic_value_grad.calls += 1
     logistic_value_grad.launches += launched.value
+    if mode == MODE_BF16:
+        logistic_value_grad.bf16_calls += 1
+        logistic_value_grad.bf16_launches += launched.value
     return loglik, grad
 
 
 logistic_value_grad.calls = 0
 logistic_value_grad.launches = 0
+logistic_value_grad.bf16_calls = 0
+logistic_value_grad.bf16_launches = 0
 
 
-def fused_logistic_value_grad(x, y):
+def fused_logistic_value_grad(x, y, mode=MODE_F32):
     """Build `apply(thetas (C, dim)) -> (loglik (C,), grad (C, dim))` over the
     (n, p) design matrix `x` and (n,) 0/1 responses `y` (dim = p + 1, the
-    gradient's component 0 is 0; the caller adds the prior), as the JAX
-    function of the same name does. The data stays on its device in its own
-    dtype; the kernel is chosen by the device of `thetas` at each call.
-    Above p = NARROW_MAX_P the design is prepared for the wide path at the
-    first call on the card (`apply.design`), and again only once x has been
-    written in place (its version counter moved), so that every route reads
-    the x of the moment."""
+    gradient's component 0 is 0; the caller adds the prior), in `mode`, as
+    the JAX function of the same name does. The data stays on its device in
+    its own dtype; the kernel is chosen by the device of `thetas` at each
+    call. Above p = NARROW_MAX_P the design is prepared for the wide path
+    at the first call on the card (`apply.design`), and again only once x
+    has been written in place (its version counter moved), so that every
+    route reads the x of the moment."""
     x = x.contiguous()
     y = y.to(x.dtype).contiguous()
 
@@ -256,8 +341,8 @@ def fused_logistic_value_grad(x, y):
         if (thetas.is_cuda and x.shape[1] > NARROW_MAX_P
                 and (apply.design is None or apply.version != x._version)):
             _check_inputs(thetas, x, y)
-            apply.design, apply.version = WideDesign(x), x._version
-        return logistic_value_grad(thetas, x, y, apply.design)
+            apply.design, apply.version = WideDesign(x, mode), x._version
+        return logistic_value_grad(thetas, x, y, apply.design, mode)
 
     apply.design = apply.version = None
     return apply

@@ -5,14 +5,17 @@ PyTorch counterpart of `advancedhmc_tpu/sampler.py`. At its defaults
 has its own ε, diagonal M⁻¹, dual-averaging and Welford state) and runs one
 `sample_step` per iteration. `cross_chain=True` shares one adaptation state
 over the chain batch (the Welford moments pooled over it). The draws run
-step by step or, with `fuse_draws`, through `fused_draw_phase`; a
-cross-chain warmup runs in fused blocks with `fuse_warmup`
+step by step or, with `fuse_draws`, through `fused_draw_phase`; a warmup
+runs fused with `fuse_warmup`: per chain with the adaptation inside the
+fused loop (`fused_warmup_phase`), or cross-chain in blocks
 (`fused_warmup_phase_crosschain`), optionally on a sub-pool that
-`fanout_warmup_state` fans out; `fuse_pair` runs the fused phases on the
-leaf-pair body. Randomness comes from one `torch.Generator` on the
+`fanout_warmup_state` fans out, or depth-capped. `fuse_pair` runs the fused
+phases on the leaf-pair body, `fuse_chain_chunks` in sequential chain
+sub-batches; `thin`, `collect="online"`, `coupled` and the progress display
+are the JAX function's. Randomness comes from one `torch.Generator` on the
 sampler's device, passed to each function; the state carries no key. The
-per-chain fused warmup and the thinned, online, coupled and mesh paths are
-not ported; each raises, naming its ROADMAP.md item.
+`mesh` option (multi-GPU) is not ported; it raises, naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -30,11 +33,14 @@ from .adaptation import (
     STAN,
     AdaptorConfig,
     AdaptState,
+    DualAveragingState,
     adapt_flags,
     adapt_step,
     adapt_step_batch,
     da_update,
 )
+from .diagnostics import online_init, online_summary, online_update, \
+    summarize
 from .hamiltonian import Hamiltonian, PhasePoint
 from .kinetic import GaussianKinetic
 from .metrics import DiagEuclideanMetric, Metric, UnitEuclideanMetric
@@ -43,6 +49,9 @@ from .stepsize_search import find_good_stepsize, find_good_stepsizes
 from .target import LogDensityTarget
 from .trajectory import HMCKernel
 from .utils import not_ported, resolve_device, roadmap
+
+_PREFIX = "[advancedhmc_torch]"
+_PZ = ("theta", "r", "logdensity", "grad", "neg_k")
 
 @dataclasses.dataclass(frozen=True)
 class HMCState:
@@ -62,7 +71,10 @@ class HMCState:
 
 @dataclasses.dataclass(frozen=True)
 class SampleSpec:
-    """Static configuration of a run."""
+    """Static configuration of a run. `coupled` shares the NUTS doubling
+    direction across chains (the reference's `rand_coupled` mode): each
+    transition draws one sign per depth from the generator, and every chain
+    at that depth takes it (`nuts_transition`'s `coupled_key`)."""
 
     target: LogDensityTarget
     kernel: HMCKernel
@@ -71,31 +83,74 @@ class SampleSpec:
     kinetic: GaussianKinetic = GaussianKinetic()
     coupled: bool = False
 
-    def __post_init__(self):
-        if self.coupled:
-            raise NotImplementedError(
-                "coupled trajectory randomness is not ported yet "
-                + roadmap("options"))
-
 
 def _hamiltonian(spec, state):
     return Hamiltonian(metric=state.metric, target=spec.target,
                        kinetic=spec.kinetic)
 
 
-def _run_fused(generator, spec, state, n_transitions, pair=False):
+def _take_z(z, chains):
+    return PhasePoint(*(getattr(z, f)[chains] for f in _PZ))
+
+
+def _cat_z(zs):
+    return PhasePoint(*(torch.cat([getattr(z, f) for z in zs]) for f in _PZ))
+
+
+def _run_fused(generator, spec, state, n_transitions, pair=False,
+               chain_chunks=1, depth_caps=None):
     """One fused call at the state's frozen ε and M⁻¹, shared or per chain,
-    on the leaf-pair body if `pair`; outputs (T, C, ...)."""
-    traj = spec.kernel.trajectory.with_nom_step_size(state.adapt.da.eps)
-    z, ths, stats = nuts_transitions_fused(
-        generator, _hamiltonian(spec, state), traj, state.z, n_transitions,
-        spec.kernel.refreshment, pair=pair)
-    return z, ths.transpose(0, 1), {k: v.transpose(0, 1)
-                                    for k, v in stats.items()}
+    on the leaf-pair body if `pair`, in `chain_chunks` sequential
+    sub-batches of the chains (each its own loop, so the chains' streams
+    differ from one loop's, in the same law); outputs (T, C, ...)."""
+    c = state.z.theta.shape[0]
+    if c % chain_chunks:
+        raise ValueError("chain_chunks must divide the chain count")
+    eps = state.adapt.da.eps
+    size = c // chain_chunks
+    zs, ths, stats = [], [], []
+    for lo in range(0, c, size):
+        chains = slice(lo, lo + size)
+        h = Hamiltonian(metric=state.metric.take(chains), target=spec.target,
+                        kinetic=spec.kinetic)
+        traj = spec.kernel.trajectory.with_nom_step_size(
+            eps[chains] if eps.dim() else eps)
+        z, th, st = nuts_transitions_fused(
+            generator, h, traj, _take_z(state.z, chains), n_transitions,
+            spec.kernel.refreshment, depth_caps=depth_caps, pair=pair)
+        zs.append(z)
+        ths.append(th.transpose(0, 1))
+        stats.append({k: v.transpose(0, 1) for k, v in st.items()})
+    if len(zs) == 1:
+        return zs[0], ths[0], stats[0]
+    return (_cat_z(zs), torch.cat(ths, 1),
+            {k: torch.cat([b[k] for b in stats], 1) for k in stats[0]})
 
 
 def _cat_stats(blocks):
     return {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}
+
+
+def _thin_block(ths, stats, thin):
+    """Every `thin`-th draw of a (block, C, ...) batch: the kept rows carry
+    the kept transition's stats, but `n_steps` summed over the thinned
+    block and `numerical_error` OR-ed over it (as the JAX function)."""
+    n_keep = ths.shape[0] // thin
+    shaped = {k: v.reshape((n_keep, thin) + v.shape[1:])
+              for k, v in stats.items()}
+    out = {k: v[:, -1] for k, v in shaped.items()}
+    out["n_steps"] = torch.sum(shaped["n_steps"], 1, dtype=torch.int32)
+    out["numerical_error"] = torch.any(shaped["numerical_error"], 1)
+    return ths[thin - 1::thin], out
+
+
+def _capped(spec, max_depth):
+    """`spec` with its NUTS tree depth capped at `max_depth`."""
+    traj = spec.kernel.trajectory
+    traj = dataclasses.replace(traj, criterion=dataclasses.replace(
+        traj.criterion, max_depth=int(max_depth)))
+    return dataclasses.replace(
+        spec, kernel=dataclasses.replace(spec.kernel, trajectory=traj))
 
 
 def fanout_warmup_state(spec: SampleSpec, state: HMCState,
@@ -125,50 +180,107 @@ def fanout_warmup_state(spec: SampleSpec, state: HMCState,
 
 
 def fused_draw_phase(generator, spec: SampleSpec, state: HMCState,
-                     n_draws: int, fuse: int, pair: bool = False, **options):
+                     n_draws: int, fuse: int, *, thin: int = 1,
+                     online_om=None, progress_cb=None, chain_chunks: int = 1,
+                     pair: bool = False, **options):
     """Post-warmup draws, `fuse` transitions per fused call, adaptation
     frozen, at the state's ε and M⁻¹ (shared, or each chain's own), on the
-    leaf-pair body if `pair`. Returns (state, thetas (n_draws, C, dim),
-    stats (n_draws, C))."""
+    leaf-pair body if `pair`, in `chain_chunks` sequential sub-batches of
+    the chains. `thin` keeps every thin-th draw (it must divide `fuse`).
+    Returns (state, thetas (n_draws // thin, C, dim), stats). With
+    `online_om` (an `OnlineMoments`) the draws are folded into it instead
+    of stored: (state, None, stats (n_draws, C), online_moments).
+    `progress_cb(iteration, stats, metric)` is called after every call."""
     not_ported("fused_draw_phase", options)
     if n_draws % fuse:
         raise ValueError("fuse must divide the draw count")
-    z, ths, stats = state.z, [], []
+    if fuse % thin:
+        raise ValueError("thin must divide fuse")
+    z, ths, stats, om = state.z, [], [], online_om
     for _ in range(n_draws // fuse):
         z, th, st = _run_fused(generator, spec,
-                               dataclasses.replace(state, z=z), fuse, pair)
-        ths.append(th)
+                               dataclasses.replace(state, z=z), fuse, pair,
+                               chain_chunks)
+        st["is_adapt"] = torch.zeros_like(st["numerical_error"])
+        state = dataclasses.replace(state, iteration=state.iteration + fuse,
+                                    z=z)
+        if progress_cb is not None:
+            progress_cb(state.iteration, {k: v[-1] for k, v in st.items()},
+                        state.metric)
+        if om is not None:
+            for x in th:
+                om = online_update(om, x)
+        elif thin > 1:
+            th, st = _thin_block(th, st, thin)
+        if om is None:
+            ths.append(th)
         stats.append(st)
     stats = _cat_stats(stats)
-    stats["is_adapt"] = torch.zeros_like(stats["numerical_error"])
-    state = dataclasses.replace(state, iteration=state.iteration + n_draws,
-                                z=z)
+    if om is not None:
+        return state, None, stats, om
     return state, torch.cat(ths), stats
+
+
+def fused_warmup_phase(generator, spec: SampleSpec, state: HMCState,
+                       n_adapts: int, *, pair: bool = False):
+    """Per-chain warmup with the adaptation INSIDE the fused loop: each
+    chain adapts on its own window schedule, by its own transition count,
+    at its own transition boundaries (`nuts_transitions_fused`'s warmup
+    mode), with the fused loop's asynchronous chains: the JAX function's
+    reference-exact per-chain semantics. Takes per-chain adaptation and a
+    unit or diagonal metric, with the Welford variance estimator or no
+    mass-matrix adaptation. Returns (state, warm_thetas (n_adapts, C,
+    dim), warm_stats)."""
+    cfg = spec.adaptor
+    if spec.cross_chain:
+        raise ValueError("fused_warmup_phase adapts each chain on its own; "
+                         "use fused_warmup_phase_crosschain")
+    h = _hamiltonian(spec, state)
+    traj = spec.kernel.trajectory.with_nom_step_size(state.adapt.da.eps)
+    z, ths, stats, ad = nuts_transitions_fused(
+        generator, h, traj, state.z, n_adapts, spec.kernel.refreshment,
+        adapt_cfg=cfg, adapt_state=state.adapt,
+        adapt_flags=adapt_flags(cfg, n_adapts, n_adapts), pair=pair)
+    metric = state.metric.renew(ad.mm.m_inv) if cfg.uses_mm else state.metric
+    stats = {k: v.transpose(0, 1) for k, v in stats.items()}
+    stats["is_adapt"] = torch.ones_like(stats["numerical_error"])
+    return (HMCState(iteration=state.iteration + n_adapts, z=z,
+                     metric=metric, adapt=ad),
+            ths.transpose(0, 1), stats)
 
 
 def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
                                   state: HMCState, n_adapts: int, block: int,
-                                  flags=None, pair: bool = False, **options):
+                                  *, flags=None, depth_caps=None,
+                                  pair: bool = False, progress_cb=None,
+                                  chain_chunks: int = 1):
     """Cross-chain warmup with `block` transitions per fused call (on the
-    leaf-pair body if `pair`).
+    leaf-pair body if `pair`, in `chain_chunks` sequential sub-batches).
 
     Within a block, ε and M⁻¹ stay frozen at the block start. At each block
     boundary the Welford pushes and the Stan window logic are replayed for
     every transition of the block from its recorded positions; dual
     averaging updates once per block (and at a window end or the last
     step) with the block-mean acceptance, as in the JAX package. The flags
-    are host arrays, so the replay branches on the host.
+    are host arrays, so the replay branches on the host. `depth_caps`
+    ((n_adapts,) ints) caps the tree depth of each transition.
+    `progress_cb(iteration, stats, metric)` is called after every block.
     Returns (state, warm_thetas (n_adapts, C, dim), warm_stats).
     """
-    not_ported("fused_warmup_phase_crosschain", options)
     cfg = spec.adaptor
     if n_adapts % block:
         raise ValueError("block must divide n_adapts")
+    if cfg.mm_kind == MM_NUTPIE:
+        raise ValueError("the cross-chain fused warmup records positions "
+                         "only; the nutpie estimator needs gradients")
     if flags is None:
         flags = adapt_flags(cfg, n_adapts, n_adapts)
     ths, stats = [], []
     for b in range(n_adapts // block):
-        z, th, st = _run_fused(generator, spec, state, block, pair)
+        caps = (None if depth_caps is None
+                else depth_caps[b * block:(b + 1) * block])
+        z, th, st = _run_fused(generator, spec, state, block, pair,
+                               chain_chunks, caps)
         alpha_blk = torch.mean(torch.clamp(st["acceptance_rate"], max=1.0))
         da, mm = state.adapt.da, state.adapt.mm
         for t in range(block):
@@ -194,6 +306,9 @@ def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
         state = HMCState(iteration=state.iteration + block, z=z,
                          metric=metric, adapt=AdaptState(da=da, mm=mm))
         st["is_adapt"] = torch.ones_like(st["numerical_error"])
+        if progress_cb is not None:
+            progress_cb(state.iteration, {k: v[-1] for k, v in st.items()},
+                        state.metric)
         ths.append(th)
         stats.append(st)
     return state, torch.cat(ths), _cat_stats(stats)
@@ -203,11 +318,13 @@ def _transition(generator, spec: SampleSpec, state: HMCState):
     """Momentum refresh, then one NUTS transition of every chain at its ε
     and M⁻¹: the JAX package's `_one_chain_transition`, vmapped (the plain
     `Leapfrog` draws no jitter; a static trajectory is refused by
-    `nuts_transition`)."""
+    `nuts_transition`). Coupled chains draw their directions from the same
+    generator (`SampleSpec`)."""
     h = _hamiltonian(spec, state)
     traj = spec.kernel.trajectory.with_nom_step_size(state.adapt.da.eps)
     z = spec.kernel.refreshment.refresh(generator, h, state.z)
-    return nuts_transition(generator, h, traj, z)
+    return nuts_transition(generator, h, traj, z,
+                           coupled_key=generator if spec.coupled else None)
 
 
 def sample_step(generator, spec: SampleSpec, state: HMCState, flags):
@@ -237,37 +354,62 @@ _STAT_DTYPES = {"n_steps": torch.int32, "tree_depth": torch.int32,
 _STATS = _STAT_FIELDS + ("is_accept", "nom_step_size", "is_adapt")
 
 
-def _rows(n, c, theta):
-    """Buffers for `n` iterations of `c` chains of θ's width and dtype:
-    θ (n, c, dim) and each stat (n, c)."""
-    return theta.new_empty((n, c, theta.shape[-1])), {
+def _rows(n, c, theta, draws=True):
+    """Buffers for `n` rows of `c` chains of θ's width and dtype: θ (n, c,
+    dim), or None without `draws`, and each stat (n, c)."""
+    return theta.new_empty((n, c, theta.shape[-1])) if draws else None, {
         k: theta.new_empty((n, c), dtype=_STAT_DTYPES.get(k, theta.dtype))
         for k in _STATS}
 
 
 def _part(rows, lo, hi):
     """Rows lo..hi-1 of `rows`, as views."""
-    return rows[0][lo:hi], {k: v[lo:hi] for k, v in rows[1].items()}
+    return (None if rows[0] is None else rows[0][lo:hi],
+            {k: v[lo:hi] for k, v in rows[1].items()})
 
 
 def _fill(rows, thetas, stats):
-    """Copy a phase's θ and stats into `rows` (as many rows)."""
-    rows[0].copy_(thetas)
+    """Copy a phase's θ (where `rows` keep them) and stats into `rows` (as
+    many rows)."""
+    if rows[0] is not None:
+        rows[0].copy_(thetas)
     for k, v in rows[1].items():
         v.copy_(stats[k])
 
 
-def _step_loop(generator, spec, state, flags, lo, hi, rows):
+def _step_loop(generator, spec, state, flags, lo, hi, rows=None, thin=1,
+               om=None, progress_cb=None):
     """`sample_step` at the run's iterations lo..hi-1 (`flags` are the
-    run's `adapt_flags`), iteration lo + i writing its θ and stats into row
-    i of `rows`. Returns the state."""
+    run's `adapt_flags`). Every `thin`-th iteration writes its θ (where
+    `rows` keep them) and stats into the next row of `rows` (if given),
+    with `n_steps` summed and `numerical_error` OR-ed over its thinned
+    block; `om` (an `OnlineMoments`) folds in every iteration's θ;
+    `progress_cb(iteration, stats, metric)` sees every iteration. Returns
+    (state, om)."""
+    n_steps = diverged = None
     for i, t in enumerate(range(lo, hi)):
         state, st = sample_step(generator, spec, state,
                                 {k: bool(v[t]) for k, v in flags.items()})
-        rows[0][i] = state.z.theta
-        for k, v in st.items():
-            rows[1][k][i] = v
-    return state
+        if om is not None:
+            om = online_update(om, state.z.theta)
+        if progress_cb is not None:
+            progress_cb(state.iteration, st, state.metric)
+        if thin > 1:
+            n_steps = st["n_steps"] if n_steps is None \
+                else n_steps + st["n_steps"]
+            diverged = st["numerical_error"] if diverged is None \
+                else diverged | st["numerical_error"]
+            if (i + 1) % thin:
+                continue
+            st = dict(st, n_steps=n_steps, numerical_error=diverged)
+            n_steps = diverged = None
+        if rows is not None:
+            row = i // thin
+            if rows[0] is not None:
+                rows[0][row] = state.z.theta
+            for k, v in st.items():
+                rows[1][k][row] = v
+    return state, om
 
 
 def init_state(generator, spec: SampleSpec, metric: Metric, init_theta,
@@ -324,20 +466,90 @@ def init_state(generator, spec: SampleSpec, metric: Metric, init_theta,
 class SampleResult:
     """Draws + per-transition statistics + final state.
 
-    `timings` holds the wall seconds of each phase ("init_s", "warmup_s"
-    — warmup, fan-out and decorrelation — and "draws_s"), each ending in a
-    device synchronise."""
+    With `collect="online"` the draws are not stored: `thetas` is None and
+    `online` carries the storage-free summary (n, per-chain mean and
+    variance, pooled bulk ESS) of `diagnostics.online_summary`. `timings`
+    holds the wall seconds of each phase ("init_s", "warmup_s" — warmup,
+    fan-out and decorrelation — and "draws_s"), each ending in a device
+    synchronise. The JAX result's exports (`summary`, `to_inference_dict`,
+    `to_arviz`, `save`) are not ported."""
 
-    thetas: torch.Tensor                   # (n_kept, n_chains, dim)
+    thetas: Optional[torch.Tensor]         # (n_kept, n_chains, dim) or None
     stats: Dict[str, torch.Tensor]         # each (n_kept, n_chains)
     warmup_stats: Optional[Dict[str, torch.Tensor]]
     final_state: HMCState
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+    online: Optional[Dict[str, torch.Tensor]] = None
 
 
 def _synchronize(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def depth_cap_schedule(n_adapts: int, cap_frac: float, cap_frac2=None,
+                       round_to: int = 1, eps_research: bool = False):
+    """The depth-capped warmup's switch points (n_cap, n_cap2): the first
+    n_cap warmup iterations run capped, then (3-phase, with `cap_frac2`)
+    the cap is kept up to n_cap2; the rest runs at full depth. Both are
+    rounded down to multiples of `round_to` (the fused block), as the JAX
+    function computes them, with its checks."""
+    n_cap = int(n_adapts * cap_frac) // round_to * round_to
+    n_cap = max(round_to, min(n_cap, n_adapts))
+    if eps_research and n_cap >= n_adapts:
+        raise ValueError(
+            "warmup_eps_research needs a full-depth phase after the switch "
+            "(warmup_cap_frac < 1); the dual-averaging re-anchor transient "
+            "must be absorbed before finalize")
+    if cap_frac2 is None:
+        return n_cap, n_cap
+    if cap_frac2 <= cap_frac:
+        raise ValueError("warmup_cap_frac2 must exceed warmup_cap_frac (it "
+                         "is the end of the extended capped phase)")
+    n_cap2 = int(n_adapts * cap_frac2) // round_to * round_to
+    n_cap2 = max(n_cap, min(n_cap2, n_adapts))
+    if n_cap2 >= n_adapts:
+        raise ValueError("warmup_cap_frac2 must leave a full-depth tail "
+                         "(< 1) so dual averaging finalizes on full "
+                         "trajectories")
+    return n_cap, n_cap2
+
+
+def _eps_reanchor(generator, spec, state):
+    """Re-run the initial step-size search on the window-adapted metric
+    (from the first chain) and re-anchor dual averaging there."""
+    eps = find_good_stepsize(generator, _hamiltonian(spec, state),
+                             state.z.theta[0])
+    return dataclasses.replace(state, adapt=dataclasses.replace(
+        state.adapt, da=DualAveragingState.init(eps)))
+
+
+def _progress_printer(n_adapts, n_samples, every=None):
+    """`progress_cb(iteration, stats, metric)` printing one line of the
+    live display (phase, acceptance, step size, divergence, tree depth,
+    log density, energy and the M⁻¹ diagonal's range, as the JAX
+    function's); with `every`, only at iterations that are multiples of
+    it. A line reads the stats back to the host; nothing else does."""
+
+    def cb(iteration, stats, metric):
+        if every is not None and iteration % every:
+            return
+        phase = "warmup" if iteration <= n_adapts else "sample"
+        parts = [f"{_PREFIX} {phase} {iteration}/{n_samples}"]
+        for key, label, fmt in (
+                ("acceptance_rate", "accept", ".3f"),
+                ("step_size", "eps", ".2e"), ("numerical_error", "div", ".3f"),
+                ("tree_depth", "depth", ".1f"), ("log_density", "logp", ".4g"),
+                ("hamiltonian_energy", "E", ".4g")):
+            v = float(torch.mean(stats[key].to(torch.float64)))
+            parts.append(f"{label} {v:{fmt}}")
+        mi = getattr(metric, "m_inv", None)
+        if mi is not None:
+            parts.append(f"M⁻¹ [{float(mi.min()):.2g}..{float(mi.max()):.2g}]"
+                         f" μ {float(mi.mean()):.2g}")
+        print(" | ".join(parts), flush=True)
+
+    return cb
 
 
 def sample(
@@ -353,13 +565,26 @@ def sample(
     n_chains: Optional[int] = None,
     init_mass_matrix: str = "identity",
     cross_chain: bool = False,
+    coupled: bool = False,
     fuse_draws: int = 0,
+    fuse_chain_chunks: int = 1,
+    fuse_pair: bool = False,
     fuse_warmup: bool = False,
     fuse_warmup_block: int = 8,
+    thin: int = 1,
+    collect: str = "draws",
+    online_lags: int = 16,
     drop_warmup: bool = False,
+    collect_warmup_stats: bool = True,
+    progress: bool = False,
+    progress_every: int = 100,
+    verbose: bool = False,
+    warmup_depth_cap: Optional[int] = None,
+    warmup_cap_frac: float = 0.75,
+    warmup_eps_research: bool = False,
+    warmup_cap_frac2: Optional[float] = None,
     warmup_chains: int = 0,
     fanout_decorrelate: int = 32,
-    fuse_pair: bool = False,
     device=None,
     **options,
 ) -> SampleResult:
@@ -367,18 +592,33 @@ def sample(
     None means min(n_samples // 10, 1000)), on `device` (None means CUDA;
     pass "cpu" explicitly for the CPU).
 
-    The paths follow the JAX function's. At the defaults each chain adapts
-    on its own and every iteration is one `sample_step`. `cross_chain=True`
-    shares the adaptation; with `fuse_warmup=True` and `fuse_warmup_block`
-    dividing `n_adapts` its warmup runs in fused blocks. `fuse_draws > 1`
-    dividing the draw count runs the draws fused. `drop_warmup` returns the
-    warmup's stats apart and no warmup draws. `warmup_chains = W <
-    n_chains` (cross-chain, `drop_warmup=True`) warms the first W chains,
-    fans the warmed state out to all chains and runs `fanout_decorrelate`
-    discarded transitions before the draws. `fuse_pair` runs the fused
-    warmup blocks, the decorrelation and the fused draws on the leaf-pair
-    body. The JAX function's other options raise, as does the per-chain
-    fused warmup (`fuse_warmup=True` without `cross_chain`).
+    The paths and options follow the JAX function's. At the defaults each
+    chain adapts on its own and every iteration is one `sample_step`.
+    `cross_chain=True` shares the adaptation. `fuse_warmup=True` runs the
+    warmup fused: per chain (`fused_warmup_phase`, a unit or diagonal
+    metric with Welford-variance or no mass-matrix adaptation), or
+    cross-chain in blocks of `fuse_warmup_block` dividing `n_adapts`.
+    `fuse_draws > 1` dividing the draw count (and divisible by `thin`) runs
+    the draws fused; `fuse_chain_chunks` splits each fused call's chains
+    into that many sequential sub-batches; `fuse_pair` runs the fused
+    phases on the leaf-pair body. `coupled` shares the doubling directions
+    across chains and turns the fused paths off. `thin` keeps every
+    thin-th draw; `collect="online"` stores no draws and returns the
+    online summary (`online_lags` lags) in `SampleResult.online`; both
+    need `drop_warmup` when there is a warmup. `drop_warmup` returns the
+    warmup's stats apart (unless `collect_warmup_stats=False`) and no
+    warmup draws. `warmup_chains = W < n_chains` (cross-chain,
+    `drop_warmup=True`) warms the first W chains, fans the warmed state
+    out to all chains and runs `fanout_decorrelate` discarded transitions
+    before the draws. `warmup_depth_cap` (cross-chain, with the fused
+    warmup or `drop_warmup`) caps the tree depth for the first
+    `warmup_cap_frac` of the warmup, then (`warmup_eps_research`)
+    re-anchors dual averaging on a new step-size search, and with
+    `warmup_cap_frac2` keeps the cap up to that fraction
+    (`depth_cap_schedule`). `progress` prints a line every `progress_every`
+    iterations (after every call on the fused paths); `verbose` notes a
+    requested fused path that does not run and prints the end-of-run
+    report (`diagnostics.summarize`). `mesh` is not ported.
     """
     not_ported("sample", options)
     if n_adapts is None:
@@ -388,23 +628,57 @@ def sample(
         if drop_warmup:
             raise ValueError("cannot drop warmup without adaptation")
     n_draw = n_samples - n_adapts
-    use_fused = fuse_draws > 1 and n_draw > 0 and n_draw % fuse_draws == 0
-    use_fused_warmup_cc = (fuse_warmup and cross_chain and n_adapts > 0
-                           and adaptor.mm_kind != MM_NUTPIE
-                           and n_adapts % fuse_warmup_block == 0)
-    # the JAX package runs `fused_warmup_phase` here, which is not ported
-    if fuse_warmup and not cross_chain and n_adapts > 0 and (
+    online = collect == "online"
+    if collect not in ("draws", "online"):
+        raise ValueError("collect must be 'draws' or 'online'")
+    if thin > 1:
+        if online:
+            raise ValueError("thin > 1 is redundant with collect='online'")
+        if n_adapts > 0 and not drop_warmup:
+            raise ValueError("thin > 1 requires drop_warmup=True "
+                             "(warmup draws are never thinned)")
+        if n_draw % thin:
+            raise ValueError("thin must divide the number of draw steps")
+    if online and n_adapts > 0 and not drop_warmup:
+        raise ValueError("collect='online' requires drop_warmup=True")
+    use_fused = (fuse_draws > 1 and not coupled and n_draw > 0
+                 and n_draw % fuse_draws == 0 and fuse_draws % thin == 0)
+    use_fused_warmup = fuse_warmup and not coupled and not cross_chain \
+        and n_adapts > 0 and (
             (adaptor.uses_mm and isinstance(metric, DiagEuclideanMetric)
              and adaptor.mm_kind in (MM_WELFORD_VAR, MM_NUTPIE))
             or (not adaptor.uses_mm and isinstance(
-                metric, (DiagEuclideanMetric, UnitEuclideanMetric)))):
+                metric, (DiagEuclideanMetric, UnitEuclideanMetric))))
+    if use_fused_warmup and adaptor.mm_kind == MM_NUTPIE:
         raise NotImplementedError(
-            "the per-chain fused warmup (fuse_warmup=True with per-chain "
-            "adaptation) is not ported yet " + roadmap("options"))
+            "the per-chain fused warmup with the nutpie estimator waits "
+            "for that estimator " + roadmap("surface"))
+    use_fused_warmup_cc = (fuse_warmup and not coupled and cross_chain
+                           and n_adapts > 0 and adaptor.mm_kind != MM_NUTPIE
+                           and n_adapts % fuse_warmup_block == 0)
+    max_depth = kernel.trajectory.criterion.max_depth
+    use_depth_cap = (warmup_depth_cap is not None and cross_chain
+                     and n_adapts > 0 and warmup_depth_cap < max_depth
+                     and (use_fused_warmup_cc
+                          or (drop_warmup and not use_fused_warmup)))
+    if use_depth_cap:
+        n_cap, n_cap2 = depth_cap_schedule(
+            n_adapts, warmup_cap_frac, warmup_cap_frac2,
+            fuse_warmup_block if use_fused_warmup_cc else 1,
+            warmup_eps_research)
+    elif warmup_cap_frac2 is not None:
+        raise ValueError(
+            "warmup_cap_frac2 requires an active depth-capped warmup "
+            "(warmup_depth_cap < max_depth with cross-chain dynamic "
+            "adaptation); without it the 3-phase schedule would be "
+            "silently ignored")
+    else:
+        n_cap = n_cap2 = 0
 
     device = resolve_device(device)
     spec = SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
-                      cross_chain=cross_chain)
+                      cross_chain=cross_chain, coupled=coupled)
+    spec_capped = _capped(spec, warmup_depth_cap) if use_depth_cap else spec
     init_theta = torch.as_tensor(init_theta, device=device)
     n_total = (init_theta.shape[0] if init_theta.dim() > 1
                else (n_chains or 1))
@@ -421,6 +695,24 @@ def sample(
         init_theta, n_chains = init_theta[:warmup_chains], None
     elif use_fanout:
         n_chains = warmup_chains
+    if verbose:
+        if fuse_warmup and n_adapts > 0 and not (
+                use_fused_warmup or use_fused_warmup_cc):
+            print(f"{_PREFIX} note: fuse_warmup requested but the "
+                  "configuration is unsupported (coupling/metric/adaptor/"
+                  "block) — using the step-by-step warmup")
+        if fuse_draws > 1 and n_draw > 0 and not use_fused:
+            print(f"{_PREFIX} note: fuse_draws requested but unused "
+                  "(requires uncoupled chains, fuse_draws | draw count and "
+                  "thin | fuse_draws) — using the step-by-step draws")
+        if warmup_depth_cap is not None and not use_depth_cap:
+            print(f"{_PREFIX} note: warmup_depth_cap requested but "
+                  "unsupported here (requires cross-chain adaptation, a cap "
+                  "below max_depth, and either the fused cross-chain warmup "
+                  "or drop_warmup) — running the standard warmup")
+    step_cb = (_progress_printer(n_adapts, n_samples, progress_every)
+               if progress else None)
+    fused_cb = _progress_printer(n_adapts, n_samples) if progress else None
 
     timings = {}
     t0 = time.perf_counter()
@@ -430,46 +722,81 @@ def sample(
     timings["init_s"] = time.perf_counter() - t0
 
     # the rows the run returns, on every chain: the warmup's unless it is
-    # dropped (a fanned-out warmup is), then the draws'
+    # dropped (a fanned-out warmup is), then the draws' (thinned; θ only
+    # when draws are collected)
     keep = 0 if drop_warmup else n_adapts
-    rows = _rows(keep + n_draw, n_total, state.z.theta)
+    rows = _rows(keep + n_draw // thin, n_total, state.z.theta,
+                 draws=not online)
     flags = adapt_flags(adaptor, n_adapts, n_samples)
     t0 = time.perf_counter()
-    warm_stats = None
-    if use_fused_warmup_cc:
-        state, th, st = fused_warmup_phase_crosschain(
-            generator, spec, state, n_adapts, fuse_warmup_block,
-            pair=fuse_pair)
-        if drop_warmup:
-            warm_stats = st
-        else:
-            _fill(_part(rows, 0, n_adapts), th, st)
+    # the warmup's segments (lo, hi, spec): capped before n_cap2, with the
+    # ε re-anchor at n_cap
+    bounds = sorted({0, n_cap, n_cap2, n_adapts}) if use_depth_cap \
+        else [0, n_adapts]
+    segments = [(lo, hi, spec_capped if hi <= n_cap2 else spec)
+                for lo, hi in zip(bounds[:-1], bounds[1:])]
+    warm_rows = None
+    if drop_warmup and collect_warmup_stats and n_adapts > 0:
+        warm_rows = _rows(n_adapts, state.z.theta.shape[0], state.z.theta,
+                          draws=False)
+    warm_out = warm_rows if drop_warmup else _part(rows, 0, n_adapts)
+    if use_fused_warmup:
+        state, th, st = fused_warmup_phase(generator, spec, state, n_adapts,
+                                           pair=fuse_pair)
+        if warm_out is not None:
+            _fill(warm_out, th, st)
     elif n_adapts > 0:
-        warm = (_part(rows, 0, n_adapts) if keep else
-                _rows(n_adapts, state.z.theta.shape[0], state.z.theta))
-        state = _step_loop(generator, spec, state, flags, 0, n_adapts, warm)
-        if drop_warmup:
-            warm_stats = warm[1]
+        for lo, hi, spec_w in segments:
+            if warmup_eps_research and use_depth_cap and lo == n_cap \
+                    and n_cap < n_adapts:
+                state = _eps_reanchor(generator, spec, state)
+            out = None if warm_out is None else _part(warm_out, lo, hi)
+            if use_fused_warmup_cc:
+                state, th, st = fused_warmup_phase_crosschain(
+                    generator, spec_w, state, hi - lo, fuse_warmup_block,
+                    flags={k: v[lo:hi] for k, v in flags.items()},
+                    pair=fuse_pair, progress_cb=fused_cb,
+                    chain_chunks=fuse_chain_chunks)
+                if out is not None:
+                    _fill(out, th, st)
+            else:
+                state, _ = _step_loop(generator, spec_w, state, flags, lo, hi,
+                                      out, progress_cb=step_cb)
     if use_fanout:
         state = fanout_warmup_state(spec, state, n_total)
-        if fanout_decorrelate > 0:
-            state, _, _ = fused_draw_phase(generator, spec, state,
-                                           fanout_decorrelate,
-                                           fanout_decorrelate, fuse_pair)
+        if fanout_decorrelate > 0 and not coupled:
+            state, _, _ = fused_draw_phase(
+                generator, spec, state, fanout_decorrelate,
+                fanout_decorrelate, chain_chunks=fuse_chain_chunks,
+                pair=fuse_pair)
+        elif fanout_decorrelate > 0:
+            off = {k: [False] for k in flags}
+            for _ in range(fanout_decorrelate):
+                state, _ = _step_loop(generator, spec, state, off, 0, 1)
     _synchronize(device)
     timings["warmup_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    draws = _part(rows, keep, keep + n_draw)
+    draws = _part(rows, keep, keep + n_draw // thin)
+    om = (online_init(n_total, target.dim, online_lags, state.z.theta.dtype,
+                      device) if online else None)
     if use_fused:
-        state, th, st = fused_draw_phase(generator, spec, state, n_draw,
-                                         fuse_draws, fuse_pair)
+        out = fused_draw_phase(generator, spec, state, n_draw, fuse_draws,
+                               thin=thin, online_om=om, progress_cb=fused_cb,
+                               chain_chunks=fuse_chain_chunks, pair=fuse_pair)
+        state, th, st = out[:3]
+        om = out[3] if online else None
         _fill(draws, th, st)
     else:
-        state = _step_loop(generator, spec, state, flags, n_adapts,
-                           n_samples, draws)
+        state, om = _step_loop(generator, spec, state, flags, n_adapts,
+                               n_samples, draws, thin, om, step_cb)
     _synchronize(device)
     timings["draws_s"] = time.perf_counter() - t0
-    return SampleResult(thetas=rows[0], stats=rows[1],
-                        warmup_stats=warm_stats, final_state=state,
-                        timings=timings)
+    result = SampleResult(
+        thetas=rows[0], stats=rows[1],
+        warmup_stats=None if warm_rows is None else warm_rows[1],
+        final_state=state, timings=timings,
+        online=None if om is None else online_summary(om))
+    if verbose:
+        summarize(result, verbose=True)
+    return result

@@ -52,6 +52,25 @@ def not_ported(what, options):
             + roadmap(key))
 
 
+def reduced_dtype(dtype, what):
+    """The torch dtype of a reduced-precision switch (`x_dtype`,
+    `resid_dtype`, `stack_dtype`): None, or bfloat16 given as
+    "bfloat16"/"bf16" or `torch.bfloat16` (the dtype the JAX bench and
+    tests use). Any other dtype raises, naming its ROADMAP.md item."""
+    if dtype is None:
+        return None
+    if dtype is torch.bfloat16 or str(dtype).lower() in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise NotImplementedError(
+        f"{what}={dtype!r}: only bfloat16 is ported as a reduced dtype "
+        + roadmap("options"))
+
+
+def round_to(x, dtype):
+    """`x` rounded to `dtype` (None: unchanged) and back to its own dtype."""
+    return x if dtype is None else x.to(dtype).to(x.dtype)
+
+
 def logaddexp(a, b):
     """Numerically stable log(exp(a) + exp(b)) that tolerates -inf inputs."""
     return torch.logaddexp(a, b)

@@ -13,7 +13,11 @@ Phases (any failure exits non-zero):
 2. hold K1 against its plain PyTorch version on the card, at the shapes the
    main path gives it and at ragged shapes, check that two calls give the
    same bits, print its registers, spills and shared memory per block, and
-   time both;
+   time both; then K1's bfloat16-operand mode (`x_dtype="bfloat16"`) at
+   the same chain counts: against the mode's float64 reference (its plain
+   twin held to the same gate), two calls bitwise equal, one launch a
+   call, timed beside its plain twin, cuBLAS's two bf16 products and its
+   bound;
 2b. hold K3 against its plain version at the four shapes of the Pallas
    microbenchmark, the JAX test's ragged one, the reference's GPU test
    (1000 chains × 5-D), a D that does not divide a block and a D longer
@@ -70,7 +74,8 @@ Phases (any failure exits non-zero):
    launches against two a call (the wide path's two GEMMs), and
    the posterior moments against the JAX package's (scripts/
    wide_reference.py, four runs) within 4 combined MCSEs plus 3 standard
-   deviations between the JAX runs;
+   deviations between the JAX runs; K1's bfloat16 mode is checked and
+   timed as in phase 2 at the path's shapes (C = 1024 and 1, p = 999);
 10. the megakernel on the 1000-D model (K2's wide instance, p > 128): from
    phase 9's final state (ε, M⁻¹, the 1024 positions), K2 against its plain
    version on call 1's inputs, on forced-deep (ε/8, depth 6 of 6) and
@@ -82,7 +87,22 @@ Phases (any failure exits non-zero):
    whose cross-chain moments at transition 16 must agree with K2's. It
    prints the wide instance's registers, spills, shared memory, blocks per
    SM, ranks (blocks) per cluster of 64 chains, blocks, the clusters the
-   card holds at once and the SMs that held a block.
+   card holds at once and the SMs that held a block;
+11. the JAX bench's own 1000-D configuration: phase 9's run with the design
+   stored in bfloat16 (bench.py's default at dim ≥ 512), so K1 runs its
+   bfloat16 mode at every leaf (its calls and launches counted from 0),
+   gated by bench.py's bf16 posterior-equivalence gate (importance
+   weights to the exact float64 posterior: sd(log w) ≤ 0.5, reweighting
+   ESS fraction ≥ 0.5) and phase 9's divergence, acceptance and moment
+   gates; its walls and ESS/s printed beside phase 9's;
+12. the other options of `sample` at the 100-D model's width: (a) the
+   per-chain fused warmup on 4096 chains (phase 8's settings) and fused
+   draws thinned by 2, its walls and leaf iterations beside phase 8's;
+   (b) phase 3's configuration with the three-phase depth-capped warmup
+   and ε re-anchor, two chain chunks, bfloat16 U-turn stacks and online
+   collection; (c) coupled chains step by step from (a)'s warmed state;
+   each gated on divergence, acceptance and BENCH_r05's moments (b's from
+   its online summary).
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
@@ -118,6 +138,7 @@ DELTA = 0.55
 # the CUDA cores, TF32 on the tensor cores (dense), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 N_ROWS, DIM = 1000, 100
@@ -208,12 +229,17 @@ def _counters():
     k1 = fused_logistic.logistic_value_grad
     return (("fused_logistic_value_grad", k1, "launches"),
             (K1_CALLS, k1, "calls"),
+            (K1_BF16, k1, "bf16_launches"),
+            (K1_BF16_CALLS, k1, "bf16_calls"),
             ("fused_nuts", fused_nuts_kernel.fused_nuts, "launches"),
             ("fused_gaussian_leapfrog",
              fused_leapfrog.fused_gaussian_leapfrog, "launches"))
 
 
 K1_CALLS = "fused_logistic_value_grad calls"
+# K1's bfloat16-operand mode (`x_dtype="bfloat16"`), counted apart as well
+K1_BF16 = "fused_logistic_value_grad (bfloat16 operands)"
+K1_BF16_CALLS = K1_BF16 + " calls"
 
 
 def reset_launches():
@@ -254,55 +280,138 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 2
-def time_k1(theta, x, y, design=None):
-    """K1's timing row at one shape: device time (a CUDA graph of its
-    launches), the wrapper's back-to-back time, the plain version's device
-    time, the two float32 cuBLAS products alone (logits = β·xᵀ, grad =
-    r·x; a yardstick the port never calls), and the bound. Above p = 128
+def time_k1(theta, x, y, design, mode):
+    """K1's timing row at one shape in `mode`: device time (a CUDA graph of
+    its launches), the wrapper's back-to-back time, the plain version's
+    device time, cuBLAS doing the two products alone (logits = β·xᵀ, grad =
+    r·x; a yardstick the port never calls) on the mode's operand type
+    (float32, bfloat16 in MODE_BF16), and the bound. Above p = 128
     `design` is x's prepared WideDesign."""
     from advancedhmc_torch.ops import fused_logistic as k1
 
     (c, dim), n = theta.shape, x.shape[0]
     reps = 20 if c >= N_CHAINS else 50
-    beta = theta[:, 1:].contiguous()
-    resid = torch.rand(c, n, device=theta.device)
+    dt = torch.bfloat16 if mode == k1.MODE_BF16 else torch.float32
+    beta, xo = theta[:, 1:].contiguous().to(dt), x.to(dt)
+    resid = torch.rand(c, n, device=theta.device).to(dt)
 
     def kernel():
-        return k1.logistic_value_grad(theta, x, y, design)
+        return k1.logistic_value_grad(theta, x, y, design, mode)
 
     row = dict(
-        chains=c, dim=dim, n=n,
+        chains=c, dim=dim, n=n, mode=mode,
         ms=device_ms(kernel, reps),
         wrapper_ms=wrapper_ms(kernel, reps),
-        plain_ms=device_ms(lambda: k1.plain_logistic_value_grad(theta, x, y),
-                           reps),
-        cublas_ms=device_ms(lambda: (beta @ x.T, resid @ x), reps))
-    row["bound_ms"], row["bound_by"], row["bound_ms_f32_cuda_cores"] = \
-        k1_bound_ms(c, dim, n)
-    log(f"# K1 C={c} dim={dim} n={n}: kernel {row['ms']:.4f} ms on the "
-        f"device ({row['wrapper_ms']:.4f} ms back to back through the "
-        f"wrapper), plain {row['plain_ms']:.4f} ms, cuBLAS's two products "
-        f"{row['cublas_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}, 3xTF32 on the tensor cores; "
-        f"{row['bound_ms_f32_cuda_cores']:.4f} ms by float32 on the CUDA "
-        "cores)")
+        plain_ms=device_ms(
+            lambda: k1.plain_logistic_value_grad(theta, x, y, mode), reps),
+        cublas_ms=device_ms(lambda: (beta @ xo.T, resid @ xo), reps))
+    row["bound_ms"], row["bound_by"], side = k1_bound_ms(c, dim, n, mode)
+    row.update(side)
+    (side_name, side_ms), = side.items()
+    log(f"# K1 mode {mode} C={c} dim={dim} n={n}: kernel {row['ms']:.4f} ms "
+        f"on the device ({row['wrapper_ms']:.4f} ms back to back through "
+        f"the wrapper), plain {row['plain_ms']:.4f} ms, cuBLAS's two "
+        f"{dt} products {row['cublas_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {side_name} "
+        f"{side_ms:.4f} ms)")
     return row
 
 
-def k1_bound_ms(c, dim, n):
-    """Least time for one K1 call: the larger of the operations the kernel
-    issues at float32 accuracy, 3xTF32 (three TF32 products for each of the
-    two, 3·4·C·p·n) over the TF32 tensor-core peak, and the bytes of θ, x,
-    y in and lp, grad out over the memory rate. Also returns the float32
-    CUDA-core figure (4·C·p·n over that peak), the bound before the
-    kernel used the tensor cores."""
+def k1_bound_ms(c, dim, n, mode):
+    """Least time for one K1 call in `mode`: the larger of its operations
+    over the peak of their type and the bytes of θ, x, y in and lp, grad
+    out over the memory rate. At float32 accuracy the operations are
+    3xTF32 (three TF32 products for each of the two, 3·4·C·p·n) at the
+    TF32 peak. In MODE_BF16 the function is two products of bfloat16
+    operands summed in float32: 4·C·p·n operations at the bf16 peak, with x
+    read in bfloat16. Also returns one side figure by name: in float32 the
+    CUDA-core bound (4·C·p·n at the float32 peak), the bound before the
+    kernel used the tensor cores; in MODE_BF16 the one TF32 pass of each
+    product that the kernels issue, with x in float32, the bound of the
+    kernels as written (the design kept in float32)."""
+    from advancedhmc_torch.ops import fused_logistic as k1
+
     p = dim - 1
     flops = 4.0 * c * p * n
     nbytes = 4.0 * (c * dim + n * p + n + c + c * dim)
-    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    if mode == k1.MODE_BF16:
+        t_ops = flops / PEAK_BF16_FLOPS
+        t_bytes = (nbytes - 2.0 * n * p) / PEAK_BYTES
+        side = {"bound_ms_one_tf32_pass": 1e3 * max(
+            flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)}
+    else:
+        t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+        side = {"bound_ms_f32_cuda_cores": 1e3 * max(
+            flops / PEAK_F32_FLOPS, t_bytes)}
     return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes",
-            1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
+            "operations" if t_ops >= t_bytes else "bytes", side)
+
+
+def check_k1(theta, x, y, design, mode, control_design):
+    """K1 in `mode` at one shape on the card: finite outputs of the right
+    shape with a zero column 0, two calls bitwise equal (no atomics), one
+    call counted with its launches (one up to p = 128, two above), and the
+    kernel held to the mode's float64 reference (its roundings, exact
+    sums; `ops.fused_logistic.rounding_reference`) and to its plain twin,
+    the plain twin to the reference, each to 1e-4 of the largest magnitude
+    (float32 sums in other orders). In MODE_BF16 the gradient's gate adds,
+    per element, what the residual's rounding to bfloat16 can move where a
+    logit error of 2^-14 carries a residual across a rounding midpoint (two
+    float32 evaluations can round it to neighbouring values: one bfloat16
+    step times |x|); in MODE_F32 that allowance is zero. The negative
+    control: the kernel in the other mode on the same inputs
+    (`control_design` laid out in that mode above p = 128) must fail the
+    gate. Returns (launches a call, largest difference from the plain
+    twin)."""
+    from advancedhmc_torch.ops import fused_logistic as k1
+
+    c, dim = theta.shape
+    bf16 = mode == k1.MODE_BF16
+    other = k1.MODE_F32 if bf16 else k1.MODE_BF16
+    launch_key, call_key = ((K1_BF16, K1_BF16_CALLS) if bf16 else
+                            ("fused_logistic_value_grad", K1_CALLS))
+    before = read_launches()
+    lp, g = k1.logistic_value_grad(theta, x, y, design, mode)
+    after = read_launches()
+    lp2, g2 = k1.logistic_value_grad(theta, x, y, design, mode)
+    lp_c, g_c = k1.logistic_value_grad(theta, x, y, control_design, other)
+    lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y, mode)
+    lp_r, g_r, allow, n_near = k1.rounding_reference(theta, x, y, mode)
+    torch.cuda.synchronize()
+    per_call = after[launch_key] - before[launch_key]
+    tol_g = 1e-4 * float(g_r.abs().max())
+    tol_lp = 1e-4 * max(1.0, float(lp_r.abs().max()))
+
+    def excess(gg, ll, g_to=g_r, lp_to=lp_r):
+        """How far (grad, lp) exceed the gate against (g_to, lp_to)."""
+        return (float(((gg.double() - g_to.double()).abs() - allow).max())
+                - tol_g, float((ll.double() - lp_to.double()).abs().max())
+                - tol_lp)
+
+    ex_k, ex_p, ex_kp = excess(g, lp), excess(g_p, lp_p), \
+        excess(g, lp, g_p, lp_p)
+    ex_c = excess(g_c, lp_c)
+    err = max(float((g - g_p).abs().max()), float((lp - lp_p).abs().max()))
+    same = torch.equal(lp, lp2) and torch.equal(g, g2)
+    ok = (lp.shape == (c,) and g.shape == (c, dim)
+          and bool(torch.isfinite(lp).all() and torch.isfinite(g).all())
+          and max(ex_k + ex_p + ex_kp) <= 0 and max(ex_c) > 0 and same
+          and bool((g[:, 0] == 0).all())
+          and per_call == (1 if dim <= 129 else 2)
+          and after[call_key] - before[call_key] == 1)
+    log(f"# K1 mode {mode} C={c} p={dim - 1} n={x.shape[0]}: vs the mode's "
+        f"float64 reference max|Δgrad| - allowance {ex_k[0] + tol_g:.3e} "
+        f"(tol {tol_g:.3e}; plain twin {ex_p[0] + tol_g:.3e}; {n_near} "
+        f"residuals near a rounding midpoint), max|Δlp| "
+        f"{ex_k[1] + tol_lp:.3e} (tol {tol_lp:.3e}), vs the plain twin "
+        f"{err:.3e} (less the allowance {ex_kp[0] + tol_g:.3e}), two calls "
+        f"bitwise equal {same}, {per_call} launches a call; the kernel in "
+        f"mode {other} exceeds the gate by {ex_c[0]:.3e} (grad), "
+        f"{ex_c[1]:.3e} (lp), which must be > 0: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"K1 in mode {mode} disagrees with its reference "
+                           f"at C={c}, p={dim - 1}")
+    return per_call, err
 
 
 def ptxas_instances(lib_name, k_steps_pattern):
@@ -330,33 +439,37 @@ def k1_report():
     per block, resident blocks per SM and blocks per cluster at the main
     path's shapes."""
     import ctypes
+    import re
 
     from advancedhmc_torch.ops import _build
     from advancedhmc_torch.ops import fused_logistic as k1
 
     lib = _build.load("fused_logistic")
     k1._kernel(lib)
-    for p_max, regs, spill, _ in ptxas_instances(
+    for p_max, regs, spill, name in ptxas_instances(
             "fused_logistic", r"fused_logistic_kernelILi(\d+)E"):
         if p_max:       # the wide path's kernels: k1_wide_report
-            log(f"# K1 instance p <= {p_max}: {regs} registers, {spill} "
-                "bytes of spill stores (ptxas)")
+            mode = re.search(r"fused_logistic_kernelILi\d+ELi(\d)E", name)
+            log(f"# K1 instance p <= {p_max}, mode {mode.group(1)}: {regs} "
+                f"registers, {spill} bytes of spill stores (ptxas)")
     per_sm, split = ctypes.c_int(), ctypes.c_int()
     for c in (N_CHAINS, WARMUP_CHAINS, 1):
-        lib.fused_logistic_launch_shape(c, DIM, N_ROWS, ctypes.byref(per_sm),
+        lib.fused_logistic_launch_shape(c, DIM, N_ROWS, k1.MODE_F32,
+                                        ctypes.byref(per_sm),
                                         ctypes.byref(split))
         log(f"# K1 C={c} n={N_ROWS}: {lib.fused_logistic_smem_bytes(DIM)} "
             f"bytes of shared memory per block, {per_sm.value} blocks per "
             f"SM, {split.value} blocks per cluster")
 
 
-def phase_k1():
-    """K1 against its plain version on the card; returns its timing rows."""
+def phase_k1(mode):
+    """K1 in `mode` against its reference on the card (check_k1); returns
+    its timing rows, the largest difference from its plain twin and the
+    launches a call by timed chain count."""
     from advancedhmc_torch.models.logistic import _synthetic_data
-    from advancedhmc_torch.ops import fused_logistic as k1
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows, worst = [], 0.0
+    rows, worst, launched = [], 0.0, {}
     # (chains, n): the draw phase, the warmup pool, the step-size search
     # (one chain, timed over the main path's rows) and a ragged chain count
     # on a ragged row count
@@ -367,40 +480,12 @@ def phase_k1():
         x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
         y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
         theta = 0.3 * torch.randn(c, DIM, generator=gen, device="cuda")
-        lp, g = k1.logistic_value_grad(theta, x, y)
-        lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y)
-        # float64 reference of the same inputs, for the kernel's true error
-        lp_64, g_64 = k1.plain_logistic_value_grad(
-            theta.double(), x.double(), y.double())
-        torch.cuda.synchronize()
-        if lp.shape != (c,) or g.shape != (c, DIM):
-            raise RuntimeError(f"K1 shapes {tuple(lp.shape)}, "
-                               f"{tuple(g.shape)} at C={c}")
-        # float32 sums over n rows in another order than cuBLAS: hold both
-        # outputs to 1e-4 of their largest magnitude
-        err_g = float((g - g_p).abs().max())
-        err_lp = float((lp - lp_p).abs().max())
-        tol_g = 1e-4 * float(g_p.abs().max())
-        tol_lp = 1e-4 * max(1.0, float(lp_p.abs().max()))
-        err64 = float((g.double() - g_64).abs().max())
-        plain64 = float((g_p.double() - g_64).abs().max())
-        # no atomics: a second call on the same inputs gives the same bits
-        lp2, g2 = k1.logistic_value_grad(theta, x, y)
-        same = torch.equal(lp, lp2) and torch.equal(g, g2)
-        ok = (bool(torch.isfinite(lp).all() and torch.isfinite(g).all())
-              and err_g <= tol_g and err_lp <= tol_lp
-              and bool((g[:, 0] == 0).all()) and same)
-        log(f"# K1 C={c} n={n}: max|Δgrad| {err_g:.3e} (tol {tol_g:.3e}), "
-            f"max|Δlp| {err_lp:.3e} (tol {tol_lp:.3e}), grad vs float64 "
-            f"{err64:.3e} (plain {plain64:.3e}), two calls bitwise equal "
-            f"{same}: {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"K1 disagrees with its plain version at C={c}")
-        worst = max(worst, err_g, err_lp)
+        per_call, err = check_k1(theta, x, y, None, mode, None)
+        worst = max(worst, err)
         if timed:
-            rows.append(time_k1(theta, x, y))
-    k1_report()
-    return rows, worst
+            launched[c] = per_call
+            rows.append(time_k1(theta, x, y, None, mode))
+    return rows, worst, launched
 
 
 # ----------------------------------------------------------------- phase 2b
@@ -574,9 +659,15 @@ def phase_main(seed):
 def _moment_gates(th):
     """Phase 4's posterior-moment gates on draws `th` (n, C, dim)."""
     ls = th[:, :, 0].double()
-    out = {"mean_logsigma": float(ls.mean()),
-           "sd_logsigma": float(ls.std(correction=0)),
-           "mean_beta_norm": float(th[:, :, 1:].double().mean((0, 1)).norm())}
+    return _gate_moments({
+        "mean_logsigma": float(ls.mean()),
+        "sd_logsigma": float(ls.std(correction=0)),
+        "mean_beta_norm": float(th[:, :, 1:].double().mean((0, 1)).norm())})
+
+
+def _gate_moments(out):
+    """Phase 4's gates on the moments `out` (mean log σ, sd log σ, |mean
+    β|); returns (out, gates)."""
     gates = {
         f"|mean_logsigma - ({REF_MEAN_LOGSIGMA})| <= {TOL_MEAN_LOGSIGMA}":
             abs(out["mean_logsigma"] - REF_MEAN_LOGSIGMA)
@@ -678,7 +769,7 @@ def phase_pair_turns(res):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, th, st = fused_draw_phase(gen, spec, res.final_state, N_DRAWS,
-                                     FUSE, pair)
+                                     FUSE, pair=pair)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ess = effective_sample_size(th[:, :ESS_CHAINS]) * (
@@ -737,7 +828,8 @@ def phase_profile(res):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fused_draw_phase(gen, spec, res.final_state, FUSE, FUSE, pair)
+            fused_draw_phase(gen, spec, res.final_state, FUSE, FUSE,
+                             pair=pair)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         # device-side kernel events only: an operator's entry repeats the
@@ -1313,9 +1405,14 @@ def wide_reference():
 
 
 # the wide path's kernels, by a part of their mangled names
-WIDE_K1_KERNELS = (("stage_a", "gemm_kernelILi0ELb1E"),
-                   ("stage_a_copies", "gemm_kernelILi0ELb0E"),
-                   ("stage_b", "gemm_kernelILi1E"))
+# (template arguments: stage, A by TMA, mode; mode 0 is float32, 1 the
+# bfloat16 operands)
+WIDE_K1_KERNELS = (("stage_a", "gemm_kernelILi0ELb1ELi0E"),
+                   ("stage_a_copies", "gemm_kernelILi0ELb0ELi0E"),
+                   ("stage_b", "gemm_kernelILi1ELb1ELi0E"),
+                   ("stage_a_bf16", "gemm_kernelILi0ELb1ELi1E"),
+                   ("stage_a_copies_bf16", "gemm_kernelILi0ELb0ELi1E"),
+                   ("stage_b_bf16", "gemm_kernelILi1ELb1ELi1E"))
 
 
 def k1_wide_report(launched):
@@ -1356,53 +1453,30 @@ def k1_wide_report(launched):
     return out
 
 
-def phase_wide_k1():
-    """K1's wide kernel against float64 and its plain version on the card,
-    two calls bitwise equal and two launches a call, at WIDE_SHAPES, over
-    the design prepared once a shape; timing rows at the path's shapes;
-    returns (rows, largest error, report)."""
+def phase_wide_k1(mode):
+    """K1's wide path in `mode` against its reference on the card
+    (check_k1) at WIDE_SHAPES, over the design prepared once a shape;
+    timing rows at the path's shapes; returns (rows, largest difference
+    from the plain twin, launches a call by timed chain count)."""
     from advancedhmc_torch.models.logistic import _synthetic_data
     from advancedhmc_torch.ops import fused_logistic as k1
 
+    other = k1.MODE_F32 if mode == k1.MODE_BF16 else k1.MODE_BF16
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows, worst, launched = [], 0.0, {}
     for c, p, n in WIDE_SHAPES:
         x_np, y_np = _synthetic_data(n, p)
         x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
         y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
-        design = k1.WideDesign(x)
+        design = k1.WideDesign(x, mode)
         theta = 0.1 * torch.randn(c, p + 1, generator=gen, device="cuda")
-        before = k1.logistic_value_grad.launches
-        lp, g = k1.logistic_value_grad(theta, x, y, design)
-        per_call = k1.logistic_value_grad.launches - before
-        lp2, g2 = k1.logistic_value_grad(theta, x, y, design)
-        lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y)
-        lp_64, g_64 = k1.plain_logistic_value_grad(
-            theta.double(), x.double(), y.double())
-        torch.cuda.synchronize()
-        same = torch.equal(lp, lp2) and torch.equal(g, g2)
-        err_g = float((g.double() - g_64).abs().max())
-        err_lp = float((lp.double() - lp_64).abs().max())
-        tol_g = 1e-4 * float(g_64.abs().max())
-        tol_lp = 1e-4 * max(1.0, float(lp_64.abs().max()))
-        plain_g = float((g_p.double() - g_64).abs().max())
-        ok = (lp.shape == (c,) and g.shape == (c, p + 1)
-              and bool(torch.isfinite(lp).all() and torch.isfinite(g).all())
-              and err_g <= tol_g and err_lp <= tol_lp
-              and bool((g[:, 0] == 0).all()) and same and per_call == 2)
-        log(f"# K1 wide C={c} p={p} n={n}: vs float64 max|Δgrad| "
-            f"{err_g:.3e} (tol {tol_g:.3e}; plain float32 {plain_g:.3e}), "
-            f"max|Δlp| {err_lp:.3e} (tol {tol_lp:.3e}), two calls bitwise "
-            f"equal {same}, {per_call} launches a call: "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"K1's wide kernel disagrees at C={c}, p={p}, "
-                               f"n={n}")
-        worst = max(worst, err_g, err_lp)
+        per_call, err = check_k1(theta, x, y, design, mode,
+                                 k1.WideDesign(x, other))
+        worst = max(worst, err)
         if (c, p, n) in WIDE_TIMED:
             launched[c] = per_call
-            rows.append(time_k1(theta, x, y, design))
-    return rows, worst, k1_wide_report(launched)
+            rows.append(time_k1(theta, x, y, design, mode))
+    return rows, worst, launched
 
 
 def wide_spec():
@@ -1787,6 +1861,377 @@ def phase_wide_megakernel(res, wide_out):
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+# The JAX bench's own 1000-D configuration: phase 9's settings with the
+# design stored in bfloat16 (bench.py stores it so by default at dim ≥ 512,
+# AHMC_BENCH_X_DTYPE), so K1 runs its bfloat16 mode at every leaf. Gated as
+# bench.py gates that run: importance weights of 4096 draws from the
+# bf16-design posterior to the exact one (the exact log density in float64
+# from the model's float64 data), sd(log w) ≤ 0.5 and reweighting ESS
+# fraction ≥ 0.5; then phase 9's gates.
+BF16_GATE_DRAWS, BF16_MAX_SD_LOGW, BF16_MIN_ESS_FRAC = 4096, 0.5, 0.5
+
+
+def bf16_posterior_gate(target, thetas, p):
+    """bench.py's bf16-X posterior-equivalence gate on draws `thetas`:
+    (sd(log w), reweighting ESS fraction)."""
+    import numpy as np
+
+    from advancedhmc_torch.models.logistic import _synthetic_data
+
+    x64, y64 = _synthetic_data(WIDE_ROWS, p)
+    flat = thetas.reshape(-1, p + 1)
+    idx = np.random.default_rng(0).choice(
+        flat.shape[0], min(BF16_GATE_DRAWS, flat.shape[0]), replace=False)
+    sub = flat[torch.as_tensor(idx, device=flat.device)]
+    sub64 = sub.double().cpu().numpy()
+    ls, beta = sub64[:, 0], sub64[:, 1:]
+    logits = beta @ x64.T
+    lp_e = (-0.5 * ls ** 2 - 0.5 * (beta ** 2).sum(1) * np.exp(-2 * ls)
+            - p * ls + (y64[None] * logits
+                        - np.logaddexp(0.0, logits)).sum(1))
+    lp_b = target.logdensity(sub).double().cpu().numpy()
+    logw = lp_e - lp_b
+    w = np.exp(logw - logw.max())
+    w /= w.sum()
+    return float(logw.std()), float(1.0 / (len(w) * np.sum(w ** 2)))
+
+
+def phase_wide_bf16(seed, wide_out):
+    """Drive sample() on the 1000-D model with the bf16 design (phase 9's
+    settings otherwise), K1's bf16-mode counts set to 0 just before and
+    read just after; gate as bench.py and phase 9. Returns the results."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+
+    _, kernel, adaptor = wide_spec()
+    target = ah.hierarchical_logistic(n=WIDE_ROWS, p=WIDE_DIM - 1,
+                                      dtype=torch.float32,
+                                      x_dtype="bfloat16", device="cuda")
+    target, by_chains = count_by_chains(target)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(
+            size=(WIDE_CHAINS, WIDE_DIM)),
+        dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    metric = ah.make_metric("diagonal", WIDE_DIM, device="cuda")
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = ah.sample(
+        gen, target, kernel, metric, theta0, WIDE_WARMUP + WIDE_DRAWS,
+        n_adapts=WIDE_WARMUP, adaptor=adaptor, init_mass_matrix="gradient",
+        cross_chain=True, fuse_draws=WIDE_FUSE, fuse_warmup=True,
+        fuse_warmup_block=WARMUP_BLOCK, drop_warmup=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    calls = sum(by_chains.values())
+    th, st = res.thetas, res.stats
+    t_draw = res.timings["draws_s"]
+    moments, mcse, ess = _wide_moments(th)
+    median_ess = float(ess.quantile(0.5))
+    sd_logw, ess_frac = bf16_posterior_gate(target, th, WIDE_DIM - 1)
+    out = {
+        "phase": "wide path, bf16 design",
+        "chains": WIDE_CHAINS, "dim": WIDE_DIM, "rows": WIDE_ROWS,
+        "warmup": WIDE_WARMUP, "draws": WIDE_DRAWS, "fuse": WIDE_FUSE,
+        "x_dtype": "bfloat16",
+        "init_s": res.timings["init_s"], "warmup_s": res.timings["warmup_s"],
+        "draws_s": t_draw, "wall_s": wall,
+        "effective_samples_per_s_per_chip": median_ess / t_draw,
+        "median_pooled_ess": median_ess,
+        "accept_mean": float(st["acceptance_rate"].double().mean()),
+        "divergence_rate": float(st["numerical_error"].double().mean()),
+        "mean_tree_depth": float(st["tree_depth"].double().mean()),
+        "leaf_iterations_per_transition":
+            float(st["n_steps"].amax(1).double().mean()),
+        "step_size": float(res.final_state.adapt.da.eps),
+        **moments, "mcse": mcse,
+        "bf16x_logw_sd": sd_logw, "bf16x_rew_ess_frac": ess_frac,
+        "k1_bf16_launches": launches[K1_BF16],
+        "k1_bf16_calls": launches[K1_BF16_CALLS],
+        "value_grad_calls": calls, "launches": launches, "seed": seed,
+        "phase9": {k: wide_out[k] for k in (
+            "warmup_s", "draws_s", "effective_samples_per_s_per_chip",
+            "accept_mean", "mean_tree_depth")},
+        "device": torch.cuda.get_device_name(0),
+    }
+    log(json.dumps(out))
+    log(f"# wide path, bf16 design: warmup {out['warmup_s']:.1f} s, draws "
+        f"{t_draw:.1f} s, ESS/s {out['effective_samples_per_s_per_chip']:.1f}"
+        f" (phase 9, float32 design: warmup {wide_out['warmup_s']:.1f} s, "
+        f"draws {wide_out['draws_s']:.1f} s, ESS/s "
+        f"{wide_out['effective_samples_per_s_per_chip']:.1f}); sd(log w) "
+        f"{sd_logw:.4f}, reweighting ESS fraction {ess_frac:.4f}; K1 bf16 "
+        f"calls {out['k1_bf16_calls']}, launches {out['k1_bf16_launches']}")
+    ref, ref_accept = wide_reference()
+    gates = {
+        f"sd(log w) <= {BF16_MAX_SD_LOGW} (bench.py's bf16 gate)":
+            sd_logw <= BF16_MAX_SD_LOGW,
+        f"reweighting ESS fraction >= {BF16_MIN_ESS_FRAC} (bench.py)":
+            ess_frac >= BF16_MIN_ESS_FRAC,
+        f"draws finite, shape {(WIDE_DRAWS, WIDE_CHAINS, WIDE_DIM)}":
+            tuple(th.shape) == (WIDE_DRAWS, WIDE_CHAINS, WIDE_DIM)
+            and bool(torch.isfinite(th).all()),
+        "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
+        f"|accept - JAX's {ref_accept:.4f}| <= {WIDE_TOL_ACCEPT}":
+            abs(out["accept_mean"] - ref_accept) <= WIDE_TOL_ACCEPT,
+        "k1 bf16 launched": out["k1_bf16_launches"] > 0,
+        "k1 bf16 calls = value+grad calls = all K1 calls":
+            out["k1_bf16_calls"] == calls == launches[K1_CALLS],
+        "k1 bf16 launches = 2 a call": out["k1_bf16_launches"]
+        == 2 * out["k1_bf16_calls"],
+    }
+    for name in WIDE_MOMENTS:
+        r = ref[name]
+        floor = WIDE_K_RUNS * r["sd_between_runs"]
+        tol = WIDE_K_MCSE * math.hypot(r["mcse"], mcse[name]) + floor
+        gates[f"|{name} - JAX's {r['mean']:.4f}| <= {tol:.4f} (phase 9's "
+              "band)"] = abs(moments[name] - r["mean"]) <= tol
+    for name, ok in gates.items():
+        log(f"# gate {name}: {'ok' if ok else 'FAIL'}")
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        raise RuntimeError(f"bf16 wide-path gates failed: {failed}")
+    return out
+
+
+# ----------------------------------------------------------------- phase 12
+# The new options of sample() at the 100-D model's full width, short runs
+# (draws cut: 100 per-chain fused draws in (a), 64 in (b), 32 coupled steps
+# in (c)), each gated on divergence, acceptance and BENCH_r05's moments:
+# (a) the per-chain fused warmup (phase 8's settings, 4096 chains) and
+#     fused draws thinned by 2;
+# (b) phase 3's configuration with the three-phase depth cap and ε
+#     re-anchor, two chain chunks, bfloat16 U-turn stacks and online
+#     collection (its summary's moments gated like stored draws);
+# (c) coupled chains on the step path, from (a)'s warmed state.
+OPT_FUSE, OPT_THIN = 10, 2
+OPT_CAP, OPT_CAP_FRAC, OPT_CAP_FRAC2, OPT_DRAWS_B = 4, 0.25, 0.5, 64
+OPT_COUPLED_STEPS = 32
+
+
+def _fused_iterations(stats):
+    """Leaf-loop iterations per transition of a fused single-leaf phase
+    from its stats (T, C): the loop runs until its slowest chain has done
+    all its leaves, Σ_t n_steps of that chain (to within the loop's check
+    interval)."""
+    return float(stats["n_steps"].double().sum(0).max()) / \
+        stats["n_steps"].shape[0]
+
+
+def _online_moment_gates(online):
+    """Phase 4's moment gates on an online summary (per-chain means and
+    variances): the pooled moments of every draw it folded in."""
+    n = float(online["n"])
+    mean, var = online["mean"].double(), online["var"].double()
+    ls_mean = float(mean[:, 0].mean())
+    # pooled variance of log σ over chains and draws
+    ls_var = float((var[:, 0] * (n - 1) / n).mean()
+                   + ((mean[:, 0] - ls_mean) ** 2).mean())
+    return _gate_moments({"mean_logsigma": ls_mean,
+                          "sd_logsigma": math.sqrt(ls_var),
+                          "mean_beta_norm": float(mean[:, 1:].mean(0).norm())})
+
+
+def _option_gates(name, out, moment_gates, delta, tol_accept):
+    gates = {
+        "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
+        f"|accept - {delta}| <= {tol_accept}":
+            abs(out["accept_mean"] - delta) <= tol_accept,
+        **moment_gates,
+    }
+    for g, ok in gates.items():
+        log(f"# gate {name} {g}: {'ok' if ok else 'FAIL'}")
+    failed = [g for g, ok in gates.items() if not ok]
+    if failed:
+        raise RuntimeError(f"phase 12 {name} gates failed: {failed}")
+
+
+def phase_options(seed, defaults):
+    """Phase 12: the three runs; returns their results."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+
+    target, kernel, main_adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    results = {}
+
+    # (a) per-chain fused warmup, then fused draws thinned
+    adaptor = ah.AdaptorConfig(
+        kind="stan", da=ah.DualAveragingConfig(delta=DEF_DELTA),
+        init_buffer=75, term_buffer=50, window_size=25)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(size=(DEF_CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    metric = ah.make_metric("diagonal", DIM, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    by_chains.clear()
+    t0 = time.perf_counter()
+    res = ah.sample(gen, target, kernel, metric, theta0, DEF_SAMPLES,
+                    n_adapts=DEF_ADAPTS, adaptor=adaptor,
+                    init_mass_matrix="gradient", fuse_warmup=True,
+                    fuse_draws=OPT_FUSE, thin=OPT_THIN, drop_warmup=True,
+                    device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st, ws = res.stats, res.warmup_stats
+    n_kept = (DEF_SAMPLES - DEF_ADAPTS) // OPT_THIN
+    a = {
+        "run": "a: per-chain fused warmup, fused draws, thin 2",
+        "chains": DEF_CHAINS, "adapts": DEF_ADAPTS,
+        "draws": DEF_SAMPLES - DEF_ADAPTS, "fuse": OPT_FUSE,
+        "thin": OPT_THIN, "kept": n_kept,
+        "init_s": res.timings["init_s"], "warmup_s": res.timings["warmup_s"],
+        "draws_s": res.timings["draws_s"], "wall_s": wall,
+        "warmup_leaf_iterations_per_transition": _fused_iterations(ws),
+        "warmup_mean_tree_depth": float(ws["tree_depth"].double().mean()),
+        # the thinned rows' n_steps sum their block's, so this is the
+        # slowest chain's leaves over all the draws' transitions
+        "draws_leaf_iterations_per_transition":
+            float(st["n_steps"].double().sum(0).max())
+            / (DEF_SAMPLES - DEF_ADAPTS),
+        "accept_mean": float(st["acceptance_rate"].double().mean()),
+        "divergence_rate": float(st["numerical_error"].double().mean()),
+        "k1_launches": read_launches()["fused_logistic_value_grad"],
+        "value_grad_calls": sum(by_chains.values()),
+        "phase8_warmup_s": defaults["warmup_s"],
+        "phase8_leaf_iterations_per_transition":
+            defaults["leaf_iterations_per_transition"],
+        "step_size_median": float(res.final_state.adapt.da.eps.median()),
+    }
+    moments, gates = _moment_gates(res.thetas)
+    a.update(moments)
+    log(json.dumps(a))
+    log(f"# phase 12a, per-chain fused warmup: warmup {a['warmup_s']:.1f} s,"
+        f" {a['warmup_leaf_iterations_per_transition']:.1f} leaf iterations "
+        f"a transition (phase 8, step by step: warmup "
+        f"{defaults['warmup_s']:.1f} s, "
+        f"{defaults['leaf_iterations_per_transition']:.1f} a transition); "
+        f"fused draws {a['draws_s']:.1f} s "
+        f"({a['draws_leaf_iterations_per_transition']:.1f} a transition), "
+        f"{n_kept} kept of {a['draws']}")
+    gates["thinned draws finite, shape"] = tuple(res.thetas.shape) == (
+        n_kept, DEF_CHAINS, DIM) and bool(torch.isfinite(res.thetas).all())
+    gates[f"final eps ({DEF_CHAINS},) and M^-1 ({DEF_CHAINS}, {DIM})"] = (
+        tuple(res.final_state.adapt.da.eps.shape) == (DEF_CHAINS,)
+        and tuple(res.final_state.metric.m_inv.shape) == (DEF_CHAINS, DIM))
+    gates["k1 launches = value+grad calls"] = \
+        a["k1_launches"] == a["value_grad_calls"] > 0
+    _option_gates("12a", a, gates, DEF_DELTA, DEF_TOL_ACCEPT)
+    results["a"] = a
+    warmed = res.final_state
+    del res
+
+    # (b) phase 3's configuration with the depth cap, chunks, bf16 stacks
+    # and online collection
+    kernel_b = ah.HMCKernel(ah.Trajectory(
+        kernel.trajectory.integrator, kernel.trajectory.criterion,
+        stack_dtype="bfloat16"))
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    metric = ah.make_metric("diagonal", DIM, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    by_chains.clear()
+    t0 = time.perf_counter()
+    res = ah.sample(
+        gen, target, kernel_b, metric, theta0, N_WARMUP + OPT_DRAWS_B,
+        n_adapts=N_WARMUP, adaptor=main_adaptor, init_mass_matrix="gradient",
+        cross_chain=True, fuse_draws=FUSE, fuse_warmup=True,
+        fuse_warmup_block=WARMUP_BLOCK, drop_warmup=True,
+        warmup_chains=WARMUP_CHAINS, fanout_decorrelate=N_DECOR,
+        fuse_pair=PAIR, fuse_chain_chunks=2, warmup_depth_cap=OPT_CAP,
+        warmup_cap_frac=OPT_CAP_FRAC, warmup_eps_research=True,
+        warmup_cap_frac2=OPT_CAP_FRAC2, collect="online", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st, ws = res.stats, res.warmup_stats
+    n_cap, n_cap2 = ah.depth_cap_schedule(
+        N_WARMUP, OPT_CAP_FRAC, OPT_CAP_FRAC2, WARMUP_BLOCK, True)
+    b = {
+        "run": "b: phase 3 with the 3-phase depth cap, 2 chain chunks, "
+               "bf16 stacks, online",
+        "chains": N_CHAINS, "warmup_chains": WARMUP_CHAINS,
+        "warmup": N_WARMUP, "draws": OPT_DRAWS_B, "depth_cap": OPT_CAP,
+        "n_cap": n_cap, "n_cap2": n_cap2,
+        "init_s": res.timings["init_s"], "warmup_s": res.timings["warmup_s"],
+        "draws_s": res.timings["draws_s"], "wall_s": wall,
+        "warmup_mean_tree_depth_capped":
+            float(ws["tree_depth"][:n_cap2].double().mean()),
+        "warmup_max_tree_depth_capped": int(ws["tree_depth"][:n_cap2].max()),
+        "warmup_mean_tree_depth_full":
+            float(ws["tree_depth"][n_cap2:].double().mean()),
+        "draws_slowest_chain_leaves_per_transition": _fused_iterations(st),
+        # every pair-body iteration of a chunk (half the chains) is two K1
+        # calls; the chunks run one after the other
+        "leaf_iterations_per_transition_per_chunk":
+            by_chains[N_CHAINS // 2] / (2 if PAIR else 1) / 2
+            / (N_DECOR + OPT_DRAWS_B),
+        "accept_mean": float(st["acceptance_rate"].double().mean()),
+        "divergence_rate": float(st["numerical_error"].double().mean()),
+        "online_n": int(res.online["n"]),
+        "online_min_ess": float(res.online["ess"].min()),
+        "step_size": float(res.final_state.adapt.da.eps),
+        "k1_launches": read_launches()["fused_logistic_value_grad"],
+    }
+    moments, gates = _online_moment_gates(res.online)
+    b.update(moments)
+    log(json.dumps(b))
+    log(f"# phase 12b, depth-capped warmup (cap {OPT_CAP} to {n_cap2}, "
+        f"re-anchor at {n_cap}), 2 chunks, bf16 stacks, online: warmup "
+        f"{b['warmup_s']:.1f} s, draws {b['draws_s']:.1f} s "
+        f"({b['leaf_iterations_per_transition_per_chunk']:.2f} leaf-loop "
+        "iterations a transition in each of the two chunks, decorrelation "
+        "and draws)")
+    gates["no draws stored"] = res.thetas is None and b["online_n"] == \
+        OPT_DRAWS_B
+    gates[f"capped warmup trees <= {OPT_CAP}"] = \
+        b["warmup_max_tree_depth_capped"] <= OPT_CAP
+    _option_gates("12b", b, gates, DELTA, 0.1)
+    results["b"] = b
+    del res
+
+    # (c) coupled chains, step by step, from (a)'s warmed state
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ah.sample(gen, target, kernel, warmed.metric, warmed.z.theta,
+                    OPT_COUPLED_STEPS, init_eps=warmed.adapt.da.eps,
+                    coupled=True, fuse_draws=FUSE, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = res.stats
+    c = {
+        "run": "c: coupled, step by step",
+        "chains": DEF_CHAINS, "steps": OPT_COUPLED_STEPS,
+        "draws_s": res.timings["draws_s"], "wall_s": wall,
+        "leaf_iterations_per_transition":
+            float(st["n_steps"].amax(1).double().mean()),
+        "mean_tree_depth": float(st["tree_depth"].double().mean()),
+        "accept_mean": float(st["acceptance_rate"].double().mean()),
+        "divergence_rate": float(st["numerical_error"].double().mean()),
+    }
+    moments, gates = _moment_gates(res.thetas)
+    c.update(moments)
+    log(json.dumps(c))
+    log(f"# phase 12c, coupled: {OPT_COUPLED_STEPS} steps in "
+        f"{c['draws_s']:.1f} s, {c['leaf_iterations_per_transition']:.1f} "
+        "leaf iterations a transition")
+    gates["draws finite"] = bool(torch.isfinite(res.thetas).all())
+    _option_gates("12c", c, gates, DEF_DELTA, DEF_TOL_ACCEPT)
+    results["c"] = c
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1797,7 +2242,10 @@ def main(argv=None):
     gpu = gpu_line()
     log(f"# card: {gpu}")
     phase_build()
-    k1_rows, k1_err = phase_k1()
+    from advancedhmc_torch.ops.fused_logistic import MODE_BF16, MODE_F32
+    k1_rows, k1_err, _ = phase_k1(MODE_F32)
+    k1_report()
+    k1_bf16_rows, k1_bf16_err, _ = phase_k1(MODE_BF16)
     k3_rows, k3_err, k3_launches = phase_k3()
     res, launches, wall, k1_by_chains, iters = phase_main(args.seed)
     out = phase_results(res, launches, wall, args.seed, iters)
@@ -1816,13 +2264,21 @@ def main(argv=None):
                *phase_k2_parity(res)]
     del res
     defaults, k1_by_chains_defaults = phase_defaults(args.seed)
-    wide_rows, wide_err, wide_shape = phase_wide_k1()
+    wide_rows, wide_err, wide_launched = phase_wide_k1(MODE_F32)
+    wide_shape = k1_wide_report(wide_launched)
+    wide_bf16_rows, wide_bf16_err, _ = phase_wide_k1(MODE_BF16)
     wide, res = phase_wide(args.seed)
     wide_k2 = phase_wide_megakernel(res, wide)
     del res
+    wide_bf16 = phase_wide_bf16(args.seed, wide)
+    options = phase_options(args.seed, defaults)
+    log("# phase 12: " + json.dumps(
+        {k: {f: v[f] for f in ("warmup_s", "draws_s") if f in v}
+         for k, v in options.items()}))
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
+    bf16_row = next(r for r in wide_bf16_rows if r["chains"] == WIDE_CHAINS)
     kernels = {"kernels": [{
         "name": "fused_logistic_value_grad",
         "route": "cuda",
@@ -1865,6 +2321,25 @@ def main(argv=None):
         "wrapper_ms": wide_row["wrapper_ms"],
         **wide_shape,
         "shapes": wide_rows,
+    }, {
+        "name": K1_BF16,
+        "route": "cuda",
+        "source": "advancedhmc_torch/csrc/fused_logistic.cu",
+        "replaces": "advancedhmc_tpu/ops/fused_logistic.py:53",
+        "launches": wide_bf16["k1_bf16_launches"],
+        "calls": wide_bf16["k1_bf16_calls"],
+        "max_abs_err": max(k1_bf16_err, wide_bf16_err),
+        "max_err": max(k1_bf16_err, wide_bf16_err),
+        "ms": bf16_row["ms"],
+        "kernel_ms": bf16_row["ms"],
+        "plain_ms": bf16_row["plain_ms"],
+        "bound_ms": bf16_row["bound_ms"],
+        "bound_by": bf16_row["bound_by"],
+        "bound_ms_one_tf32_pass": bf16_row["bound_ms_one_tf32_pass"],
+        "library_ms": None,
+        "cublas_bf16_ms": bf16_row["cublas_ms"],
+        "wrapper_ms": bf16_row["wrapper_ms"],
+        "shapes": k1_bf16_rows + wide_bf16_rows,
     }, {
         "name": "fused_nuts",
         "route": "cuda",

@@ -83,15 +83,18 @@ EDITS = {   # variant: [(file, old text, new text)]
     "no_split": [_set("int kMaxSplit", 8, 1)],
     "a_copies": [
         (CU, "const bool tma = dim % 4 == 0", "const bool tma = false"),
-        (CU, "launch_gemm<1, true>(", "launch_gemm<1, false>("),
-        (CU, "setup_kernel<1, true>(s)", "setup_kernel<1, false>(s)")],
+        (CU, "launch_gemm<1, true, stage_b_mode(Mode)>(",
+         "launch_gemm<1, false, stage_b_mode(Mode)>("),
+        (CU, "setup_kernel<1, true, stage_b_mode(Mode)>(s)",
+         "setup_kernel<1, false, stage_b_mode(Mode)>(s)")],
     "stage_a": [(CU, "  {   // stage B:", "  if (false) {   // stage B:")],
     "stage_b": [(CU, "  {   // stage A:", "  if (false) {   // stage A:")],
 }
 SHAPES = ((1024, 999, 1000), (1, 999, 1000), (4096, 999, 1000))
-GEMMS = (("stage_a", "gemm_kernelILi0ELb1E"),
-         ("stage_a_copies", "gemm_kernelILi0ELb0E"),
-         ("stage_b", "gemm_kernelILi1E"))
+# (the float32 mode's instances: template arguments stage, A by TMA, mode)
+GEMMS = (("stage_a", "gemm_kernelILi0ELb1ELi0E"),
+         ("stage_a_copies", "gemm_kernelILi0ELb0ELi0E"),
+         ("stage_b", "gemm_kernelILi1ELb1ELi0E"))
 
 
 def build_all():
@@ -159,7 +162,7 @@ def call(lib, design, theta, x, y):
     launched = ctypes.c_int(0)
     err = lib.fused_logistic_value_grad_f32(
         theta.data_ptr(), x.data_ptr(), y.data_ptr(), lp.data_ptr(),
-        grad.data_ptr(), c, dim, n, ctypes.addressof(design),
+        grad.data_ptr(), c, dim, n, 0, ctypes.addressof(design),
         scratch.data_ptr(), torch.cuda.current_stream().cuda_stream,
         ctypes.byref(launched))
     if err != 0:

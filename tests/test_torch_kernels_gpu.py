@@ -68,6 +68,116 @@ def test_k1_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c,p,n", [(32768, 99, 1000), (4096, 99, 1000),
+                                   (13, 99, 300), (1, 99, 1000),
+                                   (1024, 999, 1000), (1000, 200, 997),
+                                   (1, 999, 1000)])
+@pytest.mark.parametrize("mode", [k1.MODE_BF16, k1.MODE_RESID_BF16])
+def test_k1_reduced_modes_match_plain_on_card(mode, c, p, n):
+    """K1's bfloat16 modes (the model's `x_dtype`, `resid_dtype`), narrow
+    and wide, against the mode's float64 function: K1's gate (1e-4 of the
+    largest magnitude) plus, on the gradient, the residual roundings that
+    float32 logits can flip (`rounding_reference`); its float32 plain twin
+    is held to the same gate. Two calls give the same bits, the launches a
+    call are the float32 mode's, and the bfloat16-operand mode counts its
+    own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x_np, y_np = _synthetic_data(n, p)
+    x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    th = 0.3 * torch.randn(c, p + 1, generator=torch.Generator(
+        device="cuda").manual_seed(c + p), device="cuda")
+    design = k1.WideDesign(x, mode) if p > 128 else None
+    f = k1.logistic_value_grad
+    before = (f.launches, f.bf16_launches)
+    lp, g = f(th, x, y, design, mode)
+    per_call = (f.launches - before[0], f.bf16_launches - before[1])
+    lp2, g2 = f(th, x, y, design, mode)
+    lp_p, g_p = k1.plain_logistic_value_grad(th, x, y, mode)
+    lp_r, g_r, allow, _ = k1.rounding_reference(th, x, y, mode)
+    torch.cuda.synchronize()
+    launches = 2 if p > 128 else 1
+    assert per_call == (launches, launches if mode == k1.MODE_BF16 else 0)
+    assert torch.equal(lp, lp2) and torch.equal(g, g2)
+    assert bool((g[:, 0] == 0).all())
+    tol_g = 1e-4 * float(g_r.abs().max())
+    tol_lp = 1e-4 * max(1.0, float(lp_r.abs().max()))
+    for gg, ll in ((g, lp), (g_p, lp_p)):
+        assert bool(((gg.double() - g_r).abs() <= tol_g + allow).all())
+        assert float((ll.double() - lp_r).abs().max()) <= tol_lp
+
+
+@pytest.mark.gpu
+def test_sample_options_run_on_card(capsys):
+    """The options of `sample()` that phase 12 of chip_smoke.py does not
+    drive, on the card: `resid_dtype` (K1's residual mode), the progress
+    display, `verbose`, `collect_warmup_stats=False`, and the stepwise
+    thinned and online draws."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import advancedhmc_torch as ah
+
+    target = ah.hierarchical_logistic(n=300, p=9, resid_dtype="bfloat16",
+                                      device="cuda")
+    kernel = ah.HMCKernel(ah.Trajectory(
+        ah.Leapfrog(step_size=torch.tensor(0.1, device="cuda")),
+        ah.GeneralisedNoUTurn(max_depth=5)))
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(0).normal(size=(64, 10)),
+        dtype=torch.float32, device="cuda")
+    for kw in (dict(thin=2), dict(collect="online")):
+        before = k1.logistic_value_grad.calls
+        res = ah.sample(torch.Generator(device="cuda").manual_seed(0),
+                        target, kernel,
+                        ah.make_metric("diagonal", 10, device="cuda"),
+                        theta0, 40, n_adapts=20,
+                        adaptor=ah.AdaptorConfig(kind="stan"),
+                        drop_warmup=True, collect_warmup_stats=False,
+                        progress=True, progress_every=10, verbose=True,
+                        device="cuda", **kw)
+        assert k1.logistic_value_grad.calls > before
+        assert res.warmup_stats is None
+        if "thin" in kw:
+            assert res.thetas.shape == (10, 64, 10)
+            assert bool(torch.isfinite(res.thetas).all())
+        else:
+            assert res.thetas is None and int(res.online["n"]) == 20
+    out = capsys.readouterr().out
+    assert out.count(" | accept ") == 8 and "sampling finished" in out
+
+
+@pytest.mark.gpu
+def test_bf16_design_model_runs_k1_bf16_on_card():
+    """`hierarchical_logistic(x_dtype="bfloat16")` sends its float32
+    batches on the card to K1's bfloat16 mode, and agrees with the mode's
+    float64 function plus the float64 prior at K1's gate (with the
+    residual-rounding allowance, as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from advancedhmc_torch.models.logistic import _prior
+
+    th = torch.as_tensor(0.1 * np.random.default_rng(2).normal(
+        size=(64, 1000)), dtype=torch.float32)
+    tgt = hierarchical_logistic(n=1000, p=999, x_dtype="bfloat16",
+                                device="cuda")
+    f = k1.logistic_value_grad
+    before = f.bf16_calls
+    lp, g = tgt.logdensity_and_grad(th.cuda())
+    assert f.bf16_calls == before + 1
+    x_np, y_np = _synthetic_data(1000, 999)
+    lp_r, g_r, allow, _ = k1.rounding_reference(
+        th, torch.as_tensor(x_np), torch.as_tensor(y_np), k1.MODE_BF16)
+    lp_pri, g_pri = _prior(th.double(), 999)
+    lp_r, g_r = lp_r + lp_pri, g_r + g_pri
+    assert float((lp.cpu().double() - lp_r).abs().max()) <= 1e-4 * float(
+        lp_r.abs().max())
+    assert bool(((g.cpu().double() - g_r).abs()
+                 <= 1e-4 * g_r.abs().max() + allow).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("p,dtype", [(200, torch.float32),
                                      (99, torch.float64)])
 def test_logistic_model_beyond_k1_runs_on_card(p, dtype):

@@ -271,27 +271,28 @@ def test_unported_options_raise_not_implemented():
         lambda: ah.Trajectory(lf, ah.GeneralisedNoUTurn(), ts_kind="slice"),
         lambda: ah.AdaptState.init(ah.AdaptorConfig(mm_kind="nutpie"), DIM,
                                    0.1),
-        lambda: ah.SampleSpec(target=tgt, kernel=kernel,
-                              adaptor=ah.AdaptorConfig(), cross_chain=True,
-                              coupled=True),
-        lambda: ah.hierarchical_logistic(n=N, p=P, x_dtype="bfloat16",
+        # the per-chain fused warmup with the estimators that wait for
+        # ROADMAP's "rest of the surface": nutpie, and dense Welford-cov
+        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
+                          adaptor=ah.AdaptorConfig(mm_kind="nutpie"),
+                          fuse_warmup=True, device="cpu"),
+        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
+                          adaptor=ah.AdaptorConfig(mm_kind="welford_cov"),
+                          fuse_warmup=True, device="cpu"),
+        # reduced dtypes other than bfloat16
+        lambda: ah.hierarchical_logistic(n=N, p=P, x_dtype="float16",
                                          device="cpu"),
-        lambda: ah.nuts_transition(gen, h, kernel.trajectory, z,
-                                   coupled_key=1),
+        lambda: ah.hierarchical_logistic(n=N, p=P, resid_dtype="float16",
+                                         device="cpu"),
+        lambda: ah.Trajectory(lf, ah.GeneralisedNoUTurn(),
+                              stack_dtype="float16"),
+        # the fused loop's XLA layout knobs
+        lambda: ah.nuts_transitions_fused(gen, h, kernel.trajectory, z, 2,
+                                          kernel.refreshment, unroll=2),
         lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
                           adaptor=ah.AdaptorConfig(), cross_chain=True,
                           fuse_draws=4, fuse_warmup=True,
                           fuse_warmup_block=4, mesh=object(), device="cpu"),
-        # the per-chain fused warmup (JAX `fused_warmup_phase`)
-        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
-                          adaptor=ah.AdaptorConfig(), fuse_warmup=True,
-                          device="cpu"),
-        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
-                          adaptor=ah.AdaptorConfig(), drop_warmup=True,
-                          thin=2, device="cpu"),
-        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
-                          adaptor=ah.AdaptorConfig(), drop_warmup=True,
-                          collect="online", device="cpu"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError,
