@@ -4,7 +4,11 @@ The JAX package `advancedhmc_tpu` is the reference; this package carries its
 main path on one NVIDIA GPU (Hopper): NUTS (generalised no-U-turn,
 multinomial, unit or diagonal metric) with per-chain or cross-chain Stan
 adaptation, step by step or fused, with every option of JAX `sample` but
-`mesh`, on the hierarchical logistic (float32 or bfloat16 design), with
+`mesh`; static HMC (endpoint or multinomial sampling, fixed steps or
+integration time), the jittered, tempered, composed and external-solver
+integrators, partial momentum refreshment and the NUTS/HMC/HMCDA
+constructors; ChEES-HMC (`sample_chees`); on the hierarchical logistic
+(float32 or bfloat16 design), the Gaussians and Neal's funnel, with
 the likelihood value+grad in a hand-written CUDA kernel
 (`ops/fused_logistic.py`, `csrc/fused_logistic.cu`), and the JAX package's
 two other kernels: the NUTS megakernel on block targets
@@ -27,6 +31,11 @@ from .adaptation import (
     da_update,
     stan_schedule,
 )
+from .adaptation.chees import CheesConfig, CheesState, chees_update, \
+    halton_sequence
+from .chees import chees_tau_sweep, chees_transition, make_chees_draw_step, \
+    make_chees_step, sample_chees
+from .constructors import HMC, HMCDA, NUTS, SamplerConfig, make_integrator
 from .diagnostics import (
     OnlineMoments,
     ebfmi,
@@ -38,13 +47,16 @@ from .diagnostics import (
     rhat,
     summarize,
 )
-from .hamiltonian import FullMomentumRefreshment, Hamiltonian, PhasePoint
-from .integrators import Leapfrog, leapfrog_step
+from .hamiltonian import FullMomentumRefreshment, Hamiltonian, \
+    PartialMomentumRefreshment, PhasePoint
+from .integrators import ComposedLeapfrog, JitteredLeapfrog, Leapfrog, \
+    SolverIntegrator, TemperedLeapfrog, leapfrog_step, leapfrog_steps
 from .kinetic import GaussianKinetic
 from .metrics import DiagEuclideanMetric, Metric, UnitEuclideanMetric, \
     make_metric
-from .models.logistic import hierarchical_logistic, \
-    hierarchical_logistic_block
+from .models import correlated_gaussian, funnel_nc_to_centered, \
+    hierarchical_logistic, hierarchical_logistic_block, mvn_diag, \
+    neal_funnel, neal_funnel_nc, std_gaussian
 from .nuts import nuts_transition, nuts_transitions_fused
 from .sampler import (
     HMCState,
@@ -60,30 +72,51 @@ from .sampler import (
     sample_step,
 )
 from .stepsize_search import find_good_stepsize, find_good_stepsizes
-from .target import BlockTarget, LogDensityTarget
-from .termination import GeneralisedNoUTurn
-from .trajectory import HMCKernel, Trajectory, mh_accept_ratio
+from .target import BlockTarget, LogDensityTarget, as_target
+from .termination import ENDPOINT, MULTINOMIAL, SLICE, ClassicNoUTurn, \
+    FixedIntegrationTime, FixedNSteps, GeneralisedNoUTurn, \
+    StrictGeneralisedNoUTurn
+from .trajectory import HMCKernel, Trajectory, mh_accept_ratio, \
+    transition_static
 
 __all__ = [
     "AdaptState",
     "AdaptorConfig",
     "BlockTarget",
+    "CheesConfig",
+    "CheesState",
+    "ClassicNoUTurn",
+    "ComposedLeapfrog",
     "DiagEuclideanMetric",
     "DualAveragingConfig",
     "DualAveragingState",
+    "ENDPOINT",
+    "FixedIntegrationTime",
+    "FixedNSteps",
     "FullMomentumRefreshment",
     "GaussianKinetic",
     "GeneralisedNoUTurn",
+    "HMC",
+    "HMCDA",
     "HMCKernel",
     "HMCState",
     "Hamiltonian",
+    "JitteredLeapfrog",
     "Leapfrog",
     "LogDensityTarget",
+    "MULTINOMIAL",
     "Metric",
+    "NUTS",
     "OnlineMoments",
+    "PartialMomentumRefreshment",
     "PhasePoint",
+    "SLICE",
     "SampleResult",
     "SampleSpec",
+    "SamplerConfig",
+    "SolverIntegrator",
+    "StrictGeneralisedNoUTurn",
+    "TemperedLeapfrog",
     "Trajectory",
     "UnitEuclideanMetric",
     "WelfordVarState",
@@ -91,6 +124,11 @@ __all__ = [
     "adapt_step",
     "adapt_step_batch",
     "adapt_step_masked",
+    "as_target",
+    "chees_tau_sweep",
+    "chees_transition",
+    "chees_update",
+    "correlated_gaussian",
     "da_update",
     "depth_cap_schedule",
     "ebfmi",
@@ -99,15 +137,24 @@ __all__ = [
     "fanout_warmup_state",
     "find_good_stepsize",
     "find_good_stepsizes",
+    "funnel_nc_to_centered",
     "fused_draw_phase",
     "fused_warmup_phase",
     "fused_warmup_phase_crosschain",
+    "halton_sequence",
     "hierarchical_logistic",
     "hierarchical_logistic_block",
     "init_state",
     "leapfrog_step",
+    "leapfrog_steps",
+    "make_chees_draw_step",
+    "make_chees_step",
+    "make_integrator",
     "make_metric",
     "mh_accept_ratio",
+    "mvn_diag",
+    "neal_funnel",
+    "neal_funnel_nc",
     "nuts_transition",
     "nuts_transitions_fused",
     "online_init",
@@ -115,7 +162,10 @@ __all__ = [
     "online_update",
     "rhat",
     "sample",
+    "sample_chees",
     "sample_step",
     "stan_schedule",
+    "std_gaussian",
     "summarize",
+    "transition_static",
 ]

@@ -1,6 +1,8 @@
-"""Adaptation layer: dual averaging, the diagonal Welford estimator and the
-Stan window schedule (counterpart of `advancedhmc_tpu/adaptation`)."""
+"""Adaptation layer: dual averaging, the diagonal Welford estimator, the
+Stan window schedule and ChEES's trajectory-length adaptation (counterpart
+of `advancedhmc_tpu/adaptation`)."""
 
+from .chees import CheesConfig, CheesState, chees_update, halton_sequence
 from .massmatrix import WelfordVarState
 from .stan import (
     MASSMATRIX,
@@ -26,6 +28,8 @@ from .stepsize import DualAveragingConfig, DualAveragingState, da_update
 __all__ = [
     "AdaptState",
     "AdaptorConfig",
+    "CheesConfig",
+    "CheesState",
     "DualAveragingConfig",
     "DualAveragingState",
     "MASSMATRIX",
@@ -43,6 +47,8 @@ __all__ = [
     "adapt_step",
     "adapt_step_batch",
     "adapt_step_masked",
+    "chees_update",
     "da_update",
+    "halton_sequence",
     "stan_schedule",
 ]

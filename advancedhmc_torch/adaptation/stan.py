@@ -66,8 +66,10 @@ class AdaptState:
     @classmethod
     def init(cls, cfg: AdaptorConfig, dim: int, eps0, dtype=torch.float32):
         """Shared state from a scalar ε, or one state per chain (dual
-        averaging and Welford moments) from a (C,) ε."""
-        if cfg.mm_kind != MM_WELFORD_VAR:
+        averaging and Welford moments) from a (C,) ε. The unit estimator
+        adapts nothing (`uses_mm` is False): its slot holds Welford moments
+        that no step reads."""
+        if cfg.mm_kind not in (MM_WELFORD_VAR, MM_UNIT):
             raise NotImplementedError(
                 f"mass-matrix estimator {cfg.mm_kind!r} is not ported yet "
                 + roadmap("surface"))

@@ -12,15 +12,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .adaptation import AdaptState, DualAveragingState, WelfordVarState
+from .adaptation import AdaptState, CheesState, DualAveragingState, \
+    WelfordVarState
 from .diagnostics import OnlineMoments
-from .hamiltonian import PhasePoint
-from .integrators import Leapfrog
+from .hamiltonian import FullMomentumRefreshment, PartialMomentumRefreshment, \
+    PhasePoint
+from .integrators import ComposedLeapfrog, JitteredLeapfrog, Leapfrog, \
+    SolverIntegrator, TemperedLeapfrog
 from .metrics import DiagEuclideanMetric
 from .sampler import HMCState
-from .termination import GeneralisedNoUTurn
-from .trajectory import Trajectory
-from .utils import resolve_device
+from .termination import FixedIntegrationTime, FixedNSteps, \
+    GeneralisedNoUTurn
+from .trajectory import HMCKernel, Trajectory
+from .utils import resolve_device, roadmap
 
 
 def tensor(a, device=None, dtype=None):
@@ -69,22 +73,80 @@ def online_moments(om, device=None) -> OnlineMoments:
                            ("n", "mean", "m2", "lag_buf", "lag_acc")))
 
 
-def trajectory(traj, device=None) -> Trajectory:
-    """A plain-`Leapfrog`, generalised no-U-turn, multinomial trajectory
-    with its step size, max_depth, Δ_max and precision switches
-    (`stack_dtype`, `uturn_precision`, given by name)."""
-    crit = traj.criterion
+def chees_state(cs, device=None) -> CheesState:
+    """A ChEES trajectory-length state (log T, its average, Adam's moments
+    and count)."""
+    return CheesState(*(tensor(getattr(cs, f), device) for f in
+                        ("log_t", "log_t_avg", "m", "v", "count")))
+
+
+def integrator(integ, device=None, stepper=None):
+    """The integrator of the same class with the same step sizes and
+    parameters. A `SolverIntegrator`'s stepper is a function of the other
+    package's arrays: pass the port's own as `stepper`."""
+    kind = type(integ).__name__
+    if kind == "Leapfrog":
+        return Leapfrog(step_size=tensor(integ.step_size, device))
+    if kind == "JitteredLeapfrog":
+        return JitteredLeapfrog(
+            step_size0=tensor(integ.step_size0, device),
+            step_size=tensor(integ.step_size, device),
+            jitter_frac=float(integ.jitter_frac))
+    if kind == "TemperedLeapfrog":
+        return TemperedLeapfrog(step_size=tensor(integ.step_size, device),
+                                alpha=float(integ.alpha))
+    if kind == "ComposedLeapfrog":
+        return ComposedLeapfrog(step_size=tensor(integ.step_size, device),
+                                gammas=tuple(float(g) for g in integ.gammas))
+    if kind == "SolverIntegrator":
+        if stepper is None:
+            raise ValueError("a SolverIntegrator needs the port's stepper=")
+        return SolverIntegrator(step_size=tensor(integ.step_size, device),
+                                stepper=stepper)
+    raise TypeError(f"unknown integrator {kind}")
+
+
+def criterion(crit):
+    """A termination criterion of the same class and hyperparameters."""
+    kind = type(crit).__name__
+    if kind == "FixedNSteps":
+        return FixedNSteps(int(crit.n_steps))
+    if kind == "FixedIntegrationTime":
+        return FixedIntegrationTime(float(crit.lam), int(crit.max_steps))
+    if kind == "GeneralisedNoUTurn":
+        return GeneralisedNoUTurn(max_depth=int(crit.max_depth),
+                                  delta_max=float(crit.delta_max))
+    raise NotImplementedError(f"{kind} is not ported yet "
+                              + roadmap("surface"))
+
+
+def refreshment(ref):
+    """A full or partial momentum refreshment."""
+    if type(ref).__name__ == "PartialMomentumRefreshment":
+        return PartialMomentumRefreshment(alpha=float(ref.alpha))
+    return FullMomentumRefreshment()
+
+
+def trajectory(traj, device=None, stepper=None) -> Trajectory:
+    """A trajectory with the same integrator (`integrator`), criterion,
+    sampler kind and precision switches (`stack_dtype`, `uturn_precision`,
+    given by name)."""
     prec = traj.uturn_precision
     return Trajectory(
-        Leapfrog(step_size=tensor(traj.integrator.step_size, device)),
-        GeneralisedNoUTurn(max_depth=int(crit.max_depth),
-                           delta_max=float(crit.delta_max)),
+        integrator(traj.integrator, device, stepper),
+        criterion(traj.criterion),
         traj.ts_kind,
         stack_dtype=(traj.stack_dtype if traj.stack_dtype is None
                      or isinstance(traj.stack_dtype, str)
                      else np.dtype(traj.stack_dtype).name),
         uturn_precision=None if prec is None
         else getattr(prec, "name", str(prec)).lower())
+
+
+def kernel(k, device=None, stepper=None) -> HMCKernel:
+    """An HMC kernel: its trajectory and its momentum refreshment."""
+    return HMCKernel(trajectory(k.trajectory, device, stepper),
+                     refreshment(k.refreshment))
 
 
 def hmc_state(state, device=None) -> HMCState:

@@ -5,7 +5,8 @@ holds a batch of chains — θ, r and ∇ℓπ are (C, dim), ℓπ and -K are (C
 and caches the target density and gradient so that each leapfrog step
 evaluates the target once. Non-finite log densities and kinetic energies
 are clamped to -Inf at construction, so Metropolis-Hastings steps
-auto-reject them.
+auto-reject them. The momentum refreshments are full (a fresh draw) and
+partial (r' = α·r + sqrt(1 − α²)·G).
 """
 
 from __future__ import annotations
@@ -102,3 +103,19 @@ class FullMomentumRefreshment:
     def refresh(self, generator, h: Hamiltonian, z: PhasePoint) -> PhasePoint:
         r = h.rand_momentum(generator, z.theta.shape[0])
         return h.phasepoint(z.theta, r, logdensity=z.logdensity, grad=z.grad)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialMomentumRefreshment:
+    """r' = α·r + sqrt(1 − α²)·G, G a fresh momentum draw."""
+
+    alpha: float
+
+    def mix(self, h: Hamiltonian, z: PhasePoint, g) -> PhasePoint:
+        """The refreshed phase points given the draws `g (C, dim)`."""
+        a = torch.as_tensor(self.alpha, dtype=z.r.dtype, device=z.r.device)
+        r = a * z.r + torch.sqrt(1 - a ** 2) * g
+        return h.phasepoint(z.theta, r, logdensity=z.logdensity, grad=z.grad)
+
+    def refresh(self, generator, h: Hamiltonian, z: PhasePoint) -> PhasePoint:
+        return self.mix(h, z, h.rand_momentum(generator, z.theta.shape[0]))

@@ -1,8 +1,9 @@
 """NUTS: iterative tree doubling over a batch of chains.
 
-PyTorch counterpart of `advancedhmc_tpu/nuts.py` for the main path: the
-generalised no-U-turn criterion, multinomial sampling, unit or diagonal M⁻¹
-and full momentum refreshment. As in the JAX package the recursive
+PyTorch counterpart of `advancedhmc_tpu/nuts.py`: the generalised no-U-turn
+criterion, multinomial sampling, unit or diagonal M⁻¹, full or partial
+momentum refreshment, and each leaf one step of the trajectory's
+integrator. As in the JAX package the recursive
 `build_tree` is flattened into a loop that takes ONE leapfrog step per
 iteration, with the doubling bookkeeping done in O(max_depth) masked
 arithmetic; here the loop is a Python `while` over the batched state
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from .hamiltonian import PhasePoint, select_phasepoint
-from .integrators import leapfrog_step
+from .integrators import JitteredLeapfrog, leapfrog_step
 from .metrics import DiagEuclideanMetric
 from .termination import GeneralisedNoUTurn, MULTINOMIAL
 from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
@@ -122,12 +123,14 @@ def _start(st, v_draw):
     return v, fwd, z_edge, sub
 
 
-def _step(h, z_edge, eps_v, h0, delta_max, sub, generator):
-    """One leapfrog step from `z_edge` (signed step `eps_v`) and the
-    multinomial leaf sampler: reservoir update (one uniform draw) and
-    divergence. Returns (z_new, vel_new, sub with the leaf added)."""
+def _step(h, z_edge, eps_v, h0, delta_max, sub, generator, integ=None):
+    """One integrator step from `z_edge` (signed step `eps_v`; `integ`'s
+    step, plain leapfrog without one) and the multinomial leaf sampler:
+    reservoir update (one uniform draw) and divergence. Returns (z_new,
+    vel_new, sub with the leaf added)."""
     c, dtype, dev = h0.shape[0], h0.dtype, h0.device
-    z_new = leapfrog_step(h, z_edge, eps_v)
+    z_new = (leapfrog_step(h, z_edge, eps_v) if integ is None
+             else integ.step(h, z_edge, eps_v))
     vel_new = h.velocity(z_new.r)
     h_new = z_new.energy()
     dh = h_new - h0
@@ -248,7 +251,7 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
 
 
 def _leaf(st, h, eps, max_depth, delta_max, generator,
-          force_directions=None, act=None):
+          force_directions=None, act=None, integ=None):
     """Advance every chain by one leaf: the body of the iterative NUTS loop
     (single-leaf form of `advancedhmc_tpu/nuts.py` `body`). It draws a
     direction sign, the reservoir's uniform and the merge's exponential,
@@ -261,7 +264,7 @@ def _leaf(st, h, eps, max_depth, delta_max, generator,
               else _direction(st, force_directions, max_depth))
     v, fwd, z_edge, sub = _start(st, v_draw)
     z_new, vel_new, sub = _step(h, z_edge, eps * v.to(dtype), st["h0"],
-                                delta_max, sub, generator)
+                                delta_max, sub, generator, integ)
     i_even = (i % 2) == 0
     sub["s_turning"] = sub["s_turning"] | _span_turn(
         st, h, i, sub["s_rho"], vel_new, max_depth, ~i_even)
@@ -280,7 +283,7 @@ def _direction(st, directions, max_depth):
 
 
 def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None,
-               directions=None):
+               directions=None, integ=None):
     """Advance every chain by the aligned (even, odd) leaf pair of its
     current doubling, or by the lone leaf of a depth-0 doubling: the
     leaf-pair body (`advancedhmc_tpu/nuts.py` `body_pair`). Every chain is
@@ -304,7 +307,7 @@ def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None,
     eps_v = eps * v.to(dtype)
     # leaf A (even): its checkpoint; no span ends at an even leaf
     z_a, vel_a, sub_a = _step(h, z_edge, eps_v, h0, delta_max, sub,
-                              generator)
+                              generator, integ)
     e_a = rand_exponential(generator, (c,), dtype, dev)
     n_leaves = torch.bitwise_left_shift(torch.ones_like(i_a), st["depth"])
     pair_go = ~(sub_a["s_diverged"] | (i_a >= n_leaves - 1))
@@ -313,7 +316,8 @@ def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None,
     # leaf B (odd): the span checks
     if directions is None:
         rand_sign(generator, (c,), dev)
-    z_b, vel_b, sub_b = _step(h, z_a, eps_v, h0, delta_max, sub_a, generator)
+    z_b, vel_b, sub_b = _step(h, z_a, eps_v, h0, delta_max, sub_a, generator,
+                              integ)
     e_b = rand_exponential(generator, (c,), dtype, dev)
     i_b = i_a + 1
     sub_b["s_turning"] = sub_b["s_turning"] | _span_turn(
@@ -325,7 +329,7 @@ def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None,
 
 
 def _stats(zcand: PhasePoint, h0, n_alpha, sum_alpha, dh_max, depth,
-           diverged, eps):
+           diverged, eps, nom_eps=None):
     n_alpha_f = n_alpha.to(zcand.theta.dtype)
     energy = zcand.energy()
     return {
@@ -339,7 +343,8 @@ def _stats(zcand: PhasePoint, h0, n_alpha, sum_alpha, dh_max, depth,
         "tree_depth": depth,
         "numerical_error": diverged,
         "step_size": torch.broadcast_to(eps, diverged.shape),
-        "nom_step_size": torch.broadcast_to(eps, diverged.shape),
+        "nom_step_size": torch.broadcast_to(
+            eps if nom_eps is None else nom_eps, diverged.shape),
     }
 
 
@@ -348,8 +353,10 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
                     coupled_key=None, _pair=False, **options):
     """One NUTS transition of every chain of `z0`; returns (z_next, stats).
 
-    The integrator's step size is a scalar or one per chain (C,), and so is
-    the stats' `step_size`; a per-chain M⁻¹ comes with `h`'s metric. The
+    The integrator's current step size is a scalar or one per chain (C,),
+    and so is the stats' `step_size` (its nominal one is `nom_step_size`:
+    a jittered integrator is jittered before the call); each leaf is one
+    `integrator.step`. A per-chain M⁻¹ comes with `h`'s metric. The
     loop runs until every chain's tree is done; a finished chain keeps its
     state and stores no further checkpoint.
 
@@ -376,8 +383,9 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
     crit = traj.criterion
     max_depth = int(crit.max_depth)
     dev = z0.theta.device
-    eps = torch.as_tensor(traj.integrator.current_step_size,
-                          dtype=z0.theta.dtype, device=dev)
+    integ = traj.integrator
+    eps = torch.as_tensor(integ.current_step_size, dtype=z0.theta.dtype,
+                          device=dev)
     directions = force_directions
     if directions is None and coupled_key is not None:
         directions = rand_sign(coupled_key, (max_depth,), dev)
@@ -387,15 +395,18 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
         running = ~st["done"]     # finished chains keep their state
         if _pair and not first:
             new = _leaf_pair(st, h, eps, max_depth, crit.delta_max,
-                             generator, act=running, directions=directions)
+                             generator, act=running, directions=directions,
+                             integ=integ)
         else:
             new = _leaf(st, h, eps, max_depth, crit.delta_max, generator,
-                        directions, act=running)
+                        directions, act=running, integ=integ)
         first = False
         st = {k: v if k.startswith(("ck_", "sck_")) else _sel(running, v, st[k])
               for k, v in new.items()}
     stats = _stats(st["zcand"], st["h0"], st["n_alpha"], st["sum_alpha"],
-                   st["dh_max"], st["depth"], st["diverged"], eps)
+                   st["dh_max"], st["depth"], st["diverged"], eps,
+                   torch.as_tensor(integ.nom_step_size, dtype=eps.dtype,
+                                   device=dev))
     if return_debug:
         return st["zcand"], stats, st
     return st["zcand"], stats
@@ -419,7 +430,11 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     is refreshed and its next transition starts in the next iteration, while
     other chains are still mid-tree. The loop ends when every chain has
     completed `n_transitions`. Step size and metric are frozen for the call;
-    each is shared or per chain, as in `nuts_transition`.
+    each is shared or per chain, as in `nuts_transition`. A jittered
+    integrator draws each chain's step size anew from its nominal one at
+    each of its transition boundaries (the first transition runs at the
+    integrator's current step size); the momentum is refreshed by
+    `refreshment` there.
 
     Returns (z_final, thetas (C, n_transitions, dim), stats of
     (C, n_transitions)). `z_final` is each chain's last candidate; its
@@ -455,8 +470,12 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     max_depth = int(crit.max_depth)
     c, d = z0.theta.shape
     dtype, dev = z0.theta.dtype, z0.theta.device
-    eps = torch.as_tensor(traj.integrator.current_step_size, dtype=dtype,
-                          device=dev)
+    integ = traj.integrator
+    eps = torch.as_tensor(integ.current_step_size, dtype=dtype, device=dev)
+    nom = torch.as_tensor(integ.nom_step_size, dtype=dtype, device=dev)
+    jittered = isinstance(integ, JitteredLeapfrog)
+    if jittered:
+        eps = torch.broadcast_to(eps, (c,)).clone()
     n_t = n_transitions
     adaptive = adapt_cfg is not None
     adapt_metric = adaptive and adapt_cfg.uses_mm
@@ -490,7 +509,8 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     while True:
         act = ~all_done
         st2 = (_leaf_pair if pair else _leaf)(
-            st, h, eps, max_depth, crit.delta_max, generator, act=act)
+            st, h, eps, max_depth, crit.delta_max, generator, act=act,
+            integ=integ)
         boundary = st2["done"] & act
         zc = st2["zcand"]
         s = _stats(zc, st2["h0"], st2["n_alpha"], st2["sum_alpha"],
@@ -505,21 +525,24 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         all_done = t >= n_t
         reset = boundary & ~all_done
 
-        h_next = h
+        h_next, nom_next = h, nom
         if adaptive:
             # each finishing chain's adaptation step, at its own count
             idx = torch.clamp(t_done, max=n_t - 1).long()
             ad = adapt_step_masked(
                 adapt_cfg, ad, zc.theta, s["acceptance_rate"],
                 {k: v[idx] for k, v in flags.items()}, boundary)
-            eps = torch.where(reset, ad.da.eps, eps)
+            nom_next = ad.da.eps
             if adapt_metric:
                 h_next = dataclasses.replace(h, metric=DiagEuclideanMetric.create(
                     torch.where(reset[:, None], ad.mm.m_inv, h.metric.m_inv)))
         # prepare the next transition of the chains that just finished one
-        z_next = h_next.phasepoint(zc.theta,
-                                   h_next.rand_momentum(generator, c),
-                                   logdensity=zc.logdensity, grad=zc.grad)
+        z_next = refreshment.refresh(generator, h_next, zc)
+        if jittered:
+            eps = torch.where(reset, integ.with_nom_step_size(nom_next).jitter(
+                generator, c).current_step_size, eps)
+        elif adaptive:
+            eps = torch.where(reset, nom_next, eps)
         fresh = _fresh_fields(z_next, z_next.energy())
         st = {k: _sel(reset, fresh[k], v) if k in fresh else v
               for k, v in st2.items()}
@@ -538,7 +561,9 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         stats[k] = stats[k].to(torch.int32)
     stats["numerical_error"] = stats["numerical_error"] > 0
     stats["is_accept"] = torch.ones_like(stats["numerical_error"])
-    stats["nom_step_size"] = stats["step_size"]
+    stats["nom_step_size"] = (
+        torch.broadcast_to(nom[:, None] if nom.dim() else nom, (c, n_t))
+        if jittered else stats["step_size"])
     if adaptive:
         return st["zcand"], out_theta[:, :n_t], stats, ad
     return st["zcand"], out_theta[:, :n_t], stats

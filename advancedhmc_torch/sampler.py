@@ -12,10 +12,13 @@ fused loop (`fused_warmup_phase`), or cross-chain in blocks
 `fanout_warmup_state` fans out, or depth-capped. `fuse_pair` runs the fused
 phases on the leaf-pair body, `fuse_chain_chunks` in sequential chain
 sub-batches; `thin`, `collect="online"`, `coupled` and the progress display
-are the JAX function's. Randomness comes from one `torch.Generator` on the
-sampler's device, passed to each function; the state carries no key. The
-`mesh` option (multi-GPU) is not ported; it raises, naming its ROADMAP.md
-item.
+are the JAX function's. A static trajectory (`FixedNSteps`,
+`FixedIntegrationTime`: HMC, HMCDA) runs step by step through
+`trajectory.transition_static`, as in JAX, where the fused paths and the
+depth caps are for NUTS alone. Randomness comes from one `torch.Generator`
+on the sampler's device, passed to each function; the state carries no
+key. The `mesh` option (multi-GPU) is not ported; it raises, naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ from .metrics import DiagEuclideanMetric, Metric, UnitEuclideanMetric
 from .nuts import _STAT_FIELDS, nuts_transition, nuts_transitions_fused
 from .stepsize_search import find_good_stepsize, find_good_stepsizes
 from .target import LogDensityTarget
-from .trajectory import HMCKernel
+from .termination import DynamicTerminationCriterion
+from .trajectory import HMCKernel, transition_static
 from .utils import not_ported, resolve_device, roadmap
 
 _PREFIX = "[advancedhmc_torch]"
@@ -315,16 +319,22 @@ def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
 
 
 def _transition(generator, spec: SampleSpec, state: HMCState):
-    """Momentum refresh, then one NUTS transition of every chain at its ε
-    and M⁻¹: the JAX package's `_one_chain_transition`, vmapped (the plain
-    `Leapfrog` draws no jitter; a static trajectory is refused by
-    `nuts_transition`). Coupled chains draw their directions from the same
-    generator (`SampleSpec`)."""
+    """Jitter, momentum refresh, then one transition of every chain at its
+    ε and M⁻¹: NUTS for a dynamic criterion, `transition_static` for a
+    static one (the JAX package's `_one_chain_transition`, vmapped). A
+    jittered integrator draws one ε per chain; plain `Leapfrog` draws
+    nothing. Coupled chains draw their shared directions (NUTS) or split
+    (static) from the same generator (`SampleSpec`)."""
     h = _hamiltonian(spec, state)
-    traj = spec.kernel.trajectory.with_nom_step_size(state.adapt.da.eps)
+    traj = spec.kernel.trajectory
+    integ = traj.integrator.with_nom_step_size(state.adapt.da.eps).jitter(
+        generator, state.z.theta.shape[0])
+    traj = dataclasses.replace(traj, integrator=integ)
     z = spec.kernel.refreshment.refresh(generator, h, state.z)
-    return nuts_transition(generator, h, traj, z,
-                           coupled_key=generator if spec.coupled else None)
+    coupled = generator if spec.coupled else None
+    if isinstance(traj.criterion, DynamicTerminationCriterion):
+        return nuts_transition(generator, h, traj, z, coupled_key=coupled)
+    return transition_static(generator, h, traj, z, coupled_key=coupled)
 
 
 def sample_step(generator, spec: SampleSpec, state: HMCState, flags):
@@ -352,14 +362,17 @@ _STAT_DTYPES = {"n_steps": torch.int32, "tree_depth": torch.int32,
                 "is_accept": torch.bool, "numerical_error": torch.bool,
                 "is_adapt": torch.bool}
 _STATS = _STAT_FIELDS + ("is_accept", "nom_step_size", "is_adapt")
+# a static transition's: no tree
+_STATIC_STATS = tuple(k for k in _STATS if k not in (
+    "max_hamiltonian_energy_error", "tree_depth"))
 
 
-def _rows(n, c, theta, draws=True):
+def _rows(n, c, theta, draws=True, keys=_STATS):
     """Buffers for `n` rows of `c` chains of θ's width and dtype: θ (n, c,
-    dim), or None without `draws`, and each stat (n, c)."""
+    dim), or None without `draws`, and each stat of `keys` (n, c)."""
     return theta.new_empty((n, c, theta.shape[-1])) if draws else None, {
         k: theta.new_empty((n, c), dtype=_STAT_DTYPES.get(k, theta.dtype))
-        for k in _STATS}
+        for k in keys}
 
 
 def _part(rows, lo, hi):
@@ -541,6 +554,8 @@ def _progress_printer(n_adapts, n_samples, every=None):
                 ("step_size", "eps", ".2e"), ("numerical_error", "div", ".3f"),
                 ("tree_depth", "depth", ".1f"), ("log_density", "logp", ".4g"),
                 ("hamiltonian_energy", "E", ".4g")):
+            if key not in stats:
+                continue
             v = float(torch.mean(stats[key].to(torch.float64)))
             parts.append(f"{label} {v:{fmt}}")
         mi = getattr(metric, "m_inv", None)
@@ -593,7 +608,9 @@ def sample(
     pass "cpu" explicitly for the CPU).
 
     The paths and options follow the JAX function's. At the defaults each
-    chain adapts on its own and every iteration is one `sample_step`.
+    chain adapts on its own and every iteration is one `sample_step`. A
+    static criterion (`HMC`, `HMCDA`) runs every iteration so, through
+    `transition_static`: the fused paths and the depth caps are NUTS's.
     `cross_chain=True` shares the adaptation. `fuse_warmup=True` runs the
     warmup fused: per chain (`fused_warmup_phase`, a unit or diagonal
     metric with Welford-variance or no mass-matrix adaptation), or
@@ -641,10 +658,12 @@ def sample(
             raise ValueError("thin must divide the number of draw steps")
     if online and n_adapts > 0 and not drop_warmup:
         raise ValueError("collect='online' requires drop_warmup=True")
-    use_fused = (fuse_draws > 1 and not coupled and n_draw > 0
+    dynamic = isinstance(kernel.trajectory.criterion,
+                         DynamicTerminationCriterion)
+    use_fused = (fuse_draws > 1 and dynamic and not coupled and n_draw > 0
                  and n_draw % fuse_draws == 0 and fuse_draws % thin == 0)
-    use_fused_warmup = fuse_warmup and not coupled and not cross_chain \
-        and n_adapts > 0 and (
+    use_fused_warmup = fuse_warmup and dynamic and not coupled \
+        and not cross_chain and n_adapts > 0 and (
             (adaptor.uses_mm and isinstance(metric, DiagEuclideanMetric)
              and adaptor.mm_kind in (MM_WELFORD_VAR, MM_NUTPIE))
             or (not adaptor.uses_mm and isinstance(
@@ -653,12 +672,14 @@ def sample(
         raise NotImplementedError(
             "the per-chain fused warmup with the nutpie estimator waits "
             "for that estimator " + roadmap("surface"))
-    use_fused_warmup_cc = (fuse_warmup and not coupled and cross_chain
-                           and n_adapts > 0 and adaptor.mm_kind != MM_NUTPIE
+    use_fused_warmup_cc = (fuse_warmup and dynamic and not coupled
+                           and cross_chain and n_adapts > 0
+                           and adaptor.mm_kind != MM_NUTPIE
                            and n_adapts % fuse_warmup_block == 0)
-    max_depth = kernel.trajectory.criterion.max_depth
-    use_depth_cap = (warmup_depth_cap is not None and cross_chain
-                     and n_adapts > 0 and warmup_depth_cap < max_depth
+    use_depth_cap = (warmup_depth_cap is not None and dynamic and cross_chain
+                     and n_adapts > 0
+                     and warmup_depth_cap
+                     < kernel.trajectory.criterion.max_depth
                      and (use_fused_warmup_cc
                           or (drop_warmup and not use_fused_warmup)))
     if use_depth_cap:
@@ -725,8 +746,9 @@ def sample(
     # dropped (a fanned-out warmup is), then the draws' (thinned; θ only
     # when draws are collected)
     keep = 0 if drop_warmup else n_adapts
+    keys = _STATS if dynamic else _STATIC_STATS
     rows = _rows(keep + n_draw // thin, n_total, state.z.theta,
-                 draws=not online)
+                 draws=not online, keys=keys)
     flags = adapt_flags(adaptor, n_adapts, n_samples)
     t0 = time.perf_counter()
     # the warmup's segments (lo, hi, spec): capped before n_cap2, with the
@@ -738,7 +760,7 @@ def sample(
     warm_rows = None
     if drop_warmup and collect_warmup_stats and n_adapts > 0:
         warm_rows = _rows(n_adapts, state.z.theta.shape[0], state.z.theta,
-                          draws=False)
+                          draws=False, keys=keys)
     warm_out = warm_rows if drop_warmup else _part(rows, 0, n_adapts)
     if use_fused_warmup:
         state, th, st = fused_warmup_phase(generator, spec, state, n_adapts,
@@ -764,7 +786,7 @@ def sample(
                                       out, progress_cb=step_cb)
     if use_fanout:
         state = fanout_warmup_state(spec, state, n_total)
-        if fanout_decorrelate > 0 and not coupled:
+        if fanout_decorrelate > 0 and dynamic and not coupled:
             state, _, _ = fused_draw_phase(
                 generator, spec, state, fanout_decorrelate,
                 fanout_decorrelate, chain_chunks=fuse_chain_chunks,

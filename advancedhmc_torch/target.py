@@ -74,3 +74,21 @@ class BlockTarget:
 
     def __call__(self, theta, *data):
         return self.value_and_grad(theta, *data)
+
+
+def as_target(obj, dim: Optional[int] = None) -> LogDensityTarget:
+    """A `LogDensityTarget` from a target or a bare callable.
+
+    The callable is in the port's BATCHED form: `logdensity(theta (C, dim))
+    -> (C,)`, where the JAX function takes a single-chain `(dim,) ->
+    scalar`; its gradient comes from autograd. `dim` is required for a bare
+    callable. The target's tensors stay where the callable puts them, so
+    it runs on the device of the θ it is given (CUDA unless the caller's
+    state is on the CPU)."""
+    if isinstance(obj, LogDensityTarget):
+        return obj
+    if callable(obj):
+        if dim is None:
+            raise ValueError("dim is required when wrapping a bare callable")
+        return LogDensityTarget(logdensity=obj, dim=dim)
+    raise TypeError(f"cannot interpret {type(obj)} as a log-density target")

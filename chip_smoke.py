@@ -102,7 +102,26 @@ Phases (any failure exits non-zero):
    and ε re-anchor, two chain chunks, bfloat16 U-turn stacks and online
    collection; (c) coupled chains step by step from (a)'s warmed state;
    each gated on divergence, acceptance and BENCH_r05's moments (b's from
-   its online summary).
+   its online summary);
+13. ChEES-HMC at the JAX bench's configuration (bench.py:915-1090 at its
+   defaults): the 100-D logistic at 32768 chains, the gradient-seeded M⁻¹,
+   ε0 from the search on chain 0, T0 4, δ 0.75, Stan windows 75/50/25, 256
+   warmup iterations through `make_chees_step` and 256 draws through
+   `make_chees_draw_step` (max_steps 64), every kernel's count set to 0
+   just before and read just after; gated on finite draws, the
+   numerical-error rate, acceptance, one step count for every chain at
+   every iteration, the finalized T, the moments around BENCH_r05's ChEES
+   values and K1's calls and launches against the target's value+grad
+   calls; prints the walls, ESS/s (bench.py's estimator), leapfrog steps
+   per second beside the JAX package's TPU v5e figures, and profiles one
+   draw chunk of 16 iterations (K1's share of the device time, the idle
+   share);
+14. the static path through the constructors from phase 3's ε, M⁻¹ and
+   4096 of its positions: HMC(ε, L ≈ 1/ε) with endpoint and with
+   multinomial sampling, HMCDA(0.8, 1) with phase 3's M⁻¹ (200
+   iterations, 100 adapting) and NUTS with the jittered leapfrog on the
+   fused loop (64 draws, 8 a call), each gated on finite draws,
+   divergence, acceptance, the moments and K1's launches.
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
@@ -656,26 +675,31 @@ def phase_main(seed):
 
 
 # ------------------------------------------------------------------ phase 4
-def _moment_gates(th):
+REF_MOMENTS = (REF_MEAN_LOGSIGMA, REF_SD_LOGSIGMA, REF_BETA_NORM)
+
+
+def _moment_gates(th, ref=REF_MOMENTS):
     """Phase 4's posterior-moment gates on draws `th` (n, C, dim)."""
     ls = th[:, :, 0].double()
     return _gate_moments({
         "mean_logsigma": float(ls.mean()),
         "sd_logsigma": float(ls.std(correction=0)),
-        "mean_beta_norm": float(th[:, :, 1:].double().mean((0, 1)).norm())})
+        "mean_beta_norm": float(th[:, :, 1:].double().mean((0, 1)).norm())},
+        ref)
 
 
-def _gate_moments(out):
+def _gate_moments(out, ref=REF_MOMENTS):
     """Phase 4's gates on the moments `out` (mean log σ, sd log σ, |mean
-    β|); returns (out, gates)."""
+    β|) around `ref` (BENCH_r05's NUTS moments unless given); returns (out,
+    gates)."""
+    mean_ls, sd_ls, beta = ref
     gates = {
-        f"|mean_logsigma - ({REF_MEAN_LOGSIGMA})| <= {TOL_MEAN_LOGSIGMA}":
-            abs(out["mean_logsigma"] - REF_MEAN_LOGSIGMA)
-            <= TOL_MEAN_LOGSIGMA,
-        f"sd_logsigma within {TOL_SD_REL:.0%} of {REF_SD_LOGSIGMA}":
-            abs(out["sd_logsigma"] / REF_SD_LOGSIGMA - 1) <= TOL_SD_REL,
-        f"|mean_beta_norm - {REF_BETA_NORM}| <= {TOL_BETA_NORM}":
-            abs(out["mean_beta_norm"] - REF_BETA_NORM) <= TOL_BETA_NORM,
+        f"|mean_logsigma - ({mean_ls})| <= {TOL_MEAN_LOGSIGMA}":
+            abs(out["mean_logsigma"] - mean_ls) <= TOL_MEAN_LOGSIGMA,
+        f"sd_logsigma within {TOL_SD_REL:.0%} of {sd_ls}":
+            abs(out["sd_logsigma"] / sd_ls - 1) <= TOL_SD_REL,
+        f"|mean_beta_norm - {beta}| <= {TOL_BETA_NORM}":
+            abs(out["mean_beta_norm"] - beta) <= TOL_BETA_NORM,
     }
     return out, gates
 
@@ -814,9 +838,6 @@ def phase_profile(res):
     """Device time by kernel over one fused draw call of 16 transitions on
     the final state, on each body, and the share of the wall the device
     was idle."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from advancedhmc_torch import SampleSpec, fused_draw_phase
 
     target, kernel, adaptor = main_path_spec()
@@ -824,33 +845,49 @@ def phase_profile(res):
                       cross_chain=True)
     for pair in (False, True):
         gen = torch.Generator(device="cuda").manual_seed(2)
+        profile_call(f"one fused draw call (pair body {pair})",
+                     lambda: fused_draw_phase(gen, spec, res.final_state,
+                                              FUSE, FUSE, pair=pair))
+
+
+def profile_call(label, fn):
+    """Device time by kernel over one call of `fn` under `torch.profiler`,
+    the wall, and the share of the wall the device was idle. Returns
+    {wall_ms, busy_ms, idle_share, k1_ms, k1_share}, or None where the
+    profiler recorded no device time (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fused_draw_phase(gen, spec, res.final_state, FUSE, FUSE,
-                             pair=pair)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        # device-side kernel events only: an operator's entry repeats the
-        # time of the kernels it launched
-        rows = [(e.key, e.device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.device_time_total > 0]
-        busy_ms = sum(r[1] for r in rows)
-        if busy_ms == 0:
-            log(f"# profile (pair body {pair}): no device time recorded "
-                "(not measured)")
-            continue
-        rows.sort(key=lambda r: -r[1])
-        log(f"# profile of one fused draw call (pair body {pair}): wall "
-            f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (sum of kernel "
-            f"times), idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, "
-            f"{sum(r[2] for r in rows)} kernels")
-        for key, ms, count in rows[:12]:
-            log(f"#   {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  x{count:<6d} "
-                f"{key[:90]}")
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device-side kernel events only: an operator's entry repeats the time
+    # of the kernels it launched
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms == 0:
+        log(f"# profile of {label}: no device time recorded (not measured)")
+        return None
+    rows.sort(key=lambda r: -r[1])
+    k1_ms = sum(r[1] for r in rows if "fused_logistic" in r[0])
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": max(0.0, 1 - busy_ms / wall_ms), "k1_ms": k1_ms,
+           "k1_share": k1_ms / busy_ms}
+    log(f"# profile of {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms (sum of kernel times), idle share "
+        f"{out['idle_share']:.3f}, K1 {k1_ms:.1f} ms "
+        f"({100 * out['k1_share']:.1f} % of the device time), "
+        f"{sum(r[2] for r in rows)} kernels")
+    for key, ms, count in rows[:12]:
+        log(f"#   {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  x{count:<6d} "
+            f"{key[:90]}")
+    return out
 
 
 # ------------------------------------------------------------------ phase 6
@@ -2231,6 +2268,289 @@ def phase_options(seed, defaults):
     results["c"] = c
     return results
 
+# ----------------------------------------------------------------- phase 13
+# ChEES-HMC at the JAX bench's configuration (bench.py:915-1090 at its
+# defaults), full width: the main path's target and 32768 chains, δ 0.75,
+# T0 4, Stan windows 75/50/25, 256 warmup iterations (T averaged from 128),
+# 256 draws, max_steps 64 (2^max_depth), host chunks of 256 iterations
+# (bench.py's chunk), the gradient-seeded M⁻¹, ε0 from the search on chain
+# 0. bench.py's untimed program-load runs have nothing to load here.
+CHEES_DELTA, CHEES_T0, CHEES_MAX_STEPS, CHEES_CHUNK = 0.75, 4.0, 64, 256
+CHEES_WARMUP, CHEES_DRAWS, CHEES_PROFILE = 256, 256, 16
+# What the JAX package computed in this run on a TPU v5e (BENCH_r05's
+# chees_* keys): the reference's figures, printed beside the port's; its
+# moments are the centres of the moment gates, with phase 4's bands.
+CHEES_REF = {"accept": 0.745, "mean_traj_len": 2.1217, "eps": 0.47245,
+             "mean_logsigma": -0.70992, "sd_logsigma": 0.1083,
+             "mean_beta_norm": 4.71332, "ess_per_s": 7763841.01,
+             "min_ess_per_s": 2074553.41, "leapfrog_steps_per_s": 47890504.1,
+             "warmup_s": 1.92, "draws_s": 0.87}
+CHEES_TOL_ACCEPT = 0.1
+
+
+def phase_chees(seed):
+    """Phase 13: bench.py's ChEES measurement through `make_chees_step` and
+    `make_chees_draw_step`, every kernel's count set to 0 just before and
+    read just after; gated, then one draw chunk of CHEES_PROFILE
+    iterations profiled. Returns the results."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.chees import draw_carry
+    from advancedhmc_torch.diagnostics import effective_sample_size
+
+    target, _, _ = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    cfg = ah.AdaptorConfig(kind="stan", mm_kind="welford_var",
+                           da=ah.DualAveragingConfig(delta=CHEES_DELTA),
+                           init_buffer=75, term_buffer=50, window_size=25)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+    n_total = CHEES_WARMUP + CHEES_DRAWS
+    flags = ah.adapt_flags(cfg, CHEES_WARMUP, n_total)
+    u_all = torch.as_tensor(ah.halton_sequence(n_total), dtype=torch.float32,
+                            device="cuda")
+    step = ah.make_chees_step(
+        target, cfg, ah.CheesConfig(avg_start=CHEES_WARMUP // 2),
+        CHEES_MAX_STEPS)
+    dstep = ah.make_chees_draw_step(target, CHEES_MAX_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(3 + seed)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    _, grads0 = target.logdensity_and_grad(theta0)
+    m_inv0 = 1.0 / torch.clamp(grads0.abs().mean(0), 1e-3, 1e6)
+    metric = ah.DiagEuclideanMetric.create(m_inv0)
+    eps0 = ah.find_good_stepsize(gen, ah.Hamiltonian(metric=metric,
+                                                     target=target),
+                                 theta0[0])
+    lp0, grad0 = target.logdensity_and_grad(theta0)
+    lp0 = torch.where(torch.isfinite(lp0), lp0, float("-inf"))
+    carry = (theta0, lp0, grad0, metric,
+             ah.AdaptState.init(cfg, DIM, eps0, torch.float32),
+             ah.CheesState.init(CHEES_T0, torch.float32, device="cuda"))
+    uniform = torch.ones((), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo in range(0, CHEES_WARMUP, CHEES_CHUNK):
+        for i in range(lo, min(lo + CHEES_CHUNK, CHEES_WARMUP)):
+            carry, (_, st) = step(gen, carry,
+                                  {k: bool(v[i]) for k, v in flags.items()},
+                                  u_all[i])
+            uniform &= (st["n_steps"] == st["n_steps"][0]).all()
+        torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    dcarry = draw_carry(carry)
+    th = torch.empty((CHEES_DRAWS, N_CHAINS, DIM), device="cuda")
+    sums = torch.zeros(5, dtype=torch.float64, device="cuda")
+    t0 = time.perf_counter()
+    for lo in range(CHEES_WARMUP, n_total, CHEES_CHUNK):
+        for i in range(lo, min(lo + CHEES_CHUNK, n_total)):
+            dcarry, (th[i - CHEES_WARMUP], st) = dstep(gen, dcarry, u_all[i])
+            uniform &= (st["n_steps"] == st["n_steps"][0]).all()
+            sums += torch.stack([st[k].double().sum() for k in (
+                "n_steps", "numerical_error", "acceptance_rate",
+                "trajectory_length", "step_size")])
+        torch.cuda.synchronize()
+    draws_s = time.perf_counter() - t0
+    counts = read_launches()
+    by_chains = dict(sorted(by_chains.items(), reverse=True))
+
+    lfs, divs, acc, tau, eps = sums.tolist()
+    n_draws = CHEES_DRAWS * N_CHAINS
+    ess_512 = effective_sample_size(th[:, :ESS_CHAINS])
+    ess = ess_512 * (N_CHAINS / ESS_CHAINS)
+    cs = carry[5]
+    t_final = float(torch.exp(cs.log_t_avg))
+    chees_cfg = ah.CheesConfig()
+    moments, moment_gates = _moment_gates(th, (
+        CHEES_REF["mean_logsigma"], CHEES_REF["sd_logsigma"],
+        CHEES_REF["mean_beta_norm"]))
+    out = {
+        "phase": "13: ChEES, bench.py's configuration",
+        "chains": N_CHAINS, "warmup": CHEES_WARMUP, "draws": CHEES_DRAWS,
+        "delta": CHEES_DELTA, "t0": CHEES_T0, "max_steps": CHEES_MAX_STEPS,
+        "init_s": init_s, "warmup_s": warmup_s, "draws_s": draws_s,
+        "chees_ess_per_s": float(ess.quantile(0.5)) / draws_s,
+        "chees_min_ess_per_s": float(ess.min()) / draws_s,
+        "chees_median_pooled_ess": float(ess_512.quantile(0.5)),
+        "chees_leapfrog_steps_per_s": lfs / draws_s,
+        "leapfrog_steps_per_draw": lfs / n_draws,
+        "chees_accept": acc / n_draws,
+        "chees_divergence_rate": divs / n_draws,
+        "chees_mean_traj_len": tau / n_draws,
+        "chees_eps": eps / n_draws,
+        "t_final": t_final, "eps_final": float(carry[4].da.eps),
+        **moments,
+        "k1_calls": counts[K1_CALLS],
+        "k1_launches": counts["fused_logistic_value_grad"],
+        "value_grad_calls": sum(by_chains.values()),
+        "calls_by_chains": by_chains,
+        "reference_tpu_v5e_bench_r05": CHEES_REF,
+        "device": torch.cuda.get_device_name(0),
+    }
+    log(json.dumps(out))
+    log(f"# phase 13, ChEES: warmup {warmup_s:.2f} s, draws {draws_s:.2f} s "
+        f"(the JAX package on a TPU v5e, BENCH_r05: "
+        f"{CHEES_REF['warmup_s']} / {CHEES_REF['draws_s']} s); ESS/s "
+        f"{out['chees_ess_per_s']:.0f}, min {out['chees_min_ess_per_s']:.0f}"
+        f" (reference {CHEES_REF['ess_per_s']:.0f}, "
+        f"{CHEES_REF['min_ess_per_s']:.0f}); leapfrog steps/s "
+        f"{out['chees_leapfrog_steps_per_s']:.0f} (reference "
+        f"{CHEES_REF['leapfrog_steps_per_s']:.0f}); accept "
+        f"{out['chees_accept']:.4f}, T {out['chees_mean_traj_len']:.4f}, ε "
+        f"{out['chees_eps']:.5f} (reference {CHEES_REF['accept']}, "
+        f"{CHEES_REF['mean_traj_len']}, {CHEES_REF['eps']}); "
+        f"{out['leapfrog_steps_per_draw']:.2f} steps a draw; K1 calls "
+        f"by chain count {by_chains}")
+    gates = {
+        f"draws finite, shape ({CHEES_DRAWS}, {N_CHAINS}, {DIM})":
+            tuple(th.shape) == (CHEES_DRAWS, N_CHAINS, DIM)
+            and bool(torch.isfinite(th).all()),
+        "numerical-error rate <= 1e-3": out["chees_divergence_rate"] <= 1e-3,
+        f"|accept - {CHEES_DELTA}| <= {CHEES_TOL_ACCEPT}":
+            abs(out["chees_accept"] - CHEES_DELTA) <= CHEES_TOL_ACCEPT,
+        "n_steps equal across chains at every iteration": bool(uniform),
+        "finalized T finite, inside CheesConfig's bounds":
+            math.isfinite(t_final)
+            and chees_cfg.min_trajectory_length * (1 - 1e-6) <= t_final
+            <= chees_cfg.max_trajectory_length * (1 + 1e-6),
+        **moment_gates,
+        "k1 calls = value+grad calls":
+            out["k1_calls"] == out["value_grad_calls"] > 0,
+        "k1 launches = calls": out["k1_launches"] == out["k1_calls"],
+        "ESS finite": math.isfinite(out["chees_ess_per_s"])
+        and out["chees_ess_per_s"] > 0,
+    }
+    for name, ok in gates.items():
+        log(f"# gate 13 {name}: {'ok' if ok else 'FAIL'}")
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        raise RuntimeError(f"phase 13 gates failed: {failed}")
+    del th
+
+    def chunk():
+        c = dcarry
+        for i in range(CHEES_PROFILE):
+            c, _ = dstep(gen, c, u_all[CHEES_WARMUP + i])
+
+    out["profile"] = profile_call(
+        f"one ChEES draw chunk of {CHEES_PROFILE} iterations", chunk)
+    return out
+
+
+# ----------------------------------------------------------------- phase 14
+# The static path through the constructors, from phase 3's warmed state: its
+# ε and M⁻¹ and STATIC_CHAINS of its final positions.
+STATIC_CHAINS, STATIC_ITERS, STATIC_DA_ITERS, STATIC_DA_ADAPTS = \
+    4096, 64, 200, 100
+STATIC_FUSE, STATIC_NUTS_DRAWS, STATIC_DA_DELTA = 8, 64, 0.8
+# HMC's acceptance floors, set before the first run: ε is phase 3's, tuned
+# for NUTS's tree-mean acceptance 0.55 at δ 0.55; an endpoint of εL ≈ 1
+# carries an energy error of the same order as the tree's leaves, so its
+# acceptance should be near 0.55, and 0.4 leaves room for the spread of
+# one endpoint against a tree's mean. The multinomial statistic averages
+# min(1, exp(H0 − H)) over the trajectory with the origin at 1, so it lies
+# above the endpoint's: 0.5.
+STATIC_ACCEPT_FLOOR = {"endpoint": 0.4, "multinomial": 0.5}
+
+
+def phase_static(seed, warmed):
+    """Phase 14: (a) HMC(ε, L) endpoint, (b) HMC multinomial, (c) HMCDA(0.8,
+    1) with phase 3's M⁻¹, (d) jittered NUTS on the fused loop, each from
+    `warmed` = (ε, M⁻¹, θ) of phase 3, its counts set to 0 just before and
+    read just after; returns the runs' results."""
+    import advancedhmc_torch as ah
+
+    eps, m_inv, theta = warmed
+    eps_f = float(eps)
+    n_leap = max(1, round(1.0 / eps_f))
+    target, _, _ = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    runs = {
+        "a": (f"HMC({eps_f:.4f}, {n_leap}) endpoint", ah.HMC(eps_f, n_leap),
+              dict(n_samples=STATIC_ITERS, init_eps=eps)),
+        "b": (f"HMC({eps_f:.4f}, {n_leap}) multinomial",
+              ah.HMC(eps_f, n_leap, ts_kind="multinomial"),
+              dict(n_samples=STATIC_ITERS, init_eps=eps)),
+        "c": (f"HMCDA({STATIC_DA_DELTA}, 1.0)", ah.HMCDA(STATIC_DA_DELTA, 1.0),
+              dict(n_samples=STATIC_DA_ITERS, n_adapts=STATIC_DA_ADAPTS)),
+        "d": ("NUTS(0.55, max_depth=6, jittered leapfrog), fused",
+              ah.NUTS(DELTA, max_depth=MAX_DEPTH,
+                      integrator="jitteredleapfrog"),
+              dict(n_samples=STATIC_NUTS_DRAWS, n_adapts=0, init_eps=eps,
+                   fuse_draws=STATIC_FUSE)),
+    }
+    results, failed = {}, []
+    for i, (key, (name, cfg, kw)) in enumerate(runs.items()):
+        gen = torch.Generator(device="cuda").manual_seed(40 + seed + i)
+        metric = ah.DiagEuclideanMetric.create(m_inv)
+        by_chains.clear()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cfg.sample(gen, target, theta, metric=metric, device="cuda",
+                         **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        n_adapts = kw.get("n_adapts", 0)
+        th = res.thetas[n_adapts:]
+        st = {k: v[n_adapts:] for k, v in res.stats.items()}
+        out = {
+            "run": f"14{key}: {name}", "chains": STATIC_CHAINS,
+            "iterations": kw["n_samples"], "adapts": n_adapts,
+            "warmup_s": res.timings["warmup_s"],
+            "draws_s": res.timings["draws_s"], "wall_s": wall,
+            "accept_mean": float(st["acceptance_rate"].double().mean()),
+            "divergence_rate": float(st["numerical_error"].double().mean()),
+            "mean_n_steps": float(st["n_steps"].double().mean()),
+            "step_size_mean": float(st["step_size"].double().mean()),
+            "k1_calls": counts[K1_CALLS],
+            "k1_launches": counts["fused_logistic_value_grad"],
+            "value_grad_calls": sum(by_chains.values()),
+        }
+        moments, gates = _moment_gates(th)
+        out.update(moments)
+        gates["draws finite"] = bool(torch.isfinite(th).all())
+        gates["divergence_rate <= 1e-3"] = out["divergence_rate"] <= 1e-3
+        if key in ("a", "b"):
+            kind = cfg.kernel.trajectory.ts_kind
+            floor = STATIC_ACCEPT_FLOOR[kind]
+            gates[f"accept >= {floor} ({kind})"] = out["accept_mean"] >= floor
+        else:
+            delta = STATIC_DA_DELTA if key == "c" else DELTA
+            gates[f"|accept - {delta}| <= 0.1"] = \
+                abs(out["accept_mean"] - delta) <= 0.1
+        if key == "d":
+            e = st["step_size"]
+            gates["jittered eps inside eps(1 +- 0.1), nominal eps"] = bool(
+                ((e >= 0.9 * eps_f * (1 - 1e-6))
+                 & (e <= 1.1 * eps_f * (1 + 1e-6))).all()
+                and (st["nom_step_size"] == eps).all())
+            out["mean_tree_depth"] = float(st["tree_depth"].double().mean())
+        gates["k1 calls = value+grad calls"] = \
+            out["k1_calls"] == out["value_grad_calls"] > 0
+        gates["k1 launches = calls"] = out["k1_launches"] == out["k1_calls"]
+        log(json.dumps(out))
+        log(f"# phase 14{key}, {name}: warmup {out['warmup_s']:.1f} s, draws "
+            f"{out['draws_s']:.1f} s, accept {out['accept_mean']:.4f}, "
+            f"{out['mean_n_steps']:.2f} steps a transition, K1 launches "
+            f"{out['k1_launches']}")
+        for g, ok in gates.items():
+            log(f"# gate 14{key} {g}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"14{key}: {g}")
+        results[key] = out
+        del res, th, st
+    if failed:
+        raise RuntimeError(f"phase 14 gates failed: {failed}")
+    return results
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2262,7 +2582,11 @@ def main(argv=None):
                     plain_ms=mega["first_call_plain_ms"],
                     bound_ms=mega["bound_ms_mean"]),
                *phase_k2_parity(res)]
-    del res
+    # phase 14 starts from phase 3's ε, M⁻¹ and a slice of its positions
+    fs = res.final_state
+    warmed = (fs.adapt.da.eps.clone(), fs.metric.m_inv.clone(),
+              fs.z.theta[:STATIC_CHAINS].clone())
+    del res, fs
     defaults, k1_by_chains_defaults = phase_defaults(args.seed)
     wide_rows, wide_err, wide_launched = phase_wide_k1(MODE_F32)
     wide_shape = k1_wide_report(wide_launched)
@@ -2275,6 +2599,11 @@ def main(argv=None):
     log("# phase 12: " + json.dumps(
         {k: {f: v[f] for f in ("warmup_s", "draws_s") if f in v}
          for k, v in options.items()}))
+    chees = phase_chees(args.seed)
+    static = phase_static(args.seed, warmed)
+    log("# phase 14: " + json.dumps(
+        {k: {f: v[f] for f in ("warmup_s", "draws_s", "accept_mean")}
+         for k, v in static.items()}))
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
@@ -2288,6 +2617,10 @@ def main(argv=None):
         "launches_by_chains": k1_by_chains,
         "launches_default_path": defaults["k1_launches"],
         "launches_default_path_by_chains": k1_by_chains_defaults,
+        "launches_chees": chees["k1_launches"],
+        "calls_chees_by_chains": chees["calls_by_chains"],
+        "launches_static_path": {k: v["k1_launches"]
+                                 for k, v in static.items()},
         "max_abs_err": k1_err,
         "max_err": k1_err,
         "ms": k1_row["ms"],

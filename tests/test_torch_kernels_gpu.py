@@ -505,3 +505,81 @@ def test_pair_transition_is_bitwise_the_single_one_on_card():
     assert all(torch.equal(s1[k], s2[k]) for k in s1)
     assert torch.equal(z1.theta, z2.theta)
     assert float(s1["tree_depth"].double().mean()) >= 3.0    # real trees
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["chees", "hmcda"])
+def test_static_family_runs_k1_once_a_value_grad_on_card(what):
+    """`sample_chees` and `HMCDA(...).sample` on the 100-D logistic at 1024
+    chains: every value+grad call of the target is one K1 call and one
+    launch, and the draws are finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import advancedhmc_torch as ah
+
+    tgt = hierarchical_logistic(n=1000, p=99, device="cuda")
+    calls = []
+    inner = tgt.logdensity_and_grad
+
+    def counted(theta):
+        calls.append(theta.shape[0])
+        return inner(theta)
+
+    tgt = dataclasses.replace(tgt, logdensity_and_grad=counted)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(0).normal(size=(1024, 100)),
+        dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f = k1.logistic_value_grad
+    launches, k1_calls = f.launches, f.calls
+    if what == "chees":
+        res = ah.sample_chees(gen, tgt, theta0, 60, 40, init_t=2.0,
+                              da=ah.DualAveragingConfig(delta=0.75),
+                              max_steps=64, drop_warmup=True, device="cuda")
+        assert bool((res.stats["n_steps"] == res.stats["n_steps"][:, :1])
+                    .all())
+    else:
+        res = ah.HMCDA(0.8, 1.0).sample(gen, tgt, theta0, 60, n_adapts=30,
+                                        drop_warmup=True, device="cuda")
+    assert f.launches - launches == f.calls - k1_calls == len(calls) > 0
+    assert bool(torch.isfinite(res.thetas).all())
+    assert float(res.stats["numerical_error"].double().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_static_family_entry_points_run_on_card():
+    """`as_target`'s batched callable, the five integrators with endpoint
+    and multinomial sampling, and partial momentum refreshment on the
+    static and the NUTS paths, on the card: finite draws on CUDA."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import advancedhmc_torch as ah
+
+    tgt = ah.as_target(lambda x: -0.5 * torch.sum(x * x, -1), dim=5)
+    theta0 = 0.1 * torch.randn(64, 5, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def stepper(q, p, eps, grad_fn, velocity_fn):
+        q = q + 0.5 * eps * velocity_fn(p)
+        p = p + eps * grad_fn(q)
+        return q + 0.5 * eps * velocity_fn(p), p
+
+    metric = ah.make_metric("diagonal", 5, device="cuda")
+    for kind in ("leapfrog", "jitteredleapfrog", "temperedleapfrog",
+                 "yoshida4", "solver"):
+        integ = ah.make_integrator(kind, 0.3, stepper=stepper)
+        for ts in ("endpoint", "multinomial"):
+            for crit in (ah.FixedNSteps(5), ah.FixedIntegrationTime(1.5)):
+                kernel = ah.HMCKernel(ah.Trajectory(integ, crit, ts_kind=ts))
+                res = ah.sample(gen, tgt, kernel, metric, theta0, 20,
+                                init_eps=0.3, device="cuda")
+                assert res.thetas.is_cuda
+                assert bool(torch.isfinite(res.thetas).all()), (kind, ts)
+    partial = ah.PartialMomentumRefreshment(0.5)
+    for cfg in (ah.HMCDA(0.8, 1.0), ah.NUTS(0.8, max_depth=5)):
+        kernel = ah.HMCKernel(cfg.kernel.trajectory, partial)
+        res = ah.sample(gen, tgt, kernel, metric, theta0, 30, n_adapts=15,
+                        adaptor=cfg.adaptor, device="cuda")
+        assert bool(torch.isfinite(res.thetas).all())

@@ -293,6 +293,14 @@ def test_unported_options_raise_not_implemented():
                           adaptor=ah.AdaptorConfig(), cross_chain=True,
                           fuse_draws=4, fuse_warmup=True,
                           fuse_warmup_block=4, mesh=object(), device="cpu"),
+        # the other no-U-turn criteria, by name and from the JAX package
+        lambda: ah.ClassicNoUTurn(),
+        lambda: ah.StrictGeneralisedNoUTurn(max_depth=6),
+        lambda: convert.criterion(aj.ClassicNoUTurn()),
+        # the constructors' queued estimators: dense, rank-update, nutpie
+        *(lambda m=m: ah.NUTS(metric=m).sample(gen, tgt, th0, 16,
+                                               device="cpu")
+          for m in ("dense", "rank_update", "nutpie")),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError,
@@ -316,11 +324,25 @@ def test_roadmap_items_exist():
 
 def test_state_constructors_need_cuda_or_explicit_cpu(monkeypatch):
     """The metrics' and the Welford estimator's constructors default to
-    CUDA, like the entry points, and raise without it."""
+    CUDA, like the entry points (ChEES's state, the Gaussian and funnel
+    models, `sample_chees`, `SamplerConfig.sample`), and raise without
+    it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    th0 = torch.zeros(4, DIM)
     for make in (lambda: ah.UnitEuclideanMetric(size=DIM),
                  lambda: ah.DiagEuclideanMetric.identity(DIM),
-                 lambda: ah.WelfordVarState.init(DIM)):
+                 lambda: ah.WelfordVarState.init(DIM),
+                 # the entry points of the static family and ChEES
+                 lambda: ah.CheesState.init(1.0),
+                 lambda: ah.std_gaussian(DIM),
+                 lambda: ah.mvn_diag(np.ones(DIM)),
+                 lambda: ah.correlated_gaussian(DIM),
+                 lambda: ah.neal_funnel(DIM),
+                 lambda: ah.neal_funnel_nc(DIM),
+                 lambda: ah.sample_chees(torch.Generator(), ah.std_gaussian(
+                     DIM, device="cpu"), th0, 4, 2),
+                 lambda: ah.HMC().sample(torch.Generator(), ah.std_gaussian(
+                     DIM, device="cpu"), th0, 4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert ah.UnitEuclideanMetric(size=DIM, device="cpu").device.type == "cpu"
