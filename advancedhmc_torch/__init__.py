@@ -2,8 +2,9 @@
 
 The JAX package `advancedhmc_tpu` is the reference; this package carries its
 main path on one NVIDIA GPU (Hopper): NUTS (generalised no-U-turn,
-multinomial, unit or diagonal metric) with per-chain or cross-chain Stan
-adaptation, step by step or fused, with every option of JAX `sample` but
+multinomial; unit, diagonal, dense or rank-update metric) with per-chain
+or cross-chain Stan adaptation (Welford variance or covariance, low-rank,
+nutpie), step by step or fused, with every option of JAX `sample` but
 `mesh`; static HMC (endpoint or multinomial sampling, fixed steps or
 integration time), the jittered, tempered, composed and external-solver
 integrators, partial momentum refreshment and the NUTS/HMC/HMCDA
@@ -23,6 +24,12 @@ from .adaptation import (
     AdaptState,
     DualAveragingConfig,
     DualAveragingState,
+    LowRankCovState,
+    NaiveCov,
+    NaiveVar,
+    NutpieVarState,
+    UnitMassMatrixState,
+    WelfordCovState,
     WelfordVarState,
     adapt_flags,
     adapt_step,
@@ -52,8 +59,8 @@ from .hamiltonian import FullMomentumRefreshment, Hamiltonian, \
 from .integrators import ComposedLeapfrog, JitteredLeapfrog, Leapfrog, \
     SolverIntegrator, TemperedLeapfrog, leapfrog_step, leapfrog_steps
 from .kinetic import GaussianKinetic
-from .metrics import DiagEuclideanMetric, Metric, UnitEuclideanMetric, \
-    make_metric
+from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, Metric, \
+    RankUpdateEuclideanMetric, UnitEuclideanMetric, make_metric
 from .models import correlated_gaussian, funnel_nc_to_centered, \
     hierarchical_logistic, hierarchical_logistic_block, mvn_diag, \
     neal_funnel, neal_funnel_nc, std_gaussian
@@ -87,6 +94,7 @@ __all__ = [
     "CheesState",
     "ClassicNoUTurn",
     "ComposedLeapfrog",
+    "DenseEuclideanMetric",
     "DiagEuclideanMetric",
     "DualAveragingConfig",
     "DualAveragingState",
@@ -105,11 +113,16 @@ __all__ = [
     "Leapfrog",
     "LogDensityTarget",
     "MULTINOMIAL",
+    "LowRankCovState",
     "Metric",
     "NUTS",
+    "NaiveCov",
+    "NaiveVar",
+    "NutpieVarState",
     "OnlineMoments",
     "PartialMomentumRefreshment",
     "PhasePoint",
+    "RankUpdateEuclideanMetric",
     "SLICE",
     "SampleResult",
     "SampleSpec",
@@ -119,6 +132,8 @@ __all__ = [
     "TemperedLeapfrog",
     "Trajectory",
     "UnitEuclideanMetric",
+    "UnitMassMatrixState",
+    "WelfordCovState",
     "WelfordVarState",
     "adapt_flags",
     "adapt_step",

@@ -1,9 +1,18 @@
-"""Adaptation layer: dual averaging, the diagonal Welford estimator, the
+"""Adaptation layer: dual averaging, the mass-matrix estimators (Welford
+variance and covariance, low-rank, nutpie, unit; the naive oracles), the
 Stan window schedule and ChEES's trajectory-length adaptation (counterpart
 of `advancedhmc_tpu/adaptation`)."""
 
 from .chees import CheesConfig, CheesState, chees_update, halton_sequence
-from .massmatrix import WelfordVarState
+from .massmatrix import (
+    LowRankCovState,
+    NaiveCov,
+    NaiveVar,
+    NutpieVarState,
+    UnitMassMatrixState,
+    WelfordCovState,
+    WelfordVarState,
+)
 from .stan import (
     MASSMATRIX,
     MM_LOWRANK,
@@ -42,6 +51,12 @@ __all__ = [
     "NONE",
     "STAN",
     "STEPSIZE",
+    "LowRankCovState",
+    "NaiveCov",
+    "NaiveVar",
+    "NutpieVarState",
+    "UnitMassMatrixState",
+    "WelfordCovState",
     "WelfordVarState",
     "adapt_flags",
     "adapt_step",

@@ -18,8 +18,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils import roadmap
-from .massmatrix import WelfordVarState
+from .massmatrix import (
+    LowRankCovState,
+    NutpieVarState,
+    UnitMassMatrixState,
+    WelfordCovState,
+    WelfordVarState,
+)
 from .stepsize import DualAveragingConfig, DualAveragingState, da_update
 
 # mass-matrix estimator kinds
@@ -56,28 +61,33 @@ class AdaptorConfig:
         return self.kind in (MASSMATRIX, NAIVE, STAN) and self.mm_kind != MM_UNIT
 
 
+_MM_STATES = {
+    MM_UNIT: UnitMassMatrixState,
+    MM_WELFORD_VAR: WelfordVarState,
+    MM_WELFORD_COV: WelfordCovState,
+    MM_NUTPIE: NutpieVarState,
+    MM_LOWRANK: LowRankCovState,
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class AdaptState:
     """Composite adaptor state (dual averaging + mass matrix)."""
 
     da: DualAveragingState
-    mm: WelfordVarState
+    mm: object     # one of the estimators of `_MM_STATES`
 
     @classmethod
     def init(cls, cfg: AdaptorConfig, dim: int, eps0, dtype=torch.float32):
         """Shared state from a scalar ε, or one state per chain (dual
-        averaging and Welford moments) from a (C,) ε. The unit estimator
-        adapts nothing (`uses_mm` is False): its slot holds Welford moments
-        that no step reads."""
-        if cfg.mm_kind not in (MM_WELFORD_VAR, MM_UNIT):
-            raise NotImplementedError(
-                f"mass-matrix estimator {cfg.mm_kind!r} is not ported yet "
-                + roadmap("surface"))
+        averaging and the estimator's moments) from a (C,) ε. The low-rank
+        estimator (at rank `cfg.mm_rank`) is shared only."""
         eps0 = torch.as_tensor(eps0, dtype=dtype)
         n_chains = eps0.shape[0] if eps0.dim() else None
+        kw = {"rank": cfg.mm_rank} if cfg.mm_kind == MM_LOWRANK else {}
         return cls(da=DualAveragingState.init(eps0),
-                   mm=WelfordVarState.init(dim, dtype, eps0.device,
-                                           n_chains=n_chains))
+                   mm=_MM_STATES[cfg.mm_kind].init(
+                       dim, dtype, eps0.device, n_chains=n_chains, **kw))
 
 
 def stan_schedule(
@@ -129,14 +139,31 @@ def adapt_flags(cfg: AdaptorConfig, n_adapts: int, n_total: int):
 
 def _mask(pred, new, old):
     """Per chain, the fields of `new` where `pred (C,)` holds, else those
-    of `old` (a dataclass of (C, ...) tensors)."""
+    of `old` (a dataclass of (C, ...) tensors, or of such dataclasses)."""
     out = {}
     for f in dataclasses.fields(old):
         a, b = getattr(new, f.name), getattr(old, f.name)
         if isinstance(a, torch.Tensor):
             p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
             out[f.name] = torch.where(p, a, b)
+        elif dataclasses.is_dataclass(a):
+            out[f.name] = _mask(pred, a, b)
     return dataclasses.replace(old, **out)
+
+
+def _mm_push(cfg: AdaptorConfig, mm, theta, grad):
+    """Push each chain's position (nutpie: and its gradient)."""
+    if cfg.mm_kind == MM_NUTPIE:
+        return mm.push(theta, grad)
+    return mm.push(theta)
+
+
+def _mm_push_batch(cfg: AdaptorConfig, mm, thetas, grads):
+    """Fold the batch's positions (nutpie: and gradients) into shared
+    moments."""
+    if cfg.mm_kind == MM_NUTPIE:
+        return mm.push_batch(thetas, grads)
+    return mm.push_batch(thetas)
 
 
 def _adapt_core(cfg: AdaptorConfig, st: AdaptState, push, alpha, flags):
@@ -172,27 +199,30 @@ def _adapt_core(cfg: AdaptorConfig, st: AdaptState, push, alpha, flags):
 def adapt_step(cfg: AdaptorConfig, st: AdaptState, theta, grad, alpha,
                flags):
     """Per-chain adaptation: each chain's dual averaging on its own
-    acceptance `alpha (C,)`, each chain's Welford moments on its own row of
-    `theta (C, dim)` (the JAX package's `vmap(adapt_step)`). `grad` is
-    there for the nutpie estimator, which is not ported."""
-    return _adapt_core(cfg, st, lambda mm: mm.push(theta), alpha, flags)
+    acceptance `alpha (C,)`, each chain's estimator on its own row of
+    `theta (C, dim)` (nutpie: and of `grad`), as the JAX package's
+    `vmap(adapt_step)`."""
+    return _adapt_core(cfg, st, lambda mm: _mm_push(cfg, mm, theta, grad),
+                       alpha, flags)
 
 
-def adapt_step_masked(cfg: AdaptorConfig, st: AdaptState, theta, alpha,
-                      flags, where):
+def adapt_step_masked(cfg: AdaptorConfig, st: AdaptState, theta, grad,
+                      alpha, flags, where):
     """Per-chain adaptation with each chain's own flags: `flags` holds (C,)
     boolean tensors, and only the chains in `where (C,)` step (the JAX
     package's traced `adapt_step`, vmapped, then masked by the chains at a
-    transition boundary)."""
-    return _adapt_core(cfg, st, lambda mm: mm.push(theta), alpha,
-                       dict(flags, is_adapt=flags["is_adapt"] & where))
+    transition boundary); each pushes its row of `theta` (nutpie: and of
+    `grad`)."""
+    return _adapt_core(cfg, st, lambda mm: _mm_push(cfg, mm, theta, grad),
+                       alpha, dict(flags, is_adapt=flags["is_adapt"] & where))
 
 
 def adapt_step_batch(cfg: AdaptorConfig, st: AdaptState, thetas, grads,
                      alphas, flags):
-    """Cross-chain adaptation: the whole (C, dim) batch folded into shared
-    Welford moments, dual averaging on the batch-mean acceptance (each α
-    clamped at 1)."""
+    """Cross-chain adaptation: the whole (C, dim) batch of positions (nutpie:
+    and of gradients `grads`) folded into shared moments, dual averaging on
+    the batch-mean acceptance (each α clamped at 1)."""
     alpha = torch.mean(torch.clamp(alphas, max=1.0))
-    return _adapt_core(cfg, st, lambda mm: mm.push_batch(thetas), alpha,
-                       flags)
+    return _adapt_core(
+        cfg, st, lambda mm: _mm_push_batch(cfg, mm, thetas, grads), alpha,
+        flags)

@@ -10,9 +10,12 @@ Each returns a `SamplerConfig` whose `.sample(...)` calls the port's
 `sample` with the same arguments. As in the JAX package, `sample` finds the
 initial step size by its search unless `init_eps` is passed: the
 constructor's step size is the integrator's template, not the start. The
-metric kinds map to mass-matrix estimators as in JAX (`_MM_FOR_METRIC`);
-the dense, rank-update and nutpie estimators are not ported yet and raise
-when a configuration that adapts with them samples.
+metric kinds map to mass-matrix estimators as in JAX (`_MM_FOR_METRIC`):
+"dense" adapts with the Welford covariance, "rank_update" with the low-rank
+estimator (`init_state` sizes the metric's rank to the adaptor's), and
+"nutpie" with the nutpie estimator. As in JAX, "nutpie" is an estimator and
+no metric kind: `SamplerConfig.sample` then needs a `metric=` (a diagonal
+one), or `make_metric` raises its `ValueError`.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from .target import as_target
 from .termination import ENDPOINT, MULTINOMIAL, FixedIntegrationTime, \
     FixedNSteps, GeneralisedNoUTurn
 from .trajectory import HMCKernel, Trajectory
-from .utils import resolve_device, roadmap
+from .utils import resolve_device
 
 
 def make_integrator(kind: str, eps=0.1, jitter_frac=0.1, temper_alpha=1.05,
@@ -78,8 +81,6 @@ _MM_FOR_METRIC = {
     "rankupdate": MM_LOWRANK,
     "nutpie": MM_NUTPIE,
 }
-# the estimators that wait for ROADMAP's "rest of the surface"
-_QUEUED_MM = (MM_WELFORD_COV, MM_LOWRANK, MM_NUTPIE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,11 +99,6 @@ class SamplerConfig:
         """`sample(generator, as_target(target, dim), kernel, metric, ...)`
         on `device` (None means CUDA), the metric made from the kind (in
         `dtype`) unless given; every other keyword goes to `sample`."""
-        if self.adaptor.mm_kind in _QUEUED_MM:
-            raise NotImplementedError(
-                f"the {self.adaptor.mm_kind!r} mass-matrix estimator (metric "
-                f"{self.metric_kind!r}) is not ported yet "
-                + roadmap("surface"))
         target = as_target(target, dim=dim)
         device = resolve_device(device)
         if metric is None:

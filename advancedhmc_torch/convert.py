@@ -13,13 +13,15 @@ import numpy as np
 import torch
 
 from .adaptation import AdaptState, CheesState, DualAveragingState, \
+    LowRankCovState, NutpieVarState, UnitMassMatrixState, WelfordCovState, \
     WelfordVarState
 from .diagnostics import OnlineMoments
 from .hamiltonian import FullMomentumRefreshment, PartialMomentumRefreshment, \
     PhasePoint
 from .integrators import ComposedLeapfrog, JitteredLeapfrog, Leapfrog, \
     SolverIntegrator, TemperedLeapfrog
-from .metrics import DiagEuclideanMetric
+from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, \
+    RankUpdateEuclideanMetric, UnitEuclideanMetric
 from .sampler import HMCState
 from .termination import FixedIntegrationTime, FixedNSteps, \
     GeneralisedNoUTurn
@@ -47,6 +49,38 @@ def diag_metric(m_inv, device=None) -> DiagEuclideanMetric:
     return DiagEuclideanMetric.create(tensor(m_inv, device))
 
 
+def dense_metric(m, device=None) -> DenseEuclideanMetric:
+    """A dense metric, shared or per chain, with the JAX package's own
+    Cholesky factor (not recomputed)."""
+    return DenseEuclideanMetric(m_inv=tensor(m.m_inv, device),
+                                chol_u=tensor(m.chol_u, device))
+
+
+def rank_update_metric(m, device=None) -> RankUpdateEuclideanMetric:
+    """A rank-update metric with the JAX package's own Q and V factors:
+    Q's columns are unique only up to sign, so only the carried factors
+    map the same normals to the same momenta."""
+    return RankUpdateEuclideanMetric(*(tensor(getattr(m, f), device) for f in
+                                       ("a_diag", "b", "d", "q_full",
+                                        "v_upper")))
+
+
+def metric(m, device=None):
+    """Any Euclidean metric of the JAX package, by class."""
+    kind = type(m).__name__
+    if kind == "UnitEuclideanMetric":
+        return UnitEuclideanMetric(size=int(m.size),
+                                   dtype=tensor(np.zeros((), m.dtype)).dtype,
+                                   device=device)
+    if kind == "DiagEuclideanMetric":
+        return diag_metric(m.m_inv, device)
+    if kind == "DenseEuclideanMetric":
+        return dense_metric(m, device)
+    if kind == "RankUpdateEuclideanMetric":
+        return rank_update_metric(m, device)
+    raise TypeError(f"unknown metric {kind}")
+
+
 def dual_averaging_state(da, device=None) -> DualAveragingState:
     return DualAveragingState(*(tensor(getattr(da, f), device) for f in
                                 ("m", "eps", "mu", "x_bar", "h_bar")))
@@ -58,12 +92,47 @@ def welford_var_state(mm, device=None) -> WelfordVarState:
         n_min=int(mm.n_min))
 
 
+def welford_cov_state(mm, device=None) -> WelfordCovState:
+    return WelfordCovState(
+        *(tensor(getattr(mm, f), device) for f in ("n", "mean", "m2", "cov")),
+        n_min=int(mm.n_min))
+
+
+def lowrank_state(mm, device=None) -> LowRankCovState:
+    return LowRankCovState(
+        *(tensor(getattr(mm, f), device) for f in
+          ("n", "mean", "m2", "a_diag", "b", "d")),
+        rank=int(mm.rank), n_min=int(mm.n_min))
+
+
+def nutpie_state(mm, device=None) -> NutpieVarState:
+    return NutpieVarState(
+        position=welford_var_state(mm.position, device),
+        gradient=welford_var_state(mm.gradient, device),
+        var=tensor(mm.var, device), n_min=int(mm.n_min))
+
+
+def mm_state(mm, device=None):
+    """Any mass-matrix estimator state of the JAX package, by class, shared
+    or per chain."""
+    kind = type(mm).__name__
+    if kind == "UnitMassMatrixState":
+        return UnitMassMatrixState(dim=int(mm.dim))
+    convert_state = {"WelfordVarState": welford_var_state,
+                     "WelfordCovState": welford_cov_state,
+                     "LowRankCovState": lowrank_state,
+                     "NutpieVarState": nutpie_state}.get(kind)
+    if convert_state is None:
+        raise TypeError(f"unknown mass-matrix state {kind}")
+    return convert_state(mm, device)
+
+
 def adapt_state(ad, device=None) -> AdaptState:
-    """A diagonal-Welford adaptation state, shared or per chain (the state
-    `fused_warmup_phase` returns: ε (C,), Welford n (C,), moments (C,
-    dim))."""
+    """An adaptation state with any estimator, shared or per chain (the
+    state `fused_warmup_phase` returns: ε (C,), the estimator's n (C,) and
+    moments per chain)."""
     return AdaptState(da=dual_averaging_state(ad.da, device),
-                      mm=welford_var_state(ad.mm, device))
+                      mm=mm_state(ad.mm, device))
 
 
 def online_moments(om, device=None) -> OnlineMoments:
@@ -150,12 +219,13 @@ def kernel(k, device=None, stepper=None) -> HMCKernel:
 
 
 def hmc_state(state, device=None) -> HMCState:
-    """A whole `HMCState` with a diagonal metric: cross-chain (ε 0-d, M⁻¹
-    (dim,), Welford n 0-d) or per chain (ε (C,), M⁻¹ (C, dim), Welford n
-    (C,) and its moments (C, dim)); every leaf keeps its shape and bits."""
+    """A whole `HMCState` with any metric and estimator: cross-chain (ε
+    0-d, shared M⁻¹ and moments) or per chain (ε (C,), M⁻¹ and the
+    estimator's n and moments with a leading chain axis); every leaf keeps
+    its shape and bits."""
     return HMCState(
         iteration=int(np.asarray(state.iteration)),
         z=phasepoint(state.z, device),
-        metric=diag_metric(state.metric.m_inv, device),
+        metric=metric(state.metric, device),
         adapt=adapt_state(state.adapt, device),
     )

@@ -1,11 +1,19 @@
-"""Euclidean metrics (mass matrices): unit and diagonal.
+"""Euclidean metrics (mass matrices): unit, diagonal, dense and rank-update.
 
 PyTorch counterpart of `advancedhmc_tpu/metrics.py`. A metric is a small
 immutable dataclass of tensors; momenta carry a leading chain axis, so
 `velocity` and `neg_kinetic_energy` act on (C, dim) batches. A diagonal
 M⁻¹ is shared, (dim,), or per chain, (C, dim) (`per_chain`, the JAX
 package's metric broadcast along the chain axis): every operation
-broadcasts. The dense and low-rank metrics are not ported yet.
+broadcasts. A dense M⁻¹ is shared, (dim, dim), or per chain, (C, dim,
+dim); the rank-update metric (diag(A) + B·D·Bᵀ) is shared. Momenta are
+drawn as standard normals z (C, dim) and mapped by
+`momentum_from_normals(z)`, so that a test can feed the JAX package's
+normals.
+
+The factorisations read a symmetrised input, ½(A + Aᵀ), as
+`jnp.linalg.cholesky` and `eigh` do by default; a failed Cholesky gives NaN
+(as in JAX) without a read back to the host (`cholesky_upper`).
 """
 
 from __future__ import annotations
@@ -17,8 +25,6 @@ import torch
 
 from .utils import resolve_device, roadmap
 
-_LATER = roadmap("surface")
-
 
 class Metric:
     """Base class for Euclidean metrics (position-independent M⁻¹)."""
@@ -26,6 +32,14 @@ class Metric:
     dim: int
 
     def rand_momentum(self, generator, n_chains):
+        """Momenta (n_chains, dim) ~ N(0, M): standard normals mapped by
+        `momentum_from_normals`."""
+        z = torch.randn((n_chains, self.dim), generator=generator,
+                        dtype=self.dtype, device=self.device)
+        return self.momentum_from_normals(z)
+
+    def momentum_from_normals(self, z):
+        """The momenta of standard normals `z (C, dim)`."""
         raise NotImplementedError
 
     def velocity(self, r):
@@ -37,6 +51,10 @@ class Metric:
         raise NotImplementedError
 
     def renew(self, m_inv):
+        raise NotImplementedError
+
+    def m_inv_matrix(self):
+        """Dense M⁻¹, (dim, dim) or per chain (C, dim, dim)."""
         raise NotImplementedError
 
     def per_chain(self, n_chains):
@@ -65,9 +83,8 @@ class UnitEuclideanMetric(Metric):
     def dim(self):
         return self.size
 
-    def rand_momentum(self, generator, n_chains):
-        return torch.randn((n_chains, self.size), generator=generator,
-                           dtype=self.dtype, device=self.device)
+    def momentum_from_normals(self, z):
+        return z
 
     def velocity(self, r):
         return r
@@ -77,6 +94,9 @@ class UnitEuclideanMetric(Metric):
 
     def renew(self, m_inv):
         return self
+
+    def m_inv_matrix(self):
+        return torch.eye(self.size, dtype=self.dtype, device=self.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,10 +124,12 @@ class DiagEuclideanMetric(Metric):
     def dtype(self):
         return self.m_inv.dtype
 
-    def rand_momentum(self, generator, n_chains):
+    @property
+    def device(self):
+        return self.m_inv.device
+
+    def momentum_from_normals(self, z):
         # r = z / sqrt(M⁻¹)
-        z = torch.randn((n_chains, self.dim), generator=generator,
-                        dtype=self.dtype, device=self.m_inv.device)
         return z / self.sqrt_m_inv
 
     def velocity(self, r):
@@ -118,6 +140,9 @@ class DiagEuclideanMetric(Metric):
 
     def renew(self, m_inv):
         return DiagEuclideanMetric.create(m_inv)
+
+    def m_inv_matrix(self):
+        return torch.diag_embed(self.m_inv)
 
     def per_chain(self, n_chains):
         return DiagEuclideanMetric(
@@ -131,15 +156,204 @@ class DiagEuclideanMetric(Metric):
                                    sqrt_m_inv=self.sqrt_m_inv[chains])
 
 
-def make_metric(kind: str, dim: int, dtype=torch.float32,
-                device=None) -> Metric:
-    """"unit" or "diagonal" metric of size `dim` on `device` (None: CUDA)."""
+def symmetrised(a):
+    """½(A + Aᵀ) over the last two axes: what JAX's factorisations read."""
+    return (a + a.mT) / 2
+
+
+def cholesky_upper(a):
+    """The upper Cholesky factor U of the symmetrised `a` (UᵀU = a), over
+    any leading axes; where the factorisation fails, NaN on and above the
+    diagonal (zero below), as `jnp.linalg.cholesky(a).T` gives, with
+    nothing read back to the host."""
+    low, info = torch.linalg.cholesky_ex(symmetrised(a))
+    bad = (info != 0)[..., None, None]
+    nan = torch.full_like(low, float("nan")).tril()
+    return torch.where(bad, nan, low).mT
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseEuclideanMetric(Metric):
+    """Dense M⁻¹ with its cached upper Cholesky factor U (UᵀU = M⁻¹):
+    momenta solve U r = z, so that cov(r) = M. Shared, (dim, dim), or per
+    chain, (C, dim, dim)."""
+
+    m_inv: torch.Tensor    # (dim, dim) or per chain (C, dim, dim)
+    chol_u: torch.Tensor   # as m_inv, upper triangular
+
+    @classmethod
+    def create(cls, m_inv):
+        return cls(m_inv=m_inv, chol_u=cholesky_upper(m_inv))
+
+    @classmethod
+    def identity(cls, dim, dtype=torch.float32, device=None):
+        """M⁻¹ = I on `device` (None means CUDA)."""
+        return cls.create(torch.eye(dim, dtype=dtype,
+                                    device=resolve_device(device)))
+
+    @property
+    def dim(self):
+        return self.m_inv.shape[-1]
+
+    @property
+    def dtype(self):
+        return self.m_inv.dtype
+
+    @property
+    def device(self):
+        return self.m_inv.device
+
+    def momentum_from_normals(self, z):
+        if self.chol_u.dim() == 2:
+            return torch.linalg.solve_triangular(
+                self.chol_u, z.mT, upper=True).mT
+        return torch.linalg.solve_triangular(
+            self.chol_u, z[:, :, None], upper=True)[:, :, 0]
+
+    def velocity(self, r):
+        # M⁻¹ r, each row summed as JAX's `m_inv @ r`: a shared M⁻¹ as one
+        # product over the chains
+        if self.m_inv.dim() == 2:
+            return r @ self.m_inv.mT
+        return torch.bmm(self.m_inv, r[:, :, None])[:, :, 0]
+
+    def neg_kinetic_energy(self, r):
+        return -0.5 * torch.sum(r * self.velocity(r), -1)
+
+    def renew(self, m_inv):
+        return DenseEuclideanMetric.create(m_inv)
+
+    def m_inv_matrix(self):
+        return self.m_inv
+
+    def per_chain(self, n_chains):
+        return DenseEuclideanMetric(
+            m_inv=self.m_inv.expand(n_chains, -1, -1).contiguous(),
+            chol_u=self.chol_u.expand(n_chains, -1, -1).contiguous())
+
+    def take(self, chains):
+        if self.m_inv.dim() == 2:
+            return self
+        return DenseEuclideanMetric(m_inv=self.m_inv[chains],
+                                    chol_u=self.chol_u[chains])
+
+
+@dataclasses.dataclass(frozen=True)
+class RankUpdateEuclideanMetric(Metric):
+    """M⁻¹ = diag(A) + B·D·Bᵀ (a Woodbury low-rank update; the Pathfinder
+    metric), shared by the chains. Momenta use the factorisation U = √A,
+    Q R = U⁻¹B (a complete QR), VᵀV = I + R D Rᵀ:
+    r = U⁻¹ Q [V⁻¹ z₁:ₖ ; zₖ₊₁:]."""
+
+    a_diag: torch.Tensor   # (dim,) positive diagonal A
+    b: torch.Tensor        # (dim, k)
+    d: torch.Tensor        # (k, k) symmetric
+    q_full: torch.Tensor   # (dim, dim) orthogonal factor of qr(U⁻¹B)
+    v_upper: torch.Tensor  # (k, k) upper Cholesky factor of I + R D Rᵀ
+
+    @classmethod
+    def create(cls, a_diag, b, d):
+        dim, k = b.shape
+        if k == 0:
+            q_full = torch.eye(dim, dtype=a_diag.dtype, device=a_diag.device)
+            v_upper = a_diag.new_zeros((0, 0))
+        else:
+            q_full, r = torch.linalg.qr(b / torch.sqrt(a_diag)[:, None],
+                                        mode="complete")
+            r = r[:k, :]
+            inner = torch.eye(k, dtype=a_diag.dtype,
+                              device=a_diag.device) + r @ d @ r.T
+            v_upper = cholesky_upper(inner)
+        return cls(a_diag=a_diag, b=b, d=d, q_full=q_full, v_upper=v_upper)
+
+    @classmethod
+    def identity(cls, dim, dtype=torch.float32, device=None, rank=0):
+        """M⁻¹ = I carried at rank `rank` (B = 0): an adapting run
+        (mm_kind "lowrank") renews it in place at that rank."""
+        a = torch.ones(dim, dtype=dtype, device=resolve_device(device))
+        return cls.create(a, a.new_zeros((dim, rank)),
+                          a.new_zeros((rank, rank)))
+
+    @property
+    def dim(self):
+        return self.a_diag.shape[-1]
+
+    @property
+    def rank(self):
+        return self.b.shape[-1]
+
+    @property
+    def dtype(self):
+        return self.a_diag.dtype
+
+    @property
+    def device(self):
+        return self.a_diag.device
+
+    def momentum_from_normals(self, z):
+        k = self.rank
+        if k > 0:
+            head = torch.linalg.solve_triangular(
+                self.v_upper, z[:, :k].mT, upper=True).mT
+            z = torch.cat([head, z[:, k:]], 1)
+        return (z @ self.q_full.mT) / torch.sqrt(self.a_diag)
+
+    def velocity(self, r):
+        # A r + B (D (Bᵀ r))
+        out = self.a_diag * r
+        if self.rank > 0:
+            out = out + ((r @ self.b) @ self.d.mT) @ self.b.mT
+        return out
+
+    def neg_kinetic_energy(self, r):
+        # -(rᵀ A r + (Bᵀr)ᵀ D (Bᵀr)) / 2
+        quad = torch.sum(r * r * self.a_diag, -1)
+        if self.rank > 0:
+            btr = r @ self.b
+            quad = quad + torch.sum(btr * (btr @ self.d.mT), -1)
+        return -0.5 * quad
+
+    def renew(self, m_inv):
+        """Rank-preserving: an (a, b, d) triple (from `LowRankCovState`;
+        d a (k,) diagonal or a (k, k) matrix) rebuilds the factorisation at
+        its rank; a plain diagonal (from the Welford-var or nutpie
+        estimators) becomes A with the low-rank part zeroed at the current
+        rank."""
+        if isinstance(m_inv, (tuple, list)):
+            a, b, d = m_inv
+            if d.dim() == 1:
+                d = torch.diag(d)
+            return RankUpdateEuclideanMetric.create(a, b, d)
+        return RankUpdateEuclideanMetric.create(
+            m_inv, m_inv.new_zeros((self.dim, self.rank)),
+            m_inv.new_zeros((self.rank, self.rank)))
+
+    def m_inv_matrix(self):
+        out = torch.diag(self.a_diag)
+        if self.rank > 0:
+            out = out + self.b @ self.d @ self.b.T
+        return out
+
+    def per_chain(self, n_chains):
+        raise NotImplementedError(
+            "a per-chain rank-update metric (per-chain adaptation with "
+            "metric 'rank_update') is not ported yet; adapt across chains "
+            "(cross_chain=True) " + roadmap("surface"))
+
+
+def make_metric(kind: str, dim: int, dtype=torch.float32, device=None,
+                rank: int = 0) -> Metric:
+    """"unit", "diagonal", "dense" or "rank_update" metric of size `dim`
+    on `device` (None: CUDA); `rank` (rank_update only) reserves low-rank
+    slots for an adapting run (mm_kind "lowrank")."""
     device = resolve_device(device)
     if kind == "unit":
         return UnitEuclideanMetric(size=dim, dtype=dtype, device=device)
     if kind in ("diag", "diagonal"):
         return DiagEuclideanMetric.identity(dim, dtype=dtype, device=device)
-    if kind in ("dense", "rank_update", "rankupdate"):
-        raise NotImplementedError(f"metric kind {kind!r} is not ported yet "
-                                  + _LATER)
+    if kind == "dense":
+        return DenseEuclideanMetric.identity(dim, dtype=dtype, device=device)
+    if kind in ("rank_update", "rankupdate"):
+        return RankUpdateEuclideanMetric.identity(dim, dtype=dtype,
+                                                  device=device, rank=rank)
     raise ValueError(f"unknown metric kind: {kind!r}")

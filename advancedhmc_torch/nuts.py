@@ -1,7 +1,8 @@
 """NUTS: iterative tree doubling over a batch of chains.
 
 PyTorch counterpart of `advancedhmc_tpu/nuts.py`: the generalised no-U-turn
-criterion, multinomial sampling, unit or diagonal M⁻¹, full or partial
+criterion, multinomial sampling, any Euclidean M⁻¹ (unit, diagonal or
+dense, shared or per chain; rank-update, shared), full or partial
 momentum refreshment, and each leaf one step of the trajectory's
 integrator. As in the JAX package the recursive
 `build_tree` is flattened into a loop that takes ONE leapfrog step per
@@ -33,7 +34,8 @@ import torch
 
 from .hamiltonian import PhasePoint, select_phasepoint
 from .integrators import JitteredLeapfrog, leapfrog_step
-from .metrics import DiagEuclideanMetric
+from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, \
+    cholesky_upper
 from .termination import GeneralisedNoUTurn, MULTINOMIAL
 from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
     roadmap, trailing_ones, trailing_zeros
@@ -209,7 +211,7 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
     if act is not None:
         take_top = take_top & act
     # combined tree: the doubling's far edge is z_new; velocities of the old
-    # edges are recomputed from their momenta (unit/diagonal M⁻¹ is cheap)
+    # edges are recomputed from their momenta (one product for a dense M⁻¹)
     t_vleft = h.velocity(st["t_zleft"].r)
     t_vright = h.velocity(st["t_zright"].r)
     c_vleft = torch.where(fwd[:, None], t_vleft, vel_new)
@@ -441,15 +443,19 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     momentum is stale and is refreshed before any further use.
 
     Warmup mode (the JAX function's): with `adapt_cfg`, `adapt_state`
-    (per-chain AdaptState: ε (C,), Welford n (C,)) and `adapt_flags` (the
-    flag arrays of `adapt_flags`, at least `n_transitions` long), each
-    chain's adaptation step runs inside the loop at its own transition
-    boundary, indexed by its own transition count (`adapt_step_masked`):
-    dual averaging, the Welford push, the Stan window reset, and the metric
-    renewal. The chain's next transition runs at its new ε and, with a
-    diagonal metric and an adapted mass matrix, its new M⁻¹. `h` then
-    carries a unit or a per-chain diagonal metric and `traj` each chain's
-    ε. Returns (z_final, thetas, stats, adapt_state_final).
+    (per-chain AdaptState: ε (C,), the estimator's n (C,)) and
+    `adapt_flags` (the flag arrays of `adapt_flags`, at least
+    `n_transitions` long), each chain's adaptation step runs inside the
+    loop at its own transition boundary, indexed by its own transition
+    count (`adapt_step_masked`, given the chain's candidate θ and ∇ℓπ):
+    dual averaging, the estimator's push, the Stan window reset, and the
+    metric renewal. The chain's next transition runs at its new ε and,
+    with an adapted mass matrix, its new M⁻¹: a per-chain diagonal metric
+    (Welford variance or nutpie) or a per-chain dense one (Welford
+    covariance; its Cholesky factor, which draws the momenta, is refreshed
+    only for the chains at a window end, as in JAX). `h` then carries a
+    unit, a per-chain diagonal or a per-chain dense metric and `traj` each
+    chain's ε. Returns (z_final, thetas, stats, adapt_state_final).
 
     `depth_caps` ((n_transitions,) ints) caps the tree depth of a chain's
     t-th transition at depth_caps[t], clamped to the criterion's max_depth
@@ -487,9 +493,11 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                  for k in ("is_adapt", "in_window", "window_end", "is_last")}
         ad = adapt_state
         eps = torch.broadcast_to(eps, (c,)).clone()
-        if adapt_metric and not isinstance(h.metric, DiagEuclideanMetric):
+        dense = isinstance(h.metric, DenseEuclideanMetric)
+        if adapt_metric and not (
+                isinstance(h.metric, DiagEuclideanMetric) or dense):
             raise ValueError("in-loop mass-matrix adaptation needs a "
-                             "diagonal metric")
+                             "diagonal or a dense metric")
 
     st = _initial_state(refreshment.refresh(generator, h, z0), max_depth,
                         traj.stack_torch_dtype)
@@ -529,11 +537,21 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         if adaptive:
             # each finishing chain's adaptation step, at its own count
             idx = torch.clamp(t_done, max=n_t - 1).long()
+            flags_t = {k: v[idx] for k, v in flags.items()}
             ad = adapt_step_masked(
-                adapt_cfg, ad, zc.theta, s["acceptance_rate"],
-                {k: v[idx] for k, v in flags.items()}, boundary)
+                adapt_cfg, ad, zc.theta, zc.grad, s["acceptance_rate"],
+                flags_t, boundary)
             nom_next = ad.da.eps
-            if adapt_metric:
+            if adapt_metric and dense:
+                # M⁻¹ moves only at a window end: the factor is refreshed
+                # there, for the chains that reach one
+                new = (reset & flags_t["window_end"])[:, None, None]
+                h_next = dataclasses.replace(h, metric=DenseEuclideanMetric(
+                    m_inv=torch.where(reset[:, None, None], ad.mm.m_inv,
+                                      h.metric.m_inv),
+                    chol_u=torch.where(new, cholesky_upper(ad.mm.m_inv),
+                                       h.metric.chol_u)))
+            elif adapt_metric:
                 h_next = dataclasses.replace(h, metric=DiagEuclideanMetric.create(
                     torch.where(reset[:, None], ad.mm.m_inv, h.metric.m_inv)))
         # prepare the next transition of the chains that just finished one

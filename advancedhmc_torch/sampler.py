@@ -30,7 +30,9 @@ from typing import Dict, Optional
 import torch
 
 from .adaptation import (
+    MM_LOWRANK,
     MM_NUTPIE,
+    MM_WELFORD_COV,
     MM_WELFORD_VAR,
     NONE,
     STAN,
@@ -46,13 +48,14 @@ from .diagnostics import online_init, online_summary, online_update, \
     summarize
 from .hamiltonian import Hamiltonian, PhasePoint
 from .kinetic import GaussianKinetic
-from .metrics import DiagEuclideanMetric, Metric, UnitEuclideanMetric
+from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, Metric, \
+    RankUpdateEuclideanMetric, UnitEuclideanMetric
 from .nuts import _STAT_FIELDS, nuts_transition, nuts_transitions_fused
 from .stepsize_search import find_good_stepsize, find_good_stepsizes
 from .target import LogDensityTarget
 from .termination import DynamicTerminationCriterion
 from .trajectory import HMCKernel, transition_static
-from .utils import not_ported, resolve_device, roadmap
+from .utils import not_ported, resolve_device
 
 _PREFIX = "[advancedhmc_torch]"
 _PZ = ("theta", "r", "logdensity", "grad", "neg_k")
@@ -232,7 +235,9 @@ def fused_warmup_phase(generator, spec: SampleSpec, state: HMCState,
     at its own transition boundaries (`nuts_transitions_fused`'s warmup
     mode), with the fused loop's asynchronous chains: the JAX function's
     reference-exact per-chain semantics. Takes per-chain adaptation and a
-    unit or diagonal metric, with the Welford variance estimator or no
+    unit, diagonal or dense metric: diagonal with the Welford variance or
+    nutpie estimator, dense with the Welford covariance (its Cholesky
+    factor refreshed in the loop at window ends), or any of them with no
     mass-matrix adaptation. Returns (state, warm_thetas (n_adapts, C,
     dim), warm_stats)."""
     cfg = spec.adaptor
@@ -456,6 +461,23 @@ def init_state(generator, spec: SampleSpec, metric: Metric, init_theta,
     elif init_mass_matrix != "identity":
         raise ValueError(f"unknown init_mass_matrix {init_mass_matrix!r}")
 
+    if spec.adaptor.uses_mm and spec.adaptor.mm_kind == MM_LOWRANK:
+        # the estimator renews (a_diag, b, d) at rank mm_rank: the metric
+        # carries that rank (a rank-0 identity is upgraded to it)
+        if not isinstance(metric, RankUpdateEuclideanMetric):
+            raise ValueError(
+                "mm_kind='lowrank' adapts a RankUpdateEuclideanMetric; got "
+                f"{type(metric).__name__}")
+        k = min(spec.adaptor.mm_rank, metric.dim)
+        if metric.rank != k:
+            if metric.rank != 0:
+                raise ValueError(
+                    f"metric rank {metric.rank} != adaptor mm_rank {k}; "
+                    "pass make_metric('rank_update', dim, rank=mm_rank) or "
+                    "a rank-0 identity (auto-upgraded)")
+            metric = RankUpdateEuclideanMetric.identity(
+                metric.dim, dtype=metric.dtype, device=metric.device, rank=k)
+
     h = Hamiltonian(metric=metric, target=spec.target, kinetic=spec.kinetic)
     if init_eps is not None:
         eps0 = torch.as_tensor(init_eps, dtype=dtype, device=device)
@@ -559,6 +581,8 @@ def _progress_printer(n_adapts, n_samples, every=None):
             v = float(torch.mean(stats[key].to(torch.float64)))
             parts.append(f"{label} {v:{fmt}}")
         mi = getattr(metric, "m_inv", None)
+        if isinstance(metric, DenseEuclideanMetric):
+            mi = torch.diagonal(mi, dim1=-2, dim2=-1)
         if mi is not None:
             parts.append(f"M⁻¹ [{float(mi.min()):.2g}..{float(mi.max()):.2g}]"
                          f" μ {float(mi.mean()):.2g}")
@@ -612,9 +636,12 @@ def sample(
     static criterion (`HMC`, `HMCDA`) runs every iteration so, through
     `transition_static`: the fused paths and the depth caps are NUTS's.
     `cross_chain=True` shares the adaptation. `fuse_warmup=True` runs the
-    warmup fused: per chain (`fused_warmup_phase`, a unit or diagonal
-    metric with Welford-variance or no mass-matrix adaptation), or
-    cross-chain in blocks of `fuse_warmup_block` dividing `n_adapts`.
+    warmup fused: per chain (`fused_warmup_phase`: a diagonal metric with
+    the Welford-variance or nutpie estimator, a dense one with the Welford
+    covariance, or a unit, diagonal or dense one without mass-matrix
+    adaptation), or cross-chain in blocks of `fuse_warmup_block` dividing
+    `n_adapts` (not with nutpie, whose estimator needs the gradients the
+    blocks do not record: it warms step by step).
     `fuse_draws > 1` dividing the draw count (and divisible by `thin`) runs
     the draws fused; `fuse_chain_chunks` splits each fused call's chains
     into that many sequential sub-batches; `fuse_pair` runs the fused
@@ -666,12 +693,11 @@ def sample(
         and not cross_chain and n_adapts > 0 and (
             (adaptor.uses_mm and isinstance(metric, DiagEuclideanMetric)
              and adaptor.mm_kind in (MM_WELFORD_VAR, MM_NUTPIE))
+            or (adaptor.uses_mm and isinstance(metric, DenseEuclideanMetric)
+                and adaptor.mm_kind == MM_WELFORD_COV)
             or (not adaptor.uses_mm and isinstance(
-                metric, (DiagEuclideanMetric, UnitEuclideanMetric))))
-    if use_fused_warmup and adaptor.mm_kind == MM_NUTPIE:
-        raise NotImplementedError(
-            "the per-chain fused warmup with the nutpie estimator waits "
-            "for that estimator " + roadmap("surface"))
+                metric, (DiagEuclideanMetric, UnitEuclideanMetric,
+                         DenseEuclideanMetric))))
     use_fused_warmup_cc = (fuse_warmup and dynamic and not coupled
                            and cross_chain and n_adapts > 0
                            and adaptor.mm_kind != MM_NUTPIE

@@ -56,7 +56,7 @@ Phases (any failure exits non-zero):
 8. the default path of `advancedhmc_torch.sample`: per-chain Stan
    adaptation (δ 0.8, buffers 75/50/25, gradient-seeded M⁻¹) and one
    `sample_step` per iteration, on 4096 chains of the same model and NUTS,
-   300 iterations of which 200 adapt, every other `sample` argument at its
+   200 iterations of which 150 adapt, every other `sample` argument at its
    default; then 64 fused draws (8 per call) at each chain's own ε and
    M⁻¹ from its final state. Gated on finite draws, divergence,
    acceptance, the posterior moments, the per-chain ε (4096,) and M⁻¹
@@ -122,6 +122,26 @@ Phases (any failure exits non-zero):
    iterations, 100 adapting) and NUTS with the jittered leapfrog on the
    fused loop (64 draws, 8 a call), each gated on finite draws,
    divergence, acceptance, the moments and K1's launches.
+15. the dense and rank-update metrics and the Welford-cov, low-rank and
+   nutpie estimators at the same width, each run with every kernel's count
+   set to 0 just before and read just after, K1's calls held to the
+   target's value+grad calls and gated on finite draws, divergence,
+   acceptance (15a–c: in [δ − 0.1, δ + 0.2], the band the JAX package's
+   dual averaging leaves room for) and phase 4's moments: (a) the JAX
+   bench's nutpie run (`AHMC_BENCH_MM_KIND=nutpie AHMC_BENCH_WARMUP=256`:
+   phase 3 with the cross-chain warmup step by step, 256 iterations),
+   gated on M⁻¹ having moved from the gradient seed and on the median of
+   M⁻¹ over the draws' variance; (b) phase 3 with a dense metric and the
+   Welford covariance from the identity, 256 warmup iterations in fused
+   blocks of 4, gated on M⁻¹'s symmetry, its
+   Cholesky factor, its distance to the draws' covariance and the
+   covariance of 2^18 momentum draws, its ESS/s printed beside phase 3's;
+   (c) `NUTS(0.55, max_depth=6, metric="rank_update")` (the low-rank
+   estimator at rank 8) on 1024 chains, 256 warmup iterations in fused
+   blocks of 4, gated on a positive-definite M⁻¹
+   and the momentum draws; (d) the per-chain fused warmup on 1024 chains,
+   150 iterations (one window), with nutpie on the diagonal metric and
+   with a per-chain dense metric (each chain's factor checked).
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
@@ -1248,9 +1268,10 @@ def k2_parity_rows(cases, share, theta_transitions=None):
 
 # ------------------------------------------------------------------ phase 8
 # `sample` at its defaults: per-chain adaptation, step by step
-# 300 iterations, not 400, keep the phase near 150 s on the card (at 400
-# it took 157-168 s); 200 adapt, so two Stan windows remain
-DEF_CHAINS, DEF_SAMPLES, DEF_ADAPTS = 4096, 300, 200
+# 200 iterations, not 400, keep the phase under 100 s on the card (at 400
+# it took 157-168 s, at 300 about 110 s) beside phase 15; 150 adapt, so
+# one Stan window (its end at 100) remains
+DEF_CHAINS, DEF_SAMPLES, DEF_ADAPTS = 4096, 200, 150
 DEF_DELTA, DEF_TOL_ACCEPT = 0.8, 0.15
 DEF_DRAWS, DEF_FUSE = 64, 8
 
@@ -2552,6 +2573,301 @@ def phase_static(seed, warmed):
     return results
 
 
+
+# ----------------------------------------------------------------- phase 15
+# The dense and rank-update metrics and the Welford-cov, low-rank and nutpie
+# estimators at the 100-D model's width. Stan's 75/50/25 windows end at
+# iterations 100 and 206 of 256 and at 100 of 150; at 128 there is none.
+MM_WARMUP, MM_CHAINS_C, MM_CHAINS_D = 256, 1024, 1024
+MM_DRAWS_CD, MM_WARMUP_D = 64, 150
+# The fused cross-chain warmup updates dual averaging once a block: blocks
+# of 8 leave 6 updates between the last window's reset (206) and the end
+# (256), and the re-anchored ε overshoots (×75 in one block) before they
+# settle; blocks of 4 leave 12 (15b, 15c).
+MM_WARMUP_BLOCK = 4
+# Stan's dual averaging ends at ε = exp(x̄), below its last iterates, so
+# the draws accept above δ: in 15a's configuration the JAX package leaves
+# δ + 0.09 (`scripts/accept_reference.py`), at the edge of a ±0.1 band;
+# 15a–c are gated on this band, above δ by 0.2 and below by 0.1
+MM_ACCEPT_BAND = (round(DELTA - 0.1, 2), round(DELTA + 0.2, 2))
+# The draws' M⁻¹ ratio band (15a), the dense estimate's distance to the
+# draws' covariance (15b: JAX `tests/test_fused_warmup_cc.py:66`'s rtol),
+# and the momentum draws' covariance (15b, 15c)
+NUTPIE_RATIO = (0.7, 1.4)
+DENSE_COV_RTOL, MOMENTUM_DRAWS, MOMENTUM_RTOL = 0.25, 1 << 18, 0.03
+SYM_RTOL, CHOL_RTOL = 1e-6, 1e-4
+
+
+def _rel_fro(a, b):
+    """‖a − b‖_F / ‖b‖_F in float64 (over the last two axes, the largest
+    over any leading ones)."""
+    a, b = a.double(), b.double()
+    return float((torch.linalg.matrix_norm(a - b)
+                  / torch.linalg.matrix_norm(b)).max())
+
+
+def _momentum_cov_err(metric, seed):
+    """Relative Frobenius distance between the covariance of
+    MOMENTUM_DRAWS `rand_momentum` draws and the float64 inverse of M⁻¹."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = metric.rand_momentum(gen, MOMENTUM_DRAWS).double()
+    emp = torch.cov(r.T)
+    return _rel_fro(emp, torch.linalg.inv(metric.m_inv_matrix().double()))
+
+
+def _chol_err(metric):
+    """How far UᵀU is from M⁻¹ (relative Frobenius, every chain)."""
+    u = metric.chol_u.double()
+    return _rel_fro(u.mT @ u, metric.m_inv.double())
+
+
+def _mm_run(name, res, wall, by_chains, counts, chains, n_warmup, n_draws,
+            pair, transitions_at, extra):
+    """Phase 15's common report of one run: walls, ESS/s (bench.py's
+    estimator), accept, final ε, leaf-loop iterations a transition at the
+    chain count `transitions_at` = (C, transitions run there), K1's calls
+    by chain count, the moments."""
+    from advancedhmc_torch.diagnostics import effective_sample_size
+
+    th, st = res.thetas, res.stats
+    n_ess = min(ESS_CHAINS, chains)
+    ess = effective_sample_size(th[:, :n_ess]) * (chains / n_ess)
+    t_draw = res.timings["draws_s"]
+    c_it, n_it = transitions_at
+    eps = res.final_state.adapt.da.eps
+    out = {
+        "run": name, "chains": chains, "warmup": n_warmup, "draws": n_draws,
+        "init_s": res.timings["init_s"], "warmup_s": res.timings["warmup_s"],
+        "draws_s": t_draw, "wall_s": wall,
+        "effective_samples_per_s_per_chip": float(ess.quantile(0.5))
+        / t_draw,
+        "min_ess_per_s": float(ess.min()) / t_draw,
+        "accept_mean": float(st["acceptance_rate"].double().mean()),
+        "divergence_rate": float(st["numerical_error"].double().mean()),
+        "mean_tree_depth": float(st["tree_depth"].double().mean()),
+        "step_size": float(eps.median()) if eps.dim() else float(eps),
+        "leaf_iterations_per_transition":
+            by_chains.get(c_it, 0) / (2 if pair else 1) / n_it,
+        "k1_calls": counts[K1_CALLS],
+        "k1_launches": counts["fused_logistic_value_grad"],
+        "value_grad_calls": sum(by_chains.values()),
+        "k1_calls_by_chains": dict(sorted(by_chains.items(), reverse=True)),
+        **extra,
+    }
+    moments, gates = _moment_gates(th)
+    out.update(moments)
+    gates["draws finite, shape"] = tuple(th.shape) == (
+        n_draws, chains, DIM) and bool(torch.isfinite(th).all())
+    gates["k1 calls = value+grad calls"] = \
+        out["k1_calls"] == out["value_grad_calls"] > 0
+    gates["k1 launches = calls"] = out["k1_launches"] == out["k1_calls"]
+    gates["divergence_rate <= 1e-3"] = out["divergence_rate"] <= 1e-3
+    return out, gates
+
+
+def _mm_finish(key, out, gates, failed):
+    log(json.dumps(out))
+    log(f"# phase {key}, {out['run']}: warmup {out['warmup_s']:.1f} s, "
+        f"draws {out['draws_s']:.1f} s, ESS/s "
+        f"{out['effective_samples_per_s_per_chip']:.0f} (min "
+        f"{out['min_ess_per_s']:.0f}), accept {out['accept_mean']:.4f}, "
+        f"eps {out['step_size']:.5f}, "
+        f"{out['leaf_iterations_per_transition']:.2f} leaf-loop iterations "
+        f"a transition, K1 calls by chain count {out['k1_calls_by_chains']}")
+    for g, ok in gates.items():
+        log(f"# gate {key} {g}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{key}: {g}")
+
+
+def phase_metrics(seed, main_out):
+    """Phase 15: (a) the JAX bench's nutpie run, (b) the main path with a
+    dense metric, (c) the rank-update metric through `NUTS`, (d) the
+    per-chain fused warmup with nutpie and with a per-chain dense metric;
+    every kernel's count set to 0 just before each run and read just after.
+    Returns the runs' results."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+
+    target, kernel, main_adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    results, failed = {}, []
+
+    def theta0(c, s=seed):
+        return torch.as_tensor(
+            0.1 * np.random.default_rng(s).normal(size=(c, DIM)),
+            dtype=torch.float32, device="cuda")
+
+    def run(gen, fn):
+        by_chains.clear()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn(gen)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(by_chains), \
+            read_launches()
+
+    # (a) bench.py with AHMC_BENCH_MM_KIND=nutpie AHMC_BENCH_WARMUP=256: the
+    # cross-chain warmup runs step by step (its fused form records no
+    # gradients), then phase 3's fan-out, decorrelation and fused draws
+    adaptor = dataclasses.replace(main_adaptor, mm_kind="nutpie")
+    th0 = theta0(N_CHAINS)
+    _, g = target.logdensity_and_grad(th0[:WARMUP_CHAINS])
+    seed_m_inv = 1.0 / torch.clamp(g.abs().mean(0), 1e-3, 1e6)
+    res, wall, calls, counts = run(
+        torch.Generator(device="cuda").manual_seed(seed + 50),
+        lambda gen: ah.sample(
+            gen, target, kernel, ah.make_metric("diagonal", DIM,
+                                                device="cuda"),
+            th0, MM_WARMUP + N_DRAWS, n_adapts=MM_WARMUP, adaptor=adaptor,
+            init_mass_matrix="gradient", cross_chain=True,
+            fuse_draws=FUSE, fuse_warmup=True, fuse_warmup_block=WARMUP_BLOCK,
+            drop_warmup=True, warmup_chains=WARMUP_CHAINS,
+            fanout_decorrelate=N_DECOR, fuse_pair=PAIR, device="cuda"))
+    m_inv = res.final_state.metric.m_inv
+    ratio = m_inv.double() / res.thetas.var((0, 1)).double()
+    out, gates = _mm_run(
+        "15a: nutpie, bench.py's configuration", res, wall, calls, counts,
+        N_CHAINS, MM_WARMUP, N_DRAWS, PAIR, (N_CHAINS, N_DECOR + N_DRAWS),
+        {"warmup_chains": WARMUP_CHAINS,
+         "warmup_leaf_iterations_per_transition":
+             calls.get(WARMUP_CHAINS, 0) / MM_WARMUP,
+         "m_inv_over_draws_var_median": float(ratio.median()),
+         "m_inv_rel_change_from_seed": float(
+             (m_inv - seed_m_inv).norm() / seed_m_inv.norm()),
+         "estimator": type(res.final_state.adapt.mm).__name__})
+    gates[f"accept in {MM_ACCEPT_BAND}"] = \
+        MM_ACCEPT_BAND[0] <= out["accept_mean"] <= MM_ACCEPT_BAND[1]
+    gates["M^-1 moved from the gradient seed (> 1e-3 relative)"] = \
+        out["m_inv_rel_change_from_seed"] > 1e-3
+    lo, hi = NUTPIE_RATIO
+    gates[f"median M^-1 / var(draws) in [{lo}, {hi}]"] = \
+        lo <= out["m_inv_over_draws_var_median"] <= hi
+    _mm_finish("15a", out, gates, failed)
+    results["a"] = out
+    del res, th0
+
+    # (b) phase 3 with a dense metric and the Welford covariance, from the
+    # identity, 256 warmup iterations
+    adaptor = dataclasses.replace(main_adaptor, mm_kind="welford_cov")
+    res, wall, calls, counts = run(
+        torch.Generator(device="cuda").manual_seed(seed + 51),
+        lambda gen: ah.sample(
+            gen, target, kernel, ah.make_metric("dense", DIM, device="cuda"),
+            theta0(N_CHAINS), MM_WARMUP + N_DRAWS, n_adapts=MM_WARMUP,
+            adaptor=adaptor, cross_chain=True, fuse_draws=FUSE,
+            fuse_warmup=True, fuse_warmup_block=MM_WARMUP_BLOCK,
+            drop_warmup=True, warmup_chains=WARMUP_CHAINS,
+            fanout_decorrelate=N_DECOR, fuse_pair=PAIR, device="cuda"))
+    metric = res.final_state.metric
+    m_inv = metric.m_inv
+    draws_cov = torch.cov(res.thetas.reshape(-1, DIM).T).double()
+    out, gates = _mm_run(
+        "15b: main path, dense metric, Welford covariance", res, wall, calls,
+        counts, N_CHAINS, MM_WARMUP, N_DRAWS, PAIR,
+        (N_CHAINS, N_DECOR + N_DRAWS),
+        {"warmup_chains": WARMUP_CHAINS,
+         "phase3_ess_per_s": main_out["effective_samples_per_s_per_chip"],
+         "phase3_draws_s": main_out["draws_s"],
+         "m_inv_asymmetry": _rel_fro(m_inv, m_inv.mT),
+         "chol_err": _chol_err(metric),
+         "m_inv_vs_draws_cov": _rel_fro(m_inv, draws_cov),
+         "momentum_cov_err": _momentum_cov_err(metric, seed + 52)})
+    gates[f"accept in {MM_ACCEPT_BAND}"] = \
+        MM_ACCEPT_BAND[0] <= out["accept_mean"] <= MM_ACCEPT_BAND[1]
+    gates[f"M^-1 symmetric to {SYM_RTOL}"] = \
+        out["m_inv_asymmetry"] <= SYM_RTOL
+    gates[f"U^T U = M^-1 to {CHOL_RTOL}"] = out["chol_err"] <= CHOL_RTOL
+    gates[f"|M^-1 - cov(draws)| <= {DENSE_COV_RTOL} |cov(draws)|"] = \
+        out["m_inv_vs_draws_cov"] <= DENSE_COV_RTOL
+    gates[f"momentum covariance within {MOMENTUM_RTOL} of M"] = \
+        out["momentum_cov_err"] <= MOMENTUM_RTOL
+    _mm_finish("15b", out, gates, failed)
+    log(f"# phase 15b against phase 3 (diagonal) in this run: ESS/s "
+        f"{out['effective_samples_per_s_per_chip']:.0f} against "
+        f"{main_out['effective_samples_per_s_per_chip']:.0f}, draws "
+        f"{out['draws_s']:.1f} s against {main_out['draws_s']:.1f} s")
+    results["b"] = out
+    del res, metric, m_inv, draws_cov
+
+    # (c) NUTS(0.55, max_depth=6, metric="rank_update"): the low-rank
+    # estimator at rank 8, cross-chain fused warmup on 1024 chains
+    cfg = ah.NUTS(DELTA, max_depth=MAX_DEPTH, metric="rank_update")
+    res, wall, calls, counts = run(
+        torch.Generator(device="cuda").manual_seed(seed + 53),
+        lambda gen: cfg.sample(
+            gen, target, theta0(MM_CHAINS_C), MM_WARMUP + MM_DRAWS_CD,
+            n_adapts=MM_WARMUP, cross_chain=True, fuse_warmup=True,
+            fuse_warmup_block=MM_WARMUP_BLOCK, fuse_draws=FUSE,
+            fuse_pair=PAIR, drop_warmup=True, device="cuda"))
+    metric = res.final_state.metric
+    out, gates = _mm_run(
+        "15c: NUTS(metric='rank_update'), low-rank estimator", res, wall,
+        calls, counts, MM_CHAINS_C, MM_WARMUP, MM_DRAWS_CD, PAIR,
+        (MM_CHAINS_C, MM_WARMUP + MM_DRAWS_CD),
+        {"rank": metric.rank,
+         "d": [float(v) for v in metric.d.diagonal()],
+         "m_inv_min_eig": float(torch.linalg.eigvalsh(
+             metric.m_inv_matrix().double()).min()),
+         "momentum_cov_err": _momentum_cov_err(metric, seed + 54)})
+    gates[f"accept in {MM_ACCEPT_BAND}"] = \
+        MM_ACCEPT_BAND[0] <= out["accept_mean"] <= MM_ACCEPT_BAND[1]
+    gates["m_inv_matrix() positive definite"] = out["m_inv_min_eig"] > 0
+    gates[f"momentum covariance within {MOMENTUM_RTOL} of M"] = \
+        out["momentum_cov_err"] <= MOMENTUM_RTOL
+    _mm_finish("15c", out, gates, failed)
+    results["c"] = out
+    del res, metric
+
+    # (d) phase 12a's per-chain fused warmup at 1024 chains, one Stan
+    # window: nutpie on the diagonal metric, then a per-chain dense metric
+    for key, kind, mm_kind, init in (("d1", "diagonal", "nutpie", "gradient"),
+                                     ("d2", "dense", "welford_cov",
+                                      "identity")):
+        adaptor = ah.AdaptorConfig(
+            kind="stan", mm_kind=mm_kind,
+            da=ah.DualAveragingConfig(delta=DEF_DELTA),
+            init_buffer=75, term_buffer=50, window_size=25)
+        res, wall, calls, counts = run(
+            torch.Generator(device="cuda").manual_seed(seed + 55),
+            lambda gen: ah.sample(
+                gen, target, kernel, ah.make_metric(kind, DIM,
+                                                    device="cuda"),
+                theta0(MM_CHAINS_D), MM_WARMUP_D + MM_DRAWS_CD,
+                n_adapts=MM_WARMUP_D, adaptor=adaptor,
+                init_mass_matrix=init, fuse_warmup=True, fuse_draws=FUSE,
+                drop_warmup=True, device="cuda"))
+        metric = res.final_state.metric
+        extra = {"metric": type(metric).__name__,
+                 "estimator": type(res.final_state.adapt.mm).__name__,
+                 "m_inv_shape": list(metric.m_inv.shape),
+                 "warmup_leaf_iterations_per_transition":
+                     _fused_iterations(res.warmup_stats)}
+        if kind == "dense":
+            extra["chol_err"] = _chol_err(metric)
+        out, gates = _mm_run(
+            f"15{key}: per-chain fused warmup, {kind} metric, {mm_kind}",
+            res, wall, calls, counts, MM_CHAINS_D, MM_WARMUP_D,
+            MM_DRAWS_CD, False, (MM_CHAINS_D, MM_WARMUP_D + MM_DRAWS_CD),
+            extra)
+        gates[f"|accept - {DEF_DELTA}| <= {DEF_TOL_ACCEPT}"] = \
+            abs(out["accept_mean"] - DEF_DELTA) <= DEF_TOL_ACCEPT
+        gates["every chain's M^-1 finite"] = \
+            bool(torch.isfinite(metric.m_inv).all())
+        gates[f"per-chain M^-1 {tuple(metric.m_inv.shape)}"] = \
+            metric.m_inv.shape[0] == MM_CHAINS_D
+        if kind == "dense":
+            gates[f"U^T U = M^-1 to {CHOL_RTOL}, every chain"] = \
+                out["chol_err"] <= CHOL_RTOL
+        _mm_finish(f"15{key}", out, gates, failed)
+        results[key] = out
+        del res, metric
+    if failed:
+        raise RuntimeError(f"phase 15 gates failed: {failed}")
+    return results
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2604,6 +2920,11 @@ def main(argv=None):
     log("# phase 14: " + json.dumps(
         {k: {f: v[f] for f in ("warmup_s", "draws_s", "accept_mean")}
          for k, v in static.items()}))
+    mm = phase_metrics(args.seed, out)
+    log("# phase 15: " + json.dumps(
+        {k: {f: v[f] for f in ("warmup_s", "draws_s", "accept_mean",
+                               "k1_launches")}
+         for k, v in mm.items()}))
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
@@ -2621,6 +2942,10 @@ def main(argv=None):
         "calls_chees_by_chains": chees["calls_by_chains"],
         "launches_static_path": {k: v["k1_launches"]
                                  for k, v in static.items()},
+        "launches_metric_paths": {k: v["k1_launches"]
+                                  for k, v in mm.items()},
+        "calls_metric_paths_by_chains": {k: v["k1_calls_by_chains"]
+                                         for k, v in mm.items()},
         "max_abs_err": k1_err,
         "max_err": k1_err,
         "ms": k1_row["ms"],

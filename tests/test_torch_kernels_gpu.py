@@ -583,3 +583,56 @@ def test_static_family_entry_points_run_on_card():
         res = ah.sample(gen, tgt, kernel, metric, theta0, 30, n_adapts=15,
                         adaptor=cfg.adaptor, device="cuda")
         assert bool(torch.isfinite(res.thetas).all())
+
+
+@pytest.mark.gpu
+def test_dense_metric_sample_runs_k1_and_keeps_factors_on_card():
+    """`sample()` with a per-chain dense metric (the Welford covariance in
+    the per-chain fused warmup) and with a shared one (cross-chain) on the
+    100-D logistic at 256 chains: every value+grad call is one K1 launch,
+    the draws are finite, and each chain's factor is positive definite
+    with UᵀU = M⁻¹."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import advancedhmc_torch as ah
+
+    tgt = hierarchical_logistic(n=1000, p=99, device="cuda")
+    calls = []
+    inner = tgt.logdensity_and_grad
+
+    def counted(theta):
+        calls.append(theta.shape[0])
+        return inner(theta)
+
+    tgt = dataclasses.replace(tgt, logdensity_and_grad=counted)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(0).normal(size=(256, 100)),
+        dtype=torch.float32, device="cuda")
+    kernel = ah.NUTS(0.8, max_depth=5).kernel
+    adaptor = ah.AdaptorConfig(mm_kind="welford_cov", init_buffer=20,
+                               term_buffer=20, window_size=20)
+    f = k1.logistic_value_grad
+    for cross_chain in (False, True):
+        calls.clear()
+        launches = f.launches
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        res = ah.sample(gen, tgt, kernel,
+                        ah.make_metric("dense", 100, device="cuda"), theta0,
+                        80, n_adapts=64, adaptor=adaptor,
+                        cross_chain=cross_chain, fuse_warmup=True,
+                        fuse_warmup_block=8, fuse_draws=8, drop_warmup=True,
+                        device="cuda")
+        assert f.launches - launches == len(calls) > 0
+        assert bool(torch.isfinite(res.thetas).all())
+        m = res.final_state.metric
+        assert isinstance(m, ah.DenseEuclideanMetric)
+        assert m.m_inv.shape == ((100, 100) if cross_chain
+                                 else (256, 100, 100))
+        u = m.chol_u.double()
+        m_inv = m.m_inv.double()
+        err = torch.linalg.matrix_norm(u.mT @ u - m_inv) \
+            / torch.linalg.matrix_norm(m_inv)
+        assert float(err.max()) <= 1e-4
+        assert bool((torch.linalg.eigvalsh(m_inv) > 0).all())

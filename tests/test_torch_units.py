@@ -266,19 +266,18 @@ def test_unported_options_raise_not_implemented():
     gen = torch.Generator().manual_seed(0)
     h = ah.Hamiltonian(metric=metric, target=tgt)
     z = h.init_phasepoint(gen, torch.zeros(4, DIM, dtype=torch.float64))
+    rank_update = ah.make_metric("rank_update", DIM, torch.float64,
+                                 device="cpu", rank=2)
     cases = [
-        lambda: ah.make_metric("dense", DIM, device="cpu"),
         lambda: ah.Trajectory(lf, ah.GeneralisedNoUTurn(), ts_kind="slice"),
-        lambda: ah.AdaptState.init(ah.AdaptorConfig(mm_kind="nutpie"), DIM,
-                                   0.1),
-        # the per-chain fused warmup with the estimators that wait for
-        # ROADMAP's "rest of the surface": nutpie, and dense Welford-cov
-        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
-                          adaptor=ah.AdaptorConfig(mm_kind="nutpie"),
-                          fuse_warmup=True, device="cpu"),
-        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
-                          adaptor=ah.AdaptorConfig(mm_kind="welford_cov"),
-                          fuse_warmup=True, device="cpu"),
+        # the rank-update metric and the low-rank estimator per chain
+        lambda: rank_update.per_chain(4),
+        lambda: ah.AdaptState.init(ah.AdaptorConfig(mm_kind="lowrank"), DIM,
+                                   torch.full((4,), 0.1)),
+        lambda: ah.sample(gen, tgt, kernel, rank_update, th0, 16, n_adapts=8,
+                          adaptor=ah.AdaptorConfig(mm_kind="lowrank",
+                                                   mm_rank=2),
+                          init_eps=0.1, device="cpu"),
         # reduced dtypes other than bfloat16
         lambda: ah.hierarchical_logistic(n=N, p=P, x_dtype="float16",
                                          device="cpu"),
@@ -297,10 +296,6 @@ def test_unported_options_raise_not_implemented():
         lambda: ah.ClassicNoUTurn(),
         lambda: ah.StrictGeneralisedNoUTurn(max_depth=6),
         lambda: convert.criterion(aj.ClassicNoUTurn()),
-        # the constructors' queued estimators: dense, rank-update, nutpie
-        *(lambda m=m: ah.NUTS(metric=m).sample(gen, tgt, th0, 16,
-                                               device="cpu")
-          for m in ("dense", "rank_update", "nutpie")),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError,
@@ -332,6 +327,11 @@ def test_state_constructors_need_cuda_or_explicit_cpu(monkeypatch):
     for make in (lambda: ah.UnitEuclideanMetric(size=DIM),
                  lambda: ah.DiagEuclideanMetric.identity(DIM),
                  lambda: ah.WelfordVarState.init(DIM),
+                 lambda: ah.DenseEuclideanMetric.identity(DIM),
+                 lambda: ah.RankUpdateEuclideanMetric.identity(DIM, rank=2),
+                 lambda: ah.WelfordCovState.init(DIM),
+                 lambda: ah.LowRankCovState.init(DIM),
+                 lambda: ah.NutpieVarState.init(DIM),
                  # the entry points of the static family and ChEES
                  lambda: ah.CheesState.init(1.0),
                  lambda: ah.std_gaussian(DIM),
