@@ -1,15 +1,20 @@
 """advancedhmc_torch — the PyTorch/CUDA port of advancedhmc_tpu.
 
 The JAX package `advancedhmc_tpu` is the reference; this package carries its
-main path on one NVIDIA GPU (Hopper): NUTS (generalised no-U-turn,
-multinomial; unit, diagonal, dense or rank-update metric) with per-chain
+main path on one NVIDIA GPU (Hopper): NUTS (classic, generalised or strict
+no-U-turn, multinomial or slice; unit, diagonal, dense or rank-update
+metric) with per-chain
 or cross-chain Stan adaptation (Welford variance or covariance, low-rank,
 nutpie), step by step or fused, with every option of JAX `sample` but
 `mesh`; static HMC (endpoint or multinomial sampling, fixed steps or
 integration time), the jittered, tempered, composed and external-solver
 integrators, partial momentum refreshment and the NUTS/HMC/HMCDA
-constructors; ChEES-HMC (`sample_chees`); on the hierarchical logistic
-(float32 or bfloat16 design), the Gaussians and Neal's funnel, with
+constructors; ChEES-HMC (`sample_chees`); on the JAX package's model zoo
+(`models`: the hierarchical logistic, centred with a float32 or bfloat16
+design or non-centred, the Gaussians, Neal's funnel, banana, eight
+schools, gdemo, the mixtures, the spiral, the declarative distributions)
+and any transformed (`transforms`) or structured (`target_from_pytree`)
+target, with
 the likelihood value+grad in a hand-written CUDA kernel
 (`ops/fused_logistic.py`, `csrc/fused_logistic.cu`), and the JAX package's
 two other kernels: the NUTS megakernel on block targets
@@ -61,9 +66,11 @@ from .integrators import ComposedLeapfrog, JitteredLeapfrog, Leapfrog, \
 from .kinetic import GaussianKinetic
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, Metric, \
     RankUpdateEuclideanMetric, UnitEuclideanMetric, make_metric
-from .models import correlated_gaussian, funnel_nc_to_centered, \
-    hierarchical_logistic, hierarchical_logistic_block, mvn_diag, \
-    neal_funnel, neal_funnel_nc, std_gaussian
+from .models import GDEMO_MEAN, banana, correlated_gaussian, eight_schools, \
+    funnel_nc_to_centered, gaussian_mixture, gdemo, german_credit_logistic, \
+    hierarchical_logistic, hierarchical_logistic_block, \
+    hierarchical_logistic_nc, mvn_diag, neal_funnel, neal_funnel_nc, \
+    spiral, std_gaussian, two_gaussian_mixtures_2d
 from .nuts import nuts_transition, nuts_transitions_fused
 from .sampler import (
     HMCState,
@@ -79,7 +86,8 @@ from .sampler import (
     sample_step,
 )
 from .stepsize_search import find_good_stepsize, find_good_stepsizes
-from .target import BlockTarget, LogDensityTarget, as_target
+from .target import BlockTarget, LogDensityTarget, as_target, \
+    target_from_pytree
 from .termination import ENDPOINT, MULTINOMIAL, SLICE, ClassicNoUTurn, \
     FixedIntegrationTime, FixedNSteps, GeneralisedNoUTurn, \
     StrictGeneralisedNoUTurn
@@ -102,6 +110,7 @@ __all__ = [
     "FixedIntegrationTime",
     "FixedNSteps",
     "FullMomentumRefreshment",
+    "GDEMO_MEAN",
     "GaussianKinetic",
     "GeneralisedNoUTurn",
     "HMC",
@@ -112,8 +121,8 @@ __all__ = [
     "JitteredLeapfrog",
     "Leapfrog",
     "LogDensityTarget",
-    "MULTINOMIAL",
     "LowRankCovState",
+    "MULTINOMIAL",
     "Metric",
     "NUTS",
     "NaiveCov",
@@ -140,6 +149,7 @@ __all__ = [
     "adapt_step_batch",
     "adapt_step_masked",
     "as_target",
+    "banana",
     "chees_tau_sweep",
     "chees_transition",
     "chees_update",
@@ -148,6 +158,7 @@ __all__ = [
     "depth_cap_schedule",
     "ebfmi",
     "effective_sample_size",
+    "eight_schools",
     "ess_bulk",
     "fanout_warmup_state",
     "find_good_stepsize",
@@ -156,9 +167,13 @@ __all__ = [
     "fused_draw_phase",
     "fused_warmup_phase",
     "fused_warmup_phase_crosschain",
+    "gaussian_mixture",
+    "gdemo",
+    "german_credit_logistic",
     "halton_sequence",
     "hierarchical_logistic",
     "hierarchical_logistic_block",
+    "hierarchical_logistic_nc",
     "init_state",
     "leapfrog_step",
     "leapfrog_steps",
@@ -179,8 +194,11 @@ __all__ = [
     "sample",
     "sample_chees",
     "sample_step",
+    "spiral",
     "stan_schedule",
     "std_gaussian",
     "summarize",
+    "target_from_pytree",
     "transition_static",
+    "two_gaussian_mixtures_2d",
 ]

@@ -1,7 +1,8 @@
 """Sampler constructors (counterpart of `advancedhmc_tpu/constructors.py`).
 
 * `NUTS(δ)`: multinomial sampling, the generalised no-U-turn criterion and
-  Stan's windowed adaptation;
+  Stan's windowed adaptation (any no-U-turn criterion by `criterion=`,
+  slice sampling by `ts_kind="slice"`);
 * `HMC(ϵ, L)`: endpoint sampling, a fixed step count, no adaptation;
 * `HMCDA(δ, λ)`: endpoint sampling, a fixed integration time and
   dual-averaging step-size adaptation.

@@ -23,10 +23,10 @@ from .integrators import ComposedLeapfrog, JitteredLeapfrog, Leapfrog, \
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, \
     RankUpdateEuclideanMetric, UnitEuclideanMetric
 from .sampler import HMCState
-from .termination import FixedIntegrationTime, FixedNSteps, \
-    GeneralisedNoUTurn
+from .termination import ClassicNoUTurn, FixedIntegrationTime, \
+    FixedNSteps, GeneralisedNoUTurn, StrictGeneralisedNoUTurn
 from .trajectory import HMCKernel, Trajectory
-from .utils import resolve_device, roadmap
+from .utils import resolve_device
 
 
 def tensor(a, device=None, dtype=None):
@@ -175,6 +175,10 @@ def integrator(integ, device=None, stepper=None):
     raise TypeError(f"unknown integrator {kind}")
 
 
+_NO_U_TURN = {c.__name__: c for c in (ClassicNoUTurn, GeneralisedNoUTurn,
+                                       StrictGeneralisedNoUTurn)}
+
+
 def criterion(crit):
     """A termination criterion of the same class and hyperparameters."""
     kind = type(crit).__name__
@@ -182,11 +186,10 @@ def criterion(crit):
         return FixedNSteps(int(crit.n_steps))
     if kind == "FixedIntegrationTime":
         return FixedIntegrationTime(float(crit.lam), int(crit.max_steps))
-    if kind == "GeneralisedNoUTurn":
-        return GeneralisedNoUTurn(max_depth=int(crit.max_depth),
-                                  delta_max=float(crit.delta_max))
-    raise NotImplementedError(f"{kind} is not ported yet "
-                              + roadmap("surface"))
+    if kind in _NO_U_TURN:
+        return _NO_U_TURN[kind](max_depth=int(crit.max_depth),
+                                delta_max=float(crit.delta_max))
+    raise TypeError(f"unknown termination criterion {kind}")
 
 
 def refreshment(ref):

@@ -21,8 +21,10 @@ sums: the perturbed posterior is then sampled exactly. `resid_dtype=
 "bfloat16"` rounds the residual alone. The prior takes the unrounded θ. On
 CUDA K1 runs the same rounding (its modes, `ops.fused_logistic.mode_of`).
 
-`hierarchical_logistic_block` is the same model in the block form of the
-NUTS megakernel K2 (`ops/fused_nuts_kernel.py`).
+`hierarchical_logistic_nc` is its non-centred form, θ = (log σ, β̃) with
+β = σ·β̃, and `german_credit_logistic` the model at German credit's shape
+(1000 rows, 24 features). `hierarchical_logistic_block` is the model in
+the block form of the NUTS megakernel K2 (`ops/fused_nuts_kernel.py`).
 """
 
 from __future__ import annotations
@@ -62,6 +64,11 @@ def _prior(theta, p):
     return lp, torch.cat([g0[:, None], -beta * inv_s2[:, None]], 1)
 
 
+def _loglik(y, logits):
+    return torch.sum(
+        y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
+
+
 def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
                           dtype=torch.float32, resid_dtype=None, x_dtype=None,
                           device=None) -> LogDensityTarget:
@@ -78,12 +85,9 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
     y = torch.as_tensor(y_np, dtype=dtype, device=device)
     likelihood = fused_logistic_value_grad(x, y, mode_of(xd, rd))
 
-    def loglik(logits):
-        return torch.sum(
-            y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
-
     def logdensity(theta):
-        return _prior(theta, p)[0] + loglik(round_to(theta[:, 1:], xd) @ x.T)
+        return _prior(theta, p)[0] + _loglik(y, round_to(theta[:, 1:], xd)
+                                             @ x.T)
 
     def logdensity_and_grad(theta):
         lp_pri, g_pri = _prior(theta, p)
@@ -93,9 +97,65 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
         logits = round_to(theta[:, 1:], xd) @ x.T
         resid = round_to(round_to(y - torch.sigmoid(logits), rd), xd)
         g_beta = resid @ x
-        return lp_pri + loglik(logits), g_pri + F.pad(g_beta, (1, 0))
+        return lp_pri + _loglik(y, logits), g_pri + F.pad(g_beta, (1, 0))
 
     return LogDensityTarget(logdensity, p + 1, logdensity_and_grad)
+
+
+def hierarchical_logistic_nc(n: int = 1000, p: int = 24, seed: int = 0,
+                             dtype=torch.float32,
+                             device=None) -> LogDensityTarget:
+    """The non-centred hierarchy on `device` (None means CUDA): the same
+    posterior and data, θ = (log σ, β̃) with β = σ·β̃, β̃ ~ N(0, I), log σ ~
+    N(0, 1). Counterpart of the JAX function of the same name.
+
+    On the card (`kernel_route`) the likelihood goes through K1, exactly:
+    the logits x·β = σ·(x·β̃) are those of the centred model at θ' = (log
+    σ, σ·β̃), so K1 at θ' gives lp and g_β = resid·x, and then ∇β̃ = σ·g_β
+    − β̃ and ∂/∂log σ = −log σ + g_β·β. Elsewhere the analytic value+grad
+    of the JAX model."""
+    device = resolve_device(device)
+    x_np, y_np = _synthetic_data(n, p, seed)
+    x = torch.as_tensor(x_np, dtype=dtype, device=device).contiguous()
+    y = torch.as_tensor(y_np, dtype=dtype, device=device)
+    likelihood = fused_logistic_value_grad(x, y)
+
+    def prior(theta):
+        ls, bt = theta[:, 0], theta[:, 1:]
+        return -0.5 * ls * ls - 0.5 * torch.sum(bt * bt, -1)
+
+    def logdensity(theta):
+        logits = torch.exp(theta[:, :1]) * (theta[:, 1:] @ x.T)
+        return prior(theta) + _loglik(y, logits)
+
+    def logdensity_and_grad(theta):
+        ls, bt = theta[:, :1], theta[:, 1:]
+        s = torch.exp(ls)
+        if kernel_route(theta):
+            beta = s * bt
+            lp_lik, g = likelihood(torch.cat([ls, beta], 1))
+            g_beta = g[:, 1:]
+            grad_ls = -ls + torch.sum(g_beta * beta, -1, keepdim=True)
+        else:
+            logits = s * (bt @ x.T)
+            lp_lik = _loglik(y, logits)
+            resid = y - torch.sigmoid(logits)
+            # ∂logits/∂log σ = logits; ∂logits/∂β̃ = σ·x
+            grad_ls = -ls + torch.sum(resid * logits, -1, keepdim=True)
+            g_beta = resid @ x
+        return prior(theta) + lp_lik, torch.cat([grad_ls, s * g_beta - bt],
+                                                1)
+
+    return LogDensityTarget(logdensity, p + 1, logdensity_and_grad)
+
+
+def german_credit_logistic(dtype=torch.float32,
+                           device=None) -> LogDensityTarget:
+    """The hierarchical logistic at German credit's shape (synthetic data,
+    1000 rows × 24 features, 25 parameters) on `device` (None means CUDA):
+    on the card K1's narrow instances."""
+    return hierarchical_logistic(n=1000, p=24, seed=0, dtype=dtype,
+                                 device=device)
 
 
 def hierarchical_logistic_block(n: int = 1000, p: int = 24, seed: int = 0,

@@ -1,10 +1,10 @@
 """NUTS: iterative tree doubling over a batch of chains.
 
-PyTorch counterpart of `advancedhmc_tpu/nuts.py`: the generalised no-U-turn
-criterion, multinomial sampling, any Euclidean M⁻¹ (unit, diagonal or
-dense, shared or per chain; rank-update, shared), full or partial
-momentum refreshment, and each leaf one step of the trajectory's
-integrator. As in the JAX package the recursive
+PyTorch counterpart of `advancedhmc_tpu/nuts.py`: the classic, generalised
+and strict no-U-turn criteria, multinomial and slice sampling, any
+Euclidean M⁻¹ (unit, diagonal or dense, shared or per chain; rank-update,
+shared), full or partial momentum refreshment, and each leaf one step of
+the trajectory's integrator. As in the JAX package the recursive
 `build_tree` is flattened into a loop that takes ONE leapfrog step per
 iteration, with the doubling bookkeeping done in O(max_depth) masked
 arithmetic; here the loop is a Python `while` over the batched state
@@ -13,16 +13,34 @@ leaf-pair body (`_leaf_pair`) takes two leapfrog steps an iteration, the
 aligned (even, odd) leaf pair of a doubling, and runs the checks, the
 checkpoint write and the merge once for both.
 
-Checkpoint stacks (see the JAX module docstring): the even-visit leaf i of a
-doubling stores r_i and d_i = r_i − Σ_{j≤i} r_j at slot tz(i)−1 (the top
-slot for i=0), plus the scalar dot(d_i, M⁻¹r_i). A U-turn check over the span
-a..i then needs only dot products with the stored rows:
-dot(ρ, M⁻¹r_a) = dot(M⁻¹ρ_sub, r_a) + dot(d_a, M⁻¹r_a) and
-dot(ρ, M⁻¹r_i) = dot(ρ_sub, M⁻¹r_i) + dot(d_a, M⁻¹r_i), ρ_sub being the
-running momentum sum of the current doubling. The stacks are updated in
-place; they carry one spare slot that odd leaves (and chains that store
-nothing) write to, so the write is a single scatter for every chain. They
-are kept in the trajectory's `stack_dtype` (see `trajectory.py`).
+Checkpoint stacks (see the JAX module docstring): the even-visit leaf i of
+a doubling stores its checkpoint at slot tz(i)−1 (the top slot for i=0);
+a U-turn check over the span a..i then needs only dot products with the
+stored rows. What a leaf stores depends on the criterion:
+
+* generalised: r_i and d_i = r_i − Σ_{j≤i} r_j, plus the scalar
+  dot(d_i, M⁻¹r_i), so that dot(ρ, M⁻¹r_a) = dot(M⁻¹ρ_sub, r_a) +
+  dot(d_a, M⁻¹r_a) and dot(ρ, M⁻¹r_i) = dot(ρ_sub, M⁻¹r_i) + dot(d_a,
+  M⁻¹r_i), ρ_sub being the running momentum sum of the current doubling;
+* classic: r_i and θ_i, plus the scalar dot(θ_i, M⁻¹r_i): the span check
+  on Δθ = θ_i − θ_a in tree order is ±(dot(M⁻¹θ_i, r_a) − dot(θ_a,
+  M⁻¹r_a)) and ±(dot(θ_i, M⁻¹r_i) − dot(θ_a, M⁻¹r_i));
+* strict: r_i and the cumulative sum Σ_{j≤i} r_j (the spans' ρ and the
+  half-spans' are differences of these rows), and every odd-visit leaf i
+  stores r_i at slot tz(i+1)−1, read back as the mid-boundary of the
+  half-span checks of spans of 4 leaves or more.
+
+The stacks are updated in place; they carry one spare slot that the leaves
+(and chains) that store nothing write to, so each write is a single scatter
+for every chain. They are kept in the trajectory's `stack_dtype` (see
+`trajectory.py`).
+
+Slice sampling (the reference's SliceTS) draws ℓu = −H₀ − Exp(1) per chain
+at the start of a transition; a leaf is acceptable when ℓu ≤ −H, a subtree
+weighs its count of acceptable leaves (the root counts 1), the reservoir
+takes an acceptable leaf with probability 1/count, the divergence test is
+ℓu < Δmax − H, and the top level takes a finished subtree when t_w·u < s_w
+(u uniform) and adds the counts.
 """
 
 from __future__ import annotations
@@ -36,9 +54,10 @@ from .hamiltonian import PhasePoint, select_phasepoint
 from .integrators import JitteredLeapfrog, leapfrog_step
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, \
     cholesky_upper
-from .termination import GeneralisedNoUTurn, MULTINOMIAL
+from .termination import SLICE, ClassicNoUTurn, \
+    DynamicTerminationCriterion, StrictGeneralisedNoUTurn
 from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
-    roadmap, trailing_ones, trailing_zeros
+    trailing_ones, trailing_zeros
 
 
 # The fused loop reads its exit condition back to the host every this many
@@ -47,12 +66,28 @@ from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
 _CHECK_EVERY = 4
 
 
-def _check_trajectory(traj):
-    if not isinstance(traj.criterion, GeneralisedNoUTurn) or \
-            traj.ts_kind != MULTINOMIAL:
-        raise NotImplementedError(
-            "only the generalised criterion with multinomial sampling is "
-            "ported " + roadmap("surface"))
+@dataclasses.dataclass(frozen=True)
+class _Kind:
+    """What a trajectory's criterion and sampler add to the loop:
+    `criterion` is "classic", "generalised" or "strict"; `slice` says the
+    slice sampler (else multinomial)."""
+
+    criterion: str = "generalised"
+    slice: bool = False
+
+
+_GENERALISED = _Kind()
+
+
+def _kind(traj):
+    crit = traj.criterion
+    if not isinstance(crit, DynamicTerminationCriterion):
+        raise ValueError(f"NUTS needs a no-U-turn criterion, not "
+                         f"{type(crit).__name__}")
+    name = ("classic" if isinstance(crit, ClassicNoUTurn) else
+            "strict" if isinstance(crit, StrictGeneralisedNoUTurn) else
+            "generalised")
+    return _Kind(name, traj.ts_kind == SLICE)
 
 
 def _sel(pred, a, b):
@@ -61,36 +96,62 @@ def _sel(pred, a, b):
     return torch.where(pred[:, None] if a.dim() == 2 else pred, a, b)
 
 
-def _fresh_fields(z: PhasePoint, h0):
+def _empty_weight(kind):
+    """A subtree's weight before its first leaf: log 0, or a count of 0."""
+    return 0.0 if kind.slice else float("-inf")
+
+
+def _fresh_fields(z: PhasePoint, h0, kind=_GENERALISED, generator=None):
     """Per-transition tree fields for a transition starting at `z`. The
     checkpoint stacks are not among them: every slot is written before it is
-    read within a doubling."""
+    read within a doubling. Slice sampling draws its level ℓu = −H₀ −
+    Exp(1) here, one draw a chain, from `generator`."""
     c = z.theta.shape[0]
     dev = z.theta.device
     zeros = torch.zeros(c, dtype=z.theta.dtype, device=dev)
     izeros = torch.zeros(c, dtype=torch.int32, device=dev)
     false = torch.zeros(c, dtype=torch.bool, device=dev)
-    return dict(
-        h0=h0, t_zleft=z, t_zright=z, t_rho=z.r, zcand=z, t_w=zeros,
+    fields = dict(
+        h0=h0, t_zleft=z, t_zright=z, t_rho=z.r, zcand=z,
+        # the root is the one candidate: log weight 0, or a count of 1
+        t_w=zeros + 1.0 if kind.slice else zeros,
         sum_alpha=zeros, n_alpha=izeros, dh_max=zeros, depth=izeros,
         turning=false, diverged=false, done=false, v=izeros + 1, leaf=izeros,
         z_edge=z, s_rho=torch.zeros_like(z.r),
-        s_w=torch.full_like(zeros, float("-inf")), s_zcand=z,
+        s_w=torch.full_like(zeros, _empty_weight(kind)), s_zcand=z,
         s_sum_alpha=zeros, s_n_alpha=izeros, s_dh_max=zeros,
         s_turning=false, s_diverged=false,
     )
+    if kind.slice:
+        fields["lu"] = -h0 - rand_exponential(generator, (c,), h0.dtype, dev)
+    if kind.criterion == "strict":
+        fields["s_rfirst"] = z.r      # the subtree's first leaf's momentum
+    return fields
 
 
-def _initial_state(z: PhasePoint, max_depth: int, stack_dtype=None):
+def _initial_state(z: PhasePoint, max_depth: int, stack_dtype=None,
+                   kind=_GENERALISED, generator=None):
     """The loop state of a transition from `z`: its tree fields and the
-    checkpoint stacks, ck_r and ck_d in `stack_dtype` (None: θ's dtype)."""
+    checkpoint stacks of the criterion in `stack_dtype` (None: θ's dtype),
+    with one spare slot (see the module docstring)."""
     c, d = z.theta.shape
     n_slots = max(1, max_depth - 1)
-    st = _fresh_fields(z, z.energy())
+    st = _fresh_fields(z, z.energy(), kind, generator)
     sd = stack_dtype or z.theta.dtype
-    st["ck_r"] = z.theta.new_zeros(c, n_slots + 1, d, dtype=sd)
-    st["ck_d"] = z.theta.new_zeros(c, n_slots + 1, d, dtype=sd)
-    st["sck_ad"] = z.theta.new_zeros(c, n_slots + 1)
+
+    def stack():
+        return z.theta.new_zeros(c, n_slots + 1, d, dtype=sd)
+
+    st["ck_r"] = stack()
+    if kind.criterion == "generalised":
+        st["ck_d"] = stack()
+        st["sck_ad"] = z.theta.new_zeros(c, n_slots + 1)
+    elif kind.criterion == "classic":
+        st["ck_theta"] = stack()
+        st["sck_tv"] = z.theta.new_zeros(c, n_slots + 1)
+    else:
+        st["ck_cum"] = stack()
+        st["ck_odd_r"] = stack()
     return st
 
 
@@ -103,7 +164,23 @@ def _stack_dots(ck, v):
     return torch.bmm(ck, v.to(ck.dtype)[:, :, None])[:, :, 0].to(v.dtype)
 
 
-def _start(st, v_draw):
+def _velocity_rows(h, rows):
+    """M⁻¹ applied to each row of `rows` (C, K, dim), each chain's M⁻¹ to
+    its own rows."""
+    m = h.metric
+    if isinstance(m, DiagEuclideanMetric) and m.m_inv.dim() == 2:
+        return rows * m.m_inv[:, None]
+    if isinstance(m, DenseEuclideanMetric) and m.m_inv.dim() == 3:
+        return torch.bmm(rows, m.m_inv.mT)
+    c, k, d = rows.shape
+    return h.velocity(rows.reshape(c * k, d)).reshape(c, k, d)
+
+
+def _dot(x, y):
+    return torch.sum(x * y, -1)
+
+
+def _start(st, v_draw, kind=_GENERALISED):
     """Begin a new doubling where the chain is at leaf 0: its direction, the
     tree edge it grows from, and the subtree's fields reset. Returns (v,
     fwd, z_edge, sub), `sub` the subtree fields (`s_*`)."""
@@ -114,7 +191,7 @@ def _start(st, v_draw):
                   st["z_edge"])
     sub = dict(
         s_rho=st["s_rho"].masked_fill(start[:, None], 0.0),
-        s_w=st["s_w"].masked_fill(start, float("-inf")),
+        s_w=st["s_w"].masked_fill(start, _empty_weight(kind)),
         s_zcand=st["s_zcand"],
         s_sum_alpha=st["s_sum_alpha"].masked_fill(start, 0.0),
         s_n_alpha=st["s_n_alpha"].masked_fill(start, 0),
@@ -125,11 +202,13 @@ def _start(st, v_draw):
     return v, fwd, z_edge, sub
 
 
-def _step(h, z_edge, eps_v, h0, delta_max, sub, generator, integ=None):
+def _step(h, z_edge, eps_v, h0, delta_max, sub, generator, integ=None,
+          lu=None):
     """One integrator step from `z_edge` (signed step `eps_v`; `integ`'s
-    step, plain leapfrog without one) and the multinomial leaf sampler:
-    reservoir update (one uniform draw) and divergence. Returns (z_new,
-    vel_new, sub with the leaf added)."""
+    step, plain leapfrog without one) and the leaf sampler: reservoir
+    update (one uniform draw) and divergence, multinomial, or slice at the
+    level `lu` where one is given. Returns (z_new, vel_new, sub with the
+    leaf added)."""
     c, dtype, dev = h0.shape[0], h0.dtype, h0.device
     z_new = (leapfrog_step(h, z_edge, eps_v) if integ is None
              else integ.step(h, z_edge, eps_v))
@@ -138,11 +217,18 @@ def _step(h, z_edge, eps_v, h0, delta_max, sub, generator, integ=None):
     dh = h_new - h0
     alpha_leaf = torch.nan_to_num(torch.exp(torch.clamp(-dh, max=0.0)),
                                   nan=0.0)
-    lw_leaf = h0 - h_new
-    s_w = torch.logaddexp(sub["s_w"], lw_leaf)
-    u = torch.rand(c, generator=generator, dtype=dtype, device=dev)
-    take = torch.log(u) < lw_leaf - s_w
-    diverging = ~(-h0 < delta_max - h_new)
+    if lu is None:
+        lw_leaf = h0 - h_new
+        s_w = torch.logaddexp(sub["s_w"], lw_leaf)
+        u = torch.rand(c, generator=generator, dtype=dtype, device=dev)
+        take = torch.log(u) < lw_leaf - s_w
+        diverging = ~(-h0 < delta_max - h_new)
+    else:
+        n_leaf = (lu <= -h_new).to(dtype)        # an acceptable leaf counts 1
+        s_w = sub["s_w"] + n_leaf
+        u = torch.rand(c, generator=generator, dtype=dtype, device=dev)
+        take = (s_w * u >= sub["s_w"]) & (n_leaf > 0)
+        diverging = ~(lu < delta_max - h_new)
     return z_new, vel_new, dict(
         sub,
         s_w=s_w,
@@ -155,11 +241,14 @@ def _step(h, z_edge, eps_v, h0, delta_max, sub, generator, integ=None):
     )
 
 
-def _span_turn(st, h, i, s_rho, vel_new, max_depth, odd):
+def _span_turn(st, h, i, s_rho, vel_new, max_depth, odd, kind=_GENERALISED,
+               theta_new=None, v=None):
     """Whether a U-turn closes one of the aligned subtrees that end at leaf
-    `i` (only odd leaves end one; `odd` says which chains are at one)."""
-    ck_r, ck_d, sck_ad = st["ck_r"], st["ck_d"], st["sck_ad"]
-    n_slots = ck_r.shape[1] - 1
+    `i` (only odd leaves end one; `odd` says which chains are at one).
+    Classic needs the leaf's position `theta_new` and the direction `v`."""
+    ck_r = st["ck_r"]
+    c, n_slots1, d = ck_r.shape
+    n_slots = n_slots1 - 1
     ks = torch.arange(1, max_depth, dtype=torch.int32, device=i.device)
     a_s = i[:, None] - torch.bitwise_left_shift(torch.ones_like(ks), ks) + 1
     active = odd[:, None] & (ks <= trailing_ones(i)[:, None]) & (a_s >= 0)
@@ -168,38 +257,95 @@ def _span_turn(st, h, i, s_rho, vel_new, max_depth, odd):
     slot_a = torch.where(
         a_safe == 0, n_slots - 1,
         torch.clamp(trailing_zeros(torch.clamp(a_safe, min=1)) - 1,
-                    min=0, max=n_slots - 1))                           # (C, K)
-    u_a = _stack_dots(ck_r, h.velocity(s_rho)) + sck_ad
-    u_b = _stack_dots(ck_d, vel_new)
-    srv = torch.sum(s_rho * vel_new, -1)
-    turn_slot = (u_a <= 0) | (u_b <= -srv[:, None])                   # (C, S+1)
-    turn_k = torch.gather(turn_slot, 1, slot_a.long())
+                    min=0, max=n_slots - 1)).long()                    # (C, K)
+    if kind.criterion == "generalised":
+        u_a = _stack_dots(ck_r, h.velocity(s_rho)) + st["sck_ad"]
+        u_b = _stack_dots(st["ck_d"], vel_new)
+        turn_slot = (u_a <= 0) | (u_b <= -_dot(s_rho, vel_new)[:, None])
+        turn_k = torch.gather(turn_slot, 1, slot_a)
+    elif kind.criterion == "classic":
+        # Δθ in tree order is ±(θ_i − θ_a), the sign the direction's
+        vsign = v.to(vel_new.dtype)[:, None]
+        d_a = vsign * (_stack_dots(ck_r, h.velocity(theta_new))
+                       - st["sck_tv"])
+        d_b = vsign * (_dot(theta_new, vel_new)[:, None]
+                       - _stack_dots(st["ck_theta"], vel_new))
+        turn_k = torch.gather((d_a <= 0) | (d_b <= 0), 1, slot_a)
+    else:
+        dtype = vel_new.dtype
+
+        def rows(ck, slots):
+            return torch.gather(ck, 1, slots[:, :, None].expand(
+                c, slots.shape[1], d)).to(dtype)
+
+        r_a, cum_a = rows(ck_r, slot_a), rows(st["ck_cum"], slot_a)
+        vel_a = _velocity_rows(h, r_a)
+        rho_span = s_rho[:, None] - cum_a + r_a                       # (C, K, D)
+        turn_k = (_dot(rho_span, vel_a) <= 0) | (
+            _dot(rho_span, vel_new[:, None]) <= 0)
+        # the half-spans of span k ≥ 2: a..mid and mid+1..i, mid = a +
+        # 2^(k−1) − 1 (odd) and mid + 1 (even) both at slot k − 2
+        mid = torch.clamp(ks.long() - 2, min=0)[None].expand(c, -1)
+        r_m1, cum_m1 = rows(ck_r, mid), rows(st["ck_cum"], mid)
+        r_m = rows(st["ck_odd_r"], mid)
+        vel_m1, vel_m = _velocity_rows(h, r_m1), _velocity_rows(h, r_m)
+        rho_h1 = (cum_m1 - r_m1) - cum_a + r_a
+        rho_h2 = s_rho[:, None] - cum_m1 + r_m1
+        # in tree order the checks of the two halves are these for a
+        # forward doubling, and the same two for a backward one
+        x1 = rho_h1 + r_m1
+        x2 = r_m + rho_h2
+        sub_turn = ((_dot(x1, vel_a) <= 0) | (_dot(x1, vel_m1) <= 0)
+                    | (_dot(x2, vel_m) <= 0)
+                    | (_dot(x2, vel_new[:, None]) <= 0))
+        turn_k = turn_k | (sub_turn & (ks >= 2))
     return torch.any(active & turn_k, 1)
 
 
-def _store(st, i, z_new, s_rho, vel_new, write):
+def _scatter_rows(ck, slot, rows):
+    c, _, d = ck.shape
+    ck.scatter_(1, slot[:, None, None].expand(c, 1, d),
+                rows[:, None].to(ck.dtype))
+
+
+def _store(st, i, z_new, s_rho, vel_new, write, kind=_GENERALISED):
     """Store leaf `i`'s checkpoint where `write` holds (even leaves), in
     place; the other chains write to the spare slot, which nothing reads."""
-    ck_r, ck_d, sck_ad = st["ck_r"], st["ck_d"], st["sck_ad"]
-    c, n_slots1, d = ck_r.shape
-    n_slots = n_slots1 - 1
+    n_slots = st["ck_r"].shape[1] - 1
     slot_even = torch.where(
         i == 0, n_slots - 1,
         torch.clamp(trailing_zeros(torch.clamp(i, min=1)) - 1,
                     max=n_slots - 1))
     slot_w = torch.where(write, slot_even, n_slots).long()
-    idx = slot_w[:, None, None].expand(c, 1, d)
-    d_row = z_new.r - s_rho
-    ck_r.scatter_(1, idx, z_new.r[:, None].to(ck_r.dtype))
-    ck_d.scatter_(1, idx, d_row[:, None].to(ck_d.dtype))
-    sck_ad.scatter_(1, slot_w[:, None], torch.sum(d_row * vel_new, -1)[:, None])
+    _scatter_rows(st["ck_r"], slot_w, z_new.r)
+    if kind.criterion == "generalised":
+        d_row = z_new.r - s_rho
+        _scatter_rows(st["ck_d"], slot_w, d_row)
+        st["sck_ad"].scatter_(1, slot_w[:, None], _dot(d_row, vel_new)[:, None])
+    elif kind.criterion == "classic":
+        _scatter_rows(st["ck_theta"], slot_w, z_new.theta)
+        st["sck_tv"].scatter_(1, slot_w[:, None],
+                              _dot(z_new.theta, vel_new)[:, None])
+    else:
+        _scatter_rows(st["ck_cum"], slot_w, s_rho)
 
 
-def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
+def _store_odd(st, i, r, write):
+    """Strict: store the momentum `r` of the odd leaf `i` at slot
+    tz(i+1)−1 where `write` holds, in place (the spare slot elsewhere)."""
+    n_slots = st["ck_odd_r"].shape[1] - 1
+    slot_odd = torch.clamp(trailing_zeros(i + 1) - 1, min=0, max=n_slots - 1)
+    _scatter_rows(st["ck_odd_r"], torch.where(write, slot_odd, n_slots).long(),
+                  r)
+
+
+def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act,
+           kind=_GENERALISED):
     """The end of an iteration whose last leaf is leaf `i` (`z_new`,
     `vel_new`), the subtree's fields `sub` final: is the doubling finished?
     Then merge it into the tree (biased progressive sampling with `e_mh`,
-    masked by `act`). Returns the new state without the stacks."""
+    an exponential, or a uniform for slice sampling, masked by `act`).
+    Returns the new state; the stacks are the same tensors."""
     n_leaves = torch.bitwise_left_shift(torch.ones_like(i), st["depth"])
     s_turning, s_diverged, s_w = sub["s_turning"], sub["s_diverged"], \
         sub["s_w"]
@@ -207,7 +353,12 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
     complete = sub_done | (i >= n_leaves - 1)
     not_term = ~sub_done
     # biased progressive sampling at the top level
-    take_top = complete & not_term & (st["t_w"] < s_w + e_mh)
+    if kind.slice:
+        take_top = complete & not_term & (st["t_w"] * e_mh < s_w)
+        c_w = st["t_w"] + s_w
+    else:
+        take_top = complete & not_term & (st["t_w"] < s_w + e_mh)
+        c_w = torch.logaddexp(st["t_w"], s_w)
     if act is not None:
         take_top = take_top & act
     # combined tree: the doubling's far edge is z_new; velocities of the old
@@ -217,17 +368,35 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
     c_vleft = torch.where(fwd[:, None], t_vleft, vel_new)
     c_vright = torch.where(fwd[:, None], vel_new, t_vright)
     c_rho = st["t_rho"] + sub["s_rho"]
-    full_turn = (torch.sum(c_rho * c_vleft, -1) <= 0) | (
-        torch.sum(c_rho * c_vright, -1) <= 0)
+    if kind.criterion == "classic":
+        d_theta = torch.where(fwd[:, None], z_new.theta - st["t_zleft"].theta,
+                              st["t_zright"].theta - z_new.theta)
+        full_turn = (_dot(d_theta, c_vleft) <= 0) | (
+            _dot(d_theta, c_vright) <= 0)
+    else:
+        full_turn = (_dot(c_rho, c_vleft) <= 0) | (_dot(c_rho, c_vright) <= 0)
+    if kind.criterion == "strict":
+        # the checks across the old tree and the subtree: each joins one
+        # tree's ρ to the other's edge next to it, in tree order
+        s_rfirst = sub["s_rfirst"]
+        s_vfirst = h.velocity(s_rfirst)
+        near_r = torch.where(fwd[:, None], st["t_zright"].r, st["t_zleft"].r)
+        near_v = torch.where(fwd[:, None], t_vright, t_vleft)
+        far_v = torch.where(fwd[:, None], t_vleft, t_vright)
+        x_a = st["t_rho"] + s_rfirst
+        x_b = near_r + sub["s_rho"]
+        full_turn = (full_turn | (_dot(x_a, far_v) <= 0)
+                     | (_dot(x_a, s_vfirst) <= 0) | (_dot(x_b, near_v) <= 0)
+                     | (_dot(x_b, vel_new) <= 0))
     depth = st["depth"] + (complete & not_term).to(torch.int32)
     cap = st.get("cap", max_depth)     # a per-chain cap, where one is set
-    return dict(
+    out = dict(
         h0=st["h0"],
         t_zleft=_sel(complete & ~fwd, z_new, st["t_zleft"]),
         t_zright=_sel(complete & fwd, z_new, st["t_zright"]),
         t_rho=_sel(complete, c_rho, st["t_rho"]),
         zcand=_sel(take_top, sub["s_zcand"], st["zcand"]),
-        t_w=_sel(complete, torch.logaddexp(st["t_w"], s_w), st["t_w"]),
+        t_w=_sel(complete, c_w, st["t_w"]),
         sum_alpha=st["sum_alpha"] + sub["s_sum_alpha"] * complete,
         n_alpha=st["n_alpha"] + sub["s_n_alpha"] * complete,
         dh_max=_sel(complete, maxabs(st["dh_max"], sub["s_dh_max"]),
@@ -240,41 +409,61 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act):
         leaf=torch.where(complete, 0, i + 1),
         z_edge=z_new,
         s_rho=sub["s_rho"],
-        s_w=s_w.masked_fill(complete, float("-inf")),
+        s_w=s_w.masked_fill(complete, _empty_weight(kind)),
         s_zcand=sub["s_zcand"],
         s_sum_alpha=sub["s_sum_alpha"].masked_fill(complete, 0.0),
         s_n_alpha=sub["s_n_alpha"].masked_fill(complete, 0),
         s_dh_max=sub["s_dh_max"].masked_fill(complete, 0.0),
         s_turning=s_turning & ~complete,
         s_diverged=s_diverged & ~complete,
-        ck_r=st["ck_r"], ck_d=st["ck_d"], sck_ad=st["sck_ad"],
-        **({"cap": cap} if "cap" in st else {}),
     )
+    if kind.criterion == "strict":
+        out["s_rfirst"] = sub["s_rfirst"]
+    for k, val in st.items():       # the level, the cap and the stacks
+        if k not in out and not k.startswith("s_"):
+            out[k] = val
+    return out
+
+
+def _merge_draw(generator, c, dtype, dev, kind):
+    """The top-level merge's draw: Exp(1), or a uniform for slice."""
+    if kind.slice:
+        return torch.rand(c, generator=generator, dtype=dtype, device=dev)
+    return rand_exponential(generator, (c,), dtype, dev)
 
 
 def _leaf(st, h, eps, max_depth, delta_max, generator,
-          force_directions=None, act=None, integ=None):
+          force_directions=None, act=None, integ=None, kind=_GENERALISED):
     """Advance every chain by one leaf: the body of the iterative NUTS loop
-    (single-leaf form of `advancedhmc_tpu/nuts.py` `body`). It draws a
-    direction sign, the reservoir's uniform and the merge's exponential,
-    one of each for every chain. Chains outside `act` (if given) take no
-    candidate and store no checkpoint."""
+    (single-leaf form of `advancedhmc_tpu/nuts.py` `body`). It draws, for
+    every chain and in this order, a direction sign, the reservoir's
+    uniform and the merge's draw (an exponential; a uniform for slice
+    sampling). Chains outside `act` (if given) take no candidate and store
+    no checkpoint."""
     c = st["leaf"].shape[0]
     dtype, dev = st["h0"].dtype, st["h0"].device
     i = st["leaf"]
     v_draw = (rand_sign(generator, (c,), dev) if force_directions is None
               else _direction(st, force_directions, max_depth))
-    v, fwd, z_edge, sub = _start(st, v_draw)
+    v, fwd, z_edge, sub = _start(st, v_draw, kind)
     z_new, vel_new, sub = _step(h, z_edge, eps * v.to(dtype), st["h0"],
-                                delta_max, sub, generator, integ)
+                                delta_max, sub, generator, integ,
+                                st.get("lu"))
+    strict = kind.criterion == "strict"
+    if strict:
+        sub["s_rfirst"] = torch.where((i == 0)[:, None], z_new.r,
+                                      st["s_rfirst"])
     i_even = (i % 2) == 0
     sub["s_turning"] = sub["s_turning"] | _span_turn(
-        st, h, i, sub["s_rho"], vel_new, max_depth, ~i_even)
-    _store(st, i, z_new, sub["s_rho"], vel_new,
-           i_even if act is None else i_even & act)
-    e_mh = rand_exponential(generator, (c,), dtype, dev)
+        st, h, i, sub["s_rho"], vel_new, max_depth, ~i_even, kind,
+        z_new.theta, v)
+    even = i_even if act is None else i_even & act
+    _store(st, i, z_new, sub["s_rho"], vel_new, even, kind)
+    if strict:
+        _store_odd(st, i, z_new.r, ~i_even if act is None else ~i_even & act)
+    e_mh = _merge_draw(generator, c, dtype, dev, kind)
     return _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh,
-                  act)
+                  act, kind)
 
 
 def _direction(st, directions, max_depth):
@@ -285,49 +474,58 @@ def _direction(st, directions, max_depth):
 
 
 def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None,
-               directions=None, integ=None):
+               directions=None, integ=None, kind=_GENERALISED):
     """Advance every chain by the aligned (even, odd) leaf pair of its
     current doubling, or by the lone leaf of a depth-0 doubling: the
     leaf-pair body (`advancedhmc_tpu/nuts.py` `body_pair`). Every chain is
     at leaf 0 or at an even leaf mid-doubling (a doubling of depth ≥ 1 is
     whole pairs), so the pair never straddles two doublings.
 
-    Leaf A (even) stores the checkpoint; only leaf B (odd) runs the span
-    checks, and at most one completion and merge happens. A divergence at
-    A, or a depth-0 doubling, ends the pair at A: B is computed and fully
-    masked. The draws are those of two `_leaf` calls, in their order, for
-    every chain: A's sign, uniform and exponential, then B's (B's sign is
-    never used); the merge takes B's exponential when the pair goes on and
-    A's when it ends at A. With a table of `directions` (coupled chains)
-    no sign is drawn, as in `_leaf`."""
+    Leaf A (even) stores the checkpoint (classic's θ with it); only leaf B
+    (odd) runs the span checks and, for the strict criterion, stores the
+    odd-leaf checkpoint; at most one completion and merge happens. A
+    divergence at A, or a depth-0 doubling, ends the pair at A: B is
+    computed and fully masked (its odd-leaf write too). The draws are those
+    of two `_leaf` calls, in their order, for every chain: A's sign,
+    uniform and merge draw, then B's (B's sign is never used); the merge
+    takes B's draw when the pair goes on and A's when it ends at A. With a
+    table of `directions` (coupled chains) no sign is drawn, as in
+    `_leaf`."""
     c = st["leaf"].shape[0]
     dtype, dev = st["h0"].dtype, st["h0"].device
-    h0, i_a = st["h0"], st["leaf"]
+    h0, i_a, lu = st["h0"], st["leaf"], st.get("lu")
     v, fwd, z_edge, sub = _start(
         st, rand_sign(generator, (c,), dev) if directions is None
-        else _direction(st, directions, max_depth))
+        else _direction(st, directions, max_depth), kind)
     eps_v = eps * v.to(dtype)
     # leaf A (even): its checkpoint; no span ends at an even leaf
     z_a, vel_a, sub_a = _step(h, z_edge, eps_v, h0, delta_max, sub,
-                              generator, integ)
-    e_a = rand_exponential(generator, (c,), dtype, dev)
+                              generator, integ, lu)
+    strict = kind.criterion == "strict"
+    if strict:
+        sub_a["s_rfirst"] = torch.where((i_a == 0)[:, None], z_a.r,
+                                        st["s_rfirst"])
+    e_a = _merge_draw(generator, c, dtype, dev, kind)
     n_leaves = torch.bitwise_left_shift(torch.ones_like(i_a), st["depth"])
     pair_go = ~(sub_a["s_diverged"] | (i_a >= n_leaves - 1))
     _store(st, i_a, z_a, sub_a["s_rho"], vel_a,
-           torch.ones_like(pair_go) if act is None else act)
+           torch.ones_like(pair_go) if act is None else act, kind)
     # leaf B (odd): the span checks
     if directions is None:
         rand_sign(generator, (c,), dev)
     z_b, vel_b, sub_b = _step(h, z_a, eps_v, h0, delta_max, sub_a, generator,
-                              integ)
-    e_b = rand_exponential(generator, (c,), dtype, dev)
+                              integ, lu)
+    e_b = _merge_draw(generator, c, dtype, dev, kind)
     i_b = i_a + 1
     sub_b["s_turning"] = sub_b["s_turning"] | _span_turn(
-        st, h, i_b, sub_b["s_rho"], vel_b, max_depth, pair_go)
+        st, h, i_b, sub_b["s_rho"], vel_b, max_depth, pair_go, kind,
+        z_b.theta, v)
+    if strict:
+        _store_odd(st, i_b, z_b.r, pair_go if act is None else pair_go & act)
     sub = {k: _sel(pair_go, sub_b[k], sub_a[k]) for k in sub_a}
     return _merge(st, h, max_depth, v, fwd, torch.where(pair_go, i_b, i_a),
                   _sel(pair_go, z_b, z_a), _sel(pair_go, vel_b, vel_a), sub,
-                  torch.where(pair_go, e_b, e_a), act)
+                  torch.where(pair_go, e_b, e_a), act, kind)
 
 
 def _stats(zcand: PhasePoint, h0, n_alpha, sum_alpha, dh_max, depth,
@@ -369,16 +567,22 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
     table's sign at its depth, so all chains at one depth go the same way.
     No per-chain sign is drawn then.
 
+    Every no-U-turn criterion runs, with multinomial or slice sampling; for
+    slice sampling the level ℓu is drawn first, one Exp(1) a chain, before
+    any leaf's draws.
+
     Test hooks: `force_directions` ((max_depth,) array of ±1) overrides the
     per-doubling direction draw (and `coupled_key`); `return_debug` also
-    returns the final loop state (tree edges, ρ, log weight, stacks).
+    returns the final loop state (tree edges, ρ, the weight `t_w`: a log
+    weight, or the count of acceptable leaves for slice sampling; its
+    level `lu`; the stacks).
     `_pair` runs the leaf-pair body (`_leaf_pair`) after the first
     iteration, which is every chain's lone depth-0 leaf and runs as one
     `_leaf`: so the generator is drawn exactly as with the single-leaf
     body, and the transition gives the same bits, every field and every
     stack slot that a check reads (the spare slot is a write-only sink)."""
     not_ported("nuts_transition", options)
-    _check_trajectory(traj)
+    kind = _kind(traj)
     if _pair and force_directions is not None:
         raise ValueError("force_directions is unsupported on the leaf-pair "
                          "body; use the single-leaf body (_pair=False)")
@@ -391,17 +595,18 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
     directions = force_directions
     if directions is None and coupled_key is not None:
         directions = rand_sign(coupled_key, (max_depth,), dev)
-    st = _initial_state(z0, max_depth, traj.stack_torch_dtype)
+    st = _initial_state(z0, max_depth, traj.stack_torch_dtype, kind,
+                        generator)
     first = True
     while not bool(st["done"].all()):
         running = ~st["done"]     # finished chains keep their state
         if _pair and not first:
             new = _leaf_pair(st, h, eps, max_depth, crit.delta_max,
                              generator, act=running, directions=directions,
-                             integ=integ)
+                             integ=integ, kind=kind)
         else:
             new = _leaf(st, h, eps, max_depth, crit.delta_max, generator,
-                        directions, act=running, integ=integ)
+                        directions, act=running, integ=integ, kind=kind)
         first = False
         st = {k: v if k.startswith(("ck_", "sck_")) else _sel(running, v, st[k])
               for k, v in new.items()}
@@ -436,7 +641,8 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     integrator draws each chain's step size anew from its nominal one at
     each of its transition boundaries (the first transition runs at the
     integrator's current step size); the momentum is refreshed by
-    `refreshment` there.
+    `refreshment` there, and for slice sampling the level ℓu is drawn
+    anew from the refreshed energy (refresh, level, then jitter).
 
     Returns (z_final, thetas (C, n_transitions, dim), stats of
     (C, n_transitions)). `z_final` is each chain's last candidate; its
@@ -471,7 +677,7 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     """
     not_ported("nuts_transitions_fused",
                options if batched else dict(options, batched=batched))
-    _check_trajectory(traj)
+    kind = _kind(traj)
     crit = traj.criterion
     max_depth = int(crit.max_depth)
     c, d = z0.theta.shape
@@ -500,7 +706,7 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                              "diagonal or a dense metric")
 
     st = _initial_state(refreshment.refresh(generator, h, z0), max_depth,
-                        traj.stack_torch_dtype)
+                        traj.stack_torch_dtype, kind, generator)
     if depth_caps is not None:
         caps = torch.clamp(torch.as_tensor(np.asarray(depth_caps),
                                            dtype=torch.int32, device=dev),
@@ -518,7 +724,7 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         act = ~all_done
         st2 = (_leaf_pair if pair else _leaf)(
             st, h, eps, max_depth, crit.delta_max, generator, act=act,
-            integ=integ)
+            integ=integ, kind=kind)
         boundary = st2["done"] & act
         zc = st2["zcand"]
         s = _stats(zc, st2["h0"], st2["n_alpha"], st2["sum_alpha"],
@@ -556,12 +762,12 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                     torch.where(reset[:, None], ad.mm.m_inv, h.metric.m_inv)))
         # prepare the next transition of the chains that just finished one
         z_next = refreshment.refresh(generator, h_next, zc)
+        fresh = _fresh_fields(z_next, z_next.energy(), kind, generator)
         if jittered:
             eps = torch.where(reset, integ.with_nom_step_size(nom_next).jitter(
                 generator, c).current_step_size, eps)
         elif adaptive:
             eps = torch.where(reset, nom_next, eps)
-        fresh = _fresh_fields(z_next, z_next.energy())
         st = {k: _sel(reset, fresh[k], v) if k in fresh else v
               for k, v in st2.items()}
         if depth_caps is not None:

@@ -4,12 +4,16 @@ PyTorch counterpart of `advancedhmc_tpu/target.py`. The port's native form is
 BATCHED: `logdensity(theta (C, dim)) -> (C,)` and
 `logdensity_and_grad(theta (C, dim)) -> ((C,), (C, dim))`, where the JAX
 package writes a single-chain function and batches it with `vmap`. The
-default gradient comes from `torch.autograd`.
+default gradient comes from `torch.autograd`. `target_from_pytree` takes a
+log density over nested dicts, lists and tuples of tensors, raveled in
+`jax.tree_util`'s order (`ravel_pytree`).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -74,6 +78,85 @@ class BlockTarget:
 
     def __call__(self, theta, *data):
         return self.value_and_grad(theta, *data)
+
+
+def _flatten(tree):
+    """(leaves, rebuild) of nested dicts, lists, tuples and namedtuples in
+    `jax.tree_util`'s order: a dict's values by sorted key (an OrderedDict's
+    in insertion order), None without leaves, anything else a leaf;
+    `rebuild(leaves)` gives the tree back with new leaves."""
+    if tree is None:
+        return [], lambda leaves: None
+    if isinstance(tree, dict):
+        keys = (list(tree) if isinstance(tree, collections.OrderedDict)
+                else sorted(tree))
+        kids = [_flatten(tree[k]) for k in keys]
+
+        def rebuild(leaves):
+            return type(tree)(zip(keys, _rebuild_all(kids, leaves)))
+    elif isinstance(tree, (list, tuple)):
+        kids = [_flatten(v) for v in tree]
+
+        def rebuild(leaves):
+            vals = _rebuild_all(kids, leaves)
+            if hasattr(tree, "_fields"):        # a namedtuple
+                return type(tree)(*vals)
+            return type(tree)(vals)
+    else:
+        return [tree], lambda leaves: leaves[0]
+    return [leaf for kid in kids for leaf in kid[0]], rebuild
+
+
+def _rebuild_all(kids, leaves):
+    out, off = [], 0
+    for kid_leaves, rebuild in kids:
+        out.append(rebuild(leaves[off:off + len(kid_leaves)]))
+        off += len(kid_leaves)
+    return out
+
+
+def ravel_pytree(tree):
+    """(flat, unravel): the leaves of `tree` raveled and concatenated in
+    `jax.flatten_util.ravel_pytree`'s order, in their promoted dtype, and
+    `unravel(x (…, n))`, which gives the tree back with leaves (…, *shape)
+    cut from the last axis of `x` (any leading axes, the chains, kept; the
+    leaves in x's dtype)."""
+    leaves, rebuild = _flatten(tree)
+    leaves = [torch.as_tensor(leaf) for leaf in leaves]
+    shapes = [tuple(leaf.shape) for leaf in leaves]
+    sizes = [math.prod(sh) for sh in shapes]
+    if leaves:
+        dtype = leaves[0].dtype
+        for leaf in leaves[1:]:
+            dtype = torch.promote_types(dtype, leaf.dtype)
+        flat = torch.cat([leaf.reshape(-1).to(dtype) for leaf in leaves])
+    else:
+        flat = torch.zeros(0)
+
+    def unravel(x):
+        out, off = [], 0
+        for shape, size in zip(shapes, sizes):
+            out.append(x[..., off:off + size].reshape(x.shape[:-1] + shape))
+            off += size
+        return rebuild(out)
+
+    return flat, unravel
+
+
+def target_from_pytree(logdensity_fn, example) -> LogDensityTarget:
+    """Wrap a log density over structured parameters: `logdensity_fn(tree)`
+    takes the tree of `example` with a leading chain axis on every leaf
+    ((C, *shape)) and returns (C,). The sampler sees the flat vector
+    (`ravel_pytree`'s order, the JAX package's); the target carries
+    `unravel` to map draws back."""
+    flat_example, unravel = ravel_pytree(example)
+
+    def flat_logdensity(x):
+        return logdensity_fn(unravel(x))
+
+    t = LogDensityTarget(flat_logdensity, int(flat_example.numel()))
+    object.__setattr__(t, "unravel", unravel)
+    return t
 
 
 def as_target(obj, dim: Optional[int] = None) -> LogDensityTarget:

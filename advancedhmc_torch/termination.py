@@ -2,17 +2,14 @@
 
 Counterpart of `advancedhmc_tpu/termination.py`: frozen dataclasses of
 hyperparameters. The static criteria (`FixedNSteps`, `FixedIntegrationTime`)
-run `trajectory.transition_static`; the generalised no-U-turn criterion runs
-NUTS. `ClassicNoUTurn`, `StrictGeneralisedNoUTurn` and the SLICE sampler
-are queued under ROADMAP.md's "The rest of the surface": constructing one of
-those criteria raises, naming that item.
+run `trajectory.transition_static`; the three no-U-turn criteria
+(`ClassicNoUTurn`, `GeneralisedNoUTurn`, `StrictGeneralisedNoUTurn`) run
+NUTS (`nuts.py`) with multinomial or slice sampling.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-from .utils import roadmap
 
 
 class TerminationCriterion:
@@ -44,6 +41,14 @@ class FixedIntegrationTime(StaticTerminationCriterion):
 
 
 @dataclasses.dataclass(frozen=True)
+class ClassicNoUTurn(DynamicTerminationCriterion):
+    """Position-based U-turn criterion, Eq. (9) of Hoffman & Gelman (2014)."""
+
+    max_depth: int = 10
+    delta_max: float = 1000.0
+
+
+@dataclasses.dataclass(frozen=True)
 class GeneralisedNoUTurn(DynamicTerminationCriterion):
     """Momentum-sum (ρ) criterion, Betancourt (2017) A.4.2."""
 
@@ -52,23 +57,12 @@ class GeneralisedNoUTurn(DynamicTerminationCriterion):
 
 
 @dataclasses.dataclass(frozen=True)
-class _QueuedNoUTurn(DynamicTerminationCriterion):
+class StrictGeneralisedNoUTurn(DynamicTerminationCriterion):
+    """The generalised criterion plus the left/right half-tree checks
+    (stan#2800)."""
+
     max_depth: int = 10
     delta_max: float = 1000.0
-
-    def __post_init__(self):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet " + roadmap("surface"))
-
-
-class ClassicNoUTurn(_QueuedNoUTurn):
-    """Position-based U-turn criterion (Hoffman & Gelman 2014): not ported
-    yet, constructing it raises."""
-
-
-class StrictGeneralisedNoUTurn(_QueuedNoUTurn):
-    """The generalised criterion with the left/right subtree checks: not
-    ported yet, constructing it raises."""
 
 
 ENDPOINT = "endpoint"

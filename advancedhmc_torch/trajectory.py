@@ -4,9 +4,9 @@ log-space MH accept.
 Counterpart of `advancedhmc_tpu/trajectory.py`, on a batch of chains (the
 leading axis) where the JAX functions are written for one chain and
 vmapped. A static criterion (`FixedNSteps`, `FixedIntegrationTime`) runs
-`transition_static` with endpoint or multinomial sampling; the generalised
-no-U-turn criterion with multinomial sampling runs NUTS (`nuts.py`). The
-SLICE sampler is queued under ROADMAP.md's "The rest of the surface".
+`transition_static` with endpoint or multinomial sampling; a no-U-turn
+criterion (classic, generalised or strict) runs NUTS (`nuts.py`) with
+multinomial or slice sampling. The pairs are JAX's `check_ts_kind`'s.
 
 A static trajectory's step count is one integer per chain (a per-chain ε
 gives `FixedIntegrationTime` one count per chain): the host reads its
@@ -15,11 +15,14 @@ done masked, as the JAX loop vmapped over chains runs the maximum.
 
 Two switches set the precision of the NUTS U-turn check, as in the JAX
 package. `stack_dtype` ("bfloat16", or None for the state's dtype) is the
-dtype the checkpoint stacks are stored in: each checkpoint is rounded to it
-when it is written, and the check's dot products take their other operand
-rounded to it too and round their result to it (products exact, sums in
-float32), as the JAX check's einsum does in the stacks' dtype. It is a
-stopping heuristic: the invariant distribution does not change.
+dtype every checkpoint stack a criterion carries is stored in (r and the
+momentum sums; classic's θ; strict's odd-leaf r): each checkpoint is
+rounded to it when it is written. The span checks of the classic and the
+generalised criterion take their other operand rounded to it too and round
+their result to it (products exact, sums in float32), as the JAX check's
+einsum does in the stacks' dtype; the strict checks read the rounded rows
+back in the state's dtype. It is a stopping heuristic: the invariant
+distribution does not change.
 `uturn_precision` is the JAX package's XLA precision pin of that dot
 (None, "default", "high", "highest"); it is accepted and changes nothing
 here. A float32 torch dot is already exact float32, so every value gives
@@ -36,12 +39,9 @@ import torch
 from .hamiltonian import FullMomentumRefreshment, Hamiltonian, \
     PartialMomentumRefreshment, PhasePoint, select_phasepoint
 from .integrators import leapfrog_steps
-from .termination import ENDPOINT, MULTINOMIAL, SLICE, FixedIntegrationTime, \
-    FixedNSteps, GeneralisedNoUTurn, StaticTerminationCriterion, \
-    TerminationCriterion, check_ts_kind
-from .utils import rand_exponential, reduced_dtype, roadmap
-
-_LATER = roadmap("surface")
+from .termination import ENDPOINT, MULTINOMIAL, FixedIntegrationTime, \
+    FixedNSteps, TerminationCriterion, check_ts_kind
+from .utils import rand_exponential, reduced_dtype
 # the values of jax.lax.Precision that the JAX trajectory takes by name
 UTURN_PRECISIONS = (None, "default", "high", "highest", "fastest", "float32",
                     "bfloat16", "tensorfloat32")
@@ -59,14 +59,6 @@ class Trajectory:
 
     def __post_init__(self):
         check_ts_kind(self.ts_kind, self.criterion)
-        if not isinstance(self.criterion, (GeneralisedNoUTurn,
-                                           StaticTerminationCriterion)):
-            raise NotImplementedError(
-                f"{type(self.criterion).__name__} is not ported yet " + _LATER)
-        if self.ts_kind == SLICE:
-            raise NotImplementedError(
-                f"the {self.ts_kind!r} trajectory sampler is not ported yet "
-                + _LATER)
         reduced_dtype(self.stack_dtype, "stack_dtype")
         prec = self.uturn_precision
         if (prec.lower() if isinstance(prec, str) else prec) \

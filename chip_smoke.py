@@ -34,9 +34,9 @@ Phases (any failure exits non-zero):
    to 0 just before and read just after, and the target's value+grad
    calls (each one K1 launch) tallied by chain count, and the leaf-loop
    iterations per transition;
-3b. from phase 3's final state, the draw phase with the leaf-pair body on
-   and off in turns (on, off, off, on): each run's wall, leaf-loop
-   iterations per transition and ESS/s, each gated as phase 4;
+3b. from phase 3's final state, the draw phase (128 draws) with the
+   leaf-pair body on and off in turns (on, off, off, on): each run's wall,
+   leaf-loop iterations per transition and ESS/s, each gated as phase 4;
 4. check the results: finite draws of the expected shape, divergence,
    acceptance and posterior-moment gates;
 5. profile one fused draw call on each body (device time by kernel, idle
@@ -141,7 +141,24 @@ Phases (any failure exits non-zero):
    blocks of 4, gated on a positive-definite M⁻¹
    and the momentum draws; (d) the per-chain fused warmup on 1024 chains,
    150 iterations (one window), with nutpie on the diagonal metric and
-   with a per-chain dense metric (each chain's factor checked).
+   with a per-chain dense metric (each chain's factor checked);
+16. the classic and strict criteria, slice sampling and the model zoo,
+   each run with every kernel's count set to 0 just before and read just
+   after: (a) bench.py's `AHMC_BENCH_MODEL=logistic_nc` at its defaults
+   (the non-centred hierarchy at phase 3's width, NUTS, schedule and
+   chains, 256 warmup iterations), its value+grad through K1 first held to
+   its float64 and float32 analytic routes at C = 32768, 4096 and 1, its
+   draws mapped to (log σ, σ·β̃) and gated as phase 3 (accept in phase
+   15's band of 256-iteration runs); (b) phase 3's draw phase from its
+   final state with classic + multinomial, strict + multinomial and
+   generalised + slice, beside phase 3b's generalised runs; (c) phase 3's
+   configuration with strict + slice in the warmup blocks too, 64 draws;
+   (d) each new model's value+grad at 4096 chains against the port's
+   float64 CPU path, then `NUTS(0.8, max_depth=4).sample` step by step on
+   256 chains (40 + 40) of gdemo (against GDEMO_MEAN), a Gaussian mixture
+   (its mean), eight schools and banana (finite, divergence share
+   printed) and German credit (K1 narrow at p = 24; against the JAX
+   package's posterior, `scripts/zoo_reference.py`).
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
@@ -790,15 +807,17 @@ def phase_results(res, launches, wall, seed, iters):
 
 # ----------------------------------------------------------------- phase 3b
 # The draw phase from phase 3's final state with the leaf-pair body on and
-# off, in turns (on, off, off, on), a seed each
+# off, in turns (on, off, off, on), a seed each; PAIR_TURN_DRAWS draws a
+# turn, cut from phase 3's 256 to 128 to leave room for phase 16
 PAIR_TURNS = (True, False, False, True)
+PAIR_TURN_DRAWS = 128
 
 
 def phase_pair_turns(res):
-    """Times phase 3's draw phase (N_DRAWS transitions, FUSE a call) from
-    its final state on each body in turns; each run's wall, leaf-loop
-    iterations per transition (its K1 calls over the leaves an iteration),
-    ESS/s and the gates of phase 4. Returns the rows."""
+    """Times phase 3's draw phase (PAIR_TURN_DRAWS transitions, FUSE a
+    call) from its final state on each body in turns; each run's wall,
+    leaf-loop iterations per transition (its K1 calls over the leaves an
+    iteration), ESS/s and the gates of phase 4. Returns the rows."""
     from advancedhmc_torch import SampleSpec, fused_draw_phase
     from advancedhmc_torch.diagnostics import effective_sample_size
 
@@ -812,8 +831,8 @@ def phase_pair_turns(res):
         by_chains.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, th, st = fused_draw_phase(gen, spec, res.final_state, N_DRAWS,
-                                     FUSE, pair=pair)
+        _, th, st = fused_draw_phase(gen, spec, res.final_state,
+                                     PAIR_TURN_DRAWS, FUSE, pair=pair)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ess = effective_sample_size(th[:, :ESS_CHAINS]) * (
@@ -823,7 +842,7 @@ def phase_pair_turns(res):
         row = {
             "pair": pair, "wall_s": wall,
             "leaf_iterations_per_transition":
-                by_chains[N_CHAINS] / (2 if pair else 1) / N_DRAWS,
+                by_chains[N_CHAINS] / (2 if pair else 1) / PAIR_TURN_DRAWS,
             "k1_calls": by_chains[N_CHAINS],
             "effective_samples_per_s_per_chip": median_ess / wall,
             "median_pooled_ess": median_ess,
@@ -1446,20 +1465,20 @@ WIDE_K_MCSE, WIDE_K_RUNS = 4.0, 3.0
 WIDE_TOL_ACCEPT = 0.1
 
 
-def wide_reference():
+def wide_reference(runs=WIDE_REF_RUNS):
     """Over the JAX runs: each moment's mean, the MCSE of that mean, the
     standard deviation between runs; and the mean acceptance rate."""
-    n = len(WIDE_REF_RUNS)
+    n = len(runs)
     ref = {}
     for i, name in enumerate(WIDE_MOMENTS):
-        vals = [run[i][0] for run in WIDE_REF_RUNS]
+        vals = [run[i][0] for run in runs]
         mean = sum(vals) / n
         ref[name] = dict(
             mean=mean,
-            mcse=math.sqrt(sum(run[i][1] ** 2 for run in WIDE_REF_RUNS)) / n,
+            mcse=math.sqrt(sum(run[i][1] ** 2 for run in runs)) / n,
             sd_between_runs=math.sqrt(
                 sum((v - mean) ** 2 for v in vals) / (n - 1)))
-    return ref, sum(run[3] for run in WIDE_REF_RUNS) / n
+    return ref, sum(run[3] for run in runs) / n
 
 
 # the wide path's kernels, by a part of their mangled names
@@ -2621,6 +2640,19 @@ def _chol_err(metric):
     return _rel_fro(u.mT @ u, metric.m_inv.double())
 
 
+def _timed_run(by_chains, fn):
+    """Runs `fn()` with every kernel's count set to 0 just before and read
+    just after, and the value+grad tally cleared; (result, wall, tally,
+    counts)."""
+    by_chains.clear()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, dict(by_chains), read_launches())
+
+
 def _mm_run(name, res, wall, by_chains, counts, chains, n_warmup, n_draws,
             pair, transitions_at, extra):
     """Phase 15's common report of one run: walls, ESS/s (bench.py's
@@ -2700,14 +2732,7 @@ def phase_metrics(seed, main_out):
             dtype=torch.float32, device="cuda")
 
     def run(gen, fn):
-        by_chains.clear()
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        res = fn(gen)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0, dict(by_chains), \
-            read_launches()
+        return _timed_run(by_chains, lambda: fn(gen))
 
     # (a) bench.py with AHMC_BENCH_MM_KIND=nutpie AHMC_BENCH_WARMUP=256: the
     # cross-chain warmup runs step by step (its fused form records no
@@ -2868,6 +2893,427 @@ def phase_metrics(seed, main_out):
         raise RuntimeError(f"phase 15 gates failed: {failed}")
     return results
 
+# ----------------------------------------------------------------- phase 16
+# (a) bench.py's AHMC_BENCH_MODEL=logistic_nc at its defaults: the
+# non-centred hierarchy at phase 3's width, NUTS and schedule, with the
+# reference-faithful 256 warmup iterations (bench.py's default for every
+# model but the centred one), its draws mapped to (log σ, σ·β̃)
+NC_WARMUP = 256
+# the nc value+grad through K1 against its float64 analytic route, at the
+# chain counts of its path: each within this share of the largest magnitude
+# (K1's own gate, check_k1); the float32 analytic route is held to it too
+NC_TOL = 1e-4
+# (b) the new (criterion, sampler) pairs on phase 3's warmed state
+CRITERIA_PAIRS = (("ClassicNoUTurn", "multinomial"),
+                  ("StrictGeneralisedNoUTurn", "multinomial"),
+                  ("GeneralisedNoUTurn", "slice"))
+# (c) phase 3's configuration with the strict criterion and slice sampling
+# in the warmup blocks too, draws cut from 256 to 64
+STRICT_SLICE_DRAWS = 64
+# (d) the zoo: value+grad of each new model at ZOO_CHECK_CHAINS chains on
+# the card against the port's float64 CPU path (each within ZOO_TOL of the
+# largest magnitude), then NUTS(0.8, max_depth=4) step by step on
+# ZOO_CHAINS chains, ZOO_WARMUP + ZOO_DRAWS iterations, per-chain Stan
+# adaptation: the sizes a short run of a user's takes (depth 4: these
+# trees average depth 2-3 and the deepest of the 256 sets each step's
+# loop; at 5 the five runs took 62 s of phase 16's 150 on an H100)
+ZOO_CHECK_CHAINS, ZOO_TOL = 4096, 1e-4
+ZOO_CHAINS, ZOO_WARMUP, ZOO_DRAWS, ZOO_DEPTH, ZOO_DELTA = 256, 40, 40, 4, 0.8
+# a mixture whose components overlap (chains cross between them): means,
+# standard deviations, weights
+ZOO_MIXTURE = (((-1.0, 0.0), (1.0, 0.5)), (1.0, 0.8), (0.4, 0.6))
+# the German-credit posterior from the JAX package in float64 on the CPU,
+# this configuration at 256 chains, one run a seed:
+#   JAX_PLATFORMS=cpu python scripts/zoo_reference.py --seeds 0 1 2 3
+# each run's (mean log σ, MCSE), (sd log σ, MCSE), (|mean β|, MCSE) and
+# acceptance rate
+GERMAN_REF_RUNS = (    # seeds 0-3, in WIDE_REF_RUNS' form; none diverged
+    ((-0.6038272249857124, 0.0022281746598503023),
+     (0.15899286900146478, 0.0015755574116481776),
+     (2.556164427719271, 0.000867299923726647), 0.8727204689540684),
+    ((-0.6039528130927025, 0.002071626235228472),
+     (0.15907463414476516, 0.0014648609590140107),
+     (2.5554226311569685, 0.0008922994706888054), 0.8764340189584887),
+    ((-0.6086387745505479, 0.0020971075977200765),
+     (0.15938359345970643, 0.0014828790032256965),
+     (2.5544520466192475, 0.0009023598703573746), 0.8777552401903007),
+    ((-0.6076544518643692, 0.002229255769231219),
+     (0.16000367712721678, 0.0015763218714226282),
+     (2.554442065629652, 0.0008799594957433248), 0.8752060177094171),
+)
+# Gates of analytic moments: within ZOO_MCSE_GATE Monte Carlo standard
+# errors (sd / √ESS, the run's own bulk ESS) of the exact value; German
+# credit within ZOO_MCSE_GATE combined MCSEs plus WIDE_K_RUNS standard
+# deviations between the JAX runs, phase 9's form
+ZOO_MCSE_GATE = 5.0
+
+
+def nc_to_centred_(th):
+    """Draws (…, dim) of the non-centred model mapped in place to the
+    centred coordinates (log σ, β = σ·β̃), as bench.py maps them."""
+    th[..., 1:] *= torch.exp(th[..., :1])
+    return th
+
+
+def check_nc_k1():
+    """The non-centred model's value+grad on the card (its route through
+    K1) against its analytic route in float64 and in float32 (the route's
+    plain version), at the chain counts of the path; one K1 launch a call.
+    Returns (rows, largest error of the K1 route)."""
+    from unittest import mock
+
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.models import logistic as lg
+
+    t32 = ah.hierarchical_logistic_nc(n=N_ROWS, p=DIM - 1, device="cuda")
+    t64 = ah.hierarchical_logistic_nc(n=N_ROWS, p=DIM - 1,
+                                      dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows, worst, failed = [], 0.0, []
+    for c in (N_CHAINS, WARMUP_CHAINS, 1):
+        theta = torch.randn(c, DIM, generator=gen, device="cuda")
+        theta[:, 0] = -0.7 + 0.1 * theta[:, 0]
+        before = read_launches()["fused_logistic_value_grad"]
+        lp, g = t32.logdensity_and_grad(theta)
+        launched = read_launches()["fused_logistic_value_grad"] - before
+        lp_r, g_r = t64.logdensity_and_grad(theta.double())
+        with mock.patch.object(lg, "kernel_route", lambda t: False):
+            lp_p, g_p = t32.logdensity_and_grad(theta)
+            plain_ms = device_ms(lambda: t32.logdensity_and_grad(theta), 20)
+        route_ms = device_ms(lambda: t32.logdensity_and_grad(theta), 20)
+        tol_g = NC_TOL * float(g_r.abs().max())
+        tol_lp = NC_TOL * max(1.0, float(lp_r.abs().max()))
+
+        def err(gg, ll):
+            return (float((gg.double() - g_r).abs().max()),
+                    float((ll.double() - lp_r).abs().max()))
+
+        (eg, el), (pg, pl) = err(g, lp), err(g_p, lp_p)
+        ok = (bool(torch.isfinite(g).all() and torch.isfinite(lp).all())
+              and eg <= tol_g and el <= tol_lp and pg <= tol_g
+              and pl <= tol_lp and launched == 1)
+        worst = max(worst, eg, el)
+        rows.append(dict(chains=c, max_abs_err_grad=eg, max_abs_err_lp=el,
+                         tol_grad=tol_g, tol_lp=tol_lp,
+                         plain_f32_err_grad=pg, plain_f32_err_lp=pl,
+                         launches=launched, route_ms=route_ms,
+                         plain_route_ms=plain_ms))
+        log(f"# 16a nc value+grad through K1, C={c}: vs float64 max|Δgrad| "
+            f"{eg:.3e} (tol {tol_g:.3e}), max|Δlp| {el:.3e} (tol "
+            f"{tol_lp:.3e}); the float32 analytic route {pg:.3e} / "
+            f"{pl:.3e}; {launched} K1 launch a call; route {route_ms:.4f} "
+            f"ms, analytic float32 {plain_ms:.4f} ms on the device: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(c)
+    if failed:
+        raise RuntimeError(f"16a: the nc route through K1 disagrees at C = "
+                           f"{failed}")
+    return rows, worst
+
+
+def phase_nc(seed):
+    """16a: bench.py's nc configuration through `sample` (uncut), its draws
+    in the centred coordinates, phase 3's gates (the accept band of
+    phase 15's 256-iteration runs). Returns its results."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+
+    check_rows, check_err = check_nc_k1()
+    _, kernel, adaptor = main_path_spec()
+    target, by_chains = count_by_chains(
+        ah.hierarchical_logistic_nc(n=N_ROWS, p=DIM - 1, device="cuda"))
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+    res, wall, calls, counts = _timed_run(by_chains, lambda: ah.sample(
+        torch.Generator(device="cuda").manual_seed(seed + 160), target,
+        kernel, ah.make_metric("diagonal", DIM, device="cuda"), theta0,
+        NC_WARMUP + N_DRAWS, n_adapts=NC_WARMUP, adaptor=adaptor,
+        init_mass_matrix="gradient", cross_chain=True, fuse_draws=FUSE,
+        fuse_warmup=True, fuse_warmup_block=WARMUP_BLOCK, drop_warmup=True,
+        warmup_chains=WARMUP_CHAINS, fanout_decorrelate=N_DECOR,
+        fuse_pair=PAIR, device="cuda"))
+    nc_to_centred_(res.thetas)
+    out, gates = _mm_run(
+        "16a: bench.py's logistic_nc", res, wall, calls, counts, N_CHAINS,
+        NC_WARMUP, N_DRAWS, PAIR, (N_CHAINS, N_DECOR + N_DRAWS),
+        {"warmup_chains": WARMUP_CHAINS, "k1_check": check_rows,
+         "k1_check_max_abs_err": check_err})
+    gates[f"accept in {MM_ACCEPT_BAND}"] = \
+        MM_ACCEPT_BAND[0] <= out["accept_mean"] <= MM_ACCEPT_BAND[1]
+    failed = []
+    _mm_finish("16a", out, gates, failed)
+    if failed:
+        raise RuntimeError(f"phase 16a gates failed: {failed}")
+    return out
+
+
+def phase_criteria(main_state, main_out, turns):
+    """16b: phase 3's draw phase (pair body, N_DRAWS fused FUSE) from its
+    final ε, M⁻¹ and positions with each new (criterion, sampler) pair,
+    every kernel's count set to 0 just before each run and read just
+    after; phase 3's gates. Printed beside: phase 3's draws (`main_out`)
+    and phase 3b's pair-body runs from the same state (`turns`), per
+    transition. Returns the rows."""
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.diagnostics import effective_sample_size
+
+    target, kernel, adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    rows, failed = {}, []
+    for k, (crit, ts) in enumerate(CRITERIA_PAIRS):
+        spec = ah.SampleSpec(
+            target=target, adaptor=adaptor, cross_chain=True,
+            kernel=ah.HMCKernel(ah.Trajectory(
+                kernel.trajectory.integrator,
+                getattr(ah, crit)(max_depth=MAX_DEPTH), ts)))
+        gen = torch.Generator(device="cuda").manual_seed(161 + k)
+        (_, th, st), wall, calls, counts = _timed_run(
+            by_chains, lambda: ah.fused_draw_phase(
+                gen, spec, main_state, N_DRAWS, FUSE, pair=True))
+        ess = effective_sample_size(th[:, :ESS_CHAINS]) * (
+            N_CHAINS / ESS_CHAINS)
+        moments, gates = _moment_gates(th)
+        row = {
+            "criterion": crit, "ts_kind": ts, "draws_s": wall,
+            "leaf_iterations_per_transition":
+                calls.get(N_CHAINS, 0) / 2 / N_DRAWS,
+            "effective_samples_per_s_per_chip":
+                float(ess.quantile(0.5)) / wall,
+            "accept_mean": float(st["acceptance_rate"].double().mean()),
+            "divergence_rate": float(st["numerical_error"].double().mean()),
+            "mean_tree_depth": float(st["tree_depth"].double().mean()),
+            "k1_launches": counts["fused_logistic_value_grad"],
+            "value_grad_calls": sum(calls.values()), **moments}
+        gates = {"draws finite": bool(torch.isfinite(th).all()),
+                 "k1 launches = value+grad calls":
+                     row["k1_launches"] == row["value_grad_calls"] > 0,
+                 **_draw_gates(row, gates)}
+        del th, st
+        log(f"# 16b {crit} + {ts}: draws {wall:.2f} s, "
+            f"{row['leaf_iterations_per_transition']:.2f} leaf-loop "
+            f"iterations a transition, depth {row['mean_tree_depth']:.3f}, "
+            f"ESS/s {row['effective_samples_per_s_per_chip']:.0f}, accept "
+            f"{row['accept_mean']:.4f}, K1 launches {row['k1_launches']}")
+        for g, ok in gates.items():
+            log(f"# gate 16b {crit} + {ts} {g}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{crit} + {ts}: {g}")
+        rows[f"{crit} + {ts}"] = row
+    beside = [("phase 3", main_out["draws_s"] / N_DRAWS, main_out)] + [
+        ("phase 3b", r["wall_s"] / PAIR_TURN_DRAWS, r) for r in turns
+        if r["pair"]]
+    for name, per, r in beside:
+        log(f"# 16b beside {name}'s generalised + multinomial (pair body): "
+            f"{1e3 * per:.2f} ms a transition, "
+            f"{r['leaf_iterations_per_transition']:.2f} leaf-loop "
+            f"iterations a transition, depth {r['mean_tree_depth']:.3f}")
+    for row in rows.values():
+        row["ms_per_transition"] = 1e3 * row["draws_s"] / N_DRAWS
+    log(json.dumps({"criteria": rows}))
+    if failed:
+        raise RuntimeError(f"phase 16b gates failed: {failed}")
+    return rows
+
+
+def phase_strict_slice(seed):
+    """16c: `sample` at phase 3's configuration with the strict criterion
+    and slice sampling, so both run in the warmup blocks too; draws cut to
+    STRICT_SLICE_DRAWS; phase 3's gates."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+
+    target, kernel, adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    kernel = ah.HMCKernel(ah.Trajectory(
+        kernel.trajectory.integrator,
+        ah.StrictGeneralisedNoUTurn(max_depth=MAX_DEPTH), "slice"))
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+    res, wall, calls, counts = _timed_run(by_chains, lambda: ah.sample(
+        torch.Generator(device="cuda").manual_seed(seed + 165), target,
+        kernel, ah.make_metric("diagonal", DIM, device="cuda"), theta0,
+        N_WARMUP + STRICT_SLICE_DRAWS, n_adapts=N_WARMUP, adaptor=adaptor,
+        init_mass_matrix="gradient", cross_chain=True, fuse_draws=FUSE,
+        fuse_warmup=True, fuse_warmup_block=WARMUP_BLOCK, drop_warmup=True,
+        warmup_chains=WARMUP_CHAINS, fanout_decorrelate=N_DECOR,
+        fuse_pair=PAIR, device="cuda"))
+    out, gates = _mm_run(
+        "16c: strict + slice, phase 3's configuration", res, wall, calls,
+        counts, N_CHAINS, N_WARMUP, STRICT_SLICE_DRAWS, PAIR,
+        (N_CHAINS, N_DECOR + STRICT_SLICE_DRAWS),
+        {"warmup_leaf_iterations_per_transition":
+             calls.get(WARMUP_CHAINS, 0) / 2 / N_WARMUP})
+    gates[f"|accept - {DELTA}| <= 0.1"] = abs(out["accept_mean"] - DELTA) \
+        <= 0.1
+    failed = []
+    _mm_finish("16c", out, gates, failed)
+    if failed:
+        raise RuntimeError(f"phase 16c gates failed: {failed}")
+    return out
+
+
+def _zoo_models(dtype, device):
+    """The new models of the port's zoo, by name: (target, dim, the scale
+    of the check's points)."""
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.models import dists
+
+    means, sds, weights = ZOO_MIXTURE
+    return {
+        "banana": (ah.banana(device=device), 2, 5.0),
+        "eight_schools": (ah.eight_schools(dtype, device), 10, 1.0),
+        "gdemo": (ah.gdemo(device), 2, 0.7),
+        "gaussian_mixture": (ah.gaussian_mixture(
+            means, sds, weights, dtype, device), 2, 1.5),
+        "two_gaussian_mixtures_2d": (ah.two_gaussian_mixtures_2d(
+            dtype=dtype, device=device), 2, 1.5),
+        "spiral": (ah.spiral(device=device), 2, 1.5),
+        "german_credit_logistic": (ah.german_credit_logistic(
+            dtype, device), 25, 0.2),
+        "hierarchical_logistic_nc": (ah.hierarchical_logistic_nc(
+            n=N_ROWS, p=DIM - 1, dtype=dtype, device=device), DIM, 0.3),
+        "gdemo_declarative": (dists.gdemo_declarative(), 2, 0.7),
+        "target_of(Gamma(2, 3), 5)": (dists.target_of(
+            dists.Gamma(2.0, 3.0), 5), 5, 1.0),
+    }
+
+
+def _zoo_check(seed):
+    """Each new model's value+grad on the card (float32) against the
+    port's float64 CPU path at the same points. Returns the rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 166)
+    card, cpu = _zoo_models(torch.float32, "cuda"), \
+        _zoo_models(torch.float64, "cpu")
+    rows, failed = {}, []
+    for name, (tgt, dim, scale) in card.items():
+        th = torch.as_tensor(scale * rng.normal(size=(ZOO_CHECK_CHAINS, dim)),
+                             dtype=torch.float32, device="cuda")
+        lp, g = tgt.logdensity_and_grad(th)
+        lp_r, g_r = cpu[name][0].logdensity_and_grad(th.cpu().double())
+        eg = float((g.cpu().double() - g_r).abs().max())
+        el = float((lp.cpu().double() - lp_r).abs().max())
+        tol_g = ZOO_TOL * max(1.0, float(g_r.abs().max()))
+        tol_lp = ZOO_TOL * max(1.0, float(lp_r.abs().max()))
+        ok = eg <= tol_g and el <= tol_lp and lp.shape == (ZOO_CHECK_CHAINS,)
+        rows[name] = dict(max_abs_err_grad=eg, max_abs_err_lp=el,
+                          tol_grad=tol_g, tol_lp=tol_lp)
+        log(f"# 16d {name} value+grad at C={ZOO_CHECK_CHAINS} on the card "
+            f"vs the float64 CPU path: max|Δgrad| {eg:.3e} (tol "
+            f"{tol_g:.3e}), max|Δlp| {el:.3e} (tol {tol_lp:.3e}): "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+    return rows, failed
+
+
+def _mcse_gate(x, exact):
+    """(mean, MCSE, ok): the draws' mean of each coordinate of `x` (n, C,
+    k) within ZOO_MCSE_GATE MCSEs (sd/√ESS) of `exact`."""
+    from advancedhmc_torch.diagnostics import effective_sample_size
+
+    x = x.double()
+    ess = effective_sample_size(x)
+    mean = x.mean((0, 1))
+    mcse = x.std((0, 1)) / torch.sqrt(ess)
+    exact = torch.as_tensor(exact, dtype=torch.float64, device=x.device)
+    ok = bool(((mean - exact).abs() <= ZOO_MCSE_GATE * mcse).all())
+    return mean.tolist(), mcse.tolist(), ok
+
+
+def phase_zoo(seed):
+    """16d: the zoo's value+grad check, then short `NUTS(...).sample` runs
+    on the step path, every kernel's count set to 0 just before each run
+    and read just after: gdemo against GDEMO_MEAN, the mixture's mean, the
+    eight schools and banana finite (divergence reported), German credit
+    (K1 narrow, p = 24) against the JAX package's posterior."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.models.gdemo import constrain
+
+    check, failed = _zoo_check(seed)
+    cfg = ah.NUTS(ZOO_DELTA, max_depth=ZOO_DEPTH)
+    means, sds, weights = ZOO_MIXTURE
+    mu = np.asarray(means)
+    runs = {
+        "gdemo": (ah.gdemo("cuda"), 2),
+        "gaussian_mixture": (ah.gaussian_mixture(means, sds, weights,
+                                                 device="cuda"), 2),
+        "eight_schools": (ah.eight_schools(device="cuda"), 10),
+        "banana": (ah.banana(device="cuda"), 2),
+        "german_credit_logistic": (ah.german_credit_logistic(
+            device="cuda"), 25),
+    }
+    out = {}
+    for k, (name, (tgt, dim)) in enumerate(runs.items()):
+        tgt, by_chains = count_by_chains(tgt)
+        th0 = torch.as_tensor(0.1 * np.random.default_rng(seed + k).normal(
+            size=(ZOO_CHAINS, dim)), dtype=torch.float32, device="cuda")
+        res, wall, calls, counts = _timed_run(by_chains, lambda: cfg.sample(
+            torch.Generator(device="cuda").manual_seed(seed + 170 + k), tgt,
+            th0, ZOO_WARMUP + ZOO_DRAWS, n_adapts=ZOO_WARMUP,
+            drop_warmup=True, device="cuda"))
+        th, st = res.thetas, res.stats
+        row = {"wall_s": wall, "warmup_s": res.timings["warmup_s"],
+               "draws_s": res.timings["draws_s"],
+               "accept_mean": float(st["acceptance_rate"].double().mean()),
+               "divergence_rate": float(
+                   st["numerical_error"].double().mean()),
+               "mean_tree_depth": float(st["tree_depth"].double().mean()),
+               "value_grad_calls": sum(calls.values()),
+               "k1_launches": counts["fused_logistic_value_grad"]}
+        gates = {"draws finite, shape": tuple(th.shape) == (
+            ZOO_DRAWS, ZOO_CHAINS, dim) and bool(torch.isfinite(th).all())}
+        if name == "gdemo":
+            row["mean"], row["mcse"], ok = _mcse_gate(constrain(th),
+                                                      ah.GDEMO_MEAN)
+            gates[f"mean (s, m) within {ZOO_MCSE_GATE} MCSE of GDEMO_MEAN"] \
+                = ok
+        elif name == "gaussian_mixture":
+            exact = (np.asarray(weights)[:, None] * mu).sum(0)
+            row["mean"], row["mcse"], ok = _mcse_gate(th, exact)
+            gates[f"mean within {ZOO_MCSE_GATE} MCSE of {exact.tolist()}"] \
+                = ok
+        elif name == "german_credit_logistic":
+            moments, mcse, _ = _wide_moments(th)
+            row.update(moments, mcse=mcse)
+            ref, _ = wide_reference(GERMAN_REF_RUNS)
+            for m in WIDE_MOMENTS:
+                r = ref[m]
+                tol = ZOO_MCSE_GATE * math.hypot(r["mcse"], mcse[m]) \
+                    + WIDE_K_RUNS * r["sd_between_runs"]
+                gates[f"|{m} - JAX's {r['mean']:.5f}| <= {tol:.5f}"] = \
+                    abs(moments[m] - r["mean"]) <= tol
+            gates["k1 launches = value+grad calls"] = \
+                row["k1_launches"] == row["value_grad_calls"] > 0
+        else:
+            gates["k1 not launched"] = row["k1_launches"] == 0
+        log(f"# 16d {name}: {ZOO_CHAINS} chains, warmup "
+            f"{row['warmup_s']:.1f} s, draws {row['draws_s']:.1f} s, accept "
+            f"{row['accept_mean']:.4f}, divergence share "
+            f"{row['divergence_rate']:.5f}, depth "
+            f"{row['mean_tree_depth']:.3f}" + (
+                f", mean {row['mean']} (MCSE {row['mcse']})"
+                if "mean" in row else ""))
+        for g, ok in gates.items():
+            log(f"# gate 16d {name} {g}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{name}: {g}")
+        out[name] = row
+        del res, th, st
+    log(json.dumps({"zoo": out, "zoo_check": check}))
+    if failed:
+        raise RuntimeError(f"phase 16d gates failed: {failed}")
+    return out, check
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2887,7 +3333,7 @@ def main(argv=None):
     out = phase_results(res, launches, wall, args.seed, iters)
     log(f"# main path: warmup {out['warmup_s']:.1f} s, draws "
         f"{out['draws_s']:.1f} s, K1 launches {launches}")
-    phase_pair_turns(res)
+    turns = phase_pair_turns(res)
     phase_profile(res)
     mega = phase_megakernel(res, out)
     k2_rows = [dict(case=f"logistic C={N_CHAINS} T={MEGA_T} "
@@ -2902,6 +3348,8 @@ def main(argv=None):
     fs = res.final_state
     warmed = (fs.adapt.da.eps.clone(), fs.metric.m_inv.clone(),
               fs.z.theta[:STATIC_CHAINS].clone())
+    # phase 16b: its final ε, M⁻¹ and all 32768 positions
+    main_state = fs
     del res, fs
     defaults, k1_by_chains_defaults = phase_defaults(args.seed)
     wide_rows, wide_err, wide_launched = phase_wide_k1(MODE_F32)
@@ -2925,6 +3373,18 @@ def main(argv=None):
         {k: {f: v[f] for f in ("warmup_s", "draws_s", "accept_mean",
                                "k1_launches")}
          for k, v in mm.items()}))
+    t16 = time.perf_counter()
+    nc = phase_nc(args.seed)
+    criteria = phase_criteria(main_state, out, turns)
+    del main_state
+    strict_slice = phase_strict_slice(args.seed)
+    zoo, _ = phase_zoo(args.seed)
+    log(f"# phase 16 took {time.perf_counter() - t16:.1f} s: " + json.dumps(
+        {"16a": {f: nc[f] for f in ("warmup_s", "draws_s",
+                                     "effective_samples_per_s_per_chip")},
+         "16b": {k: v["draws_s"] for k, v in criteria.items()},
+         "16c": {f: strict_slice[f] for f in ("warmup_s", "draws_s")},
+         "16d": {k: v["wall_s"] for k, v in zoo.items()}}))
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
@@ -2946,6 +3406,14 @@ def main(argv=None):
                                   for k, v in mm.items()},
         "calls_metric_paths_by_chains": {k: v["k1_calls_by_chains"]
                                          for k, v in mm.items()},
+        "launches_nc": nc["k1_launches"],
+        "calls_nc_by_chains": nc["k1_calls_by_chains"],
+        "nc_max_abs_err": nc["k1_check_max_abs_err"],
+        "launches_criteria_paths": {
+            **{k: v["k1_launches"] for k, v in criteria.items()},
+            "16c strict + slice": strict_slice["k1_launches"],
+            "16d german_credit_logistic":
+                zoo["german_credit_logistic"]["k1_launches"]},
         "max_abs_err": k1_err,
         "max_err": k1_err,
         "ms": k1_row["ms"],

@@ -636,3 +636,83 @@ def test_dense_metric_sample_runs_k1_and_keeps_factors_on_card():
             / torch.linalg.matrix_norm(m_inv)
         assert float(err.max()) <= 1e-4
         assert bool((torch.linalg.eigvalsh(m_inv) > 0).all())
+
+
+@pytest.mark.gpu
+def test_nc_model_through_k1_matches_its_plain_route_on_card():
+    """The non-centred logistic on the card takes K1 (one launch a
+    value+grad) at θ' = (log σ, σ·β̃); its value+grad agree with the
+    model's analytic route in float32 (the route's plain version) and in
+    float64, within 1e-4 of the largest magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from unittest import mock
+
+    from advancedhmc_torch.models import logistic as lg
+
+    t32 = lg.hierarchical_logistic_nc(n=1000, p=99, device="cuda")
+    t64 = lg.hierarchical_logistic_nc(n=1000, p=99, dtype=torch.float64,
+                                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for c in (4096, 13, 1):
+        th = torch.randn(c, 100, generator=gen, device="cuda")
+        th[:, 0] = -0.7 + 0.1 * th[:, 0]
+        before = k1.logistic_value_grad.launches
+        lp, g = t32.logdensity_and_grad(th)
+        assert k1.logistic_value_grad.launches == before + 1
+        with mock.patch.object(lg, "kernel_route", lambda t: False):
+            lp_p, g_p = t32.logdensity_and_grad(th)
+        assert k1.logistic_value_grad.launches == before + 1
+        lp_r, g_r = t64.logdensity_and_grad(th.double())
+        for lpx, gx in ((lp, g), (lp_p, g_p)):
+            assert float((gx.double() - g_r).abs().max()) <= \
+                1e-4 * float(g_r.abs().max())
+            assert float((lpx.double() - lp_r).abs().max()) <= \
+                1e-4 * float(lp_r.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("crit,ts", [
+    ("ClassicNoUTurn", "multinomial"), ("ClassicNoUTurn", "slice"),
+    ("GeneralisedNoUTurn", "slice"),
+    ("StrictGeneralisedNoUTurn", "multinomial"),
+    ("StrictGeneralisedNoUTurn", "slice")])
+def test_criteria_pair_transition_is_bitwise_the_single_one_on_card(crit,
+                                                                    ts):
+    """The leaf-pair body with each new (criterion, sampler) pair on the
+    card: one transition of 256 chains of the 100-D logistic (K1 at every
+    leaf) gives the single-leaf body's bits on every stack slot a check
+    reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import advancedhmc_torch as ah
+    from advancedhmc_torch import nuts
+
+    target = hierarchical_logistic(n=1000, p=99, dtype=torch.float32,
+                                   device="cuda")
+    h = ah.Hamiltonian(metric=ah.make_metric("diagonal", 100, device="cuda"),
+                       target=target)
+    traj = ah.Trajectory(
+        ah.Leapfrog(step_size=torch.tensor(0.01, device="cuda")),
+        getattr(ah, crit)(max_depth=6), ts)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(0).normal(size=(256, 100)),
+        dtype=torch.float32, device="cuda")
+    z0 = h.init_phasepoint(torch.Generator(device="cuda").manual_seed(1),
+                           theta0)
+    (z1, s1, d1), (z2, s2, d2) = [
+        nuts.nuts_transition(torch.Generator(device="cuda").manual_seed(2),
+                             h, traj, z0, return_debug=True, _pair=pair)
+        for pair in (False, True)]
+    n_slots = d1["ck_r"].shape[1] - 1
+    for k in d1:
+        a, b = d1[k], d2[k]
+        if k.startswith(("ck_", "sck_")):
+            a, b = a[:, :n_slots], b[:, :n_slots]
+        if isinstance(a, ah.PhasePoint):
+            assert torch.equal(a.theta, b.theta) and torch.equal(a.r, b.r), k
+        else:
+            assert torch.equal(a, b), k
+    assert all(torch.equal(s1[k], s2[k]) for k in s1)
+    assert torch.equal(z1.theta, z2.theta)
+    assert float(s1["tree_depth"].double().mean()) >= 2.0

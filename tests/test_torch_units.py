@@ -269,7 +269,6 @@ def test_unported_options_raise_not_implemented():
     rank_update = ah.make_metric("rank_update", DIM, torch.float64,
                                  device="cpu", rank=2)
     cases = [
-        lambda: ah.Trajectory(lf, ah.GeneralisedNoUTurn(), ts_kind="slice"),
         # the rank-update metric and the low-rank estimator per chain
         lambda: rank_update.per_chain(4),
         lambda: ah.AdaptState.init(ah.AdaptorConfig(mm_kind="lowrank"), DIM,
@@ -292,10 +291,6 @@ def test_unported_options_raise_not_implemented():
                           adaptor=ah.AdaptorConfig(), cross_chain=True,
                           fuse_draws=4, fuse_warmup=True,
                           fuse_warmup_block=4, mesh=object(), device="cpu"),
-        # the other no-U-turn criteria, by name and from the JAX package
-        lambda: ah.ClassicNoUTurn(),
-        lambda: ah.StrictGeneralisedNoUTurn(max_depth=6),
-        lambda: convert.criterion(aj.ClassicNoUTurn()),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError,
