@@ -3,25 +3,26 @@
 The JAX package `advancedhmc_tpu` is the reference; this package carries its
 main path on one NVIDIA GPU (Hopper): NUTS (classic, generalised or strict
 no-U-turn, multinomial or slice; unit, diagonal, dense or rank-update
-metric) with per-chain
-or cross-chain Stan adaptation (Welford variance or covariance, low-rank,
-nutpie), step by step or fused, with every option of JAX `sample` but
-`mesh`; static HMC (endpoint or multinomial sampling, fixed steps or
-integration time), the jittered, tempered, composed and external-solver
-integrators, partial momentum refreshment and the NUTS/HMC/HMCDA
-constructors; ChEES-HMC (`sample_chees`); on the JAX package's model zoo
-(`models`: the hierarchical logistic, centred with a float32 or bfloat16
-design or non-centred, the Gaussians, Neal's funnel, banana, eight
-schools, gdemo, the mixtures, the spiral, the declarative distributions)
-and any transformed (`transforms`) or structured (`target_from_pytree`)
-target, with
-the likelihood value+grad in a hand-written CUDA kernel
+metric) with per-chain or cross-chain Stan adaptation (Welford variance
+or covariance, low-rank, nutpie; the transient depth caps), step by step
+or fused, with every option of JAX `sample` but `mesh`, and the ragged
+draw mode (`fused_draw_phase_ragged`); the diagnostics (bulk, tail and
+ragged ESS, R̂) and `SampleResult`'s exports; static HMC (endpoint or
+multinomial sampling, fixed steps or integration time), the jittered,
+tempered, composed and external-solver integrators, partial momentum
+refreshment and the NUTS/HMC/HMCDA constructors; ChEES-HMC
+(`sample_chees`); on the JAX package's model zoo (`models`: the
+hierarchical logistic, centred with a float32 or bfloat16 design or
+non-centred, the Gaussians, Neal's funnel, banana, eight schools, gdemo,
+the mixtures, the spiral, the declarative distributions) and any
+transformed (`transforms`) or structured (`target_from_pytree`) target,
+with the likelihood value+grad in a hand-written CUDA kernel
 (`ops/fused_logistic.py`, `csrc/fused_logistic.cu`), and the JAX package's
 two other kernels: the NUTS megakernel on block targets
 (`ops/fused_nuts_kernel.py`, `csrc/fused_nuts.cu`) and the diagonal-Gaussian
 leapfrog (`ops/fused_leapfrog.py`, `csrc/fused_leapfrog.cu`). Module names
-follow the JAX package. Entry points run on CUDA unless `device="cpu"` is passed; the
-kernels are built on first use.
+follow the JAX package. Entry points run on CUDA unless `device="cpu"` is
+passed; the kernels are built on first use.
 """
 
 from .adaptation import (
@@ -42,6 +43,7 @@ from .adaptation import (
     adapt_step_masked,
     da_update,
     stan_schedule,
+    transient_depth_caps,
 )
 from .adaptation.chees import CheesConfig, CheesState, chees_update, \
     halton_sequence
@@ -52,17 +54,22 @@ from .diagnostics import (
     OnlineMoments,
     ebfmi,
     effective_sample_size,
+    effective_sample_size_ragged,
     ess_bulk,
+    ess_tail,
     online_init,
     online_summary,
     online_update,
     rhat,
+    split_rhat,
     summarize,
 )
+from .experimental import fused_draw_phase_ragged
 from .hamiltonian import FullMomentumRefreshment, Hamiltonian, \
     PartialMomentumRefreshment, PhasePoint
 from .integrators import ComposedLeapfrog, JitteredLeapfrog, Leapfrog, \
-    SolverIntegrator, TemperedLeapfrog, leapfrog_step, leapfrog_steps
+    SolverIntegrator, TemperedLeapfrog, leapfrog_step, leapfrog_steps, \
+    leapfrog_trajectory
 from .kinetic import GaussianKinetic
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, Metric, \
     RankUpdateEuclideanMetric, UnitEuclideanMetric, make_metric
@@ -158,13 +165,16 @@ __all__ = [
     "depth_cap_schedule",
     "ebfmi",
     "effective_sample_size",
+    "effective_sample_size_ragged",
     "eight_schools",
     "ess_bulk",
+    "ess_tail",
     "fanout_warmup_state",
     "find_good_stepsize",
     "find_good_stepsizes",
     "funnel_nc_to_centered",
     "fused_draw_phase",
+    "fused_draw_phase_ragged",
     "fused_warmup_phase",
     "fused_warmup_phase_crosschain",
     "gaussian_mixture",
@@ -177,6 +187,7 @@ __all__ = [
     "init_state",
     "leapfrog_step",
     "leapfrog_steps",
+    "leapfrog_trajectory",
     "make_chees_draw_step",
     "make_chees_step",
     "make_integrator",
@@ -195,10 +206,12 @@ __all__ = [
     "sample_chees",
     "sample_step",
     "spiral",
+    "split_rhat",
     "stan_schedule",
     "std_gaussian",
     "summarize",
     "target_from_pytree",
+    "transient_depth_caps",
     "transition_static",
     "two_gaussian_mixtures_2d",
 ]

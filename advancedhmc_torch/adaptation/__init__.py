@@ -1,6 +1,7 @@
 """Adaptation layer: dual averaging, the mass-matrix estimators (Welford
 variance and covariance, low-rank, nutpie, unit; the naive oracles), the
-Stan window schedule and ChEES's trajectory-length adaptation (counterpart
+Stan window schedule, its transient depth caps, the fixed and manual
+step sizes and ChEES's trajectory-length adaptation (counterpart
 of `advancedhmc_tpu/adaptation`)."""
 
 from .chees import CheesConfig, CheesState, chees_update, halton_sequence
@@ -31,8 +32,10 @@ from .stan import (
     adapt_step_batch,
     adapt_step_masked,
     stan_schedule,
+    transient_depth_caps,
 )
-from .stepsize import DualAveragingConfig, DualAveragingState, da_update
+from .stepsize import DualAveragingConfig, DualAveragingState, \
+    FixedStepSize, ManualSSAdaptor, da_update
 
 __all__ = [
     "AdaptState",
@@ -41,7 +44,9 @@ __all__ = [
     "CheesState",
     "DualAveragingConfig",
     "DualAveragingState",
+    "FixedStepSize",
     "MASSMATRIX",
+    "ManualSSAdaptor",
     "MM_LOWRANK",
     "MM_NUTPIE",
     "MM_UNIT",
@@ -66,4 +71,5 @@ __all__ = [
     "da_update",
     "halton_sequence",
     "stan_schedule",
+    "transient_depth_caps",
 ]

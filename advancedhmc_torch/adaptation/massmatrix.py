@@ -8,7 +8,7 @@ Stan's shrinkage estimate n/((n+5)(n-1))·M2 + 1e-3·5/(n+5)·I and n_min=10.
 exact parallel-Welford combine (the cross-chain path); `push` adds one
 sample to each chain's own moments (the per-chain path, the JAX package's
 vmapped `push`): n is then (C,) and the moments (C, dim) or, for the
-covariance, (C, dim, dim). The low-rank estimator is shared only.
+covariances, (C, dim, dim).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..metrics import symmetrised
-from ..utils import resolve_device, roadmap
+from ..utils import resolve_device
 
 N_MIN_DEFAULT = 10
 SHRINKAGE_EPS = 1.0e-3
@@ -189,40 +189,38 @@ class WelfordCovState:
 class LowRankCovState:
     """Rank-preserving low-rank + diagonal covariance estimator for the
     `RankUpdateEuclideanMetric` (M⁻¹ = diag(A) + B·D·Bᵀ), shared by the
-    chains. Welford covariance moments, and an estimate step that takes
+    chains or per chain (n (C,), each other leaf with a leading chain
+    axis). Welford covariance moments, and an estimate step that takes
     the top-k eigenpairs of the diagonally whitened covariance:
 
         Σ = shrunk(M2);  A = diag(Σ);  S = A^{-1/2} Σ A^{-1/2}
         eigh(S) → (λ, V);  keep the k λ furthest from 1 (|log λ|)
         B = √A · V_k,  D = diag(λ_k − 1)
 
-    with `n_refine` passes refitting A to the diagonal of Σ − B·D·Bᵀ. The
-    estimate is the (a_diag, b, d) triple that
-    `RankUpdateEuclideanMetric.renew` takes."""
+    with `n_refine` passes refitting A to the diagonal of Σ − B·D·Bᵀ (per
+    chain, one batched `eigh` a pass). The estimate is the (a_diag, b, d)
+    triple that `RankUpdateEuclideanMetric.renew` takes."""
 
-    n: torch.Tensor        # sample count (int32), ()
-    mean: torch.Tensor     # (dim,)
-    m2: torch.Tensor       # (dim, dim)
-    a_diag: torch.Tensor   # (dim,) current diagonal of M⁻¹
-    b: torch.Tensor        # (dim, k)
-    d: torch.Tensor        # (k,) diagonal of D
+    n: torch.Tensor        # sample count (int32), () or per chain (C,)
+    mean: torch.Tensor     # (dim,) or (C, dim)
+    m2: torch.Tensor       # (dim, dim) or (C, dim, dim)
+    a_diag: torch.Tensor   # (dim,) current diagonal of M⁻¹, or (C, dim)
+    b: torch.Tensor        # (dim, k) or (C, dim, k)
+    d: torch.Tensor        # (k,) diagonal of D, or (C, k)
     rank: int = 8
     n_min: int = N_MIN_DEFAULT
 
     @classmethod
     def init(cls, dim, dtype=torch.float32, device=None,
              n_min=N_MIN_DEFAULT, rank=8, n_chains=None):
-        """Empty moments on `device` (None means CUDA), shared; the rank
-        is at most `dim`."""
-        if n_chains is not None:
-            raise NotImplementedError(
-                "the low-rank estimator per chain is not ported yet; adapt "
-                "across chains (cross_chain=True) " + roadmap("surface"))
+        """Empty moments on `device` (None means CUDA), shared or, given
+        `n_chains`, one set per chain; the rank is at most `dim`."""
         rank = min(rank, dim)
-        n, mean, m2 = _init_moments(dim, dtype, device, None, True)
+        n, mean, m2 = _init_moments(dim, dtype, device, n_chains, True)
+        lead = mean.shape[:-1]
         return cls(n=n, mean=mean, m2=m2, a_diag=torch.ones_like(mean),
-                   b=mean.new_zeros((dim, rank)), d=mean.new_zeros(rank),
-                   rank=rank, n_min=n_min)
+                   b=mean.new_zeros(lead + (dim, rank)),
+                   d=mean.new_zeros(lead + (rank,)), rank=rank, n_min=n_min)
 
     def push(self, x):
         return _cov_push(self, x)
@@ -231,33 +229,38 @@ class LowRankCovState:
         return _cov_push_batch(self, xs)
 
     def update_estimate(self, n_refine: int = 3):
-        ok = self.n >= self.n_min
         dim = self.m2.shape[-1]
         eye = torch.eye(dim, dtype=self.m2.dtype, device=self.m2.device)
         sigma = _shrunk(self.n, self.m2, eye)
         # n ∈ {0, 1} gives NaN (inf·0 in the shrinkage factor): masked out
         # by `ok` below, but eigh must still see finite input
         sigma = torch.where(torch.isfinite(sigma), sigma, eye)
-        sig_diag = torch.clamp(torch.diagonal(sigma), min=1e-10)
+        sig_diag = torch.clamp(torch.diagonal(sigma, dim1=-2, dim2=-1),
+                               min=1e-10)
 
         def factor(a):
             inv_sqrt_a = 1.0 / torch.sqrt(a)
-            s = inv_sqrt_a[:, None] * sigma * inv_sqrt_a[None, :]
+            s = inv_sqrt_a[..., :, None] * sigma * inv_sqrt_a[..., None, :]
             lam, v = torch.linalg.eigh(symmetrised(s))
             lam = torch.clamp(lam, min=1e-8)
             score = torch.abs(torch.log(lam))
-            idx = torch.argsort(-score, stable=True)[:self.rank]
-            return torch.sqrt(a)[:, None] * v[:, idx], lam[idx] - 1.0
+            idx = torch.argsort(-score, dim=-1, stable=True)[..., :self.rank]
+            v_k = torch.gather(v, -1, idx[..., None, :].expand(
+                v.shape[:-1] + idx.shape[-1:]))
+            return (torch.sqrt(a)[..., :, None] * v_k,
+                    torch.gather(lam, -1, idx) - 1.0)
 
         a = sig_diag
         b_new, d_new = factor(a)
         for _ in range(n_refine):
-            low_diag = torch.sum(b_new * b_new * d_new[None, :], 1)
+            low_diag = torch.sum(b_new * b_new * d_new[..., None, :], -1)
             a = torch.clamp(sig_diag - low_diag, min=1e-10)
             b_new, d_new = factor(a)
+        ok = _per_n(self.n >= self.n_min, self.a_diag).bool()
         return dataclasses.replace(
             self, a_diag=torch.where(ok, a, self.a_diag),
-            b=torch.where(ok, b_new, self.b), d=torch.where(ok, d_new, self.d))
+            b=torch.where(ok[..., None], b_new, self.b),
+            d=torch.where(ok, d_new, self.d))
 
     def reset(self):
         return _reset(self)

@@ -1,13 +1,14 @@
-"""Adaptor configuration, composite state, Stan's windowed schedule and the
-adaptation step.
+"""Adaptor configuration, composite state, Stan's windowed schedule, its
+transient depth caps and the adaptation step.
 
-PyTorch counterpart of `advancedhmc_tpu/adaptation/stan.py:48,76,94,161,207`.
-The window schedule is computed on the host as boolean numpy arrays indexed
-by iteration, so the sampler decides on the host which adaptation steps run:
-`adapt_step` and `adapt_step_batch` take one iteration's flags as Python
-booleans where the JAX functions mask with traced ones. Inside the fused
-loop each chain is at its own iteration: `adapt_step_masked` takes each
-chain's flags as (C,) boolean tensors and masks, as the JAX function does.
+PyTorch counterpart of `advancedhmc_tpu/adaptation/stan.py:48,76,94,129,
+161,207`. The window schedule is computed on the host as boolean numpy
+arrays indexed by iteration, so the sampler decides on the host which
+adaptation steps run: `adapt_step` and `adapt_step_batch` take one
+iteration's flags as Python booleans where the JAX functions mask with
+traced ones. Inside the fused loop each chain is at its own iteration:
+`adapt_step_masked` takes each chain's flags as (C,) boolean tensors and
+masks, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -80,8 +81,8 @@ class AdaptState:
     @classmethod
     def init(cls, cfg: AdaptorConfig, dim: int, eps0, dtype=torch.float32):
         """Shared state from a scalar ε, or one state per chain (dual
-        averaging and the estimator's moments) from a (C,) ε. The low-rank
-        estimator (at rank `cfg.mm_rank`) is shared only."""
+        averaging and the estimator's moments) from a (C,) ε; the low-rank
+        estimator at rank `cfg.mm_rank`."""
         eps0 = torch.as_tensor(eps0, dtype=dtype)
         n_chains = eps0.shape[0] if eps0.dim() else None
         kw = {"rank": cfg.mm_rank} if cfg.mm_kind == MM_LOWRANK else {}
@@ -118,6 +119,24 @@ def stan_schedule(
     in_window = (i >= window_start) & (i <= window_end)
     is_split = np.isin(i, np.asarray(splits, dtype=np.int64))
     return in_window, is_split
+
+
+def transient_depth_caps(n_adapts: int, max_depth: int, cap: int,
+                         init_len: int = 40, post_len: int = 16,
+                         init_buffer: int = 75, term_buffer: int = 50,
+                         window_size: int = 25) -> np.ndarray:
+    """The transient-gated warmup depth caps ((n_adapts,) int32): `cap`
+    for the first `init_len` iterations and for the `post_len` iterations
+    after each Stan window reset, where dual averaging's ε transients grow
+    the deepest trees, and `max_depth` elsewhere, so the equilibrium
+    phases that set the final ε and M⁻¹ run at full depth. Feed it to
+    `fused_warmup_phase_crosschain(..., depth_caps=...)`."""
+    _, w_end = stan_schedule(n_adapts, init_buffer, term_buffer, window_size)
+    caps = np.full(n_adapts, max_depth, np.int32)
+    caps[:min(init_len, n_adapts)] = cap
+    for r in np.nonzero(w_end)[0]:
+        caps[r + 1:r + 1 + post_len] = cap
+    return caps
 
 
 def adapt_flags(cfg: AdaptorConfig, n_adapts: int, n_total: int):

@@ -1,7 +1,8 @@
 """Nesterov dual-averaging step-size adaptation.
 
-PyTorch counterpart of `advancedhmc_tpu/adaptation/stepsize.py:19,28,103`,
-with the Stan defaults γ=0.05, t₀=10, κ=0.75. The state is a dataclass of
+PyTorch counterpart of `advancedhmc_tpu/adaptation/stepsize.py:19,28,57,82,
+103`, with the Stan defaults γ=0.05, t₀=10, κ=0.75, and the fixed and
+manually set step sizes. The state is a dataclass of
 tensors on the sampler's device, 0-d (one state shared by the chains) or
 (C,) (one per chain; every operation is elementwise), so an update never
 waits on the host.
@@ -45,6 +46,44 @@ class DualAveragingState:
     def finalize(self):
         """ϵ ← exp(x̄)."""
         return dataclasses.replace(self, eps=torch.exp(self.x_bar))
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedStepSize:
+    """A step-size "adaptor" that never changes ϵ: each update verb is the
+    identity. A run at a fixed ϵ is `AdaptorConfig(kind="none")` with
+    `init_eps`; this state is for adaptors composed by hand."""
+
+    eps: torch.Tensor
+
+    @classmethod
+    def init(cls, eps):
+        return cls(eps=torch.as_tensor(eps))
+
+    def update(self, alpha):
+        return self
+
+    def reset(self):
+        return self
+
+    def finalize(self):
+        return self
+
+
+class ManualSSAdaptor:
+    """A step size set by hand: `set(eps)` records a new ϵ and `state` is
+    the `FixedStepSize` holding it. For a running sampler,
+    `HMCState.with_step_size(eps)` writes ϵ into the state directly."""
+
+    def __init__(self, eps):
+        self.eps = torch.as_tensor(eps)
+
+    def set(self, eps):
+        self.eps = torch.as_tensor(eps)
+
+    @property
+    def state(self):
+        return FixedStepSize.init(self.eps)
 
 
 def da_update(cfg: DualAveragingConfig, st: DualAveragingState, alpha):

@@ -261,4 +261,4 @@ def sample_chees(generator, target, init_theta, n_samples: int,
         stats = {k: v[n_adapts:] for k, v in stats.items()}
     return SampleResult(thetas=thetas, stats=stats,
                         warmup_stats=warmup_stats, final_state=carry,
-                        timings=timings)
+                        timings=timings, target=target)

@@ -13,8 +13,8 @@ import numpy as np
 import torch
 
 from .adaptation import AdaptState, CheesState, DualAveragingState, \
-    LowRankCovState, NutpieVarState, UnitMassMatrixState, WelfordCovState, \
-    WelfordVarState
+    FixedStepSize, LowRankCovState, NutpieVarState, UnitMassMatrixState, \
+    WelfordCovState, WelfordVarState
 from .diagnostics import OnlineMoments
 from .hamiltonian import FullMomentumRefreshment, PartialMomentumRefreshment, \
     PhasePoint
@@ -57,9 +57,10 @@ def dense_metric(m, device=None) -> DenseEuclideanMetric:
 
 
 def rank_update_metric(m, device=None) -> RankUpdateEuclideanMetric:
-    """A rank-update metric with the JAX package's own Q and V factors:
-    Q's columns are unique only up to sign, so only the carried factors
-    map the same normals to the same momenta."""
+    """A rank-update metric, shared or per chain (the JAX package's metric
+    vmapped: every leaf with a leading chain axis), with the JAX package's
+    own Q and V factors: Q's columns are unique only up to sign, so only
+    the carried factors map the same normals to the same momenta."""
     return RankUpdateEuclideanMetric(*(tensor(getattr(m, f), device) for f in
                                        ("a_diag", "b", "d", "q_full",
                                         "v_upper")))
@@ -99,10 +100,17 @@ def welford_cov_state(mm, device=None) -> WelfordCovState:
 
 
 def lowrank_state(mm, device=None) -> LowRankCovState:
+    """A low-rank estimator, shared or per chain (n (C,) and each moment
+    and factor with a leading chain axis)."""
     return LowRankCovState(
         *(tensor(getattr(mm, f), device) for f in
           ("n", "mean", "m2", "a_diag", "b", "d")),
         rank=int(mm.rank), n_min=int(mm.n_min))
+
+
+def fixed_step_size(fss, device=None) -> FixedStepSize:
+    """A `FixedStepSize` holding the same ϵ (a scalar or one a chain)."""
+    return FixedStepSize(eps=tensor(fss.eps, device))
 
 
 def nutpie_state(mm, device=None) -> NutpieVarState:

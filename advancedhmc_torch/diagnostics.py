@@ -1,8 +1,10 @@
-"""Diagnostics: pooled bulk ESS, rank-normalised bulk ESS and split-R̂, the
-storage-free online summary and the end-of-run report.
+"""Diagnostics: pooled bulk ESS, the ragged per-chain ESS, rank-normalised
+bulk ESS, tail ESS and split-R̂, the storage-free online summary and the
+end-of-run report.
 
-PyTorch counterpart of `advancedhmc_tpu/diagnostics.py:16,38,162,185,245,
-311`. Draws are (n_samples, n_chains, dim); the ESS and R̂ are computed in
+PyTorch counterpart of `advancedhmc_tpu/diagnostics.py:16,38,83,162,170,
+185,245,311`. Draws are (n_samples, n_chains, dim) (the ragged ESS takes
+(n_chains, T, dim) and the chains' counts); the ESS and R̂ are computed in
 float64 on the draws' device, with FFT autocovariances (`torch.fft`). The
 online summary (`collect="online"`) keeps per-chain running moments and a
 window of lagged products in the draws' dtype, as the JAX package does.
@@ -46,15 +48,57 @@ def effective_sample_size(x):
         var_plus = var_plus + torch.var(x.mean(0), 0, correction=1)
     rho = 1.0 - (mean_var[None] - acov.mean(1)) / var_plus[None]
 
-    # Geyer: P_k = rho_2k + rho_2k+1, made monotone by a running minimum,
-    # summed while positive (a NaN pair ends the sum, as in the JAX scan).
-    n_pairs = n // 2
-    pair = rho[0:2 * n_pairs:2] + rho[1:2 * n_pairs:2]
-    mono = torch.cummin(pair, 0).values
-    alive = torch.cumprod(((pair > 0) & (mono > 0)).to(torch.int32), 0) > 0
-    tau = -1.0 + 2.0 * torch.sum(torch.where(alive, mono, 0.0), 0)
-    tau = torch.clamp(tau, min=1.0 / math.log10(n * m))
+    tau = torch.clamp(_geyer_tau(rho, 0), min=1.0 / math.log10(n * m))
     return n * m / tau
+
+
+def _geyer_tau(rho, axis):
+    """τ = −1 + 2 Σ P_k by Geyer's initial monotone sequence along `axis`
+    of the autocorrelations `rho`: P_k = ρ_2k + ρ_2k+1, made monotone by a
+    running minimum, summed while positive (a NaN pair ends the sum, as in
+    the JAX scan)."""
+    n_pairs = rho.shape[axis] // 2
+    pair = (rho.narrow(axis, 0, 2 * n_pairs)
+            .unflatten(axis, (n_pairs, 2)).sum(axis + 1))
+    mono = torch.cummin(pair, axis).values
+    alive = torch.cumprod(((pair > 0) & (mono > 0)).to(torch.int32),
+                          axis) > 0
+    return -1.0 + 2.0 * torch.sum(torch.where(alive, mono, 0.0), axis)
+
+
+def effective_sample_size_ragged(x, counts):
+    """Per-chain bulk ESS summed over chains, for ragged draws.
+
+    `x` (n_chains, T, dim): chain c's draws are rows [0, counts[c]);
+    `counts` (n_chains,) ints. Returns (dim,): the sum over chains of each
+    chain's Geyer ESS on its own rows (no pooling of the correlograms and
+    no between-chain term). A chain with one draw or none, or with no
+    variance, adds 0.
+    """
+    x = torch.as_tensor(x).to(torch.float64)
+    c, t_max, _ = x.shape
+    counts = torch.as_tensor(counts, device=x.device)
+    cntf = counts.to(torch.float64)
+    mask = (torch.arange(t_max, device=x.device)[None]
+            < counts[:, None])[..., None]                      # (C, T, 1)
+    denom = torch.clamp(cntf, min=1.0)[:, None, None]
+    xc = torch.where(mask, x - torch.sum(torch.where(mask, x, 0.0), 1,
+                                         keepdim=True) / denom, 0.0)
+    nfft = 1
+    while nfft < 2 * t_max:
+        nfft *= 2
+    f = torch.fft.rfft(xc, n=nfft, dim=1)
+    acov = torch.fft.irfft(f * f.conj(), n=nfft, dim=1)[:, :t_max] / denom
+    var_c = acov[:, 0]                                         # (C, dim)
+    rho = acov / torch.clamp(var_c[:, None],
+                             min=torch.finfo(torch.float64).tiny)
+    # lags at or past a chain's count are exact zeros (zero-padded xc), so
+    # its monotone sum stops there at the latest
+    tau = torch.maximum(_geyer_tau(rho, 1), 1.0 / torch.log10(
+        torch.clamp(cntf, min=10.0))[:, None])
+    ess_c = torch.where((var_c > 0) & (counts[:, None] > 1),
+                        cntf[:, None] / tau, 0.0)
+    return torch.sum(ess_c, 0)
 
 
 def _rank_normalize(x):
@@ -70,6 +114,33 @@ def _rank_normalize(x):
 def ess_bulk(x):
     """Rank-normalized bulk ESS. x: (n, m, dim) → (dim,)."""
     return effective_sample_size(_rank_normalize(_as_draws(x)))
+
+
+def quantile0(x, q):
+    """The `q`-quantile along axis 0 with linear interpolation (numpy's
+    and `jnp.quantile`'s default method; NaN where a column holds one),
+    from two order statistics a column: torch.quantile refuses inputs of
+    more than 2^24 elements, which a long run's pooled draws exceed."""
+    n = x.shape[0]
+    pos = q * (n - 1)
+    lo, hi = math.floor(pos), math.ceil(pos)
+    w_hi = pos - lo
+    low = torch.kthvalue(x, lo + 1, 0).values
+    high = low if hi == lo else torch.kthvalue(x, hi + 1, 0).values
+    out = low * (1.0 - w_hi) + high * w_hi
+    return torch.where(torch.isnan(x).any(0), float("nan"), out)
+
+
+def ess_tail(x, prob: float = 0.05):
+    """Tail ESS: the smaller ESS of the two tail indicators I(x ≤ q_prob)
+    and I(x ≥ q_{1−prob}) (the indicators' ESS directly, not
+    rank-normalised). x: (n, m, dim) → (dim,)."""
+    x = _as_draws(x)
+    flat = x.reshape(-1, x.shape[-1])
+    q_lo, q_hi = quantile0(flat, prob), quantile0(flat, 1.0 - prob)
+    return torch.minimum(
+        effective_sample_size((x <= q_lo).to(x.dtype)),
+        effective_sample_size((x >= q_hi).to(x.dtype)))
 
 
 def _median0(x):
@@ -179,8 +250,8 @@ def online_summary(om: OnlineMoments):
 
 def summarize(result, verbose: bool = True):
     """End-of-run report: E-BFMI, mean acceptance and divergence rate per
-    chain, and the bulk ESS and R̂ of the draws (or the online summary's
-    ESS). The JAX report's tail ESS is not ported."""
+    chain, and the bulk and tail ESS and R̂ of the draws (or the online
+    summary's ESS)."""
     stats = result.stats
     report = {
         "ebfmi": ebfmi(stats["hamiltonian_energy"]),
@@ -191,6 +262,7 @@ def summarize(result, verbose: bool = True):
     }
     if result.thetas is not None:
         report["ess"] = ess_bulk(result.thetas)
+        report["ess_tail"] = ess_tail(result.thetas)
         report["rhat"] = rhat(result.thetas)
     elif result.online is not None:
         report["ess"] = result.online["ess"]

@@ -10,7 +10,9 @@ step_index=0, n_steps=1)`. Step sizes are scalars or one per chain (C,);
 a signed `eps` integrates backwards when negative.
 
 Plain `Leapfrog` draws nothing in `jitter` and has no tempering, so its
-step is the kick-drift-kick of `leapfrog_step` alone.
+step is the kick-drift-kick of `leapfrog_step` alone. `leapfrog_steps`
+integrates a batch of chains n steps, `leapfrog_trajectory` keeps every
+point of them.
 """
 
 from __future__ import annotations
@@ -204,3 +206,28 @@ def leapfrog_steps(integrator, h: Hamiltonian, z: PhasePoint, n_steps: int,
         z = select_phasepoint(~done, z_new, z)
         done = done | ~z_new.is_finite()
     return z
+
+
+def leapfrog_trajectory(integrator, h: Hamiltonian, z: PhasePoint,
+                        n_steps: int, fwd: bool = True):
+    """`n_steps` steps of `integrator` as `leapfrog_steps` takes them, with
+    every point kept: (the trajectory, a PhasePoint of (n_steps, C, …)
+    leaves, and the taken mask (n_steps, C)). A chain's steps after its
+    first non-finite point are untaken (they repeat that point); the
+    non-finite point itself is taken, and its −Inf log density weighs
+    nothing downstream."""
+    eps = torch.as_tensor(integrator.current_step_size)
+    eps = eps if fwd else -eps
+    done = torch.zeros(z.theta.shape[0], dtype=torch.bool,
+                       device=z.theta.device)
+    points, taken = [], []
+    for i in range(n_steps):
+        z_new = integrator.step(h, z, eps, step_index=i, n_steps=n_steps)
+        z = select_phasepoint(~done, z_new, z)
+        points.append(z)
+        taken.append(~done)
+        done = done | ~z_new.is_finite()
+    stacked = PhasePoint(*(torch.stack([getattr(p, f) for p in points])
+                           for f in ("theta", "r", "logdensity", "grad",
+                                     "neg_k")))
+    return stacked, torch.stack(taken)

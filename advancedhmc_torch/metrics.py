@@ -6,7 +6,7 @@ immutable dataclass of tensors; momenta carry a leading chain axis, so
 M⁻¹ is shared, (dim,), or per chain, (C, dim) (`per_chain`, the JAX
 package's metric broadcast along the chain axis): every operation
 broadcasts. A dense M⁻¹ is shared, (dim, dim), or per chain, (C, dim,
-dim); the rank-update metric (diag(A) + B·D·Bᵀ) is shared. Momenta are
+dim); the rank-update metric (diag(A) + B·D·Bᵀ) likewise. Momenta are
 drawn as standard normals z (C, dim) and mapped by
 `momentum_from_normals(z)`, so that a test can feed the JAX package's
 normals.
@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from .utils import resolve_device, roadmap
+from .utils import resolve_device
 
 
 class Metric:
@@ -241,28 +241,34 @@ class DenseEuclideanMetric(Metric):
 @dataclasses.dataclass(frozen=True)
 class RankUpdateEuclideanMetric(Metric):
     """M⁻¹ = diag(A) + B·D·Bᵀ (a Woodbury low-rank update; the Pathfinder
-    metric), shared by the chains. Momenta use the factorisation U = √A,
-    Q R = U⁻¹B (a complete QR), VᵀV = I + R D Rᵀ:
+    metric), shared by the chains or per chain (every leaf with a leading
+    chain axis: A (C, dim), B (C, dim, k), D (C, k, k)). Momenta use the
+    factorisation U = √A, Q R = U⁻¹B (a complete QR), VᵀV = I + R D Rᵀ:
     r = U⁻¹ Q [V⁻¹ z₁:ₖ ; zₖ₊₁:]."""
 
-    a_diag: torch.Tensor   # (dim,) positive diagonal A
-    b: torch.Tensor        # (dim, k)
-    d: torch.Tensor        # (k, k) symmetric
+    a_diag: torch.Tensor   # (dim,) positive diagonal A, or (C, dim)
+    b: torch.Tensor        # (dim, k), or (C, dim, k)
+    d: torch.Tensor        # (k, k) symmetric, or (C, k, k)
     q_full: torch.Tensor   # (dim, dim) orthogonal factor of qr(U⁻¹B)
     v_upper: torch.Tensor  # (k, k) upper Cholesky factor of I + R D Rᵀ
 
     @classmethod
     def create(cls, a_diag, b, d):
-        dim, k = b.shape
+        """The factorisation of (A, B, D), shared or, with a leading chain
+        axis on each, per chain (one batched QR and Cholesky)."""
+        dim, k = b.shape[-2:]
+        lead = a_diag.shape[:-1]
         if k == 0:
-            q_full = torch.eye(dim, dtype=a_diag.dtype, device=a_diag.device)
-            v_upper = a_diag.new_zeros((0, 0))
+            q_full = torch.eye(dim, dtype=a_diag.dtype,
+                               device=a_diag.device).expand(
+                                   lead + (dim, dim)).contiguous()
+            v_upper = a_diag.new_zeros(lead + (0, 0))
         else:
-            q_full, r = torch.linalg.qr(b / torch.sqrt(a_diag)[:, None],
+            q_full, r = torch.linalg.qr(b / torch.sqrt(a_diag)[..., None],
                                         mode="complete")
-            r = r[:k, :]
+            r = r[..., :k, :]
             inner = torch.eye(k, dtype=a_diag.dtype,
-                              device=a_diag.device) + r @ d @ r.T
+                              device=a_diag.device) + r @ d @ r.mT
             v_upper = cholesky_upper(inner)
         return cls(a_diag=a_diag, b=b, d=d, q_full=q_full, v_upper=v_upper)
 
@@ -290,55 +296,74 @@ class RankUpdateEuclideanMetric(Metric):
     def device(self):
         return self.a_diag.device
 
+    def _rows(self, m, x):
+        """Each row of `x (C, n)` times the matrix `m` transposed: one
+        product for a shared (n', n) `m`, a `bmm` per chain (C, n', n)."""
+        if m.dim() == 2:
+            return x @ m.mT
+        return torch.bmm(m, x[:, :, None])[:, :, 0]
+
     def momentum_from_normals(self, z):
         k = self.rank
         if k > 0:
-            head = torch.linalg.solve_triangular(
-                self.v_upper, z[:, :k].mT, upper=True).mT
+            if self.v_upper.dim() == 2:
+                head = torch.linalg.solve_triangular(
+                    self.v_upper, z[:, :k].mT, upper=True).mT
+            else:
+                head = torch.linalg.solve_triangular(
+                    self.v_upper, z[:, :k, None], upper=True)[:, :, 0]
             z = torch.cat([head, z[:, k:]], 1)
-        return (z @ self.q_full.mT) / torch.sqrt(self.a_diag)
+        return self._rows(self.q_full, z) / torch.sqrt(self.a_diag)
 
     def velocity(self, r):
         # A r + B (D (Bᵀ r))
         out = self.a_diag * r
         if self.rank > 0:
-            out = out + ((r @ self.b) @ self.d.mT) @ self.b.mT
+            btr = self._rows(self.b.mT, r)
+            out = out + self._rows(self.b, self._rows(self.d, btr))
         return out
 
     def neg_kinetic_energy(self, r):
         # -(rᵀ A r + (Bᵀr)ᵀ D (Bᵀr)) / 2
         quad = torch.sum(r * r * self.a_diag, -1)
         if self.rank > 0:
-            btr = r @ self.b
-            quad = quad + torch.sum(btr * (btr @ self.d.mT), -1)
+            btr = self._rows(self.b.mT, r)
+            quad = quad + torch.sum(btr * self._rows(self.d, btr), -1)
         return -0.5 * quad
 
     def renew(self, m_inv):
         """Rank-preserving: an (a, b, d) triple (from `LowRankCovState`;
-        d a (k,) diagonal or a (k, k) matrix) rebuilds the factorisation at
-        its rank; a plain diagonal (from the Welford-var or nutpie
-        estimators) becomes A with the low-rank part zeroed at the current
-        rank."""
+        d the diagonal of D or D itself, shared or per chain) rebuilds the
+        factorisation at its rank; a plain diagonal (from the Welford-var
+        or nutpie estimators) becomes A with the low-rank part zeroed at
+        the current rank."""
         if isinstance(m_inv, (tuple, list)):
             a, b, d = m_inv
-            if d.dim() == 1:
-                d = torch.diag(d)
+            if d.dim() == b.dim() - 1:
+                d = torch.diag_embed(d)
             return RankUpdateEuclideanMetric.create(a, b, d)
+        lead = m_inv.shape[:-1]
         return RankUpdateEuclideanMetric.create(
-            m_inv, m_inv.new_zeros((self.dim, self.rank)),
-            m_inv.new_zeros((self.rank, self.rank)))
+            m_inv, m_inv.new_zeros(lead + (self.dim, self.rank)),
+            m_inv.new_zeros(lead + (self.rank, self.rank)))
 
     def m_inv_matrix(self):
-        out = torch.diag(self.a_diag)
+        out = torch.diag_embed(self.a_diag)
         if self.rank > 0:
-            out = out + self.b @ self.d @ self.b.T
+            out = out + self.b @ self.d @ self.b.mT
         return out
 
     def per_chain(self, n_chains):
-        raise NotImplementedError(
-            "a per-chain rank-update metric (per-chain adaptation with "
-            "metric 'rank_update') is not ported yet; adapt across chains "
-            "(cross_chain=True) " + roadmap("surface"))
+        return RankUpdateEuclideanMetric(*(
+            x.expand((n_chains,) + x.shape).contiguous() for x in (
+                self.a_diag, self.b, self.d, self.q_full, self.v_upper)))
+
+    def take(self, chains):
+        if self.a_diag.dim() == 1:
+            return self
+        return RankUpdateEuclideanMetric(*(
+            x[chains] for x in (self.a_diag, self.b, self.d, self.q_full,
+                                self.v_upper)))
 
 
 def make_metric(kind: str, dim: int, dtype=torch.float32, device=None,

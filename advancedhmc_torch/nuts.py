@@ -2,8 +2,8 @@
 
 PyTorch counterpart of `advancedhmc_tpu/nuts.py`: the classic, generalised
 and strict no-U-turn criteria, multinomial and slice sampling, any
-Euclidean M⁻¹ (unit, diagonal or dense, shared or per chain; rank-update,
-shared), full or partial momentum refreshment, and each leaf one step of
+Euclidean M⁻¹ (unit, diagonal, dense or rank-update, shared or per
+chain), full or partial momentum refreshment, and each leaf one step of
 the trajectory's integrator. As in the JAX package the recursive
 `build_tree` is flattened into a loop that takes ONE leapfrog step per
 iteration, with the doubling bookkeeping done in O(max_depth) masked
@@ -50,10 +50,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from .hamiltonian import PhasePoint, select_phasepoint
+from .hamiltonian import FullMomentumRefreshment, PhasePoint, \
+    select_phasepoint
 from .integrators import JitteredLeapfrog, leapfrog_step
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, \
-    cholesky_upper
+    RankUpdateEuclideanMetric, cholesky_upper
 from .termination import SLICE, ClassicNoUTurn, \
     DynamicTerminationCriterion, StrictGeneralisedNoUTurn
 from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
@@ -172,6 +173,12 @@ def _velocity_rows(h, rows):
         return rows * m.m_inv[:, None]
     if isinstance(m, DenseEuclideanMetric) and m.m_inv.dim() == 3:
         return torch.bmm(rows, m.m_inv.mT)
+    if isinstance(m, RankUpdateEuclideanMetric) and m.a_diag.dim() == 2:
+        out = rows * m.a_diag[:, None]
+        if m.rank > 0:
+            out = out + torch.bmm(torch.bmm(torch.bmm(rows, m.b), m.d.mT),
+                                  m.b.mT)
+        return out
     c, k, d = rows.shape
     return h.velocity(rows.reshape(c * k, d)).reshape(c, k, d)
 
@@ -629,7 +636,8 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                            n_transitions: int, refreshment,
                            adapt_cfg=None, adapt_state=None,
                            adapt_flags=None, batched: bool = True,
-                           depth_caps=None, pair: bool = False, **options):
+                           depth_caps=None, pair: bool = False, t_min=None,
+                           **options):
     """Run `n_transitions` NUTS transitions per chain inside ONE loop.
 
     Chains advance through their own transition sequences asynchronously:
@@ -674,6 +682,19 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     transition ends at leaf A starts its next one an iteration later, so
     the streams shift (in the JAX package each chain carries its own key,
     and the two bodies agree bitwise there).
+
+    Ragged mode (`t_min`, 1 ≤ t_min < n_transitions; the draw phase on the
+    single-leaf body with full refreshment): the loop runs until every
+    chain has completed at least `t_min` transitions, and a chain that
+    gets there early keeps sampling, up to `n_transitions`. Returns
+    (z_final, thetas, stats, counts (C,)): chain c's draws and stats are
+    rows [0, counts[c]), zero past them (`is_accept` false, `nom_step_size`
+    0), and `z_final` is each chain's last completed candidate (a tree in
+    flight when the loop stops is dropped). The loop reads its exit back
+    every `_CHECK_EVERY` iterations; the iterations after every chain
+    reached `t_min` are masked no-ops, so the counts follow the stopping
+    rule exactly, and each chain's rows are those of the rectangular run
+    from the same generator state.
     """
     not_ported("nuts_transitions_fused",
                options if batched else dict(options, batched=batched))
@@ -691,6 +712,23 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     n_t = n_transitions
     adaptive = adapt_cfg is not None
     adapt_metric = adaptive and adapt_cfg.uses_mm
+    ragged = t_min is not None
+    if ragged:
+        if not 1 <= int(t_min) < n_t:
+            raise ValueError("t_min must satisfy 1 <= t_min < "
+                             "n_transitions (a rectangular run takes no "
+                             "t_min)")
+        if adaptive:
+            raise ValueError("the ragged mode is draw-phase only (the "
+                             "adaptation schedule is indexed by each "
+                             "chain's transition count)")
+        if not isinstance(refreshment, FullMomentumRefreshment):
+            raise ValueError("the ragged mode needs full momentum "
+                             "refreshment (each chain resumes from its last "
+                             "completed candidate)")
+        if pair:
+            raise ValueError("the ragged mode runs on the single-leaf body "
+                             "(pair=False)")
     if adaptive:
         from .adaptation import adapt_step_masked
 
@@ -716,12 +754,17 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         st["cap"] = caps[0].expand(c).clone()
     t = torch.zeros(c, dtype=torch.int32, device=dev)
     all_done = torch.zeros(c, dtype=torch.bool, device=dev)
+    if ragged:
+        # each chain's last completed candidate, and the device flag that
+        # every chain has t_min transitions (then every chain idles)
+        z_last = st["zcand"]
+        stopped = torch.zeros((), dtype=torch.bool, device=dev)
     # one spare row: chains that record nothing write there
     out_theta = z0.theta.new_zeros(c, n_t + 1, d)
     out_stats = z0.theta.new_zeros(c, n_t + 1, len(_STAT_FIELDS))
     it = 0
     while True:
-        act = ~all_done
+        act = ~all_done & ~stopped if ragged else ~all_done
         st2 = (_leaf_pair if pair else _leaf)(
             st, h, eps, max_depth, crit.delta_max, generator, act=act,
             integ=integ, kind=kind)
@@ -738,6 +781,9 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         t = t + boundary.to(torch.int32)
         all_done = t >= n_t
         reset = boundary & ~all_done
+        if ragged:
+            z_last = select_phasepoint(boundary, zc, z_last)
+            stopped = stopped | (t >= t_min).all()
 
         h_next, nom_next = h, nom
         if adaptive:
@@ -776,7 +822,8 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                 st2["cap"])
         h = h_next
         it += 1
-        if it % _CHECK_EVERY == 0 and bool(all_done.all()):
+        if it % _CHECK_EVERY == 0 and bool(
+                stopped if ragged else all_done.all()):
             break
 
     out = out_stats[:, :n_t]
@@ -788,6 +835,12 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     stats["nom_step_size"] = (
         torch.broadcast_to(nom[:, None] if nom.dim() else nom, (c, n_t))
         if jittered else stats["step_size"])
+    if ragged:
+        valid = torch.arange(n_t, device=dev)[None] < t[:, None]
+        stats["is_accept"] = valid
+        stats["nom_step_size"] = torch.where(valid, stats["nom_step_size"],
+                                             0.0)
+        return z_last, out_theta[:, :n_t], stats, t
     if adaptive:
         return st["zcand"], out_theta[:, :n_t], stats, ad
     return st["zcand"], out_theta[:, :n_t], stats

@@ -17,16 +17,20 @@ are the JAX function's. A static trajectory (`FixedNSteps`,
 `trajectory.transition_static`, as in JAX, where the fused paths and the
 depth caps are for NUTS alone. Randomness comes from one `torch.Generator`
 on the sampler's device, passed to each function; the state carries no
-key. The `mesh` option (multi-GPU) is not ported; it raises, naming its
-ROADMAP.md item.
+key. `SampleResult` exports the draws (`to_inference_dict`, `summary`,
+`to_arviz`), named by the target. The `mesh` option (multi-GPU) and
+`SampleResult.save` are not ported; each raises, naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+import warnings
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from .adaptation import (
@@ -44,18 +48,19 @@ from .adaptation import (
     adapt_step_batch,
     da_update,
 )
-from .diagnostics import online_init, online_summary, online_update, \
-    summarize
+from .diagnostics import ess_bulk, ess_tail, online_init, online_summary, \
+    online_update, rhat, summarize
 from .hamiltonian import Hamiltonian, PhasePoint
 from .kinetic import GaussianKinetic
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, Metric, \
     RankUpdateEuclideanMetric, UnitEuclideanMetric
 from .nuts import _STAT_FIELDS, nuts_transition, nuts_transitions_fused
 from .stepsize_search import find_good_stepsize, find_good_stepsizes
-from .target import LogDensityTarget
+from .target import LogDensityTarget, leaves_with_names
 from .termination import DynamicTerminationCriterion
 from .trajectory import HMCKernel, transition_static
-from .utils import not_ported, resolve_device
+from .transforms import constrain
+from .utils import not_ported, resolve_device, roadmap
 
 _PREFIX = "[advancedhmc_torch]"
 _PZ = ("theta", "r", "logdensity", "grad", "neg_k")
@@ -74,6 +79,29 @@ class HMCState:
     @property
     def position(self):
         return self.z.theta
+
+    def with_step_size(self, eps):
+        """The state with its current ε set by hand (a `ManualSSAdaptor`
+        writing ϵ mid-run): a scalar, or one a chain (C,) where the
+        adaptation is per chain."""
+        da = self.adapt.da
+        new_eps = torch.broadcast_to(torch.as_tensor(
+            eps, dtype=da.eps.dtype, device=da.eps.device),
+            da.eps.shape).clone()
+        return dataclasses.replace(self, adapt=dataclasses.replace(
+            self.adapt, da=dataclasses.replace(da, eps=new_eps)))
+
+    def with_position(self, spec: "SampleSpec", theta):
+        """The state at new positions `theta (C, dim)`: ℓπ and ∇ℓπ
+        recomputed in one batched call (a non-finite ℓπ becomes −Inf), the
+        momenta and their cached −K kept."""
+        theta = torch.as_tensor(theta, dtype=self.z.theta.dtype,
+                                device=self.z.theta.device)
+        lp, grad = spec.target.logdensity_and_grad(theta)
+        return dataclasses.replace(self, z=dataclasses.replace(
+            self.z, theta=theta, grad=grad,
+            logdensity=torch.where(torch.isfinite(lp), lp,
+                                   float("-inf"))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -506,8 +534,10 @@ class SampleResult:
     variance, pooled bulk ESS) of `diagnostics.online_summary`. `timings`
     holds the wall seconds of each phase ("init_s", "warmup_s" — warmup,
     fan-out and decorrelation — and "draws_s"), each ending in a device
-    synchronise. The JAX result's exports (`summary`, `to_inference_dict`,
-    `to_arviz`, `save`) are not ported."""
+    synchronise. `target` is the sampled target (`sample` and
+    `sample_chees` set it): the exports name parameters from its `unravel`
+    (`target_from_pytree`) or its `names` and `transforms`
+    (`transforms.transformed_target`). `save` comes with checkpoints."""
 
     thetas: Optional[torch.Tensor]         # (n_kept, n_chains, dim) or None
     stats: Dict[str, torch.Tensor]         # each (n_kept, n_chains)
@@ -515,6 +545,132 @@ class SampleResult:
     final_state: HMCState
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
     online: Optional[Dict[str, torch.Tensor]] = None
+    target: Optional[Any] = None
+
+    @property
+    def n_chains(self):
+        if self.thetas is not None:
+            return self.thetas.shape[1]
+        return self.final_state.z.theta.shape[0]
+
+    def _named_posterior(self, flat, constrained: bool):
+        """Flat draws (chain, draw, dim), a numpy array, split into named
+        variables: one a leaf of a pytree target with the leaf's shape,
+        one a block of a transformed target mapped to the constrained
+        space (`constrained`), else "theta"."""
+        tgt = self.target
+        if constrained:
+            transforms = getattr(tgt, "transforms", None)
+            if transforms is None:
+                raise ValueError(
+                    "constrained=True requires a target built by "
+                    "transforms.transformed_target")
+            names = getattr(tgt, "names", None) or [
+                f"x{i}" for i in range(len(transforms))]
+            blocks = constrain(transforms, torch.from_numpy(flat))
+            return {n: b.numpy() for n, b in zip(names, blocks)}
+        unravel = getattr(tgt, "unravel", None)
+        if unravel is None:
+            return {"theta": flat}
+        example = unravel(torch.zeros(tgt.dim, dtype=torch.float64))
+        post, off = {}, 0
+        for name, leaf in leaves_with_names(example):
+            size = leaf.numel()
+            post[name or "theta"] = flat[..., off:off + size].reshape(
+                flat.shape[:2] + tuple(leaf.shape))
+            off += size
+        return post
+
+    def to_inference_dict(self, constrained: bool = False):
+        """ArviZ's layout as numpy arrays: `posterior`, each variable
+        (chain, draw, *shape), named as `_named_posterior` names them, and
+        `sample_stats` (lp, diverging, acceptance_rate, energy, tree_depth,
+        n_steps, step_size), each (chain, draw)."""
+        if self.thetas is None:
+            raise ValueError("draws were not stored (collect='online')")
+        flat = np.moveaxis(self.thetas.detach().cpu().numpy(), 0, 1)
+        posterior = self._named_posterior(flat, constrained)
+        sample_stats = {
+            new: np.moveaxis(self.stats[old].detach().cpu().numpy(), 0, 1)
+            for old, new in _ARVIZ_STATS.items() if old in self.stats}
+        return {"posterior": posterior, "sample_stats": sample_stats}
+
+    def summary(self, constrained: bool = False, verbose: bool = True):
+        """A posterior table by parameter: mean, sd, 5 % and 95 %
+        quantiles, bulk and tail ESS and rank-normalised split-R̂ (the
+        pooled draws' quantiles by linear interpolation); returns {name:
+        {stat: value or array of the variable's shape}}, prints the table
+        when `verbose`, and warns when one parameter's bulk ESS is under
+        0.2 of the median."""
+        d = self.to_inference_dict(constrained=constrained)
+        out, rows = {}, []
+        for name, arr in d["posterior"].items():
+            c, n = arr.shape[:2]
+            flat = np.asarray(arr).reshape(c, n, -1)     # (chain, draw, k)
+            x = torch.from_numpy(np.moveaxis(flat, 0, 1))
+            stats = {
+                "mean": flat.mean((0, 1)),
+                "sd": flat.std((0, 1)),
+                "q5": np.quantile(flat, 0.05, axis=(0, 1)),
+                "q95": np.quantile(flat, 0.95, axis=(0, 1)),
+                "ess_bulk": ess_bulk(x).numpy(),
+                "ess_tail": ess_tail(x).numpy(),
+                "rhat": rhat(x).numpy(),
+            }
+            shape = arr.shape[2:]
+            out[name] = {k: v.reshape(shape) if shape else v[0]
+                         for k, v in stats.items()}
+            for j in range(flat.shape[-1]):
+                label = name if flat.shape[-1] == 1 else f"{name}[{j}]"
+                rows.append((label,) + tuple(float(stats[k][j]) for k in (
+                    "mean", "sd", "q5", "q95", "ess_bulk", "ess_tail",
+                    "rhat")))
+        if verbose:
+            hdr = ("parameter", "mean", "sd", "5%", "95%", "ess_bulk",
+                   "ess_tail", "rhat")
+            w = max(9, max(len(r[0]) for r in rows))
+            print(f"{hdr[0]:<{w}} " + " ".join(f"{h:>9}" for h in hdr[1:]))
+            for r in rows:
+                print(f"{r[0]:<{w}} "
+                      + " ".join(f"{v:9.3g}" for v in r[1:-3])
+                      + f" {r[-3]:9.0f} {r[-2]:9.0f} {r[-1]:9.3f}")
+        if len(rows) >= 2:
+            ess = np.asarray([r[5] for r in rows], dtype=float)
+            med = float(np.median(ess))
+            if med > 0 and float(ess.min()) / med < 0.2:
+                worst = rows[int(np.argmin(ess))][0]
+                warnings.warn(
+                    f"min/median bulk-ESS ratio {ess.min() / med:.2f} < 0.2 "
+                    f"(slowest: {worst!r}): one dimension mixes far slower "
+                    "than the rest. If this is intrinsic geometry (not lack "
+                    "of draws), consider reparameterising, a dense/"
+                    "rank_update metric, or ChEES-HMC (`sample_chees`).")
+        return out
+
+    def to_arviz(self, constrained: bool = False):
+        """An `arviz.InferenceData` of `to_inference_dict`, where arviz is
+        installed (it is optional)."""
+        try:
+            import arviz as az
+        except ImportError as e:
+            raise ImportError(
+                "arviz is not installed; use to_inference_dict() for the "
+                "plain-dict export") from e
+        d = self.to_inference_dict(constrained=constrained)
+        return az.from_dict(posterior=d["posterior"],
+                            sample_stats=d["sample_stats"])
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError(
+            "SampleResult.save comes with the checkpoints, not ported yet "
+            + roadmap("surface"))
+
+
+# the stats `to_inference_dict` exports, under ArviZ's names
+_ARVIZ_STATS = {"log_density": "lp", "numerical_error": "diverging",
+                "acceptance_rate": "acceptance_rate",
+                "hamiltonian_energy": "energy", "tree_depth": "tree_depth",
+                "n_steps": "n_steps", "step_size": "step_size"}
 
 
 def _synchronize(device):
@@ -844,7 +1000,7 @@ def sample(
         thetas=rows[0], stats=rows[1],
         warmup_stats=None if warm_rows is None else warm_rows[1],
         final_state=state, timings=timings,
-        online=None if om is None else online_summary(om))
+        online=None if om is None else online_summary(om), target=target)
     if verbose:
         summarize(result, verbose=True)
     return result

@@ -80,39 +80,56 @@ class BlockTarget:
         return self.value_and_grad(theta, *data)
 
 
-def _flatten(tree):
-    """(leaves, rebuild) of nested dicts, lists, tuples and namedtuples in
-    `jax.tree_util`'s order: a dict's values by sorted key (an OrderedDict's
-    in insertion order), None without leaves, anything else a leaf;
-    `rebuild(leaves)` gives the tree back with new leaves."""
-    if tree is None:
-        return [], lambda leaves: None
+def _children(tree):
+    """(names, kids, make) of a node in `jax.tree_util`'s order: a dict's
+    values by sorted key (an OrderedDict's in insertion order), a list's,
+    tuple's or namedtuple's in turn, named by key, field or position;
+    `make(kids)` builds the node anew. None for a leaf."""
     if isinstance(tree, dict):
         keys = (list(tree) if isinstance(tree, collections.OrderedDict)
                 else sorted(tree))
-        kids = [_flatten(tree[k]) for k in keys]
+        return ([str(k) for k in keys], [tree[k] for k in keys],
+                lambda vals: type(tree)(zip(keys, vals)))
+    if isinstance(tree, (list, tuple)):
+        fields = getattr(tree, "_fields", None)     # a namedtuple
+        return ([str(n) for n in fields or range(len(tree))], list(tree),
+                (lambda vals: type(tree)(*vals)) if fields
+                else (lambda vals: type(tree)(vals)))
+    return None
 
-        def rebuild(leaves):
-            return type(tree)(zip(keys, _rebuild_all(kids, leaves)))
-    elif isinstance(tree, (list, tuple)):
-        kids = [_flatten(v) for v in tree]
 
-        def rebuild(leaves):
-            vals = _rebuild_all(kids, leaves)
-            if hasattr(tree, "_fields"):        # a namedtuple
-                return type(tree)(*vals)
-            return type(tree)(vals)
-    else:
+def _flatten(tree):
+    """(leaves, rebuild) of nested dicts, lists, tuples and namedtuples in
+    `_children`' order, None without leaves, anything else a leaf;
+    `rebuild(leaves)` gives the tree back with new leaves."""
+    if tree is None:
+        return [], lambda leaves: None
+    node = _children(tree)
+    if node is None:
         return [tree], lambda leaves: leaves[0]
+    kids = [_flatten(v) for v in node[1]]
+
+    def rebuild(leaves):
+        out, off = [], 0
+        for kid_leaves, rebuild_kid in kids:
+            out.append(rebuild_kid(leaves[off:off + len(kid_leaves)]))
+            off += len(kid_leaves)
+        return node[2](out)
+
     return [leaf for kid in kids for leaf in kid[0]], rebuild
 
 
-def _rebuild_all(kids, leaves):
-    out, off = [], 0
-    for kid_leaves, rebuild in kids:
-        out.append(rebuild(leaves[off:off + len(kid_leaves)]))
-        off += len(kid_leaves)
-    return out
+def leaves_with_names(tree, prefix=()):
+    """[(name, leaf)] in `_flatten`'s order, each name the leaf's path
+    joined with "." (the JAX package's names of a pytree's leaves; "" for
+    a bare leaf)."""
+    if tree is None:
+        return []
+    node = _children(tree)
+    if node is None:
+        return [(".".join(prefix), tree)]
+    return [pair for name, kid in zip(node[0], node[1])
+            for pair in leaves_with_names(kid, prefix + (name,))]
 
 
 def ravel_pytree(tree):

@@ -34,7 +34,7 @@ Phases (any failure exits non-zero):
    to 0 just before and read just after, and the target's value+grad
    calls (each one K1 launch) tallied by chain count, and the leaf-loop
    iterations per transition;
-3b. from phase 3's final state, the draw phase (128 draws) with the
+3b. from phase 3's final state, the draw phase (64 draws) with the
    leaf-pair body on and off in turns (on, off, off, on): each run's wall,
    leaf-loop iterations per transition and ESS/s, each gated as phase 4;
 4. check the results: finite draws of the expected shape, divergence,
@@ -57,7 +57,7 @@ Phases (any failure exits non-zero):
    adaptation (δ 0.8, buffers 75/50/25, gradient-seeded M⁻¹) and one
    `sample_step` per iteration, on 4096 chains of the same model and NUTS,
    200 iterations of which 150 adapt, every other `sample` argument at its
-   default; then 64 fused draws (8 per call) at each chain's own ε and
+   default; then 32 fused draws (8 per call) at each chain's own ε and
    M⁻¹ from its final state. Gated on finite draws, divergence,
    acceptance, the posterior moments, the per-chain ε (4096,) and M⁻¹
    (4096, 100), the fused draws' step size, and K1's launches (counted
@@ -100,7 +100,7 @@ Phases (any failure exits non-zero):
    draws thinned by 2, its walls and leaf iterations beside phase 8's;
    (b) phase 3's configuration with the three-phase depth-capped warmup
    and ε re-anchor, two chain chunks, bfloat16 U-turn stacks and online
-   collection; (c) coupled chains step by step from (a)'s warmed state;
+   collection, 32 draws; (c) 16 coupled steps from (a)'s warmed state;
    each gated on divergence, acceptance and BENCH_r05's moments (b's from
    its online summary);
 13. ChEES-HMC at the JAX bench's configuration (bench.py:915-1090 at its
@@ -129,19 +129,20 @@ Phases (any failure exits non-zero):
    acceptance (15a–c: in [δ − 0.1, δ + 0.2], the band the JAX package's
    dual averaging leaves room for) and phase 4's moments: (a) the JAX
    bench's nutpie run (`AHMC_BENCH_MM_KIND=nutpie AHMC_BENCH_WARMUP=256`:
-   phase 3 with the cross-chain warmup step by step, 256 iterations),
+   phase 3 with the cross-chain warmup step by step, cut to 150
+   iterations),
    gated on M⁻¹ having moved from the gradient seed and on the median of
    M⁻¹ over the draws' variance; (b) phase 3 with a dense metric and the
-   Welford covariance from the identity, 256 warmup iterations in fused
-   blocks of 4, gated on M⁻¹'s symmetry, its
+   Welford covariance from the identity, 150 warmup iterations in fused
+   blocks of 4 and 128 draws, gated on M⁻¹'s symmetry, its
    Cholesky factor, its distance to the draws' covariance and the
    covariance of 2^18 momentum draws, its ESS/s printed beside phase 3's;
    (c) `NUTS(0.55, max_depth=6, metric="rank_update")` (the low-rank
-   estimator at rank 8) on 1024 chains, 256 warmup iterations in fused
+   estimator at rank 8) on 1024 chains, 150 warmup iterations in fused
    blocks of 4, gated on a positive-definite M⁻¹
-   and the momentum draws; (d) the per-chain fused warmup on 1024 chains,
+   and the momentum draws; (d) the per-chain fused warmup on 512 chains,
    150 iterations (one window), with nutpie on the diagonal metric and
-   with a per-chain dense metric (each chain's factor checked);
+   with a per-chain dense metric (each chain's factor checked), 16 draws;
 16. the classic and strict criteria, slice sampling and the model zoo,
    each run with every kernel's count set to 0 just before and read just
    after: (a) bench.py's `AHMC_BENCH_MODEL=logistic_nc` at its defaults
@@ -149,22 +150,37 @@ Phases (any failure exits non-zero):
    chains, 256 warmup iterations), its value+grad through K1 first held to
    its float64 and float32 analytic routes at C = 32768, 4096 and 1, its
    draws mapped to (log σ, σ·β̃) and gated as phase 3 (accept in phase
-   15's band of 256-iteration runs); (b) phase 3's draw phase from its
-   final state with classic + multinomial, strict + multinomial and
-   generalised + slice, beside phase 3b's generalised runs; (c) phase 3's
+   15's band of 256-iteration runs); (b) phase 3's draw phase (64 draws)
+   from its final state with classic + multinomial, strict + multinomial
+   and generalised + slice, beside phase 3b's generalised runs; (c) phase 3's
    configuration with strict + slice in the warmup blocks too, 64 draws;
    (d) each new model's value+grad at 4096 chains against the port's
    float64 CPU path, then `NUTS(0.8, max_depth=4).sample` step by step on
-   256 chains (40 + 40) of gdemo (against GDEMO_MEAN), a Gaussian mixture
+   256 chains (40 + 20) of gdemo (against GDEMO_MEAN), a Gaussian mixture
    (its mean), eight schools and banana (finite, divergence share
    printed) and German credit (K1 narrow at p = 24; against the JAX
-   package's posterior, `scripts/zoo_reference.py`).
+   package's posterior, `scripts/zoo_reference.py`);
+17. bench.py's two last configurations at phase 3's width, each with
+   every kernel's count set to 0 just before and read just after, K1's
+   calls held to the target's value+grad calls: (a) `AHMC_BENCH_TCAP=4`:
+   phase 3's configuration driven as bench.py drives it (`init_state`,
+   `fused_warmup_phase_crosschain` with `transient_depth_caps`' schedule,
+   `fanout_warmup_state`, `fused_draw_phase`), its walls and ε beside
+   phase 3's, gated as phase 4 and on no capped warmup iteration deeper
+   than the cap; (b) `AHMC_BENCH_RAGGED=1.5`: one
+   `fused_draw_phase_ragged` call from phase 3's final state (t_min 256,
+   t_max 384, the single-leaf body), bench.py's figures (draws a chain,
+   `collected_vs_rect`, ESS/s from the ragged ESS of 512 chains) beside
+   phase 3's ESS/s and phase 3b's single-body draws, gated on the counts,
+   `is_accept` past them, the count-weighted moments, divergence,
+   acceptance and the ragged ESS on the card within 1e-3 of the CPU's.
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
 back-to-back time through the wrapper is printed beside as `wrapper_ms`.
 
-It prints the main path's results as one JSON line, the kernels' line
+After each phase it prints the time since the start (`# clock:`). It
+prints the main path's results as one JSON line, the kernels' line
 (`{"kernels": [...]}`), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Nothing of JAX is imported.
 """
@@ -808,9 +824,10 @@ def phase_results(res, launches, wall, seed, iters):
 # ----------------------------------------------------------------- phase 3b
 # The draw phase from phase 3's final state with the leaf-pair body on and
 # off, in turns (on, off, off, on), a seed each; PAIR_TURN_DRAWS draws a
-# turn, cut from phase 3's 256 to 128 to leave room for phase 16
+# turn, cut from phase 3's 256 to 128 to leave room for phase 16, then to
+# 64 for phase 17
 PAIR_TURNS = (True, False, False, True)
-PAIR_TURN_DRAWS = 128
+PAIR_TURN_DRAWS = 64
 
 
 def phase_pair_turns(res):
@@ -1292,7 +1309,8 @@ def k2_parity_rows(cases, share, theta_transitions=None):
 # one Stan window (its end at 100) remains
 DEF_CHAINS, DEF_SAMPLES, DEF_ADAPTS = 4096, 200, 150
 DEF_DELTA, DEF_TOL_ACCEPT = 0.8, 0.15
-DEF_DRAWS, DEF_FUSE = 64, 8
+# (the fused draws cut from 64 to 32 to leave room for phase 17)
+DEF_DRAWS, DEF_FUSE = 32, 8
 
 
 def phase_defaults(seed):
@@ -2078,8 +2096,9 @@ def phase_wide_bf16(seed, wide_out):
 
 # ----------------------------------------------------------------- phase 12
 # The new options of sample() at the 100-D model's full width, short runs
-# (draws cut: 100 per-chain fused draws in (a), 64 in (b), 32 coupled steps
-# in (c)), each gated on divergence, acceptance and BENCH_r05's moments:
+# (draws cut: 50 per-chain fused draws in (a), 32 in (b), 16 coupled steps
+# in (c); (b) and (c) halved to leave room for phase 17), each gated on
+# divergence, acceptance and BENCH_r05's moments:
 # (a) the per-chain fused warmup (phase 8's settings, 4096 chains) and
 #     fused draws thinned by 2;
 # (b) phase 3's configuration with the three-phase depth cap and ε
@@ -2087,8 +2106,8 @@ def phase_wide_bf16(seed, wide_out):
 #     collection (its summary's moments gated like stored draws);
 # (c) coupled chains on the step path, from (a)'s warmed state.
 OPT_FUSE, OPT_THIN = 10, 2
-OPT_CAP, OPT_CAP_FRAC, OPT_CAP_FRAC2, OPT_DRAWS_B = 4, 0.25, 0.5, 64
-OPT_COUPLED_STEPS = 32
+OPT_CAP, OPT_CAP_FRAC, OPT_CAP_FRAC2, OPT_DRAWS_B = 4, 0.25, 0.5, 32
+OPT_COUPLED_STEPS = 16
 
 
 def _fused_iterations(stats):
@@ -2597,12 +2616,16 @@ def phase_static(seed, warmed):
 # The dense and rank-update metrics and the Welford-cov, low-rank and nutpie
 # estimators at the 100-D model's width. Stan's 75/50/25 windows end at
 # iterations 100 and 206 of 256 and at 100 of 150; at 128 there is none.
-MM_WARMUP, MM_CHAINS_C, MM_CHAINS_D = 256, 1024, 1024
-MM_DRAWS_CD, MM_WARMUP_D = 64, 150
+# To leave room for phase 17, (a)-(c) warm 150 iterations, not 256 (one
+# window, then the same 50 iterations of dual averaging after its reset),
+# (b) draws 128, not 256, and (d) runs 512 chains, not 1024, and 16
+# draws, not 64
+MM_WARMUP, MM_CHAINS_C, MM_CHAINS_D = 150, 1024, 512
+MM_DRAWS_B, MM_DRAWS_C, MM_DRAWS_D, MM_WARMUP_D = 128, 64, 16, 150
 # The fused cross-chain warmup updates dual averaging once a block: blocks
-# of 8 leave 6 updates between the last window's reset (206) and the end
-# (256), and the re-anchored ε overshoots (×75 in one block) before they
-# settle; blocks of 4 leave 12 (15b, 15c).
+# of 8 leave 6 updates between the last window's reset (206 of 256, 100 of
+# 150) and the end, and the re-anchored ε overshoots (×75 in one block)
+# before they settle; blocks of 4 leave 12 (15b, 15c).
 MM_WARMUP_BLOCK = 4
 # Stan's dual averaging ends at ε = exp(x̄), below its last iterates, so
 # the draws accept above δ: in 15a's configuration the JAX package leaves
@@ -2734,9 +2757,10 @@ def phase_metrics(seed, main_out):
     def run(gen, fn):
         return _timed_run(by_chains, lambda: fn(gen))
 
-    # (a) bench.py with AHMC_BENCH_MM_KIND=nutpie AHMC_BENCH_WARMUP=256: the
-    # cross-chain warmup runs step by step (its fused form records no
-    # gradients), then phase 3's fan-out, decorrelation and fused draws
+    # (a) bench.py with AHMC_BENCH_MM_KIND=nutpie AHMC_BENCH_WARMUP=256,
+    # its warmup cut to MM_WARMUP: the cross-chain warmup runs step by step
+    # (its fused form records no gradients), then phase 3's fan-out,
+    # decorrelation and fused draws
     adaptor = dataclasses.replace(main_adaptor, mm_kind="nutpie")
     th0 = theta0(N_CHAINS)
     _, g = target.logdensity_and_grad(th0[:WARMUP_CHAINS])
@@ -2775,13 +2799,13 @@ def phase_metrics(seed, main_out):
     del res, th0
 
     # (b) phase 3 with a dense metric and the Welford covariance, from the
-    # identity, 256 warmup iterations
+    # identity, MM_WARMUP warmup iterations
     adaptor = dataclasses.replace(main_adaptor, mm_kind="welford_cov")
     res, wall, calls, counts = run(
         torch.Generator(device="cuda").manual_seed(seed + 51),
         lambda gen: ah.sample(
             gen, target, kernel, ah.make_metric("dense", DIM, device="cuda"),
-            theta0(N_CHAINS), MM_WARMUP + N_DRAWS, n_adapts=MM_WARMUP,
+            theta0(N_CHAINS), MM_WARMUP + MM_DRAWS_B, n_adapts=MM_WARMUP,
             adaptor=adaptor, cross_chain=True, fuse_draws=FUSE,
             fuse_warmup=True, fuse_warmup_block=MM_WARMUP_BLOCK,
             drop_warmup=True, warmup_chains=WARMUP_CHAINS,
@@ -2791,8 +2815,8 @@ def phase_metrics(seed, main_out):
     draws_cov = torch.cov(res.thetas.reshape(-1, DIM).T).double()
     out, gates = _mm_run(
         "15b: main path, dense metric, Welford covariance", res, wall, calls,
-        counts, N_CHAINS, MM_WARMUP, N_DRAWS, PAIR,
-        (N_CHAINS, N_DECOR + N_DRAWS),
+        counts, N_CHAINS, MM_WARMUP, MM_DRAWS_B, PAIR,
+        (N_CHAINS, N_DECOR + MM_DRAWS_B),
         {"warmup_chains": WARMUP_CHAINS,
          "phase3_ess_per_s": main_out["effective_samples_per_s_per_chip"],
          "phase3_draws_s": main_out["draws_s"],
@@ -2823,15 +2847,15 @@ def phase_metrics(seed, main_out):
     res, wall, calls, counts = run(
         torch.Generator(device="cuda").manual_seed(seed + 53),
         lambda gen: cfg.sample(
-            gen, target, theta0(MM_CHAINS_C), MM_WARMUP + MM_DRAWS_CD,
+            gen, target, theta0(MM_CHAINS_C), MM_WARMUP + MM_DRAWS_C,
             n_adapts=MM_WARMUP, cross_chain=True, fuse_warmup=True,
             fuse_warmup_block=MM_WARMUP_BLOCK, fuse_draws=FUSE,
             fuse_pair=PAIR, drop_warmup=True, device="cuda"))
     metric = res.final_state.metric
     out, gates = _mm_run(
         "15c: NUTS(metric='rank_update'), low-rank estimator", res, wall,
-        calls, counts, MM_CHAINS_C, MM_WARMUP, MM_DRAWS_CD, PAIR,
-        (MM_CHAINS_C, MM_WARMUP + MM_DRAWS_CD),
+        calls, counts, MM_CHAINS_C, MM_WARMUP, MM_DRAWS_C, PAIR,
+        (MM_CHAINS_C, MM_WARMUP + MM_DRAWS_C),
         {"rank": metric.rank,
          "d": [float(v) for v in metric.d.diagonal()],
          "m_inv_min_eig": float(torch.linalg.eigvalsh(
@@ -2846,8 +2870,9 @@ def phase_metrics(seed, main_out):
     results["c"] = out
     del res, metric
 
-    # (d) phase 12a's per-chain fused warmup at 1024 chains, one Stan
-    # window: nutpie on the diagonal metric, then a per-chain dense metric
+    # (d) phase 12a's per-chain fused warmup at MM_CHAINS_D chains, one
+    # Stan window: nutpie on the diagonal metric, then a per-chain dense
+    # metric
     for key, kind, mm_kind, init in (("d1", "diagonal", "nutpie", "gradient"),
                                      ("d2", "dense", "welford_cov",
                                       "identity")):
@@ -2860,7 +2885,7 @@ def phase_metrics(seed, main_out):
             lambda gen: ah.sample(
                 gen, target, kernel, ah.make_metric(kind, DIM,
                                                     device="cuda"),
-                theta0(MM_CHAINS_D), MM_WARMUP_D + MM_DRAWS_CD,
+                theta0(MM_CHAINS_D), MM_WARMUP_D + MM_DRAWS_D,
                 n_adapts=MM_WARMUP_D, adaptor=adaptor,
                 init_mass_matrix=init, fuse_warmup=True, fuse_draws=FUSE,
                 drop_warmup=True, device="cuda"))
@@ -2875,7 +2900,7 @@ def phase_metrics(seed, main_out):
         out, gates = _mm_run(
             f"15{key}: per-chain fused warmup, {kind} metric, {mm_kind}",
             res, wall, calls, counts, MM_CHAINS_D, MM_WARMUP_D,
-            MM_DRAWS_CD, False, (MM_CHAINS_D, MM_WARMUP_D + MM_DRAWS_CD),
+            MM_DRAWS_D, False, (MM_CHAINS_D, MM_WARMUP_D + MM_DRAWS_D),
             extra)
         gates[f"|accept - {DEF_DELTA}| <= {DEF_TOL_ACCEPT}"] = \
             abs(out["accept_mean"] - DEF_DELTA) <= DEF_TOL_ACCEPT
@@ -2903,7 +2928,9 @@ NC_WARMUP = 256
 # chain counts of its path: each within this share of the largest magnitude
 # (K1's own gate, check_k1); the float32 analytic route is held to it too
 NC_TOL = 1e-4
-# (b) the new (criterion, sampler) pairs on phase 3's warmed state
+# (b) the new (criterion, sampler) pairs on phase 3's warmed state, draws
+# cut from phase 3's 256 to 64 to leave room for phase 17
+CRITERIA_DRAWS = 64
 CRITERIA_PAIRS = (("ClassicNoUTurn", "multinomial"),
                   ("StrictGeneralisedNoUTurn", "multinomial"),
                   ("GeneralisedNoUTurn", "slice"))
@@ -2918,7 +2945,8 @@ STRICT_SLICE_DRAWS = 64
 # trees average depth 2-3 and the deepest of the 256 sets each step's
 # loop; at 5 the five runs took 62 s of phase 16's 150 on an H100)
 ZOO_CHECK_CHAINS, ZOO_TOL = 4096, 1e-4
-ZOO_CHAINS, ZOO_WARMUP, ZOO_DRAWS, ZOO_DEPTH, ZOO_DELTA = 256, 40, 40, 4, 0.8
+# (draws cut from 40 to 20 to leave room for phase 17)
+ZOO_CHAINS, ZOO_WARMUP, ZOO_DRAWS, ZOO_DEPTH, ZOO_DELTA = 256, 40, 20, 4, 0.8
 # a mixture whose components overlap (chains cross between them): means,
 # standard deviations, weights
 ZOO_MIXTURE = (((-1.0, 0.0), (1.0, 0.5)), (1.0, 0.8), (0.4, 0.6))
@@ -3051,8 +3079,9 @@ def phase_nc(seed):
 
 
 def phase_criteria(main_state, main_out, turns):
-    """16b: phase 3's draw phase (pair body, N_DRAWS fused FUSE) from its
-    final ε, M⁻¹ and positions with each new (criterion, sampler) pair,
+    """16b: phase 3's draw phase (pair body, CRITERIA_DRAWS fused FUSE)
+    from its final ε, M⁻¹ and positions with each new (criterion, sampler)
+    pair,
     every kernel's count set to 0 just before each run and read just
     after; phase 3's gates. Printed beside: phase 3's draws (`main_out`)
     and phase 3b's pair-body runs from the same state (`turns`), per
@@ -3072,14 +3101,14 @@ def phase_criteria(main_state, main_out, turns):
         gen = torch.Generator(device="cuda").manual_seed(161 + k)
         (_, th, st), wall, calls, counts = _timed_run(
             by_chains, lambda: ah.fused_draw_phase(
-                gen, spec, main_state, N_DRAWS, FUSE, pair=True))
+                gen, spec, main_state, CRITERIA_DRAWS, FUSE, pair=True))
         ess = effective_sample_size(th[:, :ESS_CHAINS]) * (
             N_CHAINS / ESS_CHAINS)
         moments, gates = _moment_gates(th)
         row = {
             "criterion": crit, "ts_kind": ts, "draws_s": wall,
             "leaf_iterations_per_transition":
-                calls.get(N_CHAINS, 0) / 2 / N_DRAWS,
+                calls.get(N_CHAINS, 0) / 2 / CRITERIA_DRAWS,
             "effective_samples_per_s_per_chip":
                 float(ess.quantile(0.5)) / wall,
             "accept_mean": float(st["acceptance_rate"].double().mean()),
@@ -3111,7 +3140,7 @@ def phase_criteria(main_state, main_out, turns):
             f"{r['leaf_iterations_per_transition']:.2f} leaf-loop "
             f"iterations a transition, depth {r['mean_tree_depth']:.3f}")
     for row in rows.values():
-        row["ms_per_transition"] = 1e3 * row["draws_s"] / N_DRAWS
+        row["ms_per_transition"] = 1e3 * row["draws_s"] / CRITERIA_DRAWS
     log(json.dumps({"criteria": rows}))
     if failed:
         raise RuntimeError(f"phase 16b gates failed: {failed}")
@@ -3314,6 +3343,230 @@ def phase_zoo(seed):
     return out, check
 
 
+# ----------------------------------------------------------------- phase 17
+# (a) bench.py with AHMC_BENCH_TCAP=4 (TCAP_INIT and TCAP_POST at their
+# defaults): phase 3's configuration uncut, driven as bench.py drives it
+# (init_state on the warmup pool, fused_warmup_phase_crosschain with the
+# schedule's depth caps, fanout_warmup_state, the decorrelation and the
+# draws through fused_draw_phase, FUSE a call); at 128 iterations Stan's
+# windows leave no reset, so the first TCAP_INIT iterations are capped
+TCAP, TCAP_INIT, TCAP_POST = 4, 40, 16
+# (b) bench.py with AHMC_BENCH_RAGGED=1.5: one ragged call from phase 3's
+# final state, t_min bench.py's chunk (256, the draw count) and t_max
+# round(t_min · 1.5), on the single-leaf body (as the JAX ragged loop);
+# the ragged ESS over the first ESS_CHAINS chains on the card against the
+# port's float64 CPU ESS of the same buffer, within this share
+RAGGED_FACTOR = 1.5
+RAGGED_ESS_RTOL = 1e-3
+
+
+def phase_tcap(seed, main_out):
+    """17a: bench.py's transient depth caps at phase 3's configuration,
+    every kernel's count set to 0 just before and read just after; phase
+    4's gates, and no capped warmup iteration deeper than TCAP. Printed
+    beside phase 3's walls (`main_out`)."""
+    import numpy as np
+
+    import advancedhmc_torch as ah
+
+    target, kernel, adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    spec = ah.SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
+                         cross_chain=True)
+    caps = ah.transient_depth_caps(
+        N_WARMUP, MAX_DEPTH, TCAP, TCAP_INIT, TCAP_POST, adaptor.init_buffer,
+        adaptor.term_buffer, adaptor.window_size)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 170)
+
+    def run():
+        timings, t0 = {}, time.perf_counter()
+        state = ah.init_state(
+            gen, spec, ah.make_metric("diagonal", DIM, device="cuda"),
+            theta0[:WARMUP_CHAINS], init_mass_matrix="gradient",
+            device="cuda")
+        torch.cuda.synchronize()
+        timings["init_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+        state, _, warm = ah.fused_warmup_phase_crosschain(
+            gen, spec, state, N_WARMUP, WARMUP_BLOCK, depth_caps=caps,
+            pair=PAIR)
+        state = ah.fanout_warmup_state(spec, state, N_CHAINS)
+        state, _, _ = ah.fused_draw_phase(gen, spec, state, N_DECOR, FUSE,
+                                          pair=PAIR)
+        torch.cuda.synchronize()
+        timings["warmup_s"], t0 = time.perf_counter() - t0, \
+            time.perf_counter()
+        state, th, st = ah.fused_draw_phase(gen, spec, state, N_DRAWS, FUSE,
+                                            pair=PAIR)
+        torch.cuda.synchronize()
+        timings["draws_s"] = time.perf_counter() - t0
+        return ah.SampleResult(thetas=th, stats=st, warmup_stats=warm,
+                               final_state=state, timings=timings,
+                               target=target)
+
+    res, wall, calls, counts = _timed_run(by_chains, run)
+    capped = torch.as_tensor(caps < MAX_DEPTH, device="cuda")
+    depth = res.warmup_stats["tree_depth"].double()
+    out, gates = _mm_run(
+        f"17a: bench.py's TCAP={TCAP}", res, wall, calls, counts, N_CHAINS,
+        N_WARMUP, N_DRAWS, PAIR, (N_CHAINS, N_DECOR + N_DRAWS), {
+            "tcap": TCAP, "tcap_init": TCAP_INIT, "tcap_post": TCAP_POST,
+            "capped_iterations": int(capped.sum()),
+            "warmup_depth_capped_mean": float(depth[capped].mean()),
+            "warmup_depth_capped_max": int(depth[capped].max()),
+            "warmup_depth_uncapped_mean": float(depth[~capped].mean()),
+            "warmup_depth_uncapped_max": int(depth[~capped].max()),
+            "warmup_leaf_iterations_per_transition":
+                calls.get(WARMUP_CHAINS, 0) / 2 / N_WARMUP,
+            "phase3_warmup_s": main_out["warmup_s"],
+            "phase3_draws_s": main_out["draws_s"]})
+    gates[f"|accept - {DELTA}| <= 0.1"] = \
+        abs(out["accept_mean"] - DELTA) <= 0.1
+    gates[f"no capped warmup iteration deeper than {TCAP}"] = \
+        out["warmup_depth_capped_max"] <= TCAP
+    log(f"# 17a: {out['capped_iterations']}/{N_WARMUP} warmup iterations "
+        f"capped at depth {TCAP}: tree depth "
+        f"{out['warmup_depth_capped_mean']:.3f} mean, "
+        f"{out['warmup_depth_capped_max']} largest (uncapped "
+        f"iterations {out['warmup_depth_uncapped_mean']:.3f}, "
+        f"{out['warmup_depth_uncapped_max']}); warmup {out['warmup_s']:.2f} "
+        f"s and draws {out['draws_s']:.2f} s against phase 3's "
+        f"{main_out['warmup_s']:.2f} and {main_out['draws_s']:.2f} s; final "
+        f"eps {out['step_size']:.5f} (phase 3: {main_out['step_size']:.5f})")
+    failed = []
+    _mm_finish("17a", out, gates, failed)
+    if failed:
+        raise RuntimeError(f"phase 17a gates failed: {failed}")
+    return out
+
+
+def _count_weighted_moments(th, valid, chunk=4096):
+    """Phase 4's moments of the draws `th (C, T, dim)` at the rows `valid
+    (C, T)`, each draw weighing one (count-weighted over the chains), in
+    float64, a chunk of chains at a time; and whether every draw is finite
+    and every row past the counts zero."""
+    n = float(valid.sum())
+    s1 = s2 = 0.0
+    beta = torch.zeros(th.shape[-1] - 1, dtype=torch.float64, device="cuda")
+    finite, padded = True, True
+    for lo in range(0, th.shape[0], chunk):
+        x = th[lo:lo + chunk].double()
+        v = valid[lo:lo + chunk]
+        finite &= bool(torch.isfinite(x).all())
+        padded &= not bool(x[~v].any())
+        s1 += float(torch.where(v, x[..., 0], 0.0).sum())
+        s2 += float(torch.where(v, x[..., 0] ** 2, 0.0).sum())
+        beta += torch.where(v[..., None], x[..., 1:], 0.0).sum((0, 1))
+        del x
+    mean = s1 / n
+    return {"mean_logsigma": mean,
+            "sd_logsigma": math.sqrt(max(s2 / n - mean ** 2, 0.0)),
+            "mean_beta_norm": float((beta / n).norm())}, finite, padded
+
+
+def phase_ragged(seed, main_state, main_out, turns):
+    """17b: bench.py's ragged configuration, one `fused_draw_phase_ragged`
+    call from phase 3's final state, every kernel's count set to 0 just
+    before and read just after; bench.py's figures and its ragged ESS/s,
+    printed beside phase 3's ESS/s and phase 3b's rectangular single-body
+    draws; gated on the counts, `is_accept` past them, the count-weighted
+    moments, divergence, acceptance and the ragged ESS on the card against
+    the CPU's."""
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.diagnostics import effective_sample_size_ragged
+    from advancedhmc_torch.experimental import fused_draw_phase_ragged
+
+    target, kernel, adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    spec = ah.SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
+                         cross_chain=True)
+    t_min = N_DRAWS
+    t_max = int(round(t_min * RAGGED_FACTOR))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 171)
+    (_, th, cnt, st), wall, calls, counts = _timed_run(
+        by_chains, lambda: fused_draw_phase_ragged(gen, spec, main_state,
+                                                   t_max, t_min))
+    rows = torch.arange(t_max, device="cuda")[None]
+    valid = rows < cnt[:, None].long()
+    n_total = int(cnt.sum())
+    sub = cnt[:ESS_CHAINS].long()
+    x_sub = th[:ESS_CHAINS, :int(sub.max())]
+    ess = effective_sample_size_ragged(x_sub, sub)
+    ess_cpu = effective_sample_size_ragged(x_sub.cpu(), sub.cpu())
+    ess_rel = float(((ess.cpu() - ess_cpu).abs() / ess_cpu.abs()).max())
+    median_ess = float(ess.quantile(0.5)) * (N_CHAINS / ESS_CHAINS)
+    rect = [r for r in turns if not r["pair"]]
+    out = {
+        "run": f"17b: bench.py's RAGGED={RAGGED_FACTOR}", "chains": N_CHAINS,
+        "t_min": t_min, "t_max": t_max, "draws_s": wall,
+        "draws_per_chain_mean": n_total / N_CHAINS,
+        "draws_per_chain_min": int(cnt.min()),
+        "draws_per_chain_max": int(cnt.max()),
+        "collected_vs_rect": n_total / (N_DRAWS * N_CHAINS),
+        "effective_samples_per_s_per_chip": median_ess / wall,
+        "median_ess": median_ess,
+        "min_ess_per_s": float(ess.min()) * (N_CHAINS / ESS_CHAINS) / wall,
+        "ess_card_vs_cpu_max_rel": ess_rel,
+        "accept_mean": float((st["acceptance_rate"].double() * valid).sum())
+        / n_total,
+        "divergence_rate": float((st["numerical_error"] & valid).sum())
+        / n_total,
+        "leaf_iterations_per_transition":
+            calls.get(N_CHAINS, 0) / t_min,
+        "k1_calls": counts[K1_CALLS],
+        "k1_launches": counts["fused_logistic_value_grad"],
+        "value_grad_calls": sum(calls.values()),
+        "k1_calls_by_chains": dict(sorted(calls.items(), reverse=True)),
+        "phase3_effective_samples_per_s_per_chip":
+            main_out["effective_samples_per_s_per_chip"],
+        "phase3b_single_body_ms_per_transition":
+            [1e3 * r["wall_s"] / PAIR_TURN_DRAWS for r in rect],
+    }
+    moments, finite, padded = _count_weighted_moments(th, valid)
+    moments, moment_gates = _gate_moments(moments)
+    out.update(moments)
+    gates = {
+        f"counts in [{t_min}, {t_max}]":
+            out["draws_per_chain_min"] >= t_min
+            and out["draws_per_chain_max"] <= t_max,
+        f"the slowest chain stopped at t_min = {t_min}":
+            out["draws_per_chain_min"] == t_min,
+        "is_accept true before each count, false past it":
+            bool(torch.equal(st["is_accept"], valid)),
+        "draws finite, zero past each count": finite and padded,
+        "k1 calls = value+grad calls":
+            out["k1_calls"] == out["value_grad_calls"] > 0,
+        "k1 launches = calls": out["k1_launches"] == out["k1_calls"],
+        f"ragged ESS on the card within {RAGGED_ESS_RTOL} of the CPU's":
+            ess_rel <= RAGGED_ESS_RTOL,
+        **_draw_gates(out, moment_gates),
+    }
+    del th, st, valid
+    log(json.dumps(out))
+    log(f"# 17b: ragged draws {wall:.2f} s for t_min {t_min} (t_max "
+        f"{t_max}): {out['draws_per_chain_mean']:.2f} draws a chain (min "
+        f"{out['draws_per_chain_min']}, max {out['draws_per_chain_max']}), "
+        f"collected_vs_rect {out['collected_vs_rect']:.4f}, ESS/s "
+        f"{out['effective_samples_per_s_per_chip']:.0f} (phase 3: "
+        f"{main_out['effective_samples_per_s_per_chip']:.0f}); "
+        f"{1e3 * wall / t_min:.2f} ms a t_min transition against phase 3b's "
+        f"rectangular single-body "
+        + ", ".join(f"{v:.2f}" for v in
+                    out["phase3b_single_body_ms_per_transition"])
+        + f" ms; {out['leaf_iterations_per_transition']:.2f} leaf-loop "
+        f"iterations a t_min transition; accept {out['accept_mean']:.4f}")
+    failed = []
+    for g, ok in gates.items():
+        log(f"# gate 17b {g}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"17b: {g}")
+    if failed:
+        raise RuntimeError(f"phase 17b gates failed: {failed}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3321,21 +3574,33 @@ def main(argv=None):
     args = ap.parse_args(argv)
     require_cuda()
     import advancedhmc_torch  # noqa: F401  (fails outside a checkout)
+    t_start = time.perf_counter()
+
+    def clock(done):
+        log(f"# clock: {done} done at {time.perf_counter() - t_start:.1f} s")
+
     gpu = gpu_line()
     log(f"# card: {gpu}")
     phase_build()
+    clock("phase 1 (build)")
     from advancedhmc_torch.ops.fused_logistic import MODE_BF16, MODE_F32
     k1_rows, k1_err, _ = phase_k1(MODE_F32)
     k1_report()
     k1_bf16_rows, k1_bf16_err, _ = phase_k1(MODE_BF16)
+    clock("phase 2")
     k3_rows, k3_err, k3_launches = phase_k3()
+    clock("phase 2b")
     res, launches, wall, k1_by_chains, iters = phase_main(args.seed)
     out = phase_results(res, launches, wall, args.seed, iters)
     log(f"# main path: warmup {out['warmup_s']:.1f} s, draws "
         f"{out['draws_s']:.1f} s, K1 launches {launches}")
+    clock("phases 3-4")
     turns = phase_pair_turns(res)
+    clock("phase 3b")
     phase_profile(res)
+    clock("phase 5")
     mega = phase_megakernel(res, out)
+    clock("phase 6")
     k2_rows = [dict(case=f"logistic C={N_CHAINS} T={MEGA_T} "
                     f"max_depth={MAX_DEPTH} (megakernel call 1)",
                     **mega["first_call_agreement"],
@@ -3344,6 +3609,7 @@ def main(argv=None):
                     plain_ms=mega["first_call_plain_ms"],
                     bound_ms=mega["bound_ms_mean"]),
                *phase_k2_parity(res)]
+    clock("phase 7")
     # phase 14 starts from phase 3's ε, M⁻¹ and a slice of its positions
     fs = res.final_state
     warmed = (fs.adapt.da.eps.clone(), fs.metric.m_inv.clone(),
@@ -3352,19 +3618,26 @@ def main(argv=None):
     main_state = fs
     del res, fs
     defaults, k1_by_chains_defaults = phase_defaults(args.seed)
+    clock("phase 8")
     wide_rows, wide_err, wide_launched = phase_wide_k1(MODE_F32)
     wide_shape = k1_wide_report(wide_launched)
     wide_bf16_rows, wide_bf16_err, _ = phase_wide_k1(MODE_BF16)
     wide, res = phase_wide(args.seed)
+    clock("phase 9")
     wide_k2 = phase_wide_megakernel(res, wide)
     del res
+    clock("phase 10")
     wide_bf16 = phase_wide_bf16(args.seed, wide)
+    clock("phase 11")
     options = phase_options(args.seed, defaults)
+    clock("phase 12")
     log("# phase 12: " + json.dumps(
         {k: {f: v[f] for f in ("warmup_s", "draws_s") if f in v}
          for k, v in options.items()}))
     chees = phase_chees(args.seed)
+    clock("phase 13")
     static = phase_static(args.seed, warmed)
+    clock("phase 14")
     log("# phase 14: " + json.dumps(
         {k: {f: v[f] for f in ("warmup_s", "draws_s", "accept_mean")}
          for k, v in static.items()}))
@@ -3373,10 +3646,10 @@ def main(argv=None):
         {k: {f: v[f] for f in ("warmup_s", "draws_s", "accept_mean",
                                "k1_launches")}
          for k, v in mm.items()}))
+    clock("phase 15")
     t16 = time.perf_counter()
     nc = phase_nc(args.seed)
     criteria = phase_criteria(main_state, out, turns)
-    del main_state
     strict_slice = phase_strict_slice(args.seed)
     zoo, _ = phase_zoo(args.seed)
     log(f"# phase 16 took {time.perf_counter() - t16:.1f} s: " + json.dumps(
@@ -3385,6 +3658,19 @@ def main(argv=None):
          "16b": {k: v["draws_s"] for k, v in criteria.items()},
          "16c": {f: strict_slice[f] for f in ("warmup_s", "draws_s")},
          "16d": {k: v["wall_s"] for k, v in zoo.items()}}))
+    clock("phase 16")
+    t17 = time.perf_counter()
+    tcap = phase_tcap(args.seed, out)
+    ragged = phase_ragged(args.seed, main_state, out, turns)
+    del main_state
+    log(f"# phase 17 took {time.perf_counter() - t17:.1f} s: " + json.dumps(
+        {"17a": {f: tcap[f] for f in (
+            "warmup_s", "draws_s", "effective_samples_per_s_per_chip",
+            "step_size")},
+         "17b": {f: ragged[f] for f in (
+             "draws_s", "draws_per_chain_mean", "collected_vs_rect",
+             "effective_samples_per_s_per_chip")}}))
+    clock("phase 17")
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
@@ -3414,6 +3700,10 @@ def main(argv=None):
             "16c strict + slice": strict_slice["k1_launches"],
             "16d german_credit_logistic":
                 zoo["german_credit_logistic"]["k1_launches"]},
+        "launches_tcap": tcap["k1_launches"],
+        "calls_tcap_by_chains": tcap["k1_calls_by_chains"],
+        "launches_ragged": ragged["k1_launches"],
+        "calls_ragged_by_chains": ragged["k1_calls_by_chains"],
         "max_abs_err": k1_err,
         "max_err": k1_err,
         "ms": k1_row["ms"],

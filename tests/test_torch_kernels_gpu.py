@@ -639,6 +639,51 @@ def test_dense_metric_sample_runs_k1_and_keeps_factors_on_card():
 
 
 @pytest.mark.gpu
+def test_per_chain_rank_update_sample_runs_k1_on_card():
+    """`sample()` step by step with a per-chain rank-update metric (rank 8)
+    adapted by each chain's low-rank estimator, on the 100-D logistic at
+    256 chains: every value+grad call is one K1 launch, the draws are
+    finite, and each chain ends with its own positive-definite M⁻¹."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import advancedhmc_torch as ah
+
+    tgt = hierarchical_logistic(n=1000, p=99, device="cuda")
+    calls = []
+    inner = tgt.logdensity_and_grad
+
+    def counted(theta):
+        calls.append(theta.shape[0])
+        return inner(theta)
+
+    tgt = dataclasses.replace(tgt, logdensity_and_grad=counted)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(0).normal(size=(256, 100)),
+        dtype=torch.float32, device="cuda")
+    adaptor = ah.AdaptorConfig(mm_kind="lowrank", mm_rank=8, init_buffer=10,
+                               term_buffer=10, window_size=10)
+    f = k1.logistic_value_grad
+    launches = f.launches
+    res = ah.sample(torch.Generator(device="cuda").manual_seed(0), tgt,
+                    ah.NUTS(0.8, max_depth=5).kernel,
+                    ah.make_metric("rank_update", 100, device="cuda",
+                                   rank=8),
+                    theta0, 60, n_adapts=40, adaptor=adaptor,
+                    init_mass_matrix="identity", drop_warmup=True,
+                    device="cuda")
+    assert f.launches - launches == len(calls) > 0
+    assert res.thetas.shape == (20, 256, 100)
+    assert bool(torch.isfinite(res.thetas).all())
+    m = res.final_state.metric
+    assert isinstance(m, ah.RankUpdateEuclideanMetric)
+    assert m.b.shape == (256, 100, 8)
+    assert isinstance(res.final_state.adapt.mm, ah.LowRankCovState)
+    assert bool((torch.linalg.eigvalsh(m.m_inv_matrix().double()) > 0).all())
+
+
+@pytest.mark.gpu
 def test_nc_model_through_k1_matches_its_plain_route_on_card():
     """The non-centred logistic on the card takes K1 (one launch a
     value+grad) at θ' = (log σ, σ·β̃); its value+grad agree with the

@@ -33,6 +33,7 @@ from advancedhmc_tpu.trajectory import mh_accept_ratio as mh_j
 
 import advancedhmc_torch as ah
 from advancedhmc_torch import convert, utils as ut
+from advancedhmc_torch.experimental import Experimental
 from advancedhmc_torch.stepsize_search import _search
 
 torch.set_num_threads(2)
@@ -266,17 +267,14 @@ def test_unported_options_raise_not_implemented():
     gen = torch.Generator().manual_seed(0)
     h = ah.Hamiltonian(metric=metric, target=tgt)
     z = h.init_phasepoint(gen, torch.zeros(4, DIM, dtype=torch.float64))
-    rank_update = ah.make_metric("rank_update", DIM, torch.float64,
-                                 device="cpu", rank=2)
+    spec = ah.SampleSpec(target=tgt, kernel=kernel,
+                         adaptor=ah.AdaptorConfig(kind="none"))
+    state = ah.init_state(gen, spec, metric, th0, init_eps=0.1, device="cpu")
+    result = ah.SampleResult(thetas=None, stats={}, warmup_stats=None,
+                             final_state=state)
     cases = [
-        # the rank-update metric and the low-rank estimator per chain
-        lambda: rank_update.per_chain(4),
-        lambda: ah.AdaptState.init(ah.AdaptorConfig(mm_kind="lowrank"), DIM,
-                                   torch.full((4,), 0.1)),
-        lambda: ah.sample(gen, tgt, kernel, rank_update, th0, 16, n_adapts=8,
-                          adaptor=ah.AdaptorConfig(mm_kind="lowrank",
-                                                   mm_rank=2),
-                          init_eps=0.1, device="cpu"),
+        # checkpoints
+        lambda: result.save("unused.npz"),
         # reduced dtypes other than bfloat16
         lambda: ah.hierarchical_logistic(n=N, p=P, x_dtype="float16",
                                          device="cpu"),
@@ -287,6 +285,9 @@ def test_unported_options_raise_not_implemented():
         # the fused loop's XLA layout knobs
         lambda: ah.nuts_transitions_fused(gen, h, kernel.trajectory, z, 2,
                                           kernel.refreshment, unroll=2),
+        lambda: ah.fused_draw_phase_ragged(gen, spec, state, 4, 2,
+                                           out_dtype=torch.bfloat16),
+        lambda: Experimental(stage_slots=2),
         lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
                           adaptor=ah.AdaptorConfig(), cross_chain=True,
                           fuse_draws=4, fuse_warmup=True,
