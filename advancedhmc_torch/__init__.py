@@ -11,13 +11,15 @@ ragged ESS, R̂) and `SampleResult`'s exports; static HMC (endpoint or
 multinomial sampling, fixed steps or integration time), the jittered,
 tempered, composed and external-solver integrators, partial momentum
 refreshment and the NUTS/HMC/HMCDA constructors; ChEES-HMC
-(`sample_chees`); on the JAX package's model zoo (`models`: the
-hierarchical logistic, centred with a float32 or bfloat16 design or
-non-centred, the Gaussians, Neal's funnel, banana, eight schools, gdemo,
-the mixtures, the spiral, the declarative distributions) and any
-transformed (`transforms`) or structured (`target_from_pytree`) target,
-with the likelihood value+grad in a hand-written CUDA kernel
-(`ops/fused_logistic.py`, `csrc/fused_logistic.cu`), and the JAX package's
+(`sample_chees`); the relativistic kinetic energy; the Riemannian tier
+(`riemannian`: SoftAbs RMHMC and Riemannian NUTS, `sample_rmhmc`);
+checkpoints (`checkpoint`) and the profiling helpers (`profiling`); on the
+JAX package's model zoo (`models`: the hierarchical logistic, centred with
+a float32 or bfloat16 design or non-centred, the Gaussians, Neal's funnel,
+banana, eight schools, gdemo, the mixtures, the spiral, the declarative
+distributions) and any transformed (`transforms`) or structured
+(`target_from_pytree`) target, with the likelihood value+grad in a
+hand-written CUDA kernel (`ops/fused_logistic.py`, `csrc/fused_logistic.cu`), and the JAX package's
 two other kernels: the NUTS megakernel on block targets
 (`ops/fused_nuts_kernel.py`, `csrc/fused_nuts.cu`) and the diagonal-Gaussian
 leapfrog (`ops/fused_leapfrog.py`, `csrc/fused_leapfrog.cu`). Module names
@@ -70,7 +72,7 @@ from .hamiltonian import FullMomentumRefreshment, Hamiltonian, \
 from .integrators import ComposedLeapfrog, JitteredLeapfrog, Leapfrog, \
     SolverIntegrator, TemperedLeapfrog, leapfrog_step, leapfrog_steps, \
     leapfrog_trajectory
-from .kinetic import GaussianKinetic
+from .kinetic import GaussianKinetic, RelativisticKinetic
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, Metric, \
     RankUpdateEuclideanMetric, UnitEuclideanMetric, make_metric
 from .models import GDEMO_MEAN, banana, correlated_gaussian, eight_schools, \
@@ -79,6 +81,7 @@ from .models import GDEMO_MEAN, banana, correlated_gaussian, eight_schools, \
     hierarchical_logistic_nc, mvn_diag, neal_funnel, neal_funnel_nc, \
     spiral, std_gaussian, two_gaussian_mixtures_2d
 from .nuts import nuts_transition, nuts_transitions_fused
+from . import checkpoint, profiling, riemannian
 from .sampler import (
     HMCState,
     SampleResult,
@@ -139,6 +142,7 @@ __all__ = [
     "PartialMomentumRefreshment",
     "PhasePoint",
     "RankUpdateEuclideanMetric",
+    "RelativisticKinetic",
     "SLICE",
     "SampleResult",
     "SampleSpec",
@@ -160,6 +164,7 @@ __all__ = [
     "chees_tau_sweep",
     "chees_transition",
     "chees_update",
+    "checkpoint",
     "correlated_gaussian",
     "da_update",
     "depth_cap_schedule",
@@ -201,7 +206,9 @@ __all__ = [
     "online_init",
     "online_summary",
     "online_update",
+    "profiling",
     "rhat",
+    "riemannian",
     "sample",
     "sample_chees",
     "sample_step",

@@ -44,6 +44,31 @@ def phasepoint(z, device=None) -> PhasePoint:
                         ("theta", "r", "logdensity", "grad", "neg_k")))
 
 
+def riemannian_phasepoint(z, device=None):
+    """A Riemannian phase point (θ, r, ℓπ, ∂H∂θ, −K), batched or not."""
+    from .riemannian import RiemannianPhasePoint
+
+    return RiemannianPhasePoint(*(tensor(getattr(z, f), device) for f in
+                                  ("theta", "r", "logdensity", "dHdtheta",
+                                   "neg_k")))
+
+
+def riemannian_map(m):
+    """The map of a `DenseRiemannianMetric` (or the map config itself):
+    identity or SoftAbs with the same α. The metric's G and ∂G are
+    functions of the other package's arrays and stay there: build the
+    port's with `DenseRiemannianMetric.from_hessian` or by hand."""
+    from .riemannian import IdentityMap, SoftAbsMap
+
+    m = getattr(m, "map", m)
+    kind = type(m).__name__
+    if kind == "IdentityMap":
+        return IdentityMap()
+    if kind == "SoftAbsMap":
+        return SoftAbsMap(alpha=float(m.alpha))
+    raise TypeError(f"unknown Riemannian map {kind}")
+
+
 def diag_metric(m_inv, device=None) -> DiagEuclideanMetric:
     """A diagonal metric from its M⁻¹ diagonal."""
     return DiagEuclideanMetric.create(tensor(m_inv, device))

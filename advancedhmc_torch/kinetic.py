@@ -1,7 +1,7 @@
 """Kinetic energy configurations (counterpart of `advancedhmc_tpu/kinetic.py`).
 
-Only the Gaussian kinetic energy is ported; `RelativisticKinetic` is
-queued under ROADMAP.md's "The rest of the surface".
+A config selects the kinetic energy's code path in `Hamiltonian`: the
+Gaussian one, or the relativistic one with a unit or diagonal metric.
 """
 
 from __future__ import annotations
@@ -12,3 +12,12 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class GaussianKinetic:
     """K(r) = ½ rᵀ M⁻¹ r — the default kinetic energy."""
+
+
+@dataclasses.dataclass(frozen=True)
+class RelativisticKinetic:
+    """Relativistic kinetic energy K(r) = m c² sqrt(rᵀM⁻¹r/(m²c²) + 1),
+    with a unit or diagonal metric (shared or per chain)."""
+
+    m: float
+    c: float

@@ -35,6 +35,19 @@ The stacks are updated in place; they carry one spare slot that the leaves
 for every chain. They are kept in the trajectory's `stack_dtype` (see
 `trajectory.py`).
 
+Velocities: where ∂H∂r depends on r alone (a Euclidean metric, with the
+Gaussian or the relativistic kinetic energy) the checks recompute the
+velocities they need from stored momenta, applying `h.velocity` to sums
+and positions as the JAX package does (ρ·v_a is computed as
+dot(velocity(ρ), r_a), classic's as dot(velocity(θ), r_a); for the
+relativistic kinetic energy, whose velocity is not linear in r, this is
+the JAX package's own rule, not ρ·v_a). Where it reads θ too (the
+Riemannian Hamiltonian, `h.theta_dependent_velocity`), the loop carries
+velocities instead, as the JAX loop does for such metrics: the tree
+edges' (`t_vleft`, `t_vright`), strict's first-leaf one (`s_vfirst`) and a
+velocity stack beside each momentum stack (`ck_vel`, `ck_odd_vel`),
+written with the leaf's momentum, so the checks take dot(ρ, v_a).
+
 Slice sampling (the reference's SliceTS) draws ℓu = −H₀ − Exp(1) per chain
 at the start of a transition; a leaf is acceptable when ℓu ≤ −H, a subtree
 weighs its count of acceptable leaves (the root counts 1), the reservoir
@@ -54,7 +67,7 @@ from .hamiltonian import FullMomentumRefreshment, PhasePoint, \
     select_phasepoint
 from .integrators import JitteredLeapfrog, leapfrog_step
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, \
-    RankUpdateEuclideanMetric, cholesky_upper
+    cholesky_upper
 from .termination import SLICE, ClassicNoUTurn, \
     DynamicTerminationCriterion, StrictGeneralisedNoUTurn
 from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
@@ -71,16 +84,18 @@ _CHECK_EVERY = 4
 class _Kind:
     """What a trajectory's criterion and sampler add to the loop:
     `criterion` is "classic", "generalised" or "strict"; `slice` says the
-    slice sampler (else multinomial)."""
+    slice sampler (else multinomial); `carry_vel` that the loop carries
+    velocities (see the module docstring)."""
 
     criterion: str = "generalised"
     slice: bool = False
+    carry_vel: bool = False
 
 
 _GENERALISED = _Kind()
 
 
-def _kind(traj):
+def _kind(traj, h=None):
     crit = traj.criterion
     if not isinstance(crit, DynamicTerminationCriterion):
         raise ValueError(f"NUTS needs a no-U-turn criterion, not "
@@ -88,11 +103,12 @@ def _kind(traj):
     name = ("classic" if isinstance(crit, ClassicNoUTurn) else
             "strict" if isinstance(crit, StrictGeneralisedNoUTurn) else
             "generalised")
-    return _Kind(name, traj.ts_kind == SLICE)
+    return _Kind(name, traj.ts_kind == SLICE,
+                 bool(getattr(h, "theta_dependent_velocity", False)))
 
 
 def _sel(pred, a, b):
-    if isinstance(a, PhasePoint):
+    if not isinstance(a, torch.Tensor):        # a phase point
         return select_phasepoint(pred, a, b)
     return torch.where(pred[:, None] if a.dim() == 2 else pred, a, b)
 
@@ -102,11 +118,13 @@ def _empty_weight(kind):
     return 0.0 if kind.slice else float("-inf")
 
 
-def _fresh_fields(z: PhasePoint, h0, kind=_GENERALISED, generator=None):
+def _fresh_fields(z: PhasePoint, h0, kind=_GENERALISED, generator=None,
+                  vel=None):
     """Per-transition tree fields for a transition starting at `z`. The
     checkpoint stacks are not among them: every slot is written before it is
     read within a doubling. Slice sampling draws its level ℓu = −H₀ −
-    Exp(1) here, one draw a chain, from `generator`."""
+    Exp(1) here, one draw a chain, from `generator`. Where the loop
+    carries velocities, `vel` is z's."""
     c = z.theta.shape[0]
     dev = z.theta.device
     zeros = torch.zeros(c, dtype=z.theta.dtype, device=dev)
@@ -127,17 +145,23 @@ def _fresh_fields(z: PhasePoint, h0, kind=_GENERALISED, generator=None):
         fields["lu"] = -h0 - rand_exponential(generator, (c,), h0.dtype, dev)
     if kind.criterion == "strict":
         fields["s_rfirst"] = z.r      # the subtree's first leaf's momentum
+    if kind.carry_vel:
+        fields["t_vleft"] = fields["t_vright"] = vel
+        if kind.criterion == "strict":
+            fields["s_vfirst"] = vel
     return fields
 
 
 def _initial_state(z: PhasePoint, max_depth: int, stack_dtype=None,
-                   kind=_GENERALISED, generator=None):
+                   kind=_GENERALISED, generator=None, h=None):
     """The loop state of a transition from `z`: its tree fields and the
     checkpoint stacks of the criterion in `stack_dtype` (None: θ's dtype),
-    with one spare slot (see the module docstring)."""
+    with one spare slot (see the module docstring); `h` gives z's
+    velocity where the loop carries velocities."""
     c, d = z.theta.shape
     n_slots = max(1, max_depth - 1)
-    st = _fresh_fields(z, z.energy(), kind, generator)
+    st = _fresh_fields(z, z.energy(), kind, generator,
+                       h.velocity_z(z) if kind.carry_vel else None)
     sd = stack_dtype or z.theta.dtype
 
     def stack():
@@ -153,6 +177,10 @@ def _initial_state(z: PhasePoint, max_depth: int, stack_dtype=None,
     else:
         st["ck_cum"] = stack()
         st["ck_odd_r"] = stack()
+    if kind.carry_vel:
+        st["ck_vel"] = stack()
+        if kind.criterion == "strict":
+            st["ck_odd_vel"] = stack()
     return st
 
 
@@ -163,24 +191,6 @@ def _stack_dots(ck, v):
     if ck.dtype == v.dtype:
         return torch.bmm(ck, v[:, :, None])[:, :, 0]
     return torch.bmm(ck, v.to(ck.dtype)[:, :, None])[:, :, 0].to(v.dtype)
-
-
-def _velocity_rows(h, rows):
-    """M⁻¹ applied to each row of `rows` (C, K, dim), each chain's M⁻¹ to
-    its own rows."""
-    m = h.metric
-    if isinstance(m, DiagEuclideanMetric) and m.m_inv.dim() == 2:
-        return rows * m.m_inv[:, None]
-    if isinstance(m, DenseEuclideanMetric) and m.m_inv.dim() == 3:
-        return torch.bmm(rows, m.m_inv.mT)
-    if isinstance(m, RankUpdateEuclideanMetric) and m.a_diag.dim() == 2:
-        out = rows * m.a_diag[:, None]
-        if m.rank > 0:
-            out = out + torch.bmm(torch.bmm(torch.bmm(rows, m.b), m.d.mT),
-                                  m.b.mT)
-        return out
-    c, k, d = rows.shape
-    return h.velocity(rows.reshape(c * k, d)).reshape(c, k, d)
 
 
 def _dot(x, y):
@@ -219,7 +229,7 @@ def _step(h, z_edge, eps_v, h0, delta_max, sub, generator, integ=None,
     c, dtype, dev = h0.shape[0], h0.dtype, h0.device
     z_new = (leapfrog_step(h, z_edge, eps_v) if integ is None
              else integ.step(h, z_edge, eps_v))
-    vel_new = h.velocity(z_new.r)
+    vel_new = h.velocity_z(z_new)
     h_new = z_new.energy()
     dh = h_new - h0
     alpha_leaf = torch.nan_to_num(torch.exp(torch.clamp(-dh, max=0.0)),
@@ -266,15 +276,17 @@ def _span_turn(st, h, i, s_rho, vel_new, max_depth, odd, kind=_GENERALISED,
         torch.clamp(trailing_zeros(torch.clamp(a_safe, min=1)) - 1,
                     min=0, max=n_slots - 1)).long()                    # (C, K)
     if kind.criterion == "generalised":
-        u_a = _stack_dots(ck_r, h.velocity(s_rho)) + st["sck_ad"]
+        u_a = (_stack_dots(st["ck_vel"], s_rho) if kind.carry_vel
+               else _stack_dots(ck_r, h.velocity(s_rho))) + st["sck_ad"]
         u_b = _stack_dots(st["ck_d"], vel_new)
         turn_slot = (u_a <= 0) | (u_b <= -_dot(s_rho, vel_new)[:, None])
         turn_k = torch.gather(turn_slot, 1, slot_a)
     elif kind.criterion == "classic":
         # Δθ in tree order is ±(θ_i − θ_a), the sign the direction's
         vsign = v.to(vel_new.dtype)[:, None]
-        d_a = vsign * (_stack_dots(ck_r, h.velocity(theta_new))
-                       - st["sck_tv"])
+        th_va = (_stack_dots(st["ck_vel"], theta_new) if kind.carry_vel
+                 else _stack_dots(ck_r, h.velocity(theta_new)))
+        d_a = vsign * (th_va - st["sck_tv"])
         d_b = vsign * (_dot(theta_new, vel_new)[:, None]
                        - _stack_dots(st["ck_theta"], vel_new))
         turn_k = torch.gather((d_a <= 0) | (d_b <= 0), 1, slot_a)
@@ -286,7 +298,8 @@ def _span_turn(st, h, i, s_rho, vel_new, max_depth, odd, kind=_GENERALISED,
                 c, slots.shape[1], d)).to(dtype)
 
         r_a, cum_a = rows(ck_r, slot_a), rows(st["ck_cum"], slot_a)
-        vel_a = _velocity_rows(h, r_a)
+        vel_a = (rows(st["ck_vel"], slot_a) if kind.carry_vel
+                 else h.velocity_rows(r_a))
         rho_span = s_rho[:, None] - cum_a + r_a                       # (C, K, D)
         turn_k = (_dot(rho_span, vel_a) <= 0) | (
             _dot(rho_span, vel_new[:, None]) <= 0)
@@ -295,7 +308,11 @@ def _span_turn(st, h, i, s_rho, vel_new, max_depth, odd, kind=_GENERALISED,
         mid = torch.clamp(ks.long() - 2, min=0)[None].expand(c, -1)
         r_m1, cum_m1 = rows(ck_r, mid), rows(st["ck_cum"], mid)
         r_m = rows(st["ck_odd_r"], mid)
-        vel_m1, vel_m = _velocity_rows(h, r_m1), _velocity_rows(h, r_m)
+        if kind.carry_vel:
+            vel_m1, vel_m = rows(st["ck_vel"], mid), rows(st["ck_odd_vel"],
+                                                          mid)
+        else:
+            vel_m1, vel_m = h.velocity_rows(r_m1), h.velocity_rows(r_m)
         rho_h1 = (cum_m1 - r_m1) - cum_a + r_a
         rho_h2 = s_rho[:, None] - cum_m1 + r_m1
         # in tree order the checks of the two halves are these for a
@@ -325,6 +342,8 @@ def _store(st, i, z_new, s_rho, vel_new, write, kind=_GENERALISED):
                     max=n_slots - 1))
     slot_w = torch.where(write, slot_even, n_slots).long()
     _scatter_rows(st["ck_r"], slot_w, z_new.r)
+    if kind.carry_vel:
+        _scatter_rows(st["ck_vel"], slot_w, vel_new)
     if kind.criterion == "generalised":
         d_row = z_new.r - s_rho
         _scatter_rows(st["ck_d"], slot_w, d_row)
@@ -337,13 +356,16 @@ def _store(st, i, z_new, s_rho, vel_new, write, kind=_GENERALISED):
         _scatter_rows(st["ck_cum"], slot_w, s_rho)
 
 
-def _store_odd(st, i, r, write):
-    """Strict: store the momentum `r` of the odd leaf `i` at slot
-    tz(i+1)−1 where `write` holds, in place (the spare slot elsewhere)."""
+def _store_odd(st, i, r, write, vel=None):
+    """Strict: store the momentum `r` of the odd leaf `i` (and its velocity
+    `vel`, where the loop carries velocities) at slot tz(i+1)−1 where
+    `write` holds, in place (the spare slot elsewhere)."""
     n_slots = st["ck_odd_r"].shape[1] - 1
     slot_odd = torch.clamp(trailing_zeros(i + 1) - 1, min=0, max=n_slots - 1)
-    _scatter_rows(st["ck_odd_r"], torch.where(write, slot_odd, n_slots).long(),
-                  r)
+    slot_w = torch.where(write, slot_odd, n_slots).long()
+    _scatter_rows(st["ck_odd_r"], slot_w, r)
+    if vel is not None:
+        _scatter_rows(st["ck_odd_vel"], slot_w, vel)
 
 
 def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act,
@@ -369,9 +391,13 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act,
     if act is not None:
         take_top = take_top & act
     # combined tree: the doubling's far edge is z_new; velocities of the old
-    # edges are recomputed from their momenta (one product for a dense M⁻¹)
-    t_vleft = h.velocity(st["t_zleft"].r)
-    t_vright = h.velocity(st["t_zright"].r)
+    # edges are carried, or recomputed from their momenta (one product for
+    # a dense M⁻¹)
+    if kind.carry_vel:
+        t_vleft, t_vright = st["t_vleft"], st["t_vright"]
+    else:
+        t_vleft = h.velocity(st["t_zleft"].r)
+        t_vright = h.velocity(st["t_zright"].r)
     c_vleft = torch.where(fwd[:, None], t_vleft, vel_new)
     c_vright = torch.where(fwd[:, None], vel_new, t_vright)
     c_rho = st["t_rho"] + sub["s_rho"]
@@ -386,7 +412,8 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act,
         # the checks across the old tree and the subtree: each joins one
         # tree's ρ to the other's edge next to it, in tree order
         s_rfirst = sub["s_rfirst"]
-        s_vfirst = h.velocity(s_rfirst)
+        s_vfirst = (sub["s_vfirst"] if kind.carry_vel
+                    else h.velocity(s_rfirst))
         near_r = torch.where(fwd[:, None], st["t_zright"].r, st["t_zleft"].r)
         near_v = torch.where(fwd[:, None], t_vright, t_vleft)
         far_v = torch.where(fwd[:, None], t_vleft, t_vright)
@@ -426,6 +453,11 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act,
     )
     if kind.criterion == "strict":
         out["s_rfirst"] = sub["s_rfirst"]
+    if kind.carry_vel:
+        out["t_vleft"] = _sel(complete, c_vleft, st["t_vleft"])
+        out["t_vright"] = _sel(complete, c_vright, st["t_vright"])
+        if kind.criterion == "strict":
+            out["s_vfirst"] = sub["s_vfirst"]
     for k, val in st.items():       # the level, the cap and the stacks
         if k not in out and not k.startswith("s_"):
             out[k] = val
@@ -460,6 +492,9 @@ def _leaf(st, h, eps, max_depth, delta_max, generator,
     if strict:
         sub["s_rfirst"] = torch.where((i == 0)[:, None], z_new.r,
                                       st["s_rfirst"])
+        if kind.carry_vel:
+            sub["s_vfirst"] = torch.where((i == 0)[:, None], vel_new,
+                                          st["s_vfirst"])
     i_even = (i % 2) == 0
     sub["s_turning"] = sub["s_turning"] | _span_turn(
         st, h, i, sub["s_rho"], vel_new, max_depth, ~i_even, kind,
@@ -467,7 +502,8 @@ def _leaf(st, h, eps, max_depth, delta_max, generator,
     even = i_even if act is None else i_even & act
     _store(st, i, z_new, sub["s_rho"], vel_new, even, kind)
     if strict:
-        _store_odd(st, i, z_new.r, ~i_even if act is None else ~i_even & act)
+        _store_odd(st, i, z_new.r, ~i_even if act is None else ~i_even & act,
+                   vel_new if kind.carry_vel else None)
     e_mh = _merge_draw(generator, c, dtype, dev, kind)
     return _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh,
                   act, kind)
@@ -512,6 +548,9 @@ def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None,
     if strict:
         sub_a["s_rfirst"] = torch.where((i_a == 0)[:, None], z_a.r,
                                         st["s_rfirst"])
+        if kind.carry_vel:
+            sub_a["s_vfirst"] = torch.where((i_a == 0)[:, None], vel_a,
+                                            st["s_vfirst"])
     e_a = _merge_draw(generator, c, dtype, dev, kind)
     n_leaves = torch.bitwise_left_shift(torch.ones_like(i_a), st["depth"])
     pair_go = ~(sub_a["s_diverged"] | (i_a >= n_leaves - 1))
@@ -528,7 +567,8 @@ def _leaf_pair(st, h, eps, max_depth, delta_max, generator, act=None,
         st, h, i_b, sub_b["s_rho"], vel_b, max_depth, pair_go, kind,
         z_b.theta, v)
     if strict:
-        _store_odd(st, i_b, z_b.r, pair_go if act is None else pair_go & act)
+        _store_odd(st, i_b, z_b.r, pair_go if act is None else pair_go & act,
+                   vel_b if kind.carry_vel else None)
     sub = {k: _sel(pair_go, sub_b[k], sub_a[k]) for k in sub_a}
     return _merge(st, h, max_depth, v, fwd, torch.where(pair_go, i_b, i_a),
                   _sel(pair_go, z_b, z_a), _sel(pair_go, vel_b, vel_a), sub,
@@ -589,7 +629,7 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
     body, and the transition gives the same bits, every field and every
     stack slot that a check reads (the spare slot is a write-only sink)."""
     not_ported("nuts_transition", options)
-    kind = _kind(traj)
+    kind = _kind(traj, h)
     if _pair and force_directions is not None:
         raise ValueError("force_directions is unsupported on the leaf-pair "
                          "body; use the single-leaf body (_pair=False)")
@@ -603,7 +643,7 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
     if directions is None and coupled_key is not None:
         directions = rand_sign(coupled_key, (max_depth,), dev)
     st = _initial_state(z0, max_depth, traj.stack_torch_dtype, kind,
-                        generator)
+                        generator, h)
     first = True
     while not bool(st["done"].all()):
         running = ~st["done"]     # finished chains keep their state
@@ -698,7 +738,10 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     """
     not_ported("nuts_transitions_fused",
                options if batched else dict(options, batched=batched))
-    kind = _kind(traj)
+    kind = _kind(traj, h)
+    if kind.carry_vel:
+        raise ValueError("the fused loop runs on a Euclidean metric; "
+                         "Riemannian NUTS runs `nuts_transition`")
     crit = traj.criterion
     max_depth = int(crit.max_depth)
     c, d = z0.theta.shape

@@ -18,9 +18,10 @@ are the JAX function's. A static trajectory (`FixedNSteps`,
 depth caps are for NUTS alone. Randomness comes from one `torch.Generator`
 on the sampler's device, passed to each function; the state carries no
 key. `SampleResult` exports the draws (`to_inference_dict`, `summary`,
-`to_arviz`), named by the target. The `mesh` option (multi-GPU) and
-`SampleResult.save` are not ported; each raises, naming its ROADMAP.md
-item.
+`to_arviz`), named by the target, and `save` writes it to one npz
+(`checkpoint.save_result`). `SampleSpec.kinetic` takes the Gaussian or the
+relativistic kinetic energy. The `mesh` option (multi-GPU) is not ported;
+it raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -51,7 +52,7 @@ from .adaptation import (
 from .diagnostics import ess_bulk, ess_tail, online_init, online_summary, \
     online_update, rhat, summarize
 from .hamiltonian import Hamiltonian, PhasePoint
-from .kinetic import GaussianKinetic
+from .kinetic import GaussianKinetic, RelativisticKinetic
 from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, Metric, \
     RankUpdateEuclideanMetric, UnitEuclideanMetric
 from .nuts import _STAT_FIELDS, nuts_transition, nuts_transitions_fused
@@ -60,10 +61,9 @@ from .target import LogDensityTarget, leaves_with_names
 from .termination import DynamicTerminationCriterion
 from .trajectory import HMCKernel, transition_static
 from .transforms import constrain
-from .utils import not_ported, resolve_device, roadmap
+from .utils import not_ported, resolve_device
 
 _PREFIX = "[advancedhmc_torch]"
-_PZ = ("theta", "r", "logdensity", "grad", "neg_k")
 
 @dataclasses.dataclass(frozen=True)
 class HMCState:
@@ -109,13 +109,15 @@ class SampleSpec:
     """Static configuration of a run. `coupled` shares the NUTS doubling
     direction across chains (the reference's `rand_coupled` mode): each
     transition draws one sign per depth from the generator, and every chain
-    at that depth takes it (`nuts_transition`'s `coupled_key`)."""
+    at that depth takes it (`nuts_transition`'s `coupled_key`). `kinetic`
+    is the Gaussian kinetic energy or a `RelativisticKinetic` (with a unit
+    or diagonal metric)."""
 
     target: LogDensityTarget
     kernel: HMCKernel
     adaptor: AdaptorConfig
     cross_chain: bool = False
-    kinetic: GaussianKinetic = GaussianKinetic()
+    kinetic: Union[GaussianKinetic, RelativisticKinetic] = GaussianKinetic()
     coupled: bool = False
 
 
@@ -124,12 +126,18 @@ def _hamiltonian(spec, state):
                        kinetic=spec.kinetic)
 
 
+def _fields(z):
+    return [f.name for f in dataclasses.fields(z)]
+
+
 def _take_z(z, chains):
-    return PhasePoint(*(getattr(z, f)[chains] for f in _PZ))
+    """The phase points of the chains `chains`, of any phase-point class."""
+    return type(z)(*(getattr(z, f)[chains] for f in _fields(z)))
 
 
 def _cat_z(zs):
-    return PhasePoint(*(torch.cat([getattr(z, f) for z in zs]) for f in _PZ))
+    return type(zs[0])(*(torch.cat([getattr(z, f) for z in zs])
+                         for f in _fields(zs[0])))
 
 
 def _run_fused(generator, spec, state, n_transitions, pair=False,
@@ -537,7 +545,8 @@ class SampleResult:
     synchronise. `target` is the sampled target (`sample` and
     `sample_chees` set it): the exports name parameters from its `unravel`
     (`target_from_pytree`) or its `names` and `transforms`
-    (`transforms.transformed_target`). `save` comes with checkpoints."""
+    (`transforms.transformed_target`). `save` writes it to one npz
+    (`checkpoint.save_result`; `timings` and `target` are not saved)."""
 
     thetas: Optional[torch.Tensor]         # (n_kept, n_chains, dim) or None
     stats: Dict[str, torch.Tensor]         # each (n_kept, n_chains)
@@ -661,9 +670,11 @@ class SampleResult:
                             sample_stats=d["sample_stats"])
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "SampleResult.save comes with the checkpoints, not ported yet "
-            + roadmap("surface"))
+        """Persist draws/stats/summaries/final state to one npz (see
+        `checkpoint.save_result` / `load_result`)."""
+        from .checkpoint import save_result
+
+        save_result(path, self)
 
 
 # the stats `to_inference_dict` exports, under ArviZ's names

@@ -34,13 +34,14 @@ Phases (any failure exits non-zero):
    to 0 just before and read just after, and the target's value+grad
    calls (each one K1 launch) tallied by chain count, and the leaf-loop
    iterations per transition;
-3b. from phase 3's final state, the draw phase (64 draws) with the
+3b. from phase 3's final state, the draw phase (32 draws) with the
    leaf-pair body on and off in turns (on, off, off, on): each run's wall,
    leaf-loop iterations per transition and ESS/s, each gated as phase 4;
 4. check the results: finite draws of the expected shape, divergence,
    acceptance and posterior-moment gates;
-5. profile one fused draw call on each body (device time by kernel, idle
-   share);
+5. profile one fused draw call (2 transitions) on the leaf-pair body inside
+   `profiling.trace` (device time by kernel, idle share; the Chrome trace
+   it writes must name K1's kernel), then 18d;
 6. the megakernel draw phase: from phase 3's warmed state (ε, M⁻¹, the
    32768 positions), 16 calls of K2 with 16 transitions each, threading the
    positions, with divergence, moment and tree-depth gates (the first
@@ -54,10 +55,10 @@ Phases (any failure exits non-zero):
    divergent trees at 3ε, and the JAX megakernel test's Gaussian; each
    case also runs K2 twice and checks that the two give the same bits;
 8. the default path of `advancedhmc_torch.sample`: per-chain Stan
-   adaptation (δ 0.8, buffers 75/50/25, gradient-seeded M⁻¹) and one
+   adaptation (δ 0.8, buffers 50/25/25, gradient-seeded M⁻¹) and one
    `sample_step` per iteration, on 4096 chains of the same model and NUTS,
-   200 iterations of which 150 adapt, every other `sample` argument at its
-   default; then 32 fused draws (8 per call) at each chain's own ε and
+   120 iterations of which 100 adapt, every other `sample` argument at its
+   default; then 16 fused draws (8 per call) at each chain's own ε and
    M⁻¹ from its final state. Gated on finite draws, divergence,
    acceptance, the posterior moments, the per-chain ε (4096,) and M⁻¹
    (4096, 100), the fused draws' step size, and K1's launches (counted
@@ -67,7 +68,7 @@ Phases (any failure exits non-zero):
    the path's shapes beside its bound, its plain version and cuBLAS's two
    products; then `sample()` on the 1000-D hierarchical logistic (p = 999,
    n = 1000) at 1024 chains with the main path's NUTS and cross-chain
-   warmup (128 iterations, the whole batch, no fan-out) and 64 fused
+   warmup (128 iterations, the whole batch, no fan-out) and 32 fused
    draws (16 per call), with every kernel's launch count set to 0 just
    before and read just after. Gated on finite draws, divergence,
    acceptance, K1's calls against the target's value+grad calls and its
@@ -100,7 +101,7 @@ Phases (any failure exits non-zero):
    draws thinned by 2, its walls and leaf iterations beside phase 8's;
    (b) phase 3's configuration with the three-phase depth-capped warmup
    and ε re-anchor, two chain chunks, bfloat16 U-turn stacks and online
-   collection, 32 draws; (c) 16 coupled steps from (a)'s warmed state;
+   collection, 32 draws; (c) 8 coupled steps from (a)'s warmed state;
    each gated on divergence, acceptance and BENCH_r05's moments (b's from
    its online summary);
 13. ChEES-HMC at the JAX bench's configuration (bench.py:915-1090 at its
@@ -118,9 +119,9 @@ Phases (any failure exits non-zero):
    share);
 14. the static path through the constructors from phase 3's ε, M⁻¹ and
    4096 of its positions: HMC(ε, L ≈ 1/ε) with endpoint and with
-   multinomial sampling, HMCDA(0.8, 1) with phase 3's M⁻¹ (200
+   multinomial sampling, HMCDA(0.8, 1) with phase 3's M⁻¹ (150
    iterations, 100 adapting) and NUTS with the jittered leapfrog on the
-   fused loop (64 draws, 8 a call), each gated on finite draws,
+   fused loop (32 draws, 8 a call), each gated on finite draws,
    divergence, acceptance, the moments and K1's launches.
 15. the dense and rank-update metrics and the Welford-cov, low-rank and
    nutpie estimators at the same width, each run with every kernel's count
@@ -129,37 +130,38 @@ Phases (any failure exits non-zero):
    acceptance (15a–c: in [δ − 0.1, δ + 0.2], the band the JAX package's
    dual averaging leaves room for) and phase 4's moments: (a) the JAX
    bench's nutpie run (`AHMC_BENCH_MM_KIND=nutpie AHMC_BENCH_WARMUP=256`:
-   phase 3 with the cross-chain warmup step by step, cut to 150
-   iterations),
+   phase 3 with the cross-chain warmup step by step, cut to 100
+   iterations, 64 draws),
    gated on M⁻¹ having moved from the gradient seed and on the median of
    M⁻¹ over the draws' variance; (b) phase 3 with a dense metric and the
-   Welford covariance from the identity, 150 warmup iterations in fused
-   blocks of 4 and 128 draws, gated on M⁻¹'s symmetry, its
+   Welford covariance from the identity, 100 warmup iterations in fused
+   blocks of 2 and 64 draws, gated on M⁻¹'s symmetry, its
    Cholesky factor, its distance to the draws' covariance and the
    covariance of 2^18 momentum draws, its ESS/s printed beside phase 3's;
    (c) `NUTS(0.55, max_depth=6, metric="rank_update")` (the low-rank
-   estimator at rank 8) on 1024 chains, 150 warmup iterations in fused
-   blocks of 4, gated on a positive-definite M⁻¹
+   estimator at rank 8) on 1024 chains, 100 warmup iterations in fused
+   blocks of 2, gated on a positive-definite M⁻¹
    and the momentum draws; (d) the per-chain fused warmup on 512 chains,
-   150 iterations (one window), with nutpie on the diagonal metric and
-   with a per-chain dense metric (each chain's factor checked), 16 draws;
-16. the classic and strict criteria, slice sampling and the model zoo,
-   each run with every kernel's count set to 0 just before and read just
-   after: (a) bench.py's `AHMC_BENCH_MODEL=logistic_nc` at its defaults
-   (the non-centred hierarchy at phase 3's width, NUTS, schedule and
-   chains, 256 warmup iterations), its value+grad through K1 first held to
-   its float64 and float32 analytic routes at C = 32768, 4096 and 1, its
-   draws mapped to (log σ, σ·β̃) and gated as phase 3 (accept in phase
-   15's band of 256-iteration runs); (b) phase 3's draw phase (64 draws)
-   from its final state with classic + multinomial, strict + multinomial
-   and generalised + slice, beside phase 3b's generalised runs; (c) phase 3's
-   configuration with strict + slice in the warmup blocks too, 64 draws;
+   with nutpie on the diagonal metric and with a per-chain dense metric
+   (each chain's factor checked), 8 draws; (a)-(d) warm 100 iterations,
+   one Stan window (buffers 50/25/25);
+16. the classic and strict criteria, slice sampling and the model zoo, each
+   run with every kernel's count set to 0 just before and read just after:
+   (a) bench.py's `AHMC_BENCH_MODEL=logistic_nc` at its defaults (the
+   non-centred hierarchy at phase 3's width, NUTS, schedule and chains; 150
+   warmup iterations and 128 draws, not 256 + 256), its value+grad through
+   K1 first held to its float64 and float32 analytic routes at C = 32768,
+   4096 and 1, its draws mapped to (log σ, σ·β̃) and gated as phase 3
+   (accept in phase 15's band); (b) phase 3's draw phase (32 draws) from
+   its final state with classic + multinomial, strict + multinomial and
+   generalised + slice, beside phase 3b's generalised runs; (c) phase 3's
+   configuration with strict + slice in the warmup blocks too, 32 draws;
    (d) each new model's value+grad at 4096 chains against the port's
    float64 CPU path, then `NUTS(0.8, max_depth=4).sample` step by step on
    256 chains (40 + 20) of gdemo (against GDEMO_MEAN), a Gaussian mixture
-   (its mean), eight schools and banana (finite, divergence share
-   printed) and German credit (K1 narrow at p = 24; against the JAX
-   package's posterior, `scripts/zoo_reference.py`);
+   (its mean), eight schools and banana (finite, divergence share printed)
+   and German credit (K1 narrow at p = 24; against the JAX package's
+   posterior, `scripts/zoo_reference.py`);
 17. bench.py's two last configurations at phase 3's width, each with
    every kernel's count set to 0 just before and read just after, K1's
    calls held to the target's value+grad calls: (a) `AHMC_BENCH_TCAP=4`:
@@ -167,13 +169,34 @@ Phases (any failure exits non-zero):
    `fused_warmup_phase_crosschain` with `transient_depth_caps`' schedule,
    `fanout_warmup_state`, `fused_draw_phase`), its walls and ε beside
    phase 3's, gated as phase 4 and on no capped warmup iteration deeper
-   than the cap; (b) `AHMC_BENCH_RAGGED=1.5`: one
-   `fused_draw_phase_ragged` call from phase 3's final state (t_min 256,
-   t_max 384, the single-leaf body), bench.py's figures (draws a chain,
+   than the cap, 128 draws; (b) `AHMC_BENCH_RAGGED=1.5`: one
+   `fused_draw_phase_ragged` call from phase 3's final state (t_min 128,
+   t_max 192, the single-leaf body), bench.py's figures (draws a chain,
    `collected_vs_rect`, ESS/s from the ragged ESS of 512 chains) beside
    phase 3's ESS/s and phase 3b's single-body draws, gated on the counts,
    `is_accept` past them, the count-weighted moments, divergence,
-   acceptance and the ragged ESS on the card within 1e-3 of the CPU's.
+   acceptance and the ragged ESS on the card within 1e-3 of the CPU's;
+18. the relativistic kinetic energy, the Riemannian tier, checkpoints and
+   profiling: (a) phase 3's configuration with
+   `SampleSpec(kinetic=RelativisticKinetic(m=1, c=2))`, driven as 17a, 64
+   draws, every kernel's count set to 0 just before and read just after,
+   gated as phase 4 (acceptance in phase 15's band) with K1's calls held to
+   the target's value+grad calls; (b) `riemannian.sample_rmhmc` (SoftAbs)
+   on Neal's funnel (dim 10, σ_v 3) in float64 at 4096 chains started at
+   exact draws, static (8 generalised leapfrog steps, 6 fixed-point
+   iterations) and Riemannian NUTS (max_depth 5), dual averaging then
+   draws, gated on E[v] = 0 and sd(v) = 3 within 5 MCSEs, its result
+   through `SampleResult.save`/`checkpoint.load_result` bitwise; (c)
+   SoftAbs RMHMC on the 100-D logistic in float32 from 256 of phase 3's
+   final positions, one transition (K1 in every ∂H∂θ), K1's calls against
+   the value+grad calls, one ∂H∂θ through K1 within 1e-4 of the float64
+   route, finite energies, the time of one generalised leapfrog step beside
+   the Hessian, ∂G, the batched `eigh` and K1, and the peak device memory;
+   (d) right after phase 5: phase 3's final state and generator through
+   `checkpoint.save_state`/`load_state` into a zeroed state and a new
+   generator, 16 fused draws from each bitwise equal, and
+   `profiling.throughput_report` on phase 3's result equal to phase 4's
+   leapfrog steps/s to 1e-9.
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
@@ -686,18 +709,16 @@ def main_path_spec():
     return target, kernel, adaptor
 
 
-def phase_main(seed):
-    import numpy as np
-
+def phase_main(seed, gen=None):
+    """Phase 3 through `sample`, drawing from `gen` (a CUDA generator
+    seeded with `seed` unless given: 18d checkpoints it afterwards)."""
     import advancedhmc_torch as ah
 
     target, kernel, adaptor = main_path_spec()
     target, by_chains = count_by_chains(target)
-    # starting points from numpy, as the tests make their inputs
-    theta0 = torch.as_tensor(
-        0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
-        dtype=torch.float32, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    theta0 = _main_theta0(seed)
+    if gen is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
     metric = ah.make_metric("diagonal", DIM, device="cuda")
     torch.cuda.synchronize()
 
@@ -824,10 +845,10 @@ def phase_results(res, launches, wall, seed, iters):
 # ----------------------------------------------------------------- phase 3b
 # The draw phase from phase 3's final state with the leaf-pair body on and
 # off, in turns (on, off, off, on), a seed each; PAIR_TURN_DRAWS draws a
-# turn, cut from phase 3's 256 to 128 to leave room for phase 16, then to
-# 64 for phase 17
+# turn, cut from phase 3's 256 to 128 to leave room for phase 16, to 64
+# for phase 17, then to 32 for phase 18
 PAIR_TURNS = (True, False, False, True)
-PAIR_TURN_DRAWS = 64
+PAIR_TURN_DRAWS = 32
 
 
 def phase_pair_turns(res):
@@ -890,33 +911,64 @@ def phase_pair_turns(res):
 
 
 # ------------------------------------------------------------------ phase 5
+# one fused draw call of PROFILE_T transitions, not phase 3's FUSE (16): the
+# trace of a 16-transition call (81.5 MB, 264247 events) took ≈ 32 s to
+# write and read back, of 4 transitions (32.7 MB) ≈ 17 s, over the
+# script's clock
+PROFILE_T = 2
+
+
 def phase_profile(res):
-    """Device time by kernel over one fused draw call of 16 transitions on
-    the final state, on each body, and the share of the wall the device
-    was idle."""
-    from advancedhmc_torch import SampleSpec, fused_draw_phase
+    """Device time by kernel over one fused draw call of PROFILE_T
+    transitions on the final state, on the leaf-pair body (phase 3's),
+    inside `profiling.trace` (18d: the Chrome trace it writes must name
+    K1's kernel), and the share of the wall the device was idle. Cut from
+    a call on each body to make room for phase 18, then from 16
+    transitions to PROFILE_T to bring the script under its clock."""
+    import os
+    import tempfile
+
+    from advancedhmc_torch import SampleSpec, fused_draw_phase, profiling
 
     target, kernel, adaptor = main_path_spec()
     spec = SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
                       cross_chain=True)
-    for pair in (False, True):
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        profile_call(f"one fused draw call (pair body {pair})",
-                     lambda: fused_draw_phase(gen, spec, res.final_state,
-                                              FUSE, FUSE, pair=pair))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with tempfile.TemporaryDirectory() as d:
+        out = profile_call(f"one fused draw call of {PROFILE_T} transitions "
+                           f"(pair body {PAIR})",
+                           lambda: fused_draw_phase(gen, spec,
+                                                    res.final_state,
+                                                    PROFILE_T, PROFILE_T,
+                                                    pair=PAIR),
+                           logdir=d)
+        path = os.path.join(d, profiling.TRACE_FILE)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    k1_events = sum(1 for e in events if e.get("cat") == "kernel"
+                    and "fused_logistic" in e.get("name", ""))
+    log(f"# 18d: profiling.trace wrote {size} bytes, {len(events)} events, "
+        f"{k1_events} of them K1's kernel (fused_logistic_kernel)")
+    _finish_gates("18d", {"the trace names K1's kernel": k1_events > 0})
+    return out
 
 
-def profile_call(label, fn):
-    """Device time by kernel over one call of `fn` under `torch.profiler`,
-    the wall, and the share of the wall the device was idle. Returns
+def profile_call(label, fn, logdir=None):
+    """Device time by kernel over one call of `fn` under `torch.profiler`
+    (through `profiling.trace` into `logdir` where one is given), the
+    wall, and the share of the wall the device was idle. Returns
     {wall_ms, busy_ms, idle_share, k1_ms, k1_share}, or None where the
     profiler recorded no device time (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from advancedhmc_torch import profiling
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with (profiling.trace(logdir) if logdir is not None else
+          profile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA])) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1306,11 +1358,17 @@ def k2_parity_rows(cases, share, theta_transitions=None):
 # `sample` at its defaults: per-chain adaptation, step by step
 # 200 iterations, not 400, keep the phase under 100 s on the card (at 400
 # it took 157-168 s, at 300 about 110 s) beside phase 15; 150 adapt, so
-# one Stan window (its end at 100) remains
-DEF_CHAINS, DEF_SAMPLES, DEF_ADAPTS = 4096, 200, 150
+# one Stan window (its end at 100) remains; then, to bring the script
+# under its 1200 s clock, 120 of which 100 adapt with the buffers cut from
+# 75/50/25 to 50/25/25 (still one window, then 25 iterations of dual
+# averaging after its reset, as phase 15's runs), and 20 draws, at ≈ 0.41
+# s an iteration on an H100
+DEF_CHAINS, DEF_SAMPLES, DEF_ADAPTS = 4096, 120, 100
+DEF_BUFFERS = (50, 25, 25)
 DEF_DELTA, DEF_TOL_ACCEPT = 0.8, 0.15
-# (the fused draws cut from 64 to 32 to leave room for phase 17)
-DEF_DRAWS, DEF_FUSE = 32, 8
+# (the fused draws cut from 64 to 32 to leave room for phase 17, then to 16
+# for the clock)
+DEF_DRAWS, DEF_FUSE = 16, 8
 
 
 def phase_defaults(seed):
@@ -1326,7 +1384,8 @@ def phase_defaults(seed):
     target, by_chains = count_by_chains(target)
     adaptor = ah.AdaptorConfig(
         kind="stan", da=ah.DualAveragingConfig(delta=DEF_DELTA),
-        init_buffer=75, term_buffer=50, window_size=25)
+        init_buffer=DEF_BUFFERS[0], term_buffer=DEF_BUFFERS[1],
+        window_size=DEF_BUFFERS[2])
     theta0 = torch.as_tensor(
         0.1 * np.random.default_rng(seed).normal(size=(DEF_CHAINS, DIM)),
         dtype=torch.float32, device="cuda")
@@ -1438,9 +1497,14 @@ def phase_defaults(seed):
 # (AHMC_BENCH_PAIR=0), the two switches the port has.
 # Draws cut from 128 to 64: at 128 the phase took 115.5 s on an H100
 # (draws 75.5 s), over the ~90 s it may take; the width, the chains and the
-# warmup are not cut.
+# warmup are not cut. Then to 32 (here and in phase 11, ≈ 15 s each on an
+# H100) to bring the script under its 1200 s clock. The moments are still
+# held to the JAX runs of 64 draws below: the gate's floor of 3 standard
+# deviations between those runs (≈ 2.3 in |mean β|, ≈ 0.3 in mean log σ)
+# is far wider than a run's drift between its first and second 32 draws
+# (0.27-0.40 in |mean β|).
 WIDE_ROWS, WIDE_DIM, WIDE_CHAINS = 1000, 1000, 1024
-WIDE_WARMUP, WIDE_DRAWS, WIDE_FUSE = 128, 64, 16
+WIDE_WARMUP, WIDE_DRAWS, WIDE_FUSE = 128, 32, 16
 # K1's wide kernel against its plain version at (C, p, n): the step-size
 # search, ragged C and n, the path's width and four times it, p = 200 (past
 # the narrow instances' 128), and twice the path's p
@@ -2097,7 +2161,9 @@ def phase_wide_bf16(seed, wide_out):
 # ----------------------------------------------------------------- phase 12
 # The new options of sample() at the 100-D model's full width, short runs
 # (draws cut: 50 per-chain fused draws in (a), 32 in (b), 16 coupled steps
-# in (c); (b) and (c) halved to leave room for phase 17), each gated on
+# in (c); (b) and (c) halved to leave room for phase 17; then (a) to 20
+# with phase 8 and (c) to 8 steps, to bring the script under its 1200 s
+# clock), each gated on
 # divergence, acceptance and BENCH_r05's moments:
 # (a) the per-chain fused warmup (phase 8's settings, 4096 chains) and
 #     fused draws thinned by 2;
@@ -2107,7 +2173,7 @@ def phase_wide_bf16(seed, wide_out):
 # (c) coupled chains on the step path, from (a)'s warmed state.
 OPT_FUSE, OPT_THIN = 10, 2
 OPT_CAP, OPT_CAP_FRAC, OPT_CAP_FRAC2, OPT_DRAWS_B = 4, 0.25, 0.5, 32
-OPT_COUPLED_STEPS = 16
+OPT_COUPLED_STEPS = 8
 
 
 def _fused_iterations(stats):
@@ -2160,7 +2226,8 @@ def phase_options(seed, defaults):
     # (a) per-chain fused warmup, then fused draws thinned
     adaptor = ah.AdaptorConfig(
         kind="stan", da=ah.DualAveragingConfig(delta=DEF_DELTA),
-        init_buffer=75, term_buffer=50, window_size=25)
+        init_buffer=DEF_BUFFERS[0], term_buffer=DEF_BUFFERS[1],
+        window_size=DEF_BUFFERS[2])
     theta0 = torch.as_tensor(
         0.1 * np.random.default_rng(seed).normal(size=(DEF_CHAINS, DIM)),
         dtype=torch.float32, device="cuda")
@@ -2505,9 +2572,11 @@ def phase_chees(seed):
 # ----------------------------------------------------------------- phase 14
 # The static path through the constructors, from phase 3's warmed state: its
 # ε and M⁻¹ and STATIC_CHAINS of its final positions.
+# (HMCDA's draws cut from 100 to 50 and the jittered NUTS's from 64 to 32
+# to bring the script under its 1200 s clock)
 STATIC_CHAINS, STATIC_ITERS, STATIC_DA_ITERS, STATIC_DA_ADAPTS = \
-    4096, 64, 200, 100
-STATIC_FUSE, STATIC_NUTS_DRAWS, STATIC_DA_DELTA = 8, 64, 0.8
+    4096, 64, 150, 100
+STATIC_FUSE, STATIC_NUTS_DRAWS, STATIC_DA_DELTA = 8, 32, 0.8
 # HMC's acceptance floors, set before the first run: ε is phase 3's, tuned
 # for NUTS's tree-mean acceptance 0.55 at δ 0.55; an endpoint of εL ≈ 1
 # carries an energy error of the same order as the tree's leaves, so its
@@ -2619,14 +2688,21 @@ def phase_static(seed, warmed):
 # To leave room for phase 17, (a)-(c) warm 150 iterations, not 256 (one
 # window, then the same 50 iterations of dual averaging after its reset),
 # (b) draws 128, not 256, and (d) runs 512 chains, not 1024, and 16
-# draws, not 64
-MM_WARMUP, MM_CHAINS_C, MM_CHAINS_D = 150, 1024, 512
-MM_DRAWS_B, MM_DRAWS_C, MM_DRAWS_D, MM_WARMUP_D = 128, 64, 16, 150
+# draws, not 64. To leave room for phase 18, (a) draws 64, not 256, (b)
+# 64, not 128, and (d) warms 100 iterations, not 150, its buffers cut
+# from 75/50/25 to 50/25/25 (still one window, then 25 iterations of
+# dual averaging after its reset). To bring the script under its 1200 s
+# clock, (a)-(c) warm as (d) does, 100 iterations with buffers 50/25/25,
+# not 150 with 75/50/25, and (d) draws 8, not 16
+MM_WARMUP, MM_CHAINS_C, MM_CHAINS_D = 100, 1024, 512
+MM_DRAWS_A, MM_DRAWS_B, MM_DRAWS_C, MM_DRAWS_D = 64, 64, 64, 8
+MM_BUFFERS = (50, 25, 25)
 # The fused cross-chain warmup updates dual averaging once a block: blocks
 # of 8 leave 6 updates between the last window's reset (206 of 256, 100 of
 # 150) and the end, and the re-anchored ε overshoots (×75 in one block)
-# before they settle; blocks of 4 leave 12 (15b, 15c).
-MM_WARMUP_BLOCK = 4
+# before they settle; blocks of 4 left 12 after the reset at 100 of 150,
+# and blocks of 2 leave 12 after the reset at 75 of 100 (15b, 15c).
+MM_WARMUP_BLOCK = 2
 # Stan's dual averaging ends at ε = exp(x̄), below its last iterates, so
 # the draws accept above δ: in 15a's configuration the JAX package leaves
 # δ + 0.09 (`scripts/accept_reference.py`), at the edge of a ±0.1 band;
@@ -2748,6 +2824,9 @@ def phase_metrics(seed, main_out):
     target, kernel, main_adaptor = main_path_spec()
     target, by_chains = count_by_chains(target)
     results, failed = {}, []
+    buffers = dict(zip(("init_buffer", "term_buffer", "window_size"),
+                       MM_BUFFERS))
+    main_adaptor = dataclasses.replace(main_adaptor, **buffers)
 
     def theta0(c, s=seed):
         return torch.as_tensor(
@@ -2770,7 +2849,8 @@ def phase_metrics(seed, main_out):
         lambda gen: ah.sample(
             gen, target, kernel, ah.make_metric("diagonal", DIM,
                                                 device="cuda"),
-            th0, MM_WARMUP + N_DRAWS, n_adapts=MM_WARMUP, adaptor=adaptor,
+            th0, MM_WARMUP + MM_DRAWS_A, n_adapts=MM_WARMUP,
+            adaptor=adaptor,
             init_mass_matrix="gradient", cross_chain=True,
             fuse_draws=FUSE, fuse_warmup=True, fuse_warmup_block=WARMUP_BLOCK,
             drop_warmup=True, warmup_chains=WARMUP_CHAINS,
@@ -2779,7 +2859,8 @@ def phase_metrics(seed, main_out):
     ratio = m_inv.double() / res.thetas.var((0, 1)).double()
     out, gates = _mm_run(
         "15a: nutpie, bench.py's configuration", res, wall, calls, counts,
-        N_CHAINS, MM_WARMUP, N_DRAWS, PAIR, (N_CHAINS, N_DECOR + N_DRAWS),
+        N_CHAINS, MM_WARMUP, MM_DRAWS_A, PAIR,
+        (N_CHAINS, N_DECOR + MM_DRAWS_A),
         {"warmup_chains": WARMUP_CHAINS,
          "warmup_leaf_iterations_per_transition":
              calls.get(WARMUP_CHAINS, 0) / MM_WARMUP,
@@ -2844,6 +2925,8 @@ def phase_metrics(seed, main_out):
     # (c) NUTS(0.55, max_depth=6, metric="rank_update"): the low-rank
     # estimator at rank 8, cross-chain fused warmup on 1024 chains
     cfg = ah.NUTS(DELTA, max_depth=MAX_DEPTH, metric="rank_update")
+    cfg = dataclasses.replace(
+        cfg, adaptor=dataclasses.replace(cfg.adaptor, **buffers))
     res, wall, calls, counts = run(
         torch.Generator(device="cuda").manual_seed(seed + 53),
         lambda gen: cfg.sample(
@@ -2878,15 +2961,14 @@ def phase_metrics(seed, main_out):
                                       "identity")):
         adaptor = ah.AdaptorConfig(
             kind="stan", mm_kind=mm_kind,
-            da=ah.DualAveragingConfig(delta=DEF_DELTA),
-            init_buffer=75, term_buffer=50, window_size=25)
+            da=ah.DualAveragingConfig(delta=DEF_DELTA), **buffers)
         res, wall, calls, counts = run(
             torch.Generator(device="cuda").manual_seed(seed + 55),
             lambda gen: ah.sample(
                 gen, target, kernel, ah.make_metric(kind, DIM,
                                                     device="cuda"),
-                theta0(MM_CHAINS_D), MM_WARMUP_D + MM_DRAWS_D,
-                n_adapts=MM_WARMUP_D, adaptor=adaptor,
+                theta0(MM_CHAINS_D), MM_WARMUP + MM_DRAWS_D,
+                n_adapts=MM_WARMUP, adaptor=adaptor,
                 init_mass_matrix=init, fuse_warmup=True, fuse_draws=FUSE,
                 drop_warmup=True, device="cuda"))
         metric = res.final_state.metric
@@ -2899,8 +2981,8 @@ def phase_metrics(seed, main_out):
             extra["chol_err"] = _chol_err(metric)
         out, gates = _mm_run(
             f"15{key}: per-chain fused warmup, {kind} metric, {mm_kind}",
-            res, wall, calls, counts, MM_CHAINS_D, MM_WARMUP_D,
-            MM_DRAWS_D, False, (MM_CHAINS_D, MM_WARMUP_D + MM_DRAWS_D),
+            res, wall, calls, counts, MM_CHAINS_D, MM_WARMUP,
+            MM_DRAWS_D, False, (MM_CHAINS_D, MM_WARMUP + MM_DRAWS_D),
             extra)
         gates[f"|accept - {DEF_DELTA}| <= {DEF_TOL_ACCEPT}"] = \
             abs(out["accept_mean"] - DEF_DELTA) <= DEF_TOL_ACCEPT
@@ -2922,21 +3004,25 @@ def phase_metrics(seed, main_out):
 # (a) bench.py's AHMC_BENCH_MODEL=logistic_nc at its defaults: the
 # non-centred hierarchy at phase 3's width, NUTS and schedule, with the
 # reference-faithful 256 warmup iterations (bench.py's default for every
-# model but the centred one), its draws mapped to (log σ, σ·β̃)
-NC_WARMUP = 256
+# model but the centred one), its draws mapped to (log σ, σ·β̃); cut to
+# 150 warmup iterations (Stan's one window, ending at 100, then 50 of dual
+# averaging after its reset, as phase 15 ran in PR 16) and 128 draws, not
+# 256, to bring the script under its 1200 s clock
+NC_WARMUP, NC_DRAWS = 150, 128
 # the nc value+grad through K1 against its float64 analytic route, at the
 # chain counts of its path: each within this share of the largest magnitude
 # (K1's own gate, check_k1); the float32 analytic route is held to it too
 NC_TOL = 1e-4
 # (b) the new (criterion, sampler) pairs on phase 3's warmed state, draws
-# cut from phase 3's 256 to 64 to leave room for phase 17
-CRITERIA_DRAWS = 64
+# cut from phase 3's 256 to 64 to leave room for phase 17, then to 32 to
+# bring the script under its 1200 s clock
+CRITERIA_DRAWS = 32
 CRITERIA_PAIRS = (("ClassicNoUTurn", "multinomial"),
                   ("StrictGeneralisedNoUTurn", "multinomial"),
                   ("GeneralisedNoUTurn", "slice"))
 # (c) phase 3's configuration with the strict criterion and slice sampling
-# in the warmup blocks too, draws cut from 256 to 64
-STRICT_SLICE_DRAWS = 64
+# in the warmup blocks too, draws cut from 256 to 64, then to 32 (the clock)
+STRICT_SLICE_DRAWS = 32
 # (d) the zoo: value+grad of each new model at ZOO_CHECK_CHAINS chains on
 # the card against the port's float64 CPU path (each within ZOO_TOL of the
 # largest magnitude), then NUTS(0.8, max_depth=4) step by step on
@@ -3041,9 +3127,9 @@ def check_nc_k1():
 
 
 def phase_nc(seed):
-    """16a: bench.py's nc configuration through `sample` (uncut), its draws
-    in the centred coordinates, phase 3's gates (the accept band of
-    phase 15's 256-iteration runs). Returns its results."""
+    """16a: bench.py's nc configuration through `sample` (cut to NC_WARMUP
+    + NC_DRAWS), its draws in the centred coordinates, phase 3's gates (the
+    accept band of phase 15's runs). Returns its results."""
     import numpy as np
 
     import advancedhmc_torch as ah
@@ -3058,7 +3144,7 @@ def phase_nc(seed):
     res, wall, calls, counts = _timed_run(by_chains, lambda: ah.sample(
         torch.Generator(device="cuda").manual_seed(seed + 160), target,
         kernel, ah.make_metric("diagonal", DIM, device="cuda"), theta0,
-        NC_WARMUP + N_DRAWS, n_adapts=NC_WARMUP, adaptor=adaptor,
+        NC_WARMUP + NC_DRAWS, n_adapts=NC_WARMUP, adaptor=adaptor,
         init_mass_matrix="gradient", cross_chain=True, fuse_draws=FUSE,
         fuse_warmup=True, fuse_warmup_block=WARMUP_BLOCK, drop_warmup=True,
         warmup_chains=WARMUP_CHAINS, fanout_decorrelate=N_DECOR,
@@ -3066,7 +3152,7 @@ def phase_nc(seed):
     nc_to_centred_(res.thetas)
     out, gates = _mm_run(
         "16a: bench.py's logistic_nc", res, wall, calls, counts, N_CHAINS,
-        NC_WARMUP, N_DRAWS, PAIR, (N_CHAINS, N_DECOR + N_DRAWS),
+        NC_WARMUP, NC_DRAWS, PAIR, (N_CHAINS, N_DECOR + NC_DRAWS),
         {"warmup_chains": WARMUP_CHAINS, "k1_check": check_rows,
          "k1_check_max_abs_err": check_err})
     gates[f"accept in {MM_ACCEPT_BAND}"] = \
@@ -3349,15 +3435,57 @@ def phase_zoo(seed):
 # (init_state on the warmup pool, fused_warmup_phase_crosschain with the
 # schedule's depth caps, fanout_warmup_state, the decorrelation and the
 # draws through fused_draw_phase, FUSE a call); at 128 iterations Stan's
-# windows leave no reset, so the first TCAP_INIT iterations are capped
-TCAP, TCAP_INIT, TCAP_POST = 4, 40, 16
+# windows leave no reset, so the first TCAP_INIT iterations are capped;
+# its draws cut from 256 to TCAP_DRAWS to bring the script under its
+# 1200 s clock
+TCAP, TCAP_INIT, TCAP_POST, TCAP_DRAWS = 4, 40, 16, 128
 # (b) bench.py with AHMC_BENCH_RAGGED=1.5: one ragged call from phase 3's
-# final state, t_min bench.py's chunk (256, the draw count) and t_max
+# final state, t_min RAGGED_T_MIN (bench.py's chunk is 256, the draw count;
+# cut to 128 to bring the script under its 1200 s clock) and t_max
 # round(t_min · 1.5), on the single-leaf body (as the JAX ragged loop);
 # the ragged ESS over the first ESS_CHAINS chains on the card against the
 # port's float64 CPU ESS of the same buffer, within this share
-RAGGED_FACTOR = 1.5
+RAGGED_FACTOR, RAGGED_T_MIN = 1.5, 128
 RAGGED_ESS_RTOL = 1e-3
+
+
+def _main_theta0(seed):
+    """Phase 3's starting points (from numpy, as the tests make theirs)."""
+    import numpy as np
+
+    return torch.as_tensor(
+        0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
+        dtype=torch.float32, device="cuda")
+
+
+def _drive_main(gen, spec, theta0, n_draws, caps=None):
+    """Phase 3's configuration driven as bench.py drives it: `init_state`
+    on the warmup pool, `fused_warmup_phase_crosschain` (with the depth
+    caps `caps`, if given), `fanout_warmup_state`, the decorrelation and
+    `n_draws` draws through `fused_draw_phase`, FUSE a call; a
+    `SampleResult` with the phases' walls."""
+    import advancedhmc_torch as ah
+
+    timings, t0 = {}, time.perf_counter()
+    state = ah.init_state(
+        gen, spec, ah.make_metric("diagonal", DIM, device="cuda"),
+        theta0[:WARMUP_CHAINS], init_mass_matrix="gradient", device="cuda")
+    torch.cuda.synchronize()
+    timings["init_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    state, _, warm = ah.fused_warmup_phase_crosschain(
+        gen, spec, state, N_WARMUP, WARMUP_BLOCK, depth_caps=caps, pair=PAIR)
+    state = ah.fanout_warmup_state(spec, state, N_CHAINS)
+    state, _, _ = ah.fused_draw_phase(gen, spec, state, N_DECOR, FUSE,
+                                      pair=PAIR)
+    torch.cuda.synchronize()
+    timings["warmup_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    state, th, st = ah.fused_draw_phase(gen, spec, state, n_draws, FUSE,
+                                        pair=PAIR)
+    torch.cuda.synchronize()
+    timings["draws_s"] = time.perf_counter() - t0
+    return ah.SampleResult(thetas=th, stats=st, warmup_stats=warm,
+                           final_state=state, timings=timings,
+                           target=spec.target)
 
 
 def phase_tcap(seed, main_out):
@@ -3365,8 +3493,6 @@ def phase_tcap(seed, main_out):
     every kernel's count set to 0 just before and read just after; phase
     4's gates, and no capped warmup iteration deeper than TCAP. Printed
     beside phase 3's walls (`main_out`)."""
-    import numpy as np
-
     import advancedhmc_torch as ah
 
     target, kernel, adaptor = main_path_spec()
@@ -3376,42 +3502,14 @@ def phase_tcap(seed, main_out):
     caps = ah.transient_depth_caps(
         N_WARMUP, MAX_DEPTH, TCAP, TCAP_INIT, TCAP_POST, adaptor.init_buffer,
         adaptor.term_buffer, adaptor.window_size)
-    theta0 = torch.as_tensor(
-        0.1 * np.random.default_rng(seed).normal(size=(N_CHAINS, DIM)),
-        dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 170)
-
-    def run():
-        timings, t0 = {}, time.perf_counter()
-        state = ah.init_state(
-            gen, spec, ah.make_metric("diagonal", DIM, device="cuda"),
-            theta0[:WARMUP_CHAINS], init_mass_matrix="gradient",
-            device="cuda")
-        torch.cuda.synchronize()
-        timings["init_s"], t0 = time.perf_counter() - t0, time.perf_counter()
-        state, _, warm = ah.fused_warmup_phase_crosschain(
-            gen, spec, state, N_WARMUP, WARMUP_BLOCK, depth_caps=caps,
-            pair=PAIR)
-        state = ah.fanout_warmup_state(spec, state, N_CHAINS)
-        state, _, _ = ah.fused_draw_phase(gen, spec, state, N_DECOR, FUSE,
-                                          pair=PAIR)
-        torch.cuda.synchronize()
-        timings["warmup_s"], t0 = time.perf_counter() - t0, \
-            time.perf_counter()
-        state, th, st = ah.fused_draw_phase(gen, spec, state, N_DRAWS, FUSE,
-                                            pair=PAIR)
-        torch.cuda.synchronize()
-        timings["draws_s"] = time.perf_counter() - t0
-        return ah.SampleResult(thetas=th, stats=st, warmup_stats=warm,
-                               final_state=state, timings=timings,
-                               target=target)
-
-    res, wall, calls, counts = _timed_run(by_chains, run)
+    res, wall, calls, counts = _timed_run(by_chains, lambda: _drive_main(
+        gen, spec, _main_theta0(seed), TCAP_DRAWS, caps))
     capped = torch.as_tensor(caps < MAX_DEPTH, device="cuda")
     depth = res.warmup_stats["tree_depth"].double()
     out, gates = _mm_run(
         f"17a: bench.py's TCAP={TCAP}", res, wall, calls, counts, N_CHAINS,
-        N_WARMUP, N_DRAWS, PAIR, (N_CHAINS, N_DECOR + N_DRAWS), {
+        N_WARMUP, TCAP_DRAWS, PAIR, (N_CHAINS, N_DECOR + TCAP_DRAWS), {
             "tcap": TCAP, "tcap_init": TCAP_INIT, "tcap_post": TCAP_POST,
             "capped_iterations": int(capped.sum()),
             "warmup_depth_capped_mean": float(depth[capped].mean()),
@@ -3482,7 +3580,7 @@ def phase_ragged(seed, main_state, main_out, turns):
     target, by_chains = count_by_chains(target)
     spec = ah.SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
                          cross_chain=True)
-    t_min = N_DRAWS
+    t_min = RAGGED_T_MIN
     t_max = int(round(t_min * RAGGED_FACTOR))
     gen = torch.Generator(device="cuda").manual_seed(seed + 171)
     (_, th, cnt, st), wall, calls, counts = _timed_run(
@@ -3504,7 +3602,7 @@ def phase_ragged(seed, main_state, main_out, turns):
         "draws_per_chain_mean": n_total / N_CHAINS,
         "draws_per_chain_min": int(cnt.min()),
         "draws_per_chain_max": int(cnt.max()),
-        "collected_vs_rect": n_total / (N_DRAWS * N_CHAINS),
+        "collected_vs_rect": n_total / (t_min * N_CHAINS),
         "effective_samples_per_s_per_chip": median_ess / wall,
         "median_ess": median_ess,
         "min_ess_per_s": float(ess.min()) * (N_CHAINS / ESS_CHAINS) / wall,
@@ -3567,6 +3665,395 @@ def phase_ragged(seed, main_state, main_out, turns):
     return out
 
 
+# ----------------------------------------------------------------- phase 18
+# (a) the relativistic kinetic energy at phase 3's width: its configuration
+# with `SampleSpec(kinetic=RelativisticKinetic(m, c))` (the JAX test's m and
+# c), driven as 17a drives it; the draws cut from 256 to REL_DRAWS. Stan's
+# finalised ε = exp(x̄) leaves the draws' acceptance above δ here too: the
+# JAX package 0.6241 / 0.6841 and the port 0.6374 / 0.6681 on this
+# configuration at 64 chains (`scripts/accept_reference.py --config
+# relativistic`), so it is gated on phase 15's band, MM_ACCEPT_BAND; the
+# draws then cut from 128 to 64 to bring the script under its 1200 s clock
+REL_M, REL_C, REL_DRAWS = 1.0, 2.0, 64
+# (b) SoftAbs RMHMC (α 20, `sample_rmhmc`'s default map) on Neal's funnel
+# at its own width (dim 10, σ_v 3) in float64, RM_CHAINS chains started at
+# exact draws of the funnel (so every iteration's v has the exact
+# marginal N(0, σ_v²)); static RMHMC (RM_LEAPFROG steps, RM_FP fixed-point
+# iterations) and Riemannian NUTS (generalised, max_depth RM_DEPTH), each
+# with RM_ADAPT iterations of dual averaging (δ 0.8) and then its draws,
+# gated on E[v] = 0 and sd(v) = σ_v within RM_MCSE MCSEs of the pooled
+# bulk ESS (dual averaging cut from 5 to 4 iterations and the static draws
+# from 8 to 6 to bring the script under its 1200 s clock; 4 draws is the
+# fewest whose split halves give the ESS a variance)
+RM_DIM, RM_SIGMA_V, RM_CHAINS = 10, 3.0, 4096
+RM_LEAPFROG, RM_FP, RM_DEPTH, RM_EPS0 = 8, 6, 5, 0.1
+RM_ADAPT, RM_DRAWS_STATIC, RM_DRAWS_NUTS, RM_MCSE = 4, 6, 4, 5.0
+# 18b's chains start at exact draws, so v's moments hold for chains that
+# never move: these gates fail a sampler that rejects or stays put
+RM_ACCEPT_MIN, RM_MOVED_MIN, RM_CORR_V_MAX = 0.5, 0.9, 0.9
+# (c) SoftAbs RMHMC on the 100-D logistic in float32 (K1 computes ℓπ and
+# ∇ℓπ in every ∂H∂θ): RMC_CHAINS of phase 3's final positions, RMC_T static
+# transitions of RMC_LEAPFROG steps at ε RMC_EPS, ∂G in chunks of
+# RMC_CHUNK chains; ∂H∂θ through K1 against the float64 route at the
+# first RMC_CHECK chains, within K1's gate (one transition, not two, to
+# bring the script under its 1200 s clock: a step takes ≈ 5.5 s here)
+RMC_CHAINS, RMC_T, RMC_LEAPFROG, RMC_EPS, RMC_CHUNK = 256, 1, 2, 0.2, 64
+RMC_CHECK, RMC_TOL = 32, 1e-4
+# (d) a checkpoint of phase 3's final state and generator, CKPT_DRAWS fused
+# draws from the state as saved and as loaded, bitwise; throughput_report
+# against phase 4's leapfrog steps/s
+CKPT_DRAWS, THROUGHPUT_RTOL = 16, 1e-9
+
+
+def _zeros_like(tree):
+    """A state of the same structure as `tree`, every leaf zero (the
+    like-structured state a checkpoint loads into)."""
+    from advancedhmc_torch import checkpoint
+
+    pairs, rebuild = checkpoint._flatten(tree)
+    return rebuild([torch.zeros_like(x) if isinstance(x, torch.Tensor)
+                    else type(x)(0) for _, x in pairs])
+
+
+def _same_leaves(a, b):
+    """Whether two states hold the same bits in every leaf."""
+    from advancedhmc_torch import checkpoint
+
+    la, lb = checkpoint._flatten(a)[0], checkpoint._flatten(b)[0]
+    return len(la) == len(lb) and all(
+        (torch.equal(x, y) and x.dtype == y.dtype)
+        if isinstance(x, torch.Tensor) else x == y
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def phase_checkpoint(res, main_out, gen):
+    """18d (run after phase 5, while phase 3's result is held): phase 3's
+    final state and its generator saved, loaded into a zeroed state and a
+    new generator; CKPT_DRAWS fused draws from each, bitwise equal; then
+    `profiling.throughput_report` on phase 3's result with its draw wall
+    against phase 4's leapfrog steps/s."""
+    import os
+    import tempfile
+
+    import advancedhmc_torch as ah
+    from advancedhmc_torch import checkpoint, profiling
+
+    target, kernel, adaptor = main_path_spec()
+    spec = ah.SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
+                         cross_chain=True)
+    state = res.final_state
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_state(path, state, generator=gen)
+        save_s = time.perf_counter() - t0
+        gen2 = torch.Generator(device="cuda").manual_seed(12345)
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_state(path, _zeros_like(state),
+                                       generator=gen2)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    _, th1, st1 = ah.fused_draw_phase(gen, spec, state, CKPT_DRAWS,
+                                      CKPT_DRAWS, pair=PAIR)
+    _, th2, st2 = ah.fused_draw_phase(gen2, spec, loaded, CKPT_DRAWS,
+                                      CKPT_DRAWS, pair=PAIR)
+    report = profiling.throughput_report(
+        ah.SampleResult(thetas=res.thetas[:, :ESS_CHAINS], stats=res.stats,
+                        warmup_stats=None, final_state=None),
+        main_out["draws_s"])
+    rel = abs(report["leapfrog_steps_per_s_per_chip"]
+              / main_out["leapfrog_steps_per_s"] - 1)
+    out = {"checkpoint_bytes": size, "save_s": save_s, "load_s": load_s,
+           "leapfrog_steps_per_s_report":
+               report["leapfrog_steps_per_s_per_chip"],
+           "leapfrog_steps_per_s_phase4": main_out["leapfrog_steps_per_s"],
+           "throughput_rel_diff": rel,
+           "median_ess_512_report": report["median_ess"]}
+    gates = {
+        "loaded state bitwise the saved one": _same_leaves(loaded, state),
+        f"{CKPT_DRAWS} fused draws from both bitwise equal":
+            torch.equal(th1, th2)
+            and all(torch.equal(st1[k], st2[k]) for k in st1),
+        f"throughput_report = phase 4's leapfrog steps/s to "
+        f"{THROUGHPUT_RTOL}": rel <= THROUGHPUT_RTOL,
+    }
+    log(json.dumps({"phase_18d": out}))
+    _finish_gates("18d", gates)
+    return out
+
+
+def _finish_gates(key, gates):
+    failed = []
+    for name, ok in gates.items():
+        log(f"# gate {key} {name}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{key}: {name}")
+    if failed:
+        raise RuntimeError(f"phase {key} gates failed: {failed}")
+
+
+def phase_relativistic(seed, main_out):
+    """18a: the relativistic kinetic energy on phase 3's configuration,
+    every kernel's count set to 0 just before and read just after; phase
+    4's gates; printed beside phase 3's walls, ESS/s, leaf-loop iterations
+    and K1 launches."""
+    import advancedhmc_torch as ah
+
+    target, kernel, adaptor = main_path_spec()
+    target, by_chains = count_by_chains(target)
+    spec = ah.SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
+                         cross_chain=True,
+                         kinetic=ah.RelativisticKinetic(m=REL_M, c=REL_C))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 180)
+    res, wall, calls, counts = _timed_run(by_chains, lambda: _drive_main(
+        gen, spec, _main_theta0(seed), REL_DRAWS))
+    out, gates = _mm_run(
+        f"18a: RelativisticKinetic(m={REL_M}, c={REL_C}), phase 3's "
+        "configuration", res, wall, calls, counts, N_CHAINS, N_WARMUP,
+        REL_DRAWS, PAIR, (N_CHAINS, N_DECOR + REL_DRAWS), {
+            "warmup_leaf_iterations_per_transition":
+                calls.get(WARMUP_CHAINS, 0) / 2 / N_WARMUP,
+            **{f"phase3_{k}": main_out[k] for k in (
+                "warmup_s", "draws_s", "effective_samples_per_s_per_chip",
+                "leaf_iterations_per_transition", "k1_launches",
+                "step_size")}})
+    gates[f"accept in {MM_ACCEPT_BAND}"] = \
+        MM_ACCEPT_BAND[0] <= out["accept_mean"] <= MM_ACCEPT_BAND[1]
+    log(f"# 18a beside phase 3: warmup {out['warmup_s']:.2f} / "
+        f"{main_out['warmup_s']:.2f} s, draws ({REL_DRAWS} / {N_DRAWS}) "
+        f"{out['draws_s']:.2f} / {main_out['draws_s']:.2f} s, ESS/s "
+        f"{out['effective_samples_per_s_per_chip']:.0f} / "
+        f"{main_out['effective_samples_per_s_per_chip']:.0f}, leaf-loop "
+        f"iterations a transition "
+        f"{out['leaf_iterations_per_transition']:.2f} / "
+        f"{main_out['leaf_iterations_per_transition']:.2f}, K1 launches "
+        f"{out['k1_launches']} / {main_out['k1_launches']}, eps "
+        f"{out['step_size']:.5f} / {main_out['step_size']:.5f}")
+    failed = []
+    _mm_finish("18a", out, gates, failed)
+    if failed:
+        raise RuntimeError(f"phase 18a gates failed: {failed}")
+    return out
+
+
+def _funnel_draws(seed):
+    """RM_CHAINS exact draws of Neal's funnel (v ~ N(0, σ_v²), x_i | v ~
+    N(0, e^v)), float64, from numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v = RM_SIGMA_V * rng.normal(size=(RM_CHAINS, 1))
+    x = np.exp(0.5 * v) * rng.normal(size=(RM_CHAINS, RM_DIM - 1))
+    return torch.as_tensor(np.concatenate([v, x], 1), dtype=torch.float64,
+                           device="cuda")
+
+
+def _v_moments(draws):
+    """Mean and sd of v over the draws (n, C, dim), each with its MCSE from
+    the pooled bulk ESS (of v, and of (v − mean)² for the sd)."""
+    from advancedhmc_torch.diagnostics import effective_sample_size
+
+    v = draws[..., 0].double()
+    mean = float(v.mean())
+    sq = (v - mean) ** 2
+    var = float(sq.mean())
+    sd = math.sqrt(var)
+    ess_v = float(effective_sample_size(v[..., None])[0])
+    ess_sq = float(effective_sample_size(sq[..., None])[0])
+    mcse_mean = sd / math.sqrt(ess_v)
+    mcse_sd = float(sq.std()) / math.sqrt(ess_sq) / (2 * sd)
+    return {"mean_v": mean, "sd_v": sd, "ess_v": ess_v, "ess_v_sq": ess_sq,
+            "mcse_mean_v": mcse_mean, "mcse_sd_v": mcse_sd}
+
+
+def phase_rmhmc_funnel(seed):
+    """18b: `sample_rmhmc` on Neal's funnel, static and Riemannian NUTS,
+    each gated on v's exact marginal, and on the chains moving (mean
+    acceptance, the share of chains whose θ changed, the correlation of v
+    between the start and the last draw); the NUTS run's result saved with
+    `SampleResult.save` and read back with `load_result` bitwise."""
+    import os
+    import tempfile
+
+    import advancedhmc_torch as ah
+    from advancedhmc_torch import checkpoint
+    from advancedhmc_torch import riemannian as rm
+
+    target = ah.neal_funnel(dim=RM_DIM, sigma_v=RM_SIGMA_V, device="cuda")
+    theta0 = _funnel_draws(seed + 181)
+    runs, gates = {}, {}
+    for name, crit, n_draws in (
+            ("static", None, RM_DRAWS_STATIC),
+            ("nuts", ah.GeneralisedNoUTurn(max_depth=RM_DEPTH),
+             RM_DRAWS_NUTS)):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 182)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        thetas, stats, final = rm.sample_rmhmc(
+            gen, target, theta0, RM_ADAPT + n_draws,
+            n_leapfrog=RM_LEAPFROG, step_size=RM_EPS0, n_fp=RM_FP,
+            n_adapts=RM_ADAPT, criterion=crit, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        draws = thetas[RM_ADAPT:]
+        st = {k: v[RM_ADAPT:] for k, v in stats.items()}
+        out = {"chains": RM_CHAINS, "adapt": RM_ADAPT, "draws": n_draws,
+               "wall_s": wall,
+               "s_per_iteration": wall / (RM_ADAPT + n_draws),
+               "accept_mean": float(st["acceptance_rate"].double().mean()),
+               "divergence_rate":
+                   float(st["numerical_error"].double().mean()),
+               "n_steps_mean": float(st["n_steps"].double().mean()),
+               "step_size": float(final[1].eps),
+               "moved_share": float((draws[-1] != theta0).any(-1)
+                                    .double().mean()),
+               "corr_v_start_last": float(torch.corrcoef(torch.stack(
+                   [theta0[:, 0], draws[-1, :, 0]]))[0, 1]),
+               **_v_moments(draws)}
+        if crit is not None:
+            out["mean_tree_depth"] = float(
+                st["tree_depth"].double().mean())
+        out["ms_per_generalized_leapfrog_step"] = 1e3 * wall / float(
+            stats["n_steps"].double().mean(1).sum())
+        runs[name] = out
+        log(json.dumps({f"phase_18b_{name}": out}))
+        gates[f"{name}: draws finite"] = bool(torch.isfinite(draws).all())
+        gates[f"{name}: |E[v]| <= {RM_MCSE} MCSE"] = \
+            abs(out["mean_v"]) <= RM_MCSE * out["mcse_mean_v"]
+        gates[f"{name}: |sd(v) - {RM_SIGMA_V}| <= {RM_MCSE} MCSE"] = \
+            abs(out["sd_v"] - RM_SIGMA_V) <= RM_MCSE * out["mcse_sd_v"]
+        gates[f"{name}: accept >= {RM_ACCEPT_MIN}"] = \
+            out["accept_mean"] >= RM_ACCEPT_MIN
+        gates[f"{name}: share of chains moved >= {RM_MOVED_MIN}"] = \
+            out["moved_share"] >= RM_MOVED_MIN
+        gates[f"{name}: corr(v start, v last) <= {RM_CORR_V_MAX}"] = \
+            out["corr_v_start_last"] <= RM_CORR_V_MAX
+    result = ah.SampleResult(thetas=thetas, stats=stats, warmup_stats=None,
+                             final_state=final)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "result.npz")
+        result.save(path)
+        back = checkpoint.load_result(path, like_state=_zeros_like(final),
+                                      device="cuda")
+    gates["SampleResult.save / load_result round trip bitwise"] = (
+        torch.equal(back.thetas, thetas)
+        and set(back.stats) == set(stats)
+        and all(torch.equal(back.stats[k], v) for k, v in stats.items())
+        and _same_leaves(back.final_state, final))
+    log(f"# 18b: static {runs['static']['wall_s']:.1f} s, NUTS "
+        f"{runs['nuts']['wall_s']:.1f} s; divergence "
+        f"{runs['static']['divergence_rate']:.4f} / "
+        f"{runs['nuts']['divergence_rate']:.4f}")
+    _finish_gates("18b", gates)
+    return runs
+
+
+def _ms(fn, reps=3, warm=True):
+    """Host wall of one call of `fn`, ending in a synchronise (the mean of
+    `reps`, after one warm-up call if `warm`)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_rmhmc_logistic(seed, main_state):
+    """18c: SoftAbs RMHMC on the 100-D logistic in float32 from phase 3's
+    final positions, every kernel's count set to 0 just before and read
+    just after: K1's calls against the target's value+grad calls, one
+    ∂H∂θ through K1 against the float64 route, finite energies; the time
+    of one generalised leapfrog step beside its parts (the Hessian, ∂G,
+    the batched eigh, K1) and the peak device memory."""
+    import advancedhmc_torch as ah
+    from advancedhmc_torch import riemannian as rm
+
+    def model(dtype):
+        return ah.hierarchical_logistic(n=N_ROWS, p=DIM - 1, dtype=dtype,
+                                        device="cuda")
+
+    t32, by_chains = count_by_chains(model(torch.float32))
+    t64 = model(torch.float64)
+    h32 = rm.RiemannianHamiltonian(
+        metric=rm.DenseRiemannianMetric.from_hessian(
+            t32, rm.SoftAbsMap(20.0), chunk_size=RMC_CHUNK), target=t32)
+    h64 = rm.RiemannianHamiltonian(
+        metric=rm.DenseRiemannianMetric.from_hessian(
+            t64, rm.SoftAbsMap(20.0), chunk_size=RMC_CHUNK), target=t64)
+    theta = main_state.z.theta[:RMC_CHAINS].clone()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 183)
+    r = torch.randn(theta.shape, generator=gen, device="cuda")
+
+    # ∂H∂θ at float32 through K1 against the float64 route (no kernel)
+    th_c, r_c = theta[:RMC_CHECK], r[:RMC_CHECK]
+    lp32, g32 = h32.dH_dtheta(th_c, r_c)
+    lp64, g64 = h64.dH_dtheta(th_c.double(), r_c.double())
+    err_g = float((g32.double() - g64).abs().max())
+    err_lp = float((lp32.double() - lp64).abs().max())
+    scale_g, scale_lp = float(g64.abs().max()), float(lp64.abs().max())
+
+    # the step and its parts at RMC_CHAINS
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    z = h32.phasepoint(theta, r)
+    integ = rm.GeneralizedLeapfrog(
+        step_size=torch.tensor(RMC_EPS, device="cuda"), n_fp=RM_FP)
+    g = h32.metric.g_fn(theta)
+    parts = {
+        "hessian_ms": _ms(lambda: h32.metric.g_fn(theta)),
+        "dg_ms": _ms(lambda: h32.metric.dg_fn(theta), reps=1),
+        "eigh_ms": _ms(lambda: rm.metric.eigh(g)),
+        "k1_ms": _ms(lambda: t32.logdensity_and_grad(theta)),
+        # its parts are warm: one step, not warmed up
+        "step_ms": _ms(lambda: rm.generalized_leapfrog_step(
+            integ, h32, z, RMC_EPS), reps=1, warm=False),
+    }
+    del g, z
+
+    res, wall, calls, counts = _timed_run(by_chains, lambda: (
+        rm.sample_rmhmc(gen, t32, theta, RMC_T, n_leapfrog=RMC_LEAPFROG,
+                        step_size=RMC_EPS, n_fp=RM_FP, metric=h32.metric,
+                        device="cuda")))
+    thetas, stats, _ = res
+    peak = torch.cuda.max_memory_allocated()
+    out = {
+        "chains": RMC_CHAINS, "transitions": RMC_T,
+        "n_leapfrog": RMC_LEAPFROG, "n_fp": RM_FP, "step_size": RMC_EPS,
+        "dg_chunk": RMC_CHUNK, "wall_s": wall,
+        "accept_mean": float(stats["acceptance_rate"].double().mean()),
+        "k1_calls": counts[K1_CALLS],
+        "k1_launches": counts["fused_logistic_value_grad"],
+        "value_grad_calls": sum(calls.values()),
+        "k1_calls_by_chains": dict(sorted(calls.items(), reverse=True)),
+        "dH_dtheta_max_abs_err": err_g, "dH_dtheta_scale": scale_g,
+        "lp_max_abs_err": err_lp, "peak_memory_gb": peak / 2 ** 30,
+        "memory_before_gb": base_mem / 2 ** 30,
+        **parts}
+    log(json.dumps({"phase_18c": out}))
+    log(f"# 18c: one generalised leapfrog step at {RMC_CHAINS} chains "
+        f"{parts['step_ms']:.1f} ms; Hessian {parts['hessian_ms']:.1f} ms, "
+        f"∂G {parts['dg_ms']:.1f} ms, eigh {parts['eigh_ms']:.2f} ms, K1 "
+        f"{parts['k1_ms']:.3f} ms a call; peak memory "
+        f"{out['peak_memory_gb']:.2f} GiB")
+    gates = {
+        "k1 calls = value+grad calls": out["k1_calls"]
+        == out["value_grad_calls"] > 0,
+        "k1 launches = calls": out["k1_launches"] == out["k1_calls"],
+        f"dH/dtheta through K1 within {RMC_TOL} of the float64 route":
+            err_g <= RMC_TOL * scale_g
+            and err_lp <= RMC_TOL * max(1.0, scale_lp),
+        "energies and draws finite":
+            bool(torch.isfinite(stats["hamiltonian_energy"]).all())
+            and bool(torch.isfinite(thetas).all()),
+    }
+    _finish_gates("18c", gates)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3590,7 +4077,9 @@ def main(argv=None):
     clock("phase 2")
     k3_rows, k3_err, k3_launches = phase_k3()
     clock("phase 2b")
-    res, launches, wall, k1_by_chains, iters = phase_main(args.seed)
+    gen_main = torch.Generator(device="cuda").manual_seed(args.seed)
+    res, launches, wall, k1_by_chains, iters = phase_main(args.seed,
+                                                          gen_main)
     out = phase_results(res, launches, wall, args.seed, iters)
     log(f"# main path: warmup {out['warmup_s']:.1f} s, draws "
         f"{out['draws_s']:.1f} s, K1 launches {launches}")
@@ -3599,6 +4088,8 @@ def main(argv=None):
     clock("phase 3b")
     phase_profile(res)
     clock("phase 5")
+    ckpt = phase_checkpoint(res, out, gen_main)
+    clock("phase 18d (checkpoint, throughput_report)")
     mega = phase_megakernel(res, out)
     clock("phase 6")
     k2_rows = [dict(case=f"logistic C={N_CHAINS} T={MEGA_T} "
@@ -3662,7 +4153,6 @@ def main(argv=None):
     t17 = time.perf_counter()
     tcap = phase_tcap(args.seed, out)
     ragged = phase_ragged(args.seed, main_state, out, turns)
-    del main_state
     log(f"# phase 17 took {time.perf_counter() - t17:.1f} s: " + json.dumps(
         {"17a": {f: tcap[f] for f in (
             "warmup_s", "draws_s", "effective_samples_per_s_per_chip",
@@ -3671,6 +4161,23 @@ def main(argv=None):
              "draws_s", "draws_per_chain_mean", "collected_vs_rect",
              "effective_samples_per_s_per_chip")}}))
     clock("phase 17")
+    t18 = time.perf_counter()
+    rel = phase_relativistic(args.seed, out)
+    clock("phase 18a")
+    funnel = phase_rmhmc_funnel(args.seed)
+    clock("phase 18b")
+    rmc = phase_rmhmc_logistic(args.seed, main_state)
+    del main_state
+    log(f"# phase 18 took {time.perf_counter() - t18:.1f} s (18d "
+        "above, after phase 5): " + json.dumps(
+            {"18a": {f: rel[f] for f in (
+                "warmup_s", "draws_s", "effective_samples_per_s_per_chip",
+                "leaf_iterations_per_transition", "k1_launches")},
+             "18b": {k: v["wall_s"] for k, v in funnel.items()},
+             "18c": {f: rmc[f] for f in ("wall_s", "step_ms",
+                                         "peak_memory_gb")},
+             "18d": {f: ckpt[f] for f in ("save_s", "load_s")}}))
+    clock("phase 18")
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
@@ -3704,6 +4211,11 @@ def main(argv=None):
         "calls_tcap_by_chains": tcap["k1_calls_by_chains"],
         "launches_ragged": ragged["k1_launches"],
         "calls_ragged_by_chains": ragged["k1_calls_by_chains"],
+        "launches_relativistic": rel["k1_launches"],
+        "calls_relativistic_by_chains": rel["k1_calls_by_chains"],
+        "launches_rmhmc_logistic": rmc["k1_launches"],
+        "calls_rmhmc_logistic_by_chains": rmc["k1_calls_by_chains"],
+        "rmhmc_dH_dtheta_max_abs_err": rmc["dH_dtheta_max_abs_err"],
         "max_abs_err": k1_err,
         "max_err": k1_err,
         "ms": k1_row["ms"],

@@ -761,3 +761,98 @@ def test_criteria_pair_transition_is_bitwise_the_single_one_on_card(crit,
     assert all(torch.equal(s1[k], s2[k]) for k in s1)
     assert torch.equal(z1.theta, z2.theta)
     assert float(s1["tree_depth"].double().mean()) >= 2.0
+
+
+def _counted(target):
+    """`target` with its value+grad calls recorded (chain counts)."""
+    import dataclasses
+
+    calls = []
+    inner = target.logdensity_and_grad
+
+    def counted(theta):
+        calls.append(theta.shape[0])
+        return inner(theta)
+
+    return dataclasses.replace(target, logdensity_and_grad=counted), calls
+
+
+@pytest.mark.gpu
+def test_relativistic_fused_draws_run_k1_on_card():
+    """The relativistic kinetic energy (m 1, c 2) on phase 18a's path at a
+    small size: 512 chains of the 100-D logistic, the cross-chain fused
+    warmup (32 iterations in blocks of 8; at 16 the two dual-averaging
+    updates leave ε far too large) and 8 fused draws on the leaf-pair
+    body: every value+grad call is one K1 launch, the draws are
+    finite and the momenta the fused loop drew have the relativistic
+    magnitude law's support (finite)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import advancedhmc_torch as ah
+
+    tgt, calls = _counted(hierarchical_logistic(n=1000, p=99,
+                                                device="cuda"))
+    kernel = ah.HMCKernel(ah.Trajectory(
+        ah.Leapfrog(step_size=torch.tensor(0.05, device="cuda")),
+        ah.GeneralisedNoUTurn(max_depth=6)))
+    spec = ah.SampleSpec(
+        target=tgt, kernel=kernel, adaptor=ah.AdaptorConfig(
+            kind="stan", da=ah.DualAveragingConfig(delta=0.55, kappa=0.8),
+            init_buffer=10, term_buffer=10, window_size=10),
+        cross_chain=True, kinetic=ah.RelativisticKinetic(m=1.0, c=2.0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    theta0 = torch.as_tensor(
+        0.1 * np.random.default_rng(0).normal(size=(512, 100)),
+        dtype=torch.float32, device="cuda")
+    f = k1.logistic_value_grad
+    launches = f.launches
+    state = ah.init_state(gen, spec, ah.make_metric("diagonal", 100,
+                                                    device="cuda"),
+                          theta0, device="cuda")
+    state, _, _ = ah.fused_warmup_phase_crosschain(gen, spec, state, 32, 8,
+                                                   pair=True)
+    state, th, st = ah.fused_draw_phase(gen, spec, state, 8, 8, pair=True)
+    torch.cuda.synchronize()
+    assert f.launches - launches == len(calls) > 0
+    assert th.shape == (8, 512, 100) and bool(torch.isfinite(th).all())
+    assert bool(torch.isfinite(state.z.r).all())
+    assert float(st["acceptance_rate"].mean()) > 0.2
+
+
+@pytest.mark.gpu
+def test_softabs_dH_dtheta_on_logistic_through_k1_on_card():
+    """One SoftAbs ∂H∂θ on the 100-D logistic at 8 chains in float32: ℓπ
+    and ∇ℓπ from K1 (one launch), G and ∂G by AD of the plain log density,
+    against the float64 route (no kernel) on the same (θ, r) within 1e-4
+    of its largest magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from advancedhmc_torch import riemannian as rt
+
+    rng = np.random.default_rng(0)
+    theta = rng.normal(size=(8, 100)) * 0.1
+    theta[:, 0] = -0.7
+    r = rng.normal(size=(8, 100))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tgt, calls = _counted(hierarchical_logistic(n=1000, p=99,
+                                                    dtype=dtype,
+                                                    device="cuda"))
+        h = rt.RiemannianHamiltonian(
+            metric=rt.DenseRiemannianMetric.from_hessian(
+                tgt, rt.SoftAbsMap(20.0), chunk_size=4), target=tgt)
+        f = k1.logistic_value_grad
+        launches = f.launches
+        lp, g = h.dH_dtheta(torch.as_tensor(theta, dtype=dtype,
+                                            device="cuda"),
+                            torch.as_tensor(r, dtype=dtype, device="cuda"))
+        torch.cuda.synchronize()
+        assert len(calls) == 1
+        assert f.launches - launches == (1 if dtype == torch.float32 else 0)
+        out[dtype] = (lp.double(), g.double())
+    lp32, g32 = out[torch.float32]
+    lp64, g64 = out[torch.float64]
+    assert bool(torch.isfinite(g32).all())
+    assert float((g32 - g64).abs().max()) <= 1e-4 * float(g64.abs().max())
+    assert float((lp32 - lp64).abs().max()) <= 1e-4 * float(
+        lp64.abs().max())

@@ -270,11 +270,7 @@ def test_unported_options_raise_not_implemented():
     spec = ah.SampleSpec(target=tgt, kernel=kernel,
                          adaptor=ah.AdaptorConfig(kind="none"))
     state = ah.init_state(gen, spec, metric, th0, init_eps=0.1, device="cpu")
-    result = ah.SampleResult(thetas=None, stats={}, warmup_stats=None,
-                             final_state=state)
     cases = [
-        # checkpoints
-        lambda: result.save("unused.npz"),
         # reduced dtypes other than bfloat16
         lambda: ah.hierarchical_logistic(n=N, p=P, x_dtype="float16",
                                          device="cpu"),
