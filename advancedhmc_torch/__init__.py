@@ -5,15 +5,17 @@ main path on one NVIDIA GPU (Hopper): NUTS (classic, generalised or strict
 no-U-turn, multinomial or slice; unit, diagonal, dense or rank-update
 metric) with per-chain or cross-chain Stan adaptation (Welford variance
 or covariance, low-rank, nutpie; the transient depth caps), step by step
-or fused, with every option of JAX `sample` but `mesh`, and the ragged
-draw mode (`fused_draw_phase_ragged`); the diagnostics (bulk, tail and
+or fused, with every option of JAX `sample` (`mesh`: chain parallelism
+over one process per GPU, `parallel`), and the ragged draw mode
+(`fused_draw_phase_ragged`); the diagnostics (bulk, tail and
 ragged ESS, R̂) and `SampleResult`'s exports; static HMC (endpoint or
 multinomial sampling, fixed steps or integration time), the jittered,
 tempered, composed and external-solver integrators, partial momentum
 refreshment and the NUTS/HMC/HMCDA constructors; ChEES-HMC
 (`sample_chees`); the relativistic kinetic energy; the Riemannian tier
 (`riemannian`: SoftAbs RMHMC and Riemannian NUTS, `sample_rmhmc`);
-checkpoints (`checkpoint`) and the profiling helpers (`profiling`); on the
+checkpoints (`checkpoint`), the program cache (`aot_program`) and the
+profiling helpers (`profiling`); on the
 JAX package's model zoo (`models`: the hierarchical logistic, centred with
 a float32 or bfloat16 design or non-centred, the Gaussians, Neal's funnel,
 banana, eight schools, gdemo, the mixtures, the spiral, the declarative
@@ -81,7 +83,8 @@ from .models import GDEMO_MEAN, banana, correlated_gaussian, eight_schools, \
     hierarchical_logistic_nc, mvn_diag, neal_funnel, neal_funnel_nc, \
     spiral, std_gaussian, two_gaussian_mixtures_2d
 from .nuts import nuts_transition, nuts_transitions_fused
-from . import checkpoint, profiling, riemannian
+from . import checkpoint, parallel, profiling, riemannian
+from .aot import aot_program, aot_signature
 from .sampler import (
     HMCState,
     SampleResult,
@@ -159,6 +162,8 @@ __all__ = [
     "adapt_step",
     "adapt_step_batch",
     "adapt_step_masked",
+    "aot_program",
+    "aot_signature",
     "as_target",
     "banana",
     "chees_tau_sweep",
@@ -206,6 +211,7 @@ __all__ = [
     "online_init",
     "online_summary",
     "online_update",
+    "parallel",
     "profiling",
     "rhat",
     "riemannian",

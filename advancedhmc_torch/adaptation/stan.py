@@ -26,6 +26,7 @@ from .massmatrix import (
     WelfordCovState,
     WelfordVarState,
 )
+from ..utils import gather_chains
 from .stepsize import DualAveragingConfig, DualAveragingState, da_update
 
 # mass-matrix estimator kinds
@@ -240,7 +241,12 @@ def adapt_step_batch(cfg: AdaptorConfig, st: AdaptState, thetas, grads,
                      alphas, flags):
     """Cross-chain adaptation: the whole (C, dim) batch of positions (nutpie:
     and of gradients `grads`) folded into shared moments, dual averaging on
-    the batch-mean acceptance (each α clamped at 1)."""
+    the batch-mean acceptance (each α clamped at 1). Under a chain shard
+    the batch is gathered first, so every rank folds in the whole batch in
+    the unsharded order."""
+    thetas, alphas = gather_chains(thetas), gather_chains(alphas)
+    if cfg.mm_kind == MM_NUTPIE:
+        grads = gather_chains(grads)
     alpha = torch.mean(torch.clamp(alphas, max=1.0))
     return _adapt_core(
         cfg, st, lambda mm: _mm_push_batch(cfg, mm, thetas, grads), alpha,

@@ -35,7 +35,7 @@ from .hamiltonian import Hamiltonian
 from .metrics import Metric, make_metric
 from .sampler import SampleResult, _synchronize
 from .stepsize_search import find_good_stepsize
-from .utils import resolve_device
+from .utils import rand_uniform, resolve_device
 
 
 def _num_steps(eps, tau, max_steps: int) -> int:
@@ -52,8 +52,7 @@ def chees_transition(generator, target, metric, eps, tau, max_steps, theta,
     momenta, then the MH uniforms, and runs `chees_transition_core`."""
     c = theta.shape[0]
     r0 = metric.rand_momentum(generator, c)
-    u = torch.rand(c, generator=generator, dtype=theta.dtype,
-                   device=theta.device)
+    u = rand_uniform(generator, (c,), theta.dtype, theta.device)
     return chees_transition_core(target, metric, eps, tau, max_steps, theta,
                                  lp, grad, r0, u)
 

@@ -48,8 +48,9 @@
 // runs one TF32 product where kF32 runs three, which is exact for such
 // operands: what the JAX model, and the Pallas kernel, which always casts
 // theta and the residual to bfloat16, compute; kResidBf16
-// (`resid_dtype="bfloat16"`) rounds the residual alone. Each mode is its
-// own set of instances. The narrow kernel takes p up to
+// (`resid_dtype="bfloat16"`) rounds the residual alone; kF16 and kResidF16
+// are the same with float16, which TF32 holds exactly as well. Each mode
+// is its own set of instances. The narrow kernel takes p up to
 // 8 * 16 = 128: the gradient's columns are compiled into register arrays
 // (KSteps instances).
 //
@@ -72,8 +73,11 @@ using logistic_tile::cp_async4;
 using logistic_tile::cp_async_commit;
 using logistic_tile::cp_async_wait;
 using logistic_tile::kBf16;
+using logistic_tile::kF16;
 using logistic_tile::kF32;
 using logistic_tile::kResidBf16;
+using logistic_tile::kResidF16;
+using logistic_tile::rounds_operands;
 using logistic_tile::kTileRows;
 using logistic_tile::x_stride;
 
@@ -318,10 +322,11 @@ struct Instances {
       {kMaxKSteps, prepare<kMaxKSteps, Mode>, launch<kMaxKSteps, Mode>},
   };
 };
-constexpr int kModes = 3;
+constexpr int kModes = 5;
 constexpr const Instance* kInstances[kModes] = {
     Instances<kF32>::kAll, Instances<kBf16>::kAll,
-    Instances<kResidBf16>::kAll};
+    Instances<kResidBf16>::kAll, Instances<kF16>::kAll,
+    Instances<kResidF16>::kAll};
 constexpr int kPerMode = 4;
 
 const Instance* instance_for(int dim, int mode) {
@@ -386,6 +391,7 @@ const Instance* instance_for(int dim, int mode) {
 // holds it exactly, lo is zero), the consumers round their A fragments
 // (theta; R) to bfloat16 and issue only hi.hi, one wgmma a k-step; stage A
 // of kBf16 and kResidBf16 rounds the residuals to bfloat16 as it writes R.
+// kF16 and kResidF16 do the same with float16.
 // The planes, the ring and the tiles are those of kF32 (the lo plane is
 // still loaded: keeping the design in bf16 is later work).
 namespace wide {
@@ -615,8 +621,8 @@ __device__ __forceinline__ void split_stage(const float* as, int row,
     for (int i = 0; i < 4; ++i) {
       const int chunk = (2 * kk + (i >> 1)) ^ swz;   // row + 8: same swizzle
       const float x = as[(row + 8 * (i & 1)) * stride + 4 * chunk + t];
-      if constexpr (Mode == kBf16) {
-        hi[kk][i] = __float_as_uint(logistic_tile::round_bf16(x));
+      if constexpr (rounds_operands(Mode)) {
+        hi[kk][i] = __float_as_uint(logistic_tile::round_mode<Mode>(x));
       } else {
         hi[kk][i] = logistic_tile::to_tf32(x);
         lo[kk][i] = __float_as_uint(x - __uint_as_float(hi[kk][i]));
@@ -636,15 +642,15 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[kKSteps][4]) {
 }
 
 // One stage's products into d as one wgmma group, from zero: for each
-// k-step lo.hi, hi.lo, then hi.hi (the small terms first); in kBf16 hi.hi
-// alone.
+// k-step lo.hi, hi.lo, then hi.hi (the small terms first); in kBf16 and
+// kF16 hi.hi alone.
 template <int Mode>
 __device__ __forceinline__ void issue_stage(float (&d)[kAcc],
                                             uint32_t (&hi)[kKSteps][4],
                                             uint32_t (&lo)[kKSteps][4],
                                             uint32_t st) {
   fence_frag(hi);
-  if constexpr (Mode != kBf16) fence_frag(lo);
+  if constexpr (!rounds_operands(Mode)) fence_frag(lo);
   fence_acc(d);
   wgmma_fence();
   const uint64_t b_hi = tile_desc(st), b_lo = tile_desc(st + kBTile);
@@ -652,7 +658,7 @@ __device__ __forceinline__ void issue_stage(float (&d)[kAcc],
   for (int kk = 0; kk < kKSteps; ++kk) {
     const uint64_t o = 2 * kk;
     const int add = kk == 0 ? 0 : 1;   // the first product writes d
-    if constexpr (Mode == kBf16) {
+    if constexpr (rounds_operands(Mode)) {
       wgmma_tf32(d, hi[kk], b_hi + o, add);
       continue;
     }
@@ -706,7 +712,9 @@ __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
         const bool in = j + e < a.n;
         r[e] = logistic_tile::logit_term(
             v[e], in ? __ldg(a.y + j + e) : 0.f, in ? 1.f : 0.f, lp);
-        if constexpr (Mode != kF32) r[e] = logistic_tile::round_bf16(r[e]);
+        if constexpr (Mode != kF32) {
+          r[e] = logistic_tile::round_mode<Mode>(r[e]);
+        }
       }
       if (chain_ok && j < a.n_pad) {
         *reinterpret_cast<float4*>(a.resid + (size_t)c * a.n_pad + j) =
@@ -827,7 +835,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap b_map,
       issue_stage<Mode>(d, hi, lo, smem_u32(st));
       wgmma_wait();
       fence_frag(hi);
-      if constexpr (Mode != kBf16) fence_frag(lo);
+      if constexpr (!rounds_operands(Mode)) fence_frag(lo);
       promote(acc, d);
       if (lane == 0) mbar_arrive(&empty[s]);   // stage s is free
     }
@@ -925,7 +933,9 @@ DeviceSetup g_setup[kMaxDevices][kModes];
 
 // Stage B's instance for a mode: kResidBf16's R is already rounded, so its
 // products are kF32's.
-constexpr int stage_b_mode(int mode) { return mode == kBf16 ? kBf16 : kF32; }
+__host__ __device__ constexpr int stage_b_mode(int mode) {
+  return rounds_operands(mode) ? mode : kF32;
+}
 
 template <int kStage, bool kTmaA, int Mode>
 cudaError_t setup_kernel(DeviceSetup& s) {
@@ -988,6 +998,8 @@ const DeviceSetup* device_setup(int mode) {
     if (s.err == cudaSuccess) {
       s.err = mode == kBf16       ? setup_mode<kBf16>(s)
               : mode == kResidBf16 ? setup_mode<kResidBf16>(s)
+              : mode == kF16       ? setup_mode<kF16>(s)
+              : mode == kResidF16  ? setup_mode<kResidF16>(s)
                                    : setup_mode<kF32>(s);
     }
     s.ready = true;
@@ -1121,6 +1133,13 @@ cudaError_t launch_wide(int mode, const void* design, const float* theta,
       return launch_wide_mode<kResidBf16>(design, theta, y, lp, grad,
                                           scratch, n_chains, dim, n, stream,
                                           launches);
+    case kF16:
+      return launch_wide_mode<kF16>(design, theta, y, lp, grad, scratch,
+                                    n_chains, dim, n, stream, launches);
+    case kResidF16:
+      return launch_wide_mode<kResidF16>(design, theta, y, lp, grad,
+                                         scratch, n_chains, dim, n, stream,
+                                         launches);
   }
   return cudaErrorInvalidValue;
 }
@@ -1224,10 +1243,10 @@ int fused_logistic_wide_prepare(void* out, const float* planes,
 
 // theta (n_chains, dim), x (n, dim - 1), y (n,), lp (n_chains,),
 // grad (n_chains, dim): contiguous float32 device arrays; `mode` kF32,
-// kBf16 or kResidBf16 (logistic_tile.cuh). For dim > 129 also `design`
-// (fused_logistic_wide_prepare, of this x laid out for the mode) and
-// `scratch` (fused_logistic_wide_scratch_floats floats); the narrow
-// instances take neither. Launches on `stream`, writes the number of
+// kBf16, kResidBf16, kF16 or kResidF16 (logistic_tile.cuh). For dim > 129
+// also `design` (fused_logistic_wide_prepare, of this x laid out for the
+// mode) and `scratch` (fused_logistic_wide_scratch_floats floats); the
+// narrow instances take neither. Launches on `stream`, writes the number of
 // kernels it launched to `launches` (one narrow instance, or the wide
 // path's two GEMMs) and returns the CUDA error code of the launches (0 on
 // success).

@@ -26,7 +26,11 @@
 // the product of two is exact in float32, so one TF32 product per k-step
 // computes what the JAX model computes (bf16 operands, float32 sums), with
 // no lo passes. kResidBf16 (`resid_dtype` bfloat16 on a float32 design)
-// rounds the residual alone, before product 2's 3xTF32 split.
+// rounds the residual alone, before product 2's 3xTF32 split. kF16 and
+// kResidF16 are the same with float16 (`x_dtype`, `resid_dtype`
+// "float16"): a float16 value, subnormals included, has at most 11
+// significant bits, so TF32 holds it exactly too and a product of two is
+// exact in float32.
 //
 // Fragment layouts (PTX ISA, m16n8k8 .tf32; lane = 4 g + t): A holds
 // (row g | g+8, k t | t+4), B holds (k t | t+4, col g), C holds (row g | g+8,
@@ -46,6 +50,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <cstdint>
 
@@ -53,8 +58,19 @@ namespace logistic_tile {
 
 constexpr int kTileRows = 32;  // 4 n-tiles of product 1, 4 k-steps of 2
 
-// Which operands are rounded to bfloat16; the numbers of the C interface.
-enum Mode : int { kF32 = 0, kBf16 = 1, kResidBf16 = 2 };
+// Which operands are rounded, and to what; the numbers of the C interface.
+enum Mode : int {
+  kF32 = 0, kBf16 = 1, kResidBf16 = 2, kF16 = 3, kResidF16 = 4
+};
+
+// The modes that round every operand (one TF32 product, no lo passes),
+// and those that round the residual alone.
+__host__ __device__ constexpr bool rounds_operands(int mode) {
+  return mode == kBf16 || mode == kF16;
+}
+__host__ __device__ constexpr bool rounds_resid_only(int mode) {
+  return mode == kResidBf16 || mode == kResidF16;
+}
 
 // The row stride of a staged x tile: 8 * ksteps floats and 4 more, so 4
 // mod 8.
@@ -99,13 +115,24 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// v rounded to the mode's reduced dtype (bfloat16 or float16, to nearest,
+// ties to even), as a float32 value
+template <int Mode>
+__device__ __forceinline__ float round_mode(float v) {
+  if constexpr (Mode == kF16 || Mode == kResidF16) {
+    return __half2float(__float2half_rn(v));
+  } else {
+    return round_bf16(v);
+  }
+}
+
 // An operand as the mode takes it: split into its TF32 parts, or rounded
-// to bfloat16, which TF32 holds exactly (lo is then not used).
+// to bfloat16 or float16, which TF32 holds exactly (lo is then not used).
 template <int Mode>
 __device__ __forceinline__ void operand(float v, uint32_t& hi,
                                         uint32_t& lo) {
-  if constexpr (Mode == kBf16) {
-    hi = __float_as_uint(round_bf16(v));
+  if constexpr (rounds_operands(Mode)) {
+    hi = __float_as_uint(round_mode<Mode>(v));
     lo = 0u;
   } else {
     split_tf32(v, hi, lo);
@@ -203,7 +230,7 @@ __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
           uint32_t b_hi[2], b_lo[2];
           operand<Mode>(xr[0], b_hi[0], b_lo[0]);
           operand<Mode>(xr[4], b_hi[1], b_lo[1]);
-          if constexpr (Mode == kBf16) {
+          if constexpr (rounds_operands(Mode)) {
             mma_tf32(d[j], a_hi[q], b_hi);
           } else {
             mma_3xtf32(d[j], a_hi[q], a_lo[q], b_hi, b_lo);
@@ -235,7 +262,7 @@ __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
     r[3] = logit_term(logit[j][3], y1, w1, lp_g8);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if constexpr (Mode == kResidBf16) r[i] = round_bf16(r[i]);
+      if constexpr (rounds_resid_only(Mode)) r[i] = round_mode<Mode>(r[i]);
       operand<Mode>(r[i], r_hi[j][i], r_lo[j][i]);
     }
   }
@@ -251,7 +278,7 @@ __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
       uint32_t b_hi[2], b_lo[2];
       operand<Mode>(xc[0], b_hi[0], b_lo[0]);
       operand<Mode>(xc[S], b_hi[1], b_lo[1]);
-      if constexpr (Mode == kBf16) {
+      if constexpr (rounds_operands(Mode)) {
         mma_tf32(d[nt], r_hi[j], b_hi);
       } else {
         mma_3xtf32(d[nt], r_hi[j], r_lo[j], b_hi, b_lo);

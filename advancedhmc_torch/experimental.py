@@ -8,10 +8,11 @@ keeps sampling, up to `t_max`, where the rectangular loop would idle it.
 The JAX package measured it slower than the rectangular default on its
 TPU; the port keeps it for its own measurement.
 
-`Experimental` holds the JAX package's XLA layout knobs of the fused loop
-(`out_dtype`, `stage_slots`, `pack_carry`). The port's loop is eager
-PyTorch, not a traced program, and these are not ported: setting one
-raises, naming its ROADMAP.md item.
+`Experimental` holds the JAX package's layout knobs of the fused loop
+(`out_dtype`, `stage_slots`, `pack_carry`), which `fused_draw_phase` takes
+(`experimental=`): see `nuts_transitions_fused` for what each does in the
+port: `stage_slots` and `pack_carry` are taken with JAX's checks and
+change nothing. None changes a value, but `out_dtype` rounds the draws.
 """
 
 from __future__ import annotations
@@ -23,24 +24,17 @@ from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, \
     UnitEuclideanMetric
 from .nuts import nuts_transitions_fused
 from .termination import DynamicTerminationCriterion
-from .utils import roadmap
 
 
 @dataclasses.dataclass(frozen=True)
 class Experimental:
-    """The JAX package's layout knobs of the fused loop; only the
-    defaults are ported."""
+    """Opt-in layout knobs of `fused_draw_phase` (see the module doc).
+    Combinations that would shadow each other raise in
+    `nuts_transitions_fused` (pack_carry with stage_slots)."""
 
     out_dtype: object = None
     stage_slots: int = 0
     pack_carry: str = ""
-
-    def __post_init__(self):
-        if self.out_dtype is not None or self.stage_slots \
-                or self.pack_carry:
-            raise NotImplementedError(
-                "the fused loop's layout knobs (out_dtype, stage_slots, "
-                "pack_carry) are not ported yet " + roadmap("options"))
 
 
 def fused_draw_phase_ragged(generator, spec, state, t_max: int, t_min: int,
@@ -60,12 +54,9 @@ def fused_draw_phase_ragged(generator, spec, state, t_max: int, t_min: int,
     follows the size of its trees, so the raw buffer over-weights the
     regions of small trees); `diagnostics.effective_sample_size_ragged` is
     the matching ESS. The state resumes each chain from its last completed
-    draw, and its `iteration` advances by `t_min`. `out_dtype` (a reduced
-    draw buffer) is not ported.
+    draw, and its `iteration` advances by `t_min`. `out_dtype` stores the
+    draw buffer in that dtype (the draws come back rounded through it).
     """
-    if out_dtype is not None:
-        raise NotImplementedError("out_dtype (a reduced draw buffer) is not "
-                                  "ported yet " + roadmap("options"))
     per_chain = not spec.cross_chain
     if not 1 <= t_min < t_max:
         raise ValueError("need 1 <= t_min < t_max")
@@ -88,7 +79,7 @@ def fused_draw_phase_ragged(generator, spec, state, t_max: int, t_min: int,
     traj = spec.kernel.trajectory.with_nom_step_size(state.adapt.da.eps)
     z, thetas, stats, counts = nuts_transitions_fused(
         generator, h, traj, state.z, t_max, spec.kernel.refreshment,
-        t_min=t_min)
+        out_dtype=out_dtype, t_min=t_min)
     stats["is_adapt"] = stats["numerical_error"].new_zeros(
         stats["numerical_error"].shape)
     return (dataclasses.replace(state, iteration=state.iteration + t_min,

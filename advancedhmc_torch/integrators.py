@@ -23,6 +23,7 @@ from typing import Callable
 import torch
 
 from .hamiltonian import Hamiltonian, PhasePoint, select_phasepoint
+from .utils import rand_uniform
 
 
 def _column(x, like):
@@ -97,9 +98,8 @@ class JitteredLeapfrog(_Fixed):
         entry of the nominal step size)."""
         eps0 = torch.as_tensor(self.step_size0)
         shape = eps0.shape if n_chains is None else (n_chains,)
-        return self.with_jitter(torch.rand(shape, generator=generator,
-                                           dtype=eps0.dtype,
-                                           device=eps0.device))
+        return self.with_jitter(rand_uniform(generator, shape, eps0.dtype,
+                                             eps0.device))
 
 
 @dataclasses.dataclass(frozen=True)

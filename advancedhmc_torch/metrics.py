@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from .utils import resolve_device
+from .utils import rand_normal, resolve_device
 
 
 class Metric:
@@ -34,8 +34,8 @@ class Metric:
     def rand_momentum(self, generator, n_chains):
         """Momenta (n_chains, dim) ~ N(0, M): standard normals mapped by
         `momentum_from_normals`."""
-        z = torch.randn((n_chains, self.dim), generator=generator,
-                        dtype=self.dtype, device=self.device)
+        z = rand_normal(generator, (n_chains, self.dim), self.dtype,
+                        self.device)
         return self.momentum_from_normals(z)
 
     def momentum_from_normals(self, z):

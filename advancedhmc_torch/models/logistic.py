@@ -14,12 +14,14 @@ float64) the analytic value+grad, the counterpart of the JAX model's
 `logdensity_and_grad`.
 
 The JAX model's reduced-precision switches are here too. `x_dtype=
-"bfloat16"` stores the design rounded to bfloat16 (from the float64 data,
-as the JAX model does) and rounds β to it in both products and the
-residual before the gradient's, with float32 (at least the model's dtype)
-sums: the perturbed posterior is then sampled exactly. `resid_dtype=
-"bfloat16"` rounds the residual alone. The prior takes the unrounded θ. On
-CUDA K1 runs the same rounding (its modes, `ops.fused_logistic.mode_of`).
+"bfloat16"` (or "float16") stores the design rounded to that dtype (from
+the float64 data, as the JAX model does) and rounds β to it in both
+products and the residual before the gradient's, with float32 (at least
+the model's dtype) sums: the perturbed posterior is then sampled exactly.
+`resid_dtype` rounds the residual alone (then to the design's dtype). The
+prior takes the unrounded θ. On CUDA K1 runs the same rounding (its
+modes, `ops.fused_logistic.mode_of`); a design and a residual in two
+different reduced dtypes, which K1 has no mode for, raise there.
 
 `hierarchical_logistic_nc` is its non-centred form, θ = (log σ, β̃) with
 β = σ·β̃, and `german_credit_logistic` the model at German credit's shape
@@ -73,8 +75,8 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
                           dtype=torch.float32, resid_dtype=None, x_dtype=None,
                           device=None) -> LogDensityTarget:
     """The hierarchical logistic target on `device` (None means CUDA), with
-    the design in `x_dtype` and the residual in `resid_dtype` (None, or
-    "bfloat16"; any other dtype raises, naming its ROADMAP.md item)."""
+    the design in `x_dtype` and the residual in `resid_dtype` (None,
+    "bfloat16" or "float16")."""
     xd = reduced_dtype(x_dtype, "x_dtype")
     rd = reduced_dtype(resid_dtype, "resid_dtype")
     device = resolve_device(device)
@@ -83,7 +85,9 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
     x = round_to(torch.as_tensor(x_np), xd).to(dtype)
     x = x.to(device).contiguous()
     y = torch.as_tensor(y_np, dtype=dtype, device=device)
-    likelihood = fused_logistic_value_grad(x, y, mode_of(xd, rd))
+    mode = mode_of(xd, rd)
+    likelihood = None if mode is None else fused_logistic_value_grad(x, y,
+                                                                     mode)
 
     def logdensity(theta):
         return _prior(theta, p)[0] + _loglik(y, round_to(theta[:, 1:], xd)
@@ -92,6 +96,10 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
     def logdensity_and_grad(theta):
         lp_pri, g_pri = _prior(theta, p)
         if kernel_route(theta):
+            if likelihood is None:
+                raise ValueError(
+                    f"K1 has no mode for x_dtype={xd} with resid_dtype={rd}"
+                    " (a residual rounded twice)")
             lp_lik, g_lik = likelihood(theta)
             return lp_pri + lp_lik, g_pri + g_lik
         logits = round_to(theta[:, 1:], xd) @ x.T

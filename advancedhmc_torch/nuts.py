@@ -70,8 +70,8 @@ from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, \
     cholesky_upper
 from .termination import SLICE, ClassicNoUTurn, \
     DynamicTerminationCriterion, StrictGeneralisedNoUTurn
-from .utils import maxabs, not_ported, rand_exponential, rand_sign, \
-    trailing_ones, trailing_zeros
+from .utils import all_chains, all_chains_t, as_dtype, max_chains, maxabs, \
+    rand_exponential, rand_sign, rand_uniform, trailing_ones, trailing_zeros
 
 
 # The fused loop reads its exit condition back to the host every this many
@@ -237,13 +237,13 @@ def _step(h, z_edge, eps_v, h0, delta_max, sub, generator, integ=None,
     if lu is None:
         lw_leaf = h0 - h_new
         s_w = torch.logaddexp(sub["s_w"], lw_leaf)
-        u = torch.rand(c, generator=generator, dtype=dtype, device=dev)
+        u = rand_uniform(generator, (c,), dtype, dev)
         take = torch.log(u) < lw_leaf - s_w
         diverging = ~(-h0 < delta_max - h_new)
     else:
         n_leaf = (lu <= -h_new).to(dtype)        # an acceptable leaf counts 1
         s_w = sub["s_w"] + n_leaf
-        u = torch.rand(c, generator=generator, dtype=dtype, device=dev)
+        u = rand_uniform(generator, (c,), dtype, dev)
         take = (s_w * u >= sub["s_w"]) & (n_leaf > 0)
         diverging = ~(lu < delta_max - h_new)
     return z_new, vel_new, dict(
@@ -467,7 +467,7 @@ def _merge(st, h, max_depth, v, fwd, i, z_new, vel_new, sub, e_mh, act,
 def _merge_draw(generator, c, dtype, dev, kind):
     """The top-level merge's draw: Exp(1), or a uniform for slice."""
     if kind.slice:
-        return torch.rand(c, generator=generator, dtype=dtype, device=dev)
+        return rand_uniform(generator, (c,), dtype, dev)
     return rand_exponential(generator, (c,), dtype, dev)
 
 
@@ -597,7 +597,7 @@ def _stats(zcand: PhasePoint, h0, n_alpha, sum_alpha, dh_max, depth,
 
 def nuts_transition(generator, h, traj, z0: PhasePoint,
                     force_directions=None, return_debug=False,
-                    coupled_key=None, _pair=False, **options):
+                    coupled_key=None, _pair=False):
     """One NUTS transition of every chain of `z0`; returns (z_next, stats).
 
     The integrator's current step size is a scalar or one per chain (C,),
@@ -628,7 +628,6 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
     `_leaf`: so the generator is drawn exactly as with the single-leaf
     body, and the transition gives the same bits, every field and every
     stack slot that a check reads (the spare slot is a write-only sink)."""
-    not_ported("nuts_transition", options)
     kind = _kind(traj, h)
     if _pair and force_directions is not None:
         raise ValueError("force_directions is unsupported on the leaf-pair "
@@ -641,11 +640,11 @@ def nuts_transition(generator, h, traj, z0: PhasePoint,
                           device=dev)
     directions = force_directions
     if directions is None and coupled_key is not None:
-        directions = rand_sign(coupled_key, (max_depth,), dev)
+        directions = rand_sign(coupled_key, (max_depth,), dev, chains=False)
     st = _initial_state(z0, max_depth, traj.stack_torch_dtype, kind,
                         generator, h)
     first = True
-    while not bool(st["done"].all()):
+    while not all_chains(st["done"]):
         running = ~st["done"]     # finished chains keep their state
         if _pair and not first:
             new = _leaf_pair(st, h, eps, max_depth, crit.delta_max,
@@ -675,9 +674,12 @@ _STAT_FIELDS = ("n_steps", "acceptance_rate", "log_density",
 def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                            n_transitions: int, refreshment,
                            adapt_cfg=None, adapt_state=None,
-                           adapt_flags=None, batched: bool = True,
-                           depth_caps=None, pair: bool = False, t_min=None,
-                           **options):
+                           adapt_flags=None, unroll: int = 1,
+                           out_dtype=None, batched: bool = True,
+                           metric_batch=None, eps_batch=None,
+                           stage_slots: int = 0, t_min=None,
+                           pack_carry: str = "", depth_caps=None,
+                           pair: bool = False):
     """Run `n_transitions` NUTS transitions per chain inside ONE loop.
 
     Chains advance through their own transition sequences asynchronously:
@@ -735,9 +737,38 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     reached `t_min` are masked no-ops, so the counts follow the stopping
     rule exactly, and each chain's rows are those of the rectangular run
     from the same generator state.
+
+    The JAX function's layout options, each with its meaning and its
+    errors; none changes a value. `unroll` runs `unroll` times
+    `_CHECK_EVERY` iterations between two read-backs of the exit (JAX:
+    loop bodies a while-loop iteration; the port's loop has one layout, so
+    it takes `unroll` in batched mode too). `stage_slots` (JAX: record
+    the draws into a small stage flushed into the output every NS
+    iterations) is taken with the JAX function's checks and changes
+    nothing: the port's loop scatters each finished transition straight
+    into the full output buffer, which it allocates in any case, so a
+    stage would save no memory and only add launches. `out_dtype` stores
+    the draw buffer in that dtype (e.g. bfloat16); the draws come back
+    rounded through it, in θ's dtype. `pack_carry` ("fc"
+    or "cf") packs the JAX loop's scalar carry into one array; the port's
+    loop has no carry to pack, so it is taken, with the JAX function's
+    checks, and changes nothing. `metric_batch` (a per-chain metric) and
+    `eps_batch` ((C,) nominal step sizes) give each chain its own M⁻¹ and
+    ε, as `h` and `traj` may carry them already. `batched=False` is the
+    JAX function's one-chain call: `z0` (and a warmup's `adapt_state`)
+    without the chain axis, outputs without it.
     """
-    not_ported("nuts_transitions_fused",
-               options if batched else dict(options, batched=batched))
+    if not batched:
+        if eps_batch is not None:
+            raise ValueError("eps_batch requires batched mode")
+        out = nuts_transitions_fused(
+            generator, h, traj, _map_tree(lambda x: x[None], z0),
+            n_transitions, refreshment, adapt_cfg,
+            None if adapt_state is None else _map_tree(
+                lambda x: x[None], adapt_state), adapt_flags, unroll,
+            out_dtype, True, metric_batch, None, stage_slots, t_min,
+            pack_carry, depth_caps, pair)
+        return tuple(_map_tree(lambda x: x[0], o) for o in out)
     kind = _kind(traj, h)
     if kind.carry_vel:
         raise ValueError("the fused loop runs on a Euclidean metric; "
@@ -746,7 +777,12 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     max_depth = int(crit.max_depth)
     c, d = z0.theta.shape
     dtype, dev = z0.theta.dtype, z0.theta.device
+    if metric_batch is not None:
+        h = dataclasses.replace(h, metric=metric_batch)
     integ = traj.integrator
+    if eps_batch is not None:
+        integ = integ.with_nom_step_size(
+            torch.as_tensor(eps_batch, dtype=dtype, device=dev))
     eps = torch.as_tensor(integ.current_step_size, dtype=dtype, device=dev)
     nom = torch.as_tensor(integ.nom_step_size, dtype=dtype, device=dev)
     jittered = isinstance(integ, JitteredLeapfrog)
@@ -756,6 +792,21 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     adaptive = adapt_cfg is not None
     adapt_metric = adaptive and adapt_cfg.uses_mm
     ragged = t_min is not None
+    staged = bool(stage_slots and 0 < stage_slots < n_t)
+    if pack_carry:
+        if staged or ragged:
+            raise ValueError(
+                "pack_carry cannot be combined with stage_slots or t_min: "
+                "the staged/ragged loop layouts would silently take "
+                "precedence and the packed path would never run")
+        if n_t >= 2 ** 24:
+            raise ValueError(
+                "pack_carry packs int32 counters into f32 columns, exact "
+                f"only below 2**24; n_transitions={n_t} violates that")
+    if ragged and (unroll != 1 or staged):
+        raise ValueError(
+            "variable-draws mode requires the batch-explicit single-loop "
+            "layout (batched=True, unroll=1, stage_slots=0)")
     if ragged:
         if not 1 <= int(t_min) < n_t:
             raise ValueError("t_min must satisfy 1 <= t_min < "
@@ -803,8 +854,19 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         z_last = st["zcand"]
         stopped = torch.zeros((), dtype=torch.bool, device=dev)
     # one spare row: chains that record nothing write there
-    out_theta = z0.theta.new_zeros(c, n_t + 1, d)
+    out_theta = z0.theta.new_zeros(c, n_t + 1, d,
+                                   dtype=as_dtype(out_dtype) or dtype)
     out_stats = z0.theta.new_zeros(c, n_t + 1, len(_STAT_FIELDS))
+    n_f = len(_STAT_FIELDS)
+    check_every = _CHECK_EVERY * unroll
+    # the generator's state after each iteration since the last read-back,
+    # and whether this rank's chains were all done (ragged: stopped) after
+    # it: the loop ends with the generator as it was after the first such
+    # iteration, so the masked iterations run past it draw nothing that
+    # counts and the stream after the call does not depend on the cadence
+    # of the exit's read-back (`unroll`, `_CHECK_EVERY`)
+    states = [None] * check_every
+    done_at = torch.zeros(check_every, dtype=torch.bool, device=dev)
     it = 0
     while True:
         act = ~all_done & ~stopped if ragged else ~all_done
@@ -817,16 +879,16 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                    st2["dh_max"], st2["depth"], st2["diverged"], eps)
         vals = torch.stack([s[k].to(dtype) for k in _STAT_FIELDS], -1)
         row = torch.where(boundary, t, n_t).long()[:, None, None]
-        out_theta.scatter_(1, row.expand(c, 1, d), zc.theta[:, None])
-        out_stats.scatter_(1, row.expand(c, 1, len(_STAT_FIELDS)),
-                           vals[:, None])
+        out_theta.scatter_(1, row.expand(c, 1, d),
+                           zc.theta[:, None].to(out_theta.dtype))
+        out_stats.scatter_(1, row.expand(c, 1, n_f), vals[:, None])
         t_done = t
         t = t + boundary.to(torch.int32)
         all_done = t >= n_t
         reset = boundary & ~all_done
         if ragged:
             z_last = select_phasepoint(boundary, zc, z_last)
-            stopped = stopped | (t >= t_min).all()
+            stopped = stopped | all_chains_t(t >= t_min)
 
         h_next, nom_next = h, nom
         if adaptive:
@@ -864,10 +926,20 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
                 boundary, caps[torch.clamp(t, max=n_t - 1).long()],
                 st2["cap"])
         h = h_next
+        k = it % check_every
+        states[k] = generator.get_state()
+        if ragged:
+            done_at[k] = stopped
+        else:
+            torch.all(all_done, 0, out=done_at[k])
         it += 1
-        if it % _CHECK_EVERY == 0 and bool(
-                stopped if ragged else all_done.all()):
+        if it % check_every == 0 and (
+                bool(stopped) if ragged else all_chains(all_done)):
             break
+    # the first iteration of the window after which every rank was done
+    # (`argmax` gives the first True; done stays done)
+    generator.set_state(states[int(max_chains(done_at.to(torch.int32)
+                                              .argmax()))])
 
     out = out_stats[:, :n_t]
     stats = {k: out[..., j] for j, k in enumerate(_STAT_FIELDS)}
@@ -883,7 +955,19 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
         stats["is_accept"] = valid
         stats["nom_step_size"] = torch.where(valid, stats["nom_step_size"],
                                              0.0)
-        return z_last, out_theta[:, :n_t], stats, t
+    thetas = out_theta[:, :n_t].to(dtype)
+    if ragged:
+        return z_last, thetas, stats, t
     if adaptive:
-        return st["zcand"], out_theta[:, :n_t], stats, ad
-    return st["zcand"], out_theta[:, :n_t], stats
+        return st["zcand"], thetas, stats, ad
+    return st["zcand"], thetas, stats
+
+
+def _map_tree(fn, tree):
+    """`tree` (a phase point, an adaptation state, a tensor, a tuple or a
+    dict of them) with `fn` applied to every tensor leaf."""
+    from .checkpoint import _flatten
+
+    leaves, rebuild = _flatten(tree)
+    return rebuild([fn(x) if isinstance(x, torch.Tensor) else x
+                    for _, x in leaves])

@@ -5,12 +5,14 @@ shared library with a plain C interface, loaded with `ctypes`. The build
 happens at first use, into `advancedhmc_torch/_build/` (git-ignored), under
 a name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing is built at import time.
+`recording()` collects the names of the libraries that the code run inside
+it loads (the program cache, `aot.py`, lists them in its manifest).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -79,7 +81,27 @@ def build(*names: str) -> dict:
     return paths
 
 
-@functools.lru_cache(maxsize=None)
+_LOADED = {}        # name -> the loaded library
+_RECORDERS = []     # the name sets of the active `recording()` blocks
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
-    return ctypes.CDLL(str(build(name)[name]))
+    for names in _RECORDERS:
+        names.add(name)
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = _LOADED[name] = ctypes.CDLL(str(build(name)[name]))
+    return lib
+
+
+@contextlib.contextmanager
+def recording():
+    """Yield a set that collects the name of every library `load`ed
+    inside the block (loaded before or not)."""
+    names = set()
+    _RECORDERS.append(names)
+    try:
+        yield names
+    finally:
+        _RECORDERS.remove(names)

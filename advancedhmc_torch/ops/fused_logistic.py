@@ -43,16 +43,19 @@ residual to bfloat16). A bfloat16 value is exact in TF32, so the kernels
 run one TF32 product where MODE_F32 runs three (no lo passes); the narrow
 instances round θ and x where they load them, the wide path's design is
 laid out rounded (its lo plane zero). MODE_RESID_BF16 (`resid_dtype=
-"bfloat16"` on a float32 design) rounds the residual alone. On the card a
-mode runs its own kernel instances; there is no route to the plain
-version.
+"bfloat16"` on a float32 design) rounds the residual alone. MODE_F16 and
+MODE_RESID_F16 are the same with float16 (`x_dtype`, `resid_dtype`
+"float16"): a float16 value has at most 11 significant bits, so TF32
+holds it exactly too. On the card a mode runs its own kernel instances;
+there is no route to the plain version.
 
 `logistic_value_grad` dispatches on the device of θ: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the kernels or raises.
 On the card, `logistic_value_grad.calls` counts its value+grad calls and
 `logistic_value_grad.launches` the kernels they launched, as the library
 reports them: one a call up to p = 128, two (the two GEMMs) above, in every
-mode; `.bf16_calls` and `.bf16_launches` count those of MODE_BF16 apart.
+mode; `.bf16_calls` and `.bf16_launches` count those of MODE_BF16 apart,
+`.f16_calls` and `.f16_launches` those of MODE_F16.
 """
 
 from __future__ import annotations
@@ -66,16 +69,28 @@ from ..utils import round_to
 
 _LIB = "fused_logistic"
 # the modes, numbered as the C interface numbers them (logistic_tile.cuh)
-MODE_F32, MODE_BF16, MODE_RESID_BF16 = 0, 1, 2
+MODE_F32, MODE_BF16, MODE_RESID_BF16, MODE_F16, MODE_RESID_F16 = range(5)
+# each mode's (operand dtype, residual dtype): None keeps float32
+_ROUNDING = {MODE_F32: (None, None),
+             MODE_BF16: (torch.bfloat16, torch.bfloat16),
+             MODE_RESID_BF16: (None, torch.bfloat16),
+             MODE_F16: (torch.float16, torch.float16),
+             MODE_RESID_F16: (None, torch.float16)}
 
 
 def mode_of(x_dtype, resid_dtype):
-    """K1's mode for the model's switches (torch dtypes or None): a
-    bfloat16 design rounds the residual too, as the JAX model casts it to
-    the design's dtype for the gradient's product."""
-    if x_dtype is not None:
-        return MODE_BF16
-    return MODE_RESID_BF16 if resid_dtype is not None else MODE_F32
+    """K1's mode for the model's switches (torch dtypes or None), or None
+    where K1 has none: a reduced design rounds the residual to its dtype
+    too, as the JAX model casts it to the design's dtype for the
+    gradient's product, so a design and a residual in two different
+    reduced dtypes (rounded twice) have no mode."""
+    if x_dtype is not None and resid_dtype not in (None, x_dtype):
+        return None
+    for mode, rounding in _ROUNDING.items():
+        if rounding == (x_dtype, resid_dtype or x_dtype):
+            return mode
+    raise ValueError(f"no K1 mode for x_dtype={x_dtype}, "
+                     f"resid_dtype={resid_dtype}")
 
 
 def kernel_route(theta):
@@ -88,15 +103,14 @@ def kernel_route(theta):
 
 def plain_logistic_value_grad(theta, x, y, mode=MODE_F32):
     """The same function in plain PyTorch: two matmuls and elementwise ops,
-    with the mode's operands rounded to bfloat16 (the products of rounded
-    operands are exact in θ's dtype)."""
-    bf16 = torch.bfloat16 if mode == MODE_BF16 else None
-    beta, x = round_to(theta[:, 1:], bf16), round_to(x, bf16)
+    with the mode's operands rounded to bfloat16 or float16 (the products
+    of rounded operands are exact in θ's dtype)."""
+    od, rd = _ROUNDING[mode]
+    beta, x = round_to(theta[:, 1:], od), round_to(x, od)
     logits = beta @ x.T                                        # (C, n)
     loglik = torch.sum(
         y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
-    resid = round_to(y - torch.sigmoid(logits),
-                     None if mode == MODE_F32 else torch.bfloat16)
+    resid = round_to(y - torch.sigmoid(logits), rd)
     g = resid @ x                                              # (C, p)
     return loglik, torch.cat([torch.zeros_like(g[:, :1]), g], 1)
 
@@ -108,24 +122,24 @@ def rounding_reference(theta, x, y, mode, logit_slack=2.0 ** -14):
     move a logit by far less than `logit_slack`, so a residual y − σ(l) by
     less than `logit_slack`·σ(l)(1 − σ(l)) (and its own float32 rounding);
     where that reaches a bfloat16 rounding midpoint, the residual can round
-    to its other neighbour, one bfloat16 step away, and move the gradient
-    by that step times |x|. Returns (loglik, grad, allowance (C, dim),
-    residuals near a midpoint); the allowance is zero in MODE_F32 and for
-    every chain with no residual near a midpoint."""
+    to its other neighbour, one step of the mode's residual dtype away
+    (bfloat16 or float16), and move the gradient by that step times |x|.
+    Returns (loglik, grad, allowance (C, dim), residuals near a midpoint);
+    the allowance is zero in MODE_F32 and for every chain with no residual
+    near a midpoint."""
     th, x, y = theta.double(), x.double(), y.double()
     lp, g = plain_logistic_value_grad(th, x, y, mode)
     if mode == MODE_F32:
         return lp, g, torch.zeros_like(g), 0
-    bf16 = torch.bfloat16 if mode == MODE_BF16 else None
-    xr = round_to(x, bf16)
-    sig = torch.sigmoid(round_to(th[:, 1:], bf16) @ xr.T)
+    od, rd = _ROUNDING[mode]
+    xr = round_to(x, od)
+    sig = torch.sigmoid(round_to(th[:, 1:], od) @ xr.T)
     r = y - sig
     slack = logit_slack * sig * (1.0 - sig) + 2.0 ** -22 * r.abs()
-    rb = r.to(torch.bfloat16)
+    rb = r.to(rd)
     bits = rb.view(torch.int16)
     near_mid, step = None, None
-    for nb in ((bits + 1).view(torch.bfloat16), (bits - 1).view(
-            torch.bfloat16)):
+    for nb in ((bits + 1).view(rd), (bits - 1).view(rd)):
         gap = (nb.double() - rb.double()).abs()
         dist = (r - 0.5 * (nb.double() + rb.double())).abs()
         ok = torch.isfinite(gap) & (dist <= slack)
@@ -210,8 +224,9 @@ def wide_layout(x, mode=MODE_F32):
     `planes` (2, n_pad, k_pad) holds the TF32 part hi and the float32
     remainder lo = x − hi (so hi + lo == x exactly) of [0 | x]: column 0 is
     zero (θ's column 0, log σ, drops out of the logits and gradient), as
-    are the rows past n and the columns past dim = p + 1. In MODE_BF16, hi
-    is x rounded to bfloat16 (exact in TF32) and lo is zero. `t_planes` (2,
+    are the rows past n and the columns past dim = p + 1. In MODE_BF16
+    (MODE_F16), hi is x rounded to bfloat16 (float16), exact in TF32, and
+    lo is zero. `t_planes` (2,
     k_pad, n_pad) is its transpose, the K-major operand of the gradient's
     product. n_pad and k_pad are n (at least 1) and dim rounded up to
     WIDE_K_TILE, so every row is 16-byte aligned for TMA."""
@@ -219,8 +234,9 @@ def wide_layout(x, mode=MODE_F32):
     padded = x.new_zeros(_round_up(max(n, 1), WIDE_K_TILE),
                          _round_up(p + 1, WIDE_K_TILE))
     padded[:n, 1:p + 1] = x
-    if mode == MODE_BF16:
-        hi = round_to(padded, torch.bfloat16)
+    od = _ROUNDING[mode][0]
+    if od is not None:
+        hi = round_to(padded, od)
         planes = torch.stack([hi, torch.zeros_like(hi)])
     else:
         hi = tf32_round(padded)
@@ -283,7 +299,7 @@ def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32):
     WideDesign of this x in this mode), prepared here for the call when not
     given. Each call on the card counts one in `.calls` and its kernels in
     `.launches` (and, in MODE_BF16, in `.bf16_calls` and
-    `.bf16_launches`)."""
+    `.bf16_launches`; in MODE_F16, in `.f16_calls` and `.f16_launches`)."""
     if theta.device.type == "cpu":
         return plain_logistic_value_grad(theta, x, y, mode)
     _check_inputs(theta, x, y)
@@ -315,6 +331,9 @@ def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32):
     if mode == MODE_BF16:
         logistic_value_grad.bf16_calls += 1
         logistic_value_grad.bf16_launches += launched.value
+    elif mode == MODE_F16:
+        logistic_value_grad.f16_calls += 1
+        logistic_value_grad.f16_launches += launched.value
     return loglik, grad
 
 
@@ -322,6 +341,8 @@ logistic_value_grad.calls = 0
 logistic_value_grad.launches = 0
 logistic_value_grad.bf16_calls = 0
 logistic_value_grad.bf16_launches = 0
+logistic_value_grad.f16_calls = 0
+logistic_value_grad.f16_launches = 0
 
 
 def fused_logistic_value_grad(x, y, mode=MODE_F32):

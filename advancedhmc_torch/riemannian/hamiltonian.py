@@ -17,7 +17,7 @@ import torch
 
 from ..metrics import cholesky_upper
 from ..target import LogDensityTarget
-from ..utils import clamp_nonfinite
+from ..utils import clamp_nonfinite, rand_normal
 from .metric import DenseRiemannianMetric, IdentityMap, SoftAbsMap, \
     apply_map, softabs
 
@@ -171,8 +171,7 @@ class RiemannianHamiltonian:
 
     def rand_momentum(self, generator, theta):
         """r ~ N(0, G(θ)) for every chain of `theta (C, D)`."""
-        z = torch.randn(theta.shape, generator=generator, dtype=theta.dtype,
-                        device=theta.device)
+        z = rand_normal(generator, theta.shape, theta.dtype, theta.device)
         return self.momentum_from_normals(theta, z)
 
     def init_phasepoint(self, generator, theta):

@@ -19,6 +19,7 @@ import torch
 from ..hamiltonian import mass_inv_diag
 from ..kinetic import RelativisticKinetic
 from ..metrics import Metric
+from ..utils import rand_normal, rand_uniform
 
 
 @lru_cache(maxsize=None)
@@ -86,8 +87,7 @@ def rand_momentum_relativistic(kinetic: RelativisticKinetic, metric: Metric,
     """Momenta (n_chains, dim) of the relativistic kinetic energy on a unit
     or diagonal metric, in the metric's dtype on its device."""
     mass_inv_diag(metric)        # raises for any other metric
-    p = torch.rand(n_chains, generator=generator, dtype=metric.dtype,
-                   device=metric.device)
-    n = torch.randn((n_chains, metric.dim), generator=generator,
-                    dtype=metric.dtype, device=metric.device)
+    p = rand_uniform(generator, (n_chains,), metric.dtype, metric.device)
+    n = rand_normal(generator, (n_chains, metric.dim), metric.dtype,
+                    metric.device)
     return momentum_from_draws(kinetic, metric, p, n)

@@ -20,8 +20,8 @@ on the sampler's device, passed to each function; the state carries no
 key. `SampleResult` exports the draws (`to_inference_dict`, `summary`,
 `to_arviz`), named by the target, and `save` writes it to one npz
 (`checkpoint.save_result`). `SampleSpec.kinetic` takes the Gaussian or the
-relativistic kinetic energy. The `mesh` option (multi-GPU) is not ported;
-it raises, naming its ROADMAP.md item.
+relativistic kinetic energy. `mesh` shards the chain axis over one
+process per GPU (`parallel`), each rank holding its block of the chains.
 """
 
 from __future__ import annotations
@@ -61,7 +61,8 @@ from .target import LogDensityTarget, leaves_with_names
 from .termination import DynamicTerminationCriterion
 from .trajectory import HMCKernel, transition_static
 from .transforms import constrain
-from .utils import not_ported, resolve_device
+from .utils import chain_block, chain_index, chain_shard, check_generators, \
+    current_shard, first_chain, gather_chains, local_chains, resolve_device
 
 _PREFIX = "[advancedhmc_torch]"
 
@@ -141,11 +142,13 @@ def _cat_z(zs):
 
 
 def _run_fused(generator, spec, state, n_transitions, pair=False,
-               chain_chunks=1, depth_caps=None):
+               chain_chunks=1, depth_caps=None, **layout):
     """One fused call at the state's frozen ε and M⁻¹, shared or per chain,
     on the leaf-pair body if `pair`, in `chain_chunks` sequential
     sub-batches of the chains (each its own loop, so the chains' streams
-    differ from one loop's, in the same law); outputs (T, C, ...)."""
+    differ from one loop's, in the same law), with the fused loop's
+    `layout` options (`unroll`, `out_dtype`, `stage_slots`,
+    `pack_carry`); outputs (T, C, ...)."""
     c = state.z.theta.shape[0]
     if c % chain_chunks:
         raise ValueError("chain_chunks must divide the chain count")
@@ -160,7 +163,8 @@ def _run_fused(generator, spec, state, n_transitions, pair=False,
             eps[chains] if eps.dim() else eps)
         z, th, st = nuts_transitions_fused(
             generator, h, traj, _take_z(state.z, chains), n_transitions,
-            spec.kernel.refreshment, depth_caps=depth_caps, pair=pair)
+            spec.kernel.refreshment, depth_caps=depth_caps, pair=pair,
+            **layout)
         zs.append(z)
         ths.append(th.transpose(0, 1))
         stats.append({k: v.transpose(0, 1) for k, v in st.items()})
@@ -201,31 +205,29 @@ def fanout_warmup_state(spec: SampleSpec, state: HMCState,
     """Tile a warmed cross-chain state onto `n_chains` chains.
 
     The warmed positions (with their cached ℓπ/∇ℓπ/ℓκ) are tiled
-    cyclically; the shared metric and adaptation state are reused. Clones
-    start at identical positions: run a short discarded decorrelation phase
-    before collecting draws.
+    cyclically: chain i takes warm chain i mod W; the shared metric and
+    adaptation state are reused. Clones start at identical positions: run a
+    short discarded decorrelation phase before collecting draws. Under a
+    chain shard the warm pool is sharded too: it is gathered (W × dim, a
+    small batch), and each rank keeps its rows of the `n_chains` (global).
     """
-    c0 = state.z.theta.shape[0]
+    pool = {f: gather_chains(getattr(state.z, f)) for f in _fields(state.z)}
+    c0 = pool["theta"].shape[0]
     if not spec.cross_chain:
         raise ValueError("fanout_warmup_state requires cross_chain=True "
                          "(a shared adaptation state)")
     if n_chains < c0:
         raise ValueError(f"n_chains {n_chains} < warmed pool {c0}")
-    reps = -(-n_chains // c0)
-
-    def tile(x):
-        return torch.cat([x] * reps)[:n_chains]
-
-    z = state.z
-    return dataclasses.replace(state, z=PhasePoint(
-        theta=tile(z.theta), r=tile(z.r), logdensity=tile(z.logdensity),
-        grad=tile(z.grad), neg_k=tile(z.neg_k)))
+    rows = chain_index(n_chains, pool["theta"].device) % c0
+    return dataclasses.replace(state, z=type(state.z)(
+        **{f: x[rows] for f, x in pool.items()}))
 
 
 def fused_draw_phase(generator, spec: SampleSpec, state: HMCState,
                      n_draws: int, fuse: int, *, thin: int = 1,
-                     online_om=None, progress_cb=None, chain_chunks: int = 1,
-                     pair: bool = False, **options):
+                     online_om=None, unroll: int = 1, progress_cb=None,
+                     experimental=None, chain_chunks: int = 1,
+                     pair: bool = False):
     """Post-warmup draws, `fuse` transitions per fused call, adaptation
     frozen, at the state's ε and M⁻¹ (shared, or each chain's own), on the
     leaf-pair body if `pair`, in `chain_chunks` sequential sub-batches of
@@ -233,8 +235,16 @@ def fused_draw_phase(generator, spec: SampleSpec, state: HMCState,
     Returns (state, thetas (n_draws // thin, C, dim), stats). With
     `online_om` (an `OnlineMoments`) the draws are folded into it instead
     of stored: (state, None, stats (n_draws, C), online_moments).
-    `progress_cb(iteration, stats, metric)` is called after every call."""
-    not_ported("fused_draw_phase", options)
+    `progress_cb(iteration, stats, metric)` is called after every call.
+    `unroll` and `experimental` (an `experimental.Experimental`: the draw
+    buffer's dtype, the stage, the packed carry) are the fused loop's
+    layout options (`nuts_transitions_fused`); none changes a value but
+    `out_dtype`'s rounding of the draws."""
+    from .experimental import Experimental
+
+    ex = experimental or Experimental()
+    layout = dict(unroll=unroll, out_dtype=ex.out_dtype,
+                  stage_slots=ex.stage_slots, pack_carry=ex.pack_carry)
     if n_draws % fuse:
         raise ValueError("fuse must divide the draw count")
     if fuse % thin:
@@ -243,7 +253,7 @@ def fused_draw_phase(generator, spec: SampleSpec, state: HMCState,
     for _ in range(n_draws // fuse):
         z, th, st = _run_fused(generator, spec,
                                dataclasses.replace(state, z=z), fuse, pair,
-                               chain_chunks)
+                               chain_chunks, **layout)
         st["is_adapt"] = torch.zeros_like(st["numerical_error"])
         state = dataclasses.replace(state, iteration=state.iteration + fuse,
                                     z=z)
@@ -326,7 +336,11 @@ def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
                 else depth_caps[b * block:(b + 1) * block])
         z, th, st = _run_fused(generator, spec, state, block, pair,
                                chain_chunks, caps)
-        alpha_blk = torch.mean(torch.clamp(st["acceptance_rate"], max=1.0))
+        # the whole batch's positions and acceptance (gathered under a
+        # chain shard, so every rank folds in the unsharded batch)
+        th_all = gather_chains(th, 1)
+        alpha_blk = torch.mean(torch.clamp(
+            gather_chains(st["acceptance_rate"], 1), max=1.0))
         da, mm = state.adapt.da, state.adapt.mm
         for t in range(block):
             it = b * block + t
@@ -338,7 +352,7 @@ def fused_warmup_phase_crosschain(generator, spec: SampleSpec,
                 da = da_update(cfg.da, da, alpha_blk)
             if cfg.uses_mm:
                 if flags["in_window"][it]:
-                    mm = mm.push_batch(th[t])
+                    mm = mm.push_batch(th_all[t])
                 if w_end if cfg.kind == STAN else flags["in_window"][it]:
                     mm = mm.update_estimate()
                 if w_end:
@@ -491,7 +505,7 @@ def init_state(generator, spec: SampleSpec, metric: Metric, init_theta,
             raise ValueError(
                 "init_mass_matrix='gradient' requires a diagonal metric")
         _, grads = spec.target.logdensity_and_grad(theta)
-        g = torch.mean(torch.abs(grads), 0)
+        g = torch.mean(torch.abs(gather_chains(grads)), 0)
         metric = DiagEuclideanMetric.create(
             (1.0 / torch.clamp(g, 1e-3, 1e6)).to(dtype))
     elif init_mass_matrix != "identity":
@@ -518,7 +532,7 @@ def init_state(generator, spec: SampleSpec, metric: Metric, init_theta,
     if init_eps is not None:
         eps0 = torch.as_tensor(init_eps, dtype=dtype, device=device)
     elif spec.cross_chain:
-        eps0 = find_good_stepsize(generator, h, theta[0])
+        eps0 = _search_first_chain(generator, h, theta)
     else:
         eps0 = find_good_stepsizes(generator, h, theta)
     z = h.init_phasepoint(generator, theta)
@@ -717,24 +731,42 @@ def depth_cap_schedule(n_adapts: int, cap_frac: float, cap_frac2=None,
     return n_cap, n_cap2
 
 
+def _search_first_chain(generator, h, theta):
+    """The step-size search from the first chain of the whole batch: under
+    a chain shard every rank runs it alike on the first rank's first row
+    (a replicated search, its draws unsharded)."""
+    theta0 = first_chain(theta)
+    with chain_shard(None):
+        return find_good_stepsize(generator, h, theta0)
+
+
 def _eps_reanchor(generator, spec, state):
     """Re-run the initial step-size search on the window-adapted metric
     (from the first chain) and re-anchor dual averaging there."""
-    eps = find_good_stepsize(generator, _hamiltonian(spec, state),
-                             state.z.theta[0])
+    eps = _search_first_chain(generator, _hamiltonian(spec, state),
+                              state.z.theta)
     return dataclasses.replace(state, adapt=dataclasses.replace(
         state.adapt, da=DualAveragingState.init(eps)))
 
 
-def _progress_printer(n_adapts, n_samples, every=None):
+def _progress_printer(n_adapts, n_samples, every=None, printing=True):
     """`progress_cb(iteration, stats, metric)` printing one line of the
     live display (phase, acceptance, step size, divergence, tree depth,
     log density, energy and the M⁻¹ diagonal's range, as the JAX
     function's); with `every`, only at iterations that are multiples of
-    it. A line reads the stats back to the host; nothing else does."""
+    it. A line reads the stats back to the host; nothing else does. Under
+    a chain shard every rank calls it (the line's stats and a per-chain
+    M⁻¹ are gathered) and only a `printing` one prints."""
 
     def cb(iteration, stats, metric):
         if every is not None and iteration % every:
+            return
+        stats = {k: gather_chains(v) for k, v in stats.items()}
+        mi = getattr(metric, "m_inv", None)
+        if isinstance(mi, torch.Tensor) and mi.dim() > (
+                2 if isinstance(metric, DenseEuclideanMetric) else 1):
+            mi = gather_chains(mi)
+        if not printing:
             return
         phase = "warmup" if iteration <= n_adapts else "sample"
         parts = [f"{_PREFIX} {phase} {iteration}/{n_samples}"]
@@ -747,7 +779,6 @@ def _progress_printer(n_adapts, n_samples, every=None):
                 continue
             v = float(torch.mean(stats[key].to(torch.float64)))
             parts.append(f"{label} {v:{fmt}}")
-        mi = getattr(metric, "m_inv", None)
         if isinstance(metric, DenseEuclideanMetric):
             mi = torch.diagonal(mi, dim1=-2, dim2=-1)
         if mi is not None:
@@ -782,6 +813,7 @@ def sample(
     online_lags: int = 16,
     drop_warmup: bool = False,
     collect_warmup_stats: bool = True,
+    mesh=None,
     progress: bool = False,
     progress_every: int = 100,
     verbose: bool = False,
@@ -792,7 +824,6 @@ def sample(
     warmup_chains: int = 0,
     fanout_decorrelate: int = 32,
     device=None,
-    **options,
 ) -> SampleResult:
     """Sample `n_samples` iterations per chain (the first `n_adapts` adapt;
     None means min(n_samples // 10, 1000)), on `device` (None means CUDA;
@@ -829,9 +860,31 @@ def sample(
     (`depth_cap_schedule`). `progress` prints a line every `progress_every`
     iterations (after every call on the fused paths); `verbose` notes a
     requested fused path that does not run and prints the end-of-run
-    report (`diagnostics.summarize`). `mesh` is not ported.
+    report (`diagnostics.summarize`).
+
+    `mesh` (`parallel.mesh_of_all_devices()`: one process per GPU under
+    `torch.distributed`) shards the chain axis: every rank calls `sample`
+    with the same arguments and a generator in the same state (checked),
+    holds its block of the chains (the chain count, and the warmup pool's,
+    must divide over the ranks) and draws their variates at the global
+    shape (`utils`); the loop exits and the cross-chain reductions are
+    global. The draws, ε and M⁻¹ are the unsharded run's, bit for bit
+    where the target's value+grad gives each chain the same bits at either
+    batch size. Every rank's result holds all chains' draws and stats
+    (gathered in rank order); `final_state` stays sharded. Only rank 0
+    prints. `fuse_chain_chunks > 1` chunks each rank's block, which
+    samples the same law with other streams than the unsharded chunks.
     """
-    not_ported("sample", options)
+    if mesh is not None:
+        from .parallel.mesh import chain_shard_of
+
+        args = {k: v for k, v in locals().items()
+                if k not in ("generator", "mesh", "chain_shard_of")}
+        with chain_shard(chain_shard_of(mesh)):
+            check_generators(generator)
+            return sample(generator, **args)
+    shard = current_shard()
+    rank0 = shard is None or shard.rank == 0
     if n_adapts is None:
         n_adapts = min(n_samples // 10, 1000)
     if adaptor.kind == NONE:
@@ -896,6 +949,7 @@ def sample(
     init_theta = torch.as_tensor(init_theta, device=device)
     n_total = (init_theta.shape[0] if init_theta.dim() > 1
                else (n_chains or 1))
+    n_local = local_chains(n_total)       # this rank's chains (all of them)
     use_fanout = 0 < warmup_chains < n_total and n_adapts > 0
     if use_fanout and not cross_chain:
         raise ValueError(
@@ -909,7 +963,11 @@ def sample(
         init_theta, n_chains = init_theta[:warmup_chains], None
     elif use_fanout:
         n_chains = warmup_chains
-    if verbose:
+    if init_theta.dim() > 1:
+        init_theta = chain_block(init_theta)
+    elif n_chains is not None:
+        n_chains = local_chains(n_chains)
+    if verbose and rank0:
         if fuse_warmup and n_adapts > 0 and not (
                 use_fused_warmup or use_fused_warmup_cc):
             print(f"{_PREFIX} note: fuse_warmup requested but the "
@@ -924,9 +982,10 @@ def sample(
                   "unsupported here (requires cross-chain adaptation, a cap "
                   "below max_depth, and either the fused cross-chain warmup "
                   "or drop_warmup) — running the standard warmup")
-    step_cb = (_progress_printer(n_adapts, n_samples, progress_every)
+    step_cb = (_progress_printer(n_adapts, n_samples, progress_every, rank0)
                if progress else None)
-    fused_cb = _progress_printer(n_adapts, n_samples) if progress else None
+    fused_cb = (_progress_printer(n_adapts, n_samples, None, rank0)
+                if progress else None)
 
     timings = {}
     t0 = time.perf_counter()
@@ -940,7 +999,7 @@ def sample(
     # when draws are collected)
     keep = 0 if drop_warmup else n_adapts
     keys = _STATS if dynamic else _STATIC_STATS
-    rows = _rows(keep + n_draw // thin, n_total, state.z.theta,
+    rows = _rows(keep + n_draw // thin, n_local, state.z.theta,
                  draws=not online, keys=keys)
     flags = adapt_flags(adaptor, n_adapts, n_samples)
     t0 = time.perf_counter()
@@ -993,7 +1052,7 @@ def sample(
 
     t0 = time.perf_counter()
     draws = _part(rows, keep, keep + n_draw // thin)
-    om = (online_init(n_total, target.dim, online_lags, state.z.theta.dtype,
+    om = (online_init(n_local, target.dim, online_lags, state.z.theta.dtype,
                       device) if online else None)
     if use_fused:
         out = fused_draw_phase(generator, spec, state, n_draw, fuse_draws,
@@ -1007,11 +1066,26 @@ def sample(
                                n_samples, draws, thin, om, step_cb)
     _synchronize(device)
     timings["draws_s"] = time.perf_counter() - t0
+    if shard is not None:
+        # every rank's result holds all chains, in rank order
+        rows = _gather_rows(rows)
+        warm_rows = None if warm_rows is None else _gather_rows(warm_rows)
+        om = None if om is None else dataclasses.replace(
+            om, mean=gather_chains(om.mean), m2=gather_chains(om.m2),
+            lag_buf=gather_chains(om.lag_buf, 1),
+            lag_acc=gather_chains(om.lag_acc, 1))
     result = SampleResult(
         thetas=rows[0], stats=rows[1],
         warmup_stats=None if warm_rows is None else warm_rows[1],
         final_state=state, timings=timings,
         online=None if om is None else online_summary(om), target=target)
-    if verbose:
+    if verbose and rank0:
         summarize(result, verbose=True)
     return result
+
+
+def _gather_rows(rows):
+    """`rows` (see `_rows`) with their chain axis gathered from every
+    rank."""
+    return (None if rows[0] is None else gather_chains(rows[0], 1),
+            {k: gather_chains(v, 1) for k, v in rows[1].items()})

@@ -16,6 +16,7 @@ import torch
 
 from .hamiltonian import Hamiltonian
 from .integrators import leapfrog_step
+from .utils import any_chain
 
 
 def find_good_stepsize(generator, h: Hamiltonian, theta,
@@ -53,7 +54,7 @@ def _search(h, z, initial_step_size, max_n_iters):
     crossed = torch.zeros_like(too_high)
     for _ in range(max_n_iters):
         run = ~crossed
-        if not bool(run.any()):
+        if not any_chain(run):
             break
         eps_new = torch.where(too_high, 2.0 * eps, 0.5 * eps)
         crossed = crossed | (too_high != (delta_h(eps_new) > log_a_cross))
@@ -66,7 +67,7 @@ def _search(h, z, initial_step_size, max_n_iters):
     found = torch.zeros_like(crossed)
     for _ in range(max_n_iters):
         run = ~found
-        if not bool(run.any()):
+        if not any_chain(run):
             break
         mid = 0.5 * (lo + hi)
         dh = delta_h(mid)

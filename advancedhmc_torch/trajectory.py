@@ -14,7 +14,8 @@ maximum once per transition and runs that many steps, the chains that are
 done masked, as the JAX loop vmapped over chains runs the maximum.
 
 Two switches set the precision of the NUTS U-turn check, as in the JAX
-package. `stack_dtype` ("bfloat16", or None for the state's dtype) is the
+package. `stack_dtype` ("bfloat16" or "float16", or None for the state's
+dtype) is the
 dtype every checkpoint stack a criterion carries is stored in (r and the
 momentum sums; classic's θ; strict's odd-leaf r): each checkpoint is
 rounded to it when it is written. The span checks of the classic and the
@@ -41,7 +42,8 @@ from .hamiltonian import FullMomentumRefreshment, Hamiltonian, \
 from .integrators import leapfrog_steps
 from .termination import ENDPOINT, MULTINOMIAL, FixedIntegrationTime, \
     FixedNSteps, TerminationCriterion, check_ts_kind
-from .utils import rand_exponential, reduced_dtype
+from .utils import max_chains, rand_exponential, rand_uniform, \
+    reduced_dtype
 # the values of jax.lax.Precision that the JAX trajectory takes by name
 UTURN_PRECISIONS = (None, "default", "high", "highest", "fastest", "float32",
                     "bfloat16", "tensorfloat32")
@@ -185,7 +187,7 @@ def _endpoint_proposal(generator, h, traj: Trajectory, z: PhasePoint):
         eps = integ.current_step_size
         done = _per_chain(n_steps <= 0, z.theta.shape[0])
         z_prop = z
-        for i in range(int(n_steps.max())):
+        for i in range(int(max_chains(n_steps))):
             z_new = integ.step(h, z_prop, eps, step_index=i, n_steps=n_steps)
             z_prop = select_phasepoint(~done, z_new, z_prop)
             done = done | ~z_new.is_finite() | (i + 1 >= n_steps)
@@ -209,11 +211,9 @@ def _multinomial_proposal(generator, h, traj: Trajectory, z: PhasePoint,
     eps = _per_chain(integ.current_step_size, c).to(dtype)
     h0 = z.energy()
     if coupled_key is None:
-        split = torch.rand(c, dtype=torch.float64, generator=generator,
-                           device=dev)
+        split = rand_uniform(generator, (c,), torch.float64, dev)
     else:      # one draw shared by the chains
-        split = torch.rand((), dtype=torch.float64, generator=coupled_key,
-                           device=dev)
+        split = rand_uniform(coupled_key, (), torch.float64, dev)
     n_fwd = torch.minimum(torch.floor(split * (n_steps + 1)).to(torch.int32),
                           n_steps)
     n_bwd = n_steps - n_fwd
@@ -224,7 +224,7 @@ def _multinomial_proposal(generator, h, traj: Trajectory, z: PhasePoint,
     sum_alpha = torch.minimum(torch.ones_like(h0), torch.exp(h0 - h0))
     count = torch.ones_like(h0)
     done_dir = torch.zeros(c, dtype=torch.bool, device=dev)
-    for t in range(int(n_steps.max())):
+    for t in range(int(max_chains(n_steps))):
         in_bwd = t < n_bwd
         switching = t == n_bwd    # the first forward step restarts at z
         z_from = select_phasepoint(switching, z, z_edge)
@@ -240,7 +240,7 @@ def _multinomial_proposal(generator, h, traj: Trajectory, z: PhasePoint,
         lw_new = torch.where(active, -h_new,
                              torch.full_like(h_new, float("-inf")))
         logw = torch.logaddexp(logw, lw_new)
-        u = torch.rand(c, generator=generator, dtype=dtype, device=dev)
+        u = rand_uniform(generator, (c,), dtype, dev)
         z_cand = select_phasepoint(torch.log(u) < lw_new - logw, z_new,
                                    z_cand)
         alpha_new = torch.nan_to_num(

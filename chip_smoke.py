@@ -196,7 +196,28 @@ Phases (any failure exits non-zero):
    `checkpoint.save_state`/`load_state` into a zeroed state and a new
    generator, 16 fused draws from each bitwise equal, and
    `profiling.throughput_report` on phase 3's result equal to phase 4's
-   leapfrog steps/s to 1e-9.
+   leapfrog steps/s to 1e-9;
+19. chain parallelism, the program cache and the fused loop's last
+   options: (a) right after phase 4, phase 3 exactly through `sample(mesh=
+   parallel.mesh_of_all_devices())` in a one-rank NCCL group, its draws,
+   stats, ε and M⁻¹ bitwise phase 3's (compared by digests of their bits)
+   and K1's launches and calls by chain count equal; (b) two ranks
+   sharing the card under gloo (this script started twice with
+   `--mesh-worker`), phase 3's configuration at 4096 chains (warming 1024,
+   64 iterations in blocks of 4, 4 decorrelation, 16 draws) against the
+   same run in this process, after K1 is held at C and at C/2 on the same
+   rows: bitwise where K1's bits do not depend on the chain count, else ε,
+   acceptance and mean log σ within stated bands; (c) and (d) run while
+   (b)'s ranks run: (c) `aot_program` on one fused cross-chain warmup
+   block of phase 3's configuration at 1024 chains, "trace" then "cache",
+   both calls bitwise the block's, the manifest naming K1's library; (d)
+   one fused draw call from phase 3's state on the 100-D model with a
+   float16 design (K1's float16 mode at every leaf), the draws in a
+   bfloat16 buffer, `stage_slots` (taken, a no-op in the port) and
+   `unroll` 2, against the same call at the defaults but the buffer: the
+   same bits.
+K1's float16-operand mode (`x_dtype="float16"`) is checked and timed in
+phases 2 and 9a as its bfloat16 mode is.
 
 Kernel times are device times: a CUDA graph of 20-50 launches replayed
 between CUDA events, so that the wrapper's host cost is not in them; the
@@ -326,6 +347,8 @@ def _counters():
             (K1_CALLS, k1, "calls"),
             (K1_BF16, k1, "bf16_launches"),
             (K1_BF16_CALLS, k1, "bf16_calls"),
+            (K1_F16, k1, "f16_launches"),
+            (K1_F16_CALLS, k1, "f16_calls"),
             ("fused_nuts", fused_nuts_kernel.fused_nuts, "launches"),
             ("fused_gaussian_leapfrog",
              fused_leapfrog.fused_gaussian_leapfrog, "launches"))
@@ -335,6 +358,33 @@ K1_CALLS = "fused_logistic_value_grad calls"
 # K1's bfloat16-operand mode (`x_dtype="bfloat16"`), counted apart as well
 K1_BF16 = "fused_logistic_value_grad (bfloat16 operands)"
 K1_BF16_CALLS = K1_BF16 + " calls"
+# and its float16-operand mode (`x_dtype="float16"`)
+K1_F16 = "fused_logistic_value_grad (float16 operands)"
+K1_F16_CALLS = K1_F16 + " calls"
+
+
+def k1_operand_dtype(mode):
+    """The dtype K1's `mode` rounds its operands to (float32: none)."""
+    from advancedhmc_torch.ops import fused_logistic as k1
+
+    return k1._ROUNDING[mode][0] or torch.float32
+
+
+def k1_control_mode(mode):
+    """The mode whose kernel must fail `mode`'s gate (check_k1): float32's
+    and float16's is bfloat16's, bfloat16's float32's."""
+    from advancedhmc_torch.ops import fused_logistic as k1
+
+    return k1.MODE_F32 if mode == k1.MODE_BF16 else k1.MODE_BF16
+
+
+def k1_counter_keys(mode):
+    """The launch and call counters of K1's `mode` (read_launches)."""
+    from advancedhmc_torch.ops import fused_logistic as k1
+
+    return {k1.MODE_BF16: (K1_BF16, K1_BF16_CALLS),
+            k1.MODE_F16: (K1_F16, K1_F16_CALLS)}.get(
+        mode, ("fused_logistic_value_grad", K1_CALLS))
 
 
 def reset_launches():
@@ -380,13 +430,13 @@ def time_k1(theta, x, y, design, mode):
     its launches), the wrapper's back-to-back time, the plain version's
     device time, cuBLAS doing the two products alone (logits = β·xᵀ, grad =
     r·x; a yardstick the port never calls) on the mode's operand type
-    (float32, bfloat16 in MODE_BF16), and the bound. Above p = 128
-    `design` is x's prepared WideDesign."""
+    (float32, bfloat16 in MODE_BF16, float16 in MODE_F16), and the bound.
+    Above p = 128 `design` is x's prepared WideDesign."""
     from advancedhmc_torch.ops import fused_logistic as k1
 
     (c, dim), n = theta.shape, x.shape[0]
     reps = 20 if c >= N_CHAINS else 50
-    dt = torch.bfloat16 if mode == k1.MODE_BF16 else torch.float32
+    dt = k1_operand_dtype(mode)
     beta, xo = theta[:, 1:].contiguous().to(dt), x.to(dt)
     resid = torch.rand(c, n, device=theta.device).to(dt)
 
@@ -417,19 +467,18 @@ def k1_bound_ms(c, dim, n, mode):
     over the peak of their type and the bytes of θ, x, y in and lp, grad
     out over the memory rate. At float32 accuracy the operations are
     3xTF32 (three TF32 products for each of the two, 3·4·C·p·n) at the
-    TF32 peak. In MODE_BF16 the function is two products of bfloat16
-    operands summed in float32: 4·C·p·n operations at the bf16 peak, with x
-    read in bfloat16. Also returns one side figure by name: in float32 the
-    CUDA-core bound (4·C·p·n at the float32 peak), the bound before the
-    kernel used the tensor cores; in MODE_BF16 the one TF32 pass of each
-    product that the kernels issue, with x in float32, the bound of the
-    kernels as written (the design kept in float32)."""
-    from advancedhmc_torch.ops import fused_logistic as k1
-
+    TF32 peak. In MODE_BF16 (MODE_F16) the function is two products of
+    bfloat16 (float16) operands summed in float32: 4·C·p·n operations at
+    the bf16 (fp16, the same) peak, with x read in 2 bytes. Also returns one
+    side figure by name: in float32 the CUDA-core bound (4·C·p·n at the
+    float32 peak), the bound before the kernel used the tensor cores; in
+    the 2-byte modes the one TF32 pass of each product that the kernels
+    run, with x in float32, the bound of the kernels as written (the
+    design kept in float32)."""
     p = dim - 1
     flops = 4.0 * c * p * n
     nbytes = 4.0 * (c * dim + n * p + n + c + c * dim)
-    if mode == k1.MODE_BF16:
+    if k1_operand_dtype(mode) != torch.float32:
         t_ops = flops / PEAK_BF16_FLOPS
         t_bytes = (nbytes - 2.0 * n * p) / PEAK_BYTES
         side = {"bound_ms_one_tf32_pass": 1e3 * max(
@@ -449,22 +498,21 @@ def check_k1(theta, x, y, design, mode, control_design):
     kernel held to the mode's float64 reference (its roundings, exact
     sums; `ops.fused_logistic.rounding_reference`) and to its plain twin,
     the plain twin to the reference, each to 1e-4 of the largest magnitude
-    (float32 sums in other orders). In MODE_BF16 the gradient's gate adds,
-    per element, what the residual's rounding to bfloat16 can move where a
-    logit error of 2^-14 carries a residual across a rounding midpoint (two
-    float32 evaluations can round it to neighbouring values: one bfloat16
-    step times |x|); in MODE_F32 that allowance is zero. The negative
-    control: the kernel in the other mode on the same inputs
+    (float32 sums in other orders). In MODE_BF16 (MODE_F16) the gradient's
+    gate adds, per element, what the residual's rounding to bfloat16
+    (float16) can move where a logit error of 2^-14 carries a residual
+    across a rounding midpoint (two float32 evaluations can round it to
+    neighbouring values: one step times |x|); in MODE_F32 that allowance is
+    zero. The negative control: the kernel in `k1_control_mode` on the same
+    inputs
     (`control_design` laid out in that mode above p = 128) must fail the
     gate. Returns (launches a call, largest difference from the plain
     twin)."""
     from advancedhmc_torch.ops import fused_logistic as k1
 
     c, dim = theta.shape
-    bf16 = mode == k1.MODE_BF16
-    other = k1.MODE_F32 if bf16 else k1.MODE_BF16
-    launch_key, call_key = ((K1_BF16, K1_BF16_CALLS) if bf16 else
-                            ("fused_logistic_value_grad", K1_CALLS))
+    other = k1_control_mode(mode)
+    launch_key, call_key = k1_counter_keys(mode)
     before = read_launches()
     lp, g = k1.logistic_value_grad(theta, x, y, design, mode)
     after = read_launches()
@@ -709,9 +757,10 @@ def main_path_spec():
     return target, kernel, adaptor
 
 
-def phase_main(seed, gen=None):
+def phase_main(seed, gen=None, mesh=None):
     """Phase 3 through `sample`, drawing from `gen` (a CUDA generator
-    seeded with `seed` unless given: 18d checkpoints it afterwards)."""
+    seeded with `seed` unless given: 18d checkpoints it afterwards), with
+    the chain axis on `mesh` if one is given (phase 19a)."""
     import advancedhmc_torch as ah
 
     target, kernel, adaptor = main_path_spec()
@@ -730,7 +779,7 @@ def phase_main(seed, gen=None):
         cross_chain=True, fuse_draws=FUSE, fuse_warmup=True,
         fuse_warmup_block=WARMUP_BLOCK, drop_warmup=True,
         warmup_chains=WARMUP_CHAINS, fanout_decorrelate=N_DECOR,
-        fuse_pair=PAIR, device="cuda")
+        fuse_pair=PAIR, mesh=mesh, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()["fused_logistic_value_grad"]
@@ -1620,7 +1669,7 @@ def phase_wide_k1(mode):
     from advancedhmc_torch.models.logistic import _synthetic_data
     from advancedhmc_torch.ops import fused_logistic as k1
 
-    other = k1.MODE_F32 if mode == k1.MODE_BF16 else k1.MODE_BF16
+    other = k1_control_mode(mode)
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows, worst, launched = [], 0.0, {}
     for c, p, n in WIDE_SHAPES:
@@ -2693,10 +2742,12 @@ def phase_static(seed, warmed):
 # from 75/50/25 to 50/25/25 (still one window, then 25 iterations of
 # dual averaging after its reset). To bring the script under its 1200 s
 # clock, (a)-(c) warm as (d) does, 100 iterations with buffers 50/25/25,
-# not 150 with 75/50/25, and (d) draws 8, not 16
-MM_WARMUP, MM_CHAINS_C, MM_CHAINS_D = 100, 1024, 512
+# not 150 with 75/50/25, and (d) draws 8, not 16. To make room for phase
+# 19, (a)-(d) warm 70 iterations with buffers 35/20/15 (one window of 15,
+# then 20 of dual averaging after its reset, 10 updates in blocks of 2)
+MM_WARMUP, MM_CHAINS_C, MM_CHAINS_D = 70, 1024, 512
 MM_DRAWS_A, MM_DRAWS_B, MM_DRAWS_C, MM_DRAWS_D = 64, 64, 64, 8
-MM_BUFFERS = (50, 25, 25)
+MM_BUFFERS = (35, 20, 15)
 # The fused cross-chain warmup updates dual averaging once a block: blocks
 # of 8 leave 6 updates between the last window's reset (206 of 256, 100 of
 # 150) and the end, and the re-anchored ε overshoots (×75 in one block)
@@ -3007,8 +3058,12 @@ def phase_metrics(seed, main_out):
 # model but the centred one), its draws mapped to (log σ, σ·β̃); cut to
 # 150 warmup iterations (Stan's one window, ending at 100, then 50 of dual
 # averaging after its reset, as phase 15 ran in PR 16) and 128 draws, not
-# 256, to bring the script under its 1200 s clock
-NC_WARMUP, NC_DRAWS = 150, 128
+# 256, to bring the script under its 1200 s clock; then, to make room for
+# phase 19, to 100 warmup iterations with buffers 50/25/25 (one window,
+# then 25 of dual averaging after its reset, as phase 15 ran at 100) and
+# 64 draws
+NC_WARMUP, NC_DRAWS = 100, 64
+NC_BUFFERS = (50, 25, 25)
 # the nc value+grad through K1 against its float64 analytic route, at the
 # chain counts of its path: each within this share of the largest magnitude
 # (K1's own gate, check_k1); the float32 analytic route is held to it too
@@ -3136,6 +3191,9 @@ def phase_nc(seed):
 
     check_rows, check_err = check_nc_k1()
     _, kernel, adaptor = main_path_spec()
+    adaptor = dataclasses.replace(
+        adaptor, init_buffer=NC_BUFFERS[0], term_buffer=NC_BUFFERS[1],
+        window_size=NC_BUFFERS[2])
     target, by_chains = count_by_chains(
         ah.hierarchical_logistic_nc(n=N_ROWS, p=DIM - 1, device="cuda"))
     theta0 = torch.as_tensor(
@@ -3437,8 +3495,8 @@ def phase_zoo(seed):
 # draws through fused_draw_phase, FUSE a call); at 128 iterations Stan's
 # windows leave no reset, so the first TCAP_INIT iterations are capped;
 # its draws cut from 256 to TCAP_DRAWS to bring the script under its
-# 1200 s clock
-TCAP, TCAP_INIT, TCAP_POST, TCAP_DRAWS = 4, 40, 16, 128
+# 1200 s clock (128, then 64 to make room for phase 19)
+TCAP, TCAP_INIT, TCAP_POST, TCAP_DRAWS = 4, 40, 16, 64
 # (b) bench.py with AHMC_BENCH_RAGGED=1.5: one ragged call from phase 3's
 # final state, t_min RAGGED_T_MIN (bench.py's chunk is 256, the draw count;
 # cut to 128 to bring the script under its 1200 s clock) and t_max
@@ -4054,11 +4112,402 @@ def phase_rmhmc_logistic(seed, main_state):
     return out
 
 
+# ----------------------------------------------------------------- phase 19
+# Chain parallelism and the program cache. (a) right after phase 4 (at the
+# end of the script, after 800 s of other phases, the same run took 35 s
+# against phase 3's 28), phase 3 exactly through
+# `sample(mesh=mesh_of_all_devices())` in a one-rank NCCL group: its draws,
+# stats, ε and M⁻¹ must be phase 3's bit for bit, and K1's launches as
+# many. (b) two ranks under gloo sharing the card (this script started
+# twice with --mesh-worker), phase 3's configuration at MESH_CHAINS chains
+# with a short warmup, against the same run in this process; K1 is first
+# held at C and at C/2 on the same rows, which says whether the sharded
+# run can be bitwise the unsharded one (each rank computes its chains'
+# value+grad at C/2). (c) `aot_program` on a fused cross-chain warmup
+# block, the program bench.py's AHMC_BENCH_AOT path wraps. (c) and (d)
+# run in this process while (b)'s ranks run (their start takes most of
+# their wall): phase 19 took 60.7 and 63.2 s run one after the other.
+MESH_WORLD = 2
+MESH_CHAINS, MESH_WARMUP_CHAINS = 4096, 1024
+# 64 warmup iterations in blocks of 4 (16 dual-averaging updates): 32 in
+# blocks of 8 left ε so large that nothing was accepted
+MESH_WARMUP, MESH_WARMUP_BLOCK, MESH_DECOR, MESH_DRAWS = 64, 4, 4, 16
+MESH_ACCEPT_BAND = (0.3, 0.9)
+# (b)'s gates where K1's bits depend on the chain count: the two runs'
+# final ε within this ratio, and their acceptance and mean log σ within
+# these differences
+MESH_EPS_RATIO, MESH_TOL_ACCEPT, MESH_TOL_LOGSIGMA = 1.25, 0.05, 0.05
+# (c) on 1024 of phase 3's starting points (phase 19's clock: 4096 took
+# 6.8 s), one block of phase 3's length
+AOT_CHAINS, AOT_BLOCK = 1024, WARMUP_BLOCK
+
+
+def bits_digest(x):
+    """A digest of the bits of `x`, one int64 for each index of its first
+    axis: the bytes of the row times odd weights, summed with wrap-around.
+    Rows of equal bits give equal digests; a row that differs gives another
+    one but for a collision."""
+    out, w = [], None
+    for row in x:
+        b = row.contiguous().view(torch.uint8).reshape(-1).to(torch.int64)
+        if w is None or w.numel() != b.numel():
+            w = torch.arange(b.numel(), device=b.device,
+                             dtype=torch.int64) * 5308871522 + 1
+        out.append((b * w).sum())
+    return torch.stack(out).cpu()
+
+
+def result_digest(res):
+    """What 19a compares: the draws' and every stat's digests, the final ε
+    and the M⁻¹."""
+    return {"thetas": bits_digest(res.thetas),
+            "stats": {k: bits_digest(v) for k, v in res.stats.items()},
+            "eps": res.final_state.adapt.da.eps.clone(),
+            "m_inv": res.final_state.metric.m_inv.clone()}
+
+
+def _same_digest(a, b):
+    return (torch.equal(a["thetas"], b["thetas"])
+            and a["stats"].keys() == b["stats"].keys()
+            and all(torch.equal(a["stats"][k], b["stats"][k])
+                    for k in a["stats"])
+            and torch.equal(a["eps"], b["eps"])
+            and torch.equal(a["m_inv"], b["m_inv"]))
+
+
+def phase_mesh_full(seed, main):
+    """19a: phase 3 on a one-rank NCCL mesh; `main` holds phase 3's
+    digest, K1 launches, K1 calls by chain count and wall."""
+    import torch.distributed as dist
+
+    import advancedhmc_torch as ah
+
+    mesh = ah.parallel.mesh_of_all_devices()
+    backend, world = dist.get_backend(), dist.get_world_size()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    res, launches, wall, by_chains, _ = phase_main(seed, gen, mesh)
+    digest = result_digest(res)
+    del res
+    dist.destroy_process_group()
+    out = {"phase": "19a", "backend": backend, "world": world,
+           "chains": N_CHAINS, "wall_s": wall, "phase3_wall_s": main["wall"],
+           "k1_launches": launches, "phase3_k1_launches": main["launches"],
+           "k1_calls_by_chains": by_chains}
+    log(json.dumps(out))
+    log(f"# phase 19a: phase 3 on a one-rank {backend} mesh in {wall:.1f} s "
+        f"(phase 3: {main['wall']:.1f} s), K1 launches {launches} "
+        f"(phase 3: {main['launches']})")
+    gates = {
+        "one-rank NCCL group": backend == "nccl" and world == 1,
+        "draws, stats, eps and M^-1 bitwise phase 3's":
+            _same_digest(digest, main["digest"]),
+        "K1 launches = phase 3's": launches == main["launches"],
+        "K1 calls by chain count = phase 3's":
+            by_chains == main["by_chains"],
+    }
+    _finish_gates("19a", gates)
+    return out
+
+
+def _mesh_run(seed, mesh=None):
+    """(b)'s configuration: phase 3's at MESH_CHAINS chains, warming
+    MESH_WARMUP_CHAINS, on `mesh` if given. Returns (result, K1
+    launches, wall)."""
+    import advancedhmc_torch as ah
+
+    target, kernel, adaptor = main_path_spec()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    metric = ah.make_metric("diagonal", DIM, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = ah.sample(
+        gen, target, kernel, metric, _main_theta0(seed)[:MESH_CHAINS],
+        MESH_WARMUP + MESH_DRAWS, n_adapts=MESH_WARMUP, adaptor=adaptor,
+        init_mass_matrix="gradient", cross_chain=True, fuse_draws=FUSE,
+        fuse_warmup=True, fuse_warmup_block=MESH_WARMUP_BLOCK,
+        drop_warmup=True, warmup_chains=MESH_WARMUP_CHAINS,
+        fanout_decorrelate=MESH_DECOR,
+        fuse_pair=PAIR, mesh=mesh, device="cuda")
+    torch.cuda.synchronize()
+    return (res, read_launches()["fused_logistic_value_grad"],
+            time.perf_counter() - t0)
+
+
+def mesh_worker(rank, world, store, out, seed):
+    """One rank of 19b (`--mesh-worker`): a gloo group over a file store,
+    the configuration of `_mesh_run` on the mesh, this rank's results to
+    `out` (an npz)."""
+    import numpy as np
+
+    require_cuda()
+    import advancedhmc_torch as ah
+
+    ah.parallel.distributed_init(backend="gloo",
+                                 init_method=f"file://{store}",
+                                 world_size=world, rank=rank)
+    res, launches, wall = _mesh_run(seed, ah.parallel.mesh_of_all_devices())
+    st = res.final_state
+    np.savez(out, thetas=res.thetas.cpu().numpy(),
+             accept=res.stats["acceptance_rate"].cpu().numpy(),
+             eps=st.adapt.da.eps.cpu().numpy(),
+             m_inv=st.metric.m_inv.cpu().numpy(),
+             z=st.z.theta.cpu().numpy(), launches=launches, wall=wall)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _k1_bitwise_at_half(theta):
+    """Whether K1 gives each chain the same bits at C and at C/2 (the
+    rows split in two calls), and the largest difference."""
+    target = main_path_spec()[0]
+    lp, g = target.logdensity_and_grad(theta)
+    h = theta.shape[0] // 2
+    parts = [target.logdensity_and_grad(theta[i:i + h]) for i in (0, h)]
+    lp2 = torch.cat([p[0] for p in parts])
+    g2 = torch.cat([p[1] for p in parts])
+    same = torch.equal(lp, lp2) and torch.equal(g, g2)
+    err = max(float((lp - lp2).abs().max()), float((g - g2).abs().max()))
+    return same, err
+
+
+def phase_mesh_gloo(seed, meanwhile):
+    """19b: two ranks sharing the card under gloo against one process.
+    `meanwhile()` runs here after the one-process run, while the ranks
+    still run (their start takes most of their wall); returns (19b's
+    results, what `meanwhile` returned)."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from advancedhmc_torch.ops import _build
+
+    work = _build.BUILD_DIR / "mesh19b"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+         "--mesh-worker", str(r), str(MESH_WORLD), str(work / "store"),
+         str(work / f"rank{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_WORLD)]
+    try:
+        res, launches, wall = _mesh_run(seed)
+        extra = meanwhile()
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"19b rank {r} failed:\n{text[-4000:]}")
+    ranks = [dict(np.load(work / f"rank{r}.npz"))
+             for r in range(MESH_WORLD)]
+    shutil.rmtree(work, ignore_errors=True)
+    one = {"thetas": res.thetas.cpu().numpy(),
+           "accept": res.stats["acceptance_rate"].cpu().numpy(),
+           "eps": res.final_state.adapt.da.eps.cpu().numpy(),
+           "m_inv": res.final_state.metric.m_inv.cpu().numpy(),
+           "z": res.final_state.z.theta.cpu().numpy()}
+    k1_same, k1_err = _k1_bitwise_at_half(res.final_state.z.theta)
+    del res
+    two = ranks[0]
+    z2 = np.concatenate([r["z"] for r in ranks])
+    bitwise = (np.array_equal(two["thetas"], one["thetas"])
+               and np.array_equal(two["eps"], one["eps"])
+               and np.array_equal(two["m_inv"], one["m_inv"])
+               and np.array_equal(z2, one["z"]))
+    agree = float(np.mean(np.all(two["thetas"] == one["thetas"], -1)))
+    ls1 = float(one["thetas"][..., 0].astype(np.float64).mean())
+    ls2 = float(two["thetas"][..., 0].astype(np.float64).mean())
+    acc1, acc2 = float(one["accept"].mean()), float(two["accept"].mean())
+    eps_ratio = float(two["eps"]) / float(one["eps"])
+    out = {"phase": "19b", "world": MESH_WORLD, "backend": "gloo",
+           "chains": MESH_CHAINS, "warmup_chains": MESH_WARMUP_CHAINS,
+           "warmup": MESH_WARMUP, "draws": MESH_DRAWS,
+           "k1_bitwise_at_half": k1_same, "k1_half_max_abs_diff": k1_err,
+           "bitwise": bitwise, "draws_agreeing_share": agree,
+           "eps_ratio": eps_ratio, "accept": [acc1, acc2],
+           "mean_logsigma": [ls1, ls2],
+           "wall_s": wall, "rank_walls_s": [float(r["wall"]) for r in ranks],
+           "k1_launches": launches,
+           "rank_k1_launches": [int(r["launches"]) for r in ranks]}
+    log(json.dumps(out))
+    log(f"# phase 19b: K1 bitwise at C/2: {k1_same} (max diff {k1_err:.3g});"
+        f" 2 ranks bitwise the one process: {bitwise}, {agree:.4f} of the "
+        f"draws agree; eps ratio {eps_ratio:.4f}, accept {acc2:.4f} against "
+        f"{acc1:.4f}; walls {out['rank_walls_s']} s against {wall:.1f} s")
+    gates = {
+        "ranks hold the same draws": all(
+            np.array_equal(r["thetas"], two["thetas"]) for r in ranks),
+        "draws finite, shape": two["thetas"].shape == (
+            MESH_DRAWS, MESH_CHAINS, DIM)
+        and bool(np.isfinite(two["thetas"]).all()),
+        "K1 launched on every rank": min(out["rank_k1_launches"]) > 0,
+        f"accept in {MESH_ACCEPT_BAND} (the chains move)":
+            MESH_ACCEPT_BAND[0] <= min(acc1, acc2)
+            and max(acc1, acc2) <= MESH_ACCEPT_BAND[1],
+    }
+    if k1_same:
+        gates["2 ranks bitwise the one process (K1 bitwise at C/2)"] = bitwise
+    else:
+        gates[f"eps ratio within 1/{MESH_EPS_RATIO}..{MESH_EPS_RATIO}"] = \
+            1 / MESH_EPS_RATIO <= eps_ratio <= MESH_EPS_RATIO
+        gates[f"|accept diff| <= {MESH_TOL_ACCEPT}"] = \
+            abs(acc1 - acc2) <= MESH_TOL_ACCEPT
+        gates[f"|mean log sigma diff| <= {MESH_TOL_LOGSIGMA}"] = \
+            abs(ls1 - ls2) <= MESH_TOL_LOGSIGMA
+    _finish_gates("19b", gates)
+    return out, extra
+
+
+def phase_aot(seed):
+    """19c: `aot_program` on one fused cross-chain warmup block of phase
+    3's configuration at AOT_CHAINS chains: the first lookup reports
+    "trace" and its call writes the manifest, a second reports "cache",
+    both calls bitwise the block's."""
+    import shutil
+
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.ops import _build
+    from advancedhmc_torch.sampler import fused_warmup_phase_crosschain
+
+    target, kernel, adaptor = main_path_spec()
+    spec = ah.SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
+                         cross_chain=True)
+    st0 = ah.init_state(torch.Generator(device="cuda").manual_seed(seed),
+                        spec, ah.make_metric("diagonal", DIM, device="cuda"),
+                        _main_theta0(seed)[:AOT_CHAINS],
+                        init_mass_matrix="gradient", device="cuda")
+
+    def block(st):
+        return fused_warmup_phase_crosschain(
+            torch.Generator(device="cuda").manual_seed(seed + 19), spec, st,
+            AOT_BLOCK, AOT_BLOCK, pair=PAIR)
+
+    cache = _build.BUILD_DIR / "aot19c"
+    shutil.rmtree(cache, ignore_errors=True)
+    ref = block(st0)
+    t0 = time.perf_counter()
+    call1, src1 = ah.aot_program(block, (st0,), program_id="warm_block",
+                                 cache_dir=cache)
+    out1 = call1(st0)
+    t1 = time.perf_counter()
+    call2, src2 = ah.aot_program(block, (st0,), program_id="warm_block",
+                                 cache_dir=cache)
+    t2 = time.perf_counter()
+    out2 = call2(st0)
+    manifest = json.loads(next(cache.glob("*.json")).read_text())
+    shutil.rmtree(cache, ignore_errors=True)
+
+    def same(a, b):
+        return (_same_leaves(a[0], b[0]) and torch.equal(a[1], b[1])
+                and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+
+    out = {"phase": "19c", "sources": [src1, src2],
+           "libraries": manifest["libraries"],
+           "trace_call_s": t1 - t0, "cache_lookup_s": t2 - t1}
+    log(json.dumps(out))
+    gates = {
+        'first lookup "trace", second "cache"': [src1, src2] == [
+            "trace", "cache"],
+        "calls bitwise the block's": same(out1, ref) and same(out2, ref),
+        "manifest lists K1's library": "fused_logistic" in out["libraries"],
+    }
+    _finish_gates("19c", gates)
+    return out
+
+
+# (d) the fused loop's last options: one fused draw call of OPT19_T
+# transitions from phase 3's ε, M⁻¹ and positions on the 100-D model with
+# its design in float16 (K1's float16 mode at every leaf), the draw buffer
+# in bfloat16, `stage_slots=OPT19_STAGE` (taken, a no-op in the port) and
+# `unroll` 2; then the same call at the defaults but the bfloat16 buffer,
+# which must give the same bits
+OPT19_CHAINS, OPT19_T, OPT19_STAGE = 4096, 16, 4
+
+
+def phase_last_options(warmed):
+    import advancedhmc_torch as ah
+    from advancedhmc_torch.experimental import Experimental
+    from advancedhmc_torch.sampler import fused_draw_phase
+
+    eps, m_inv, theta = warmed
+    _, kernel, adaptor = main_path_spec()
+    target = ah.hierarchical_logistic(n=N_ROWS, p=DIM - 1,
+                                      dtype=torch.float32,
+                                      x_dtype="float16", device="cuda")
+    target, by_chains = count_by_chains(target)
+    spec = ah.SampleSpec(target=target, kernel=kernel, adaptor=adaptor,
+                         cross_chain=True)
+    state = ah.init_state(
+        torch.Generator(device="cuda").manual_seed(19), spec,
+        ah.DiagEuclideanMetric.create(m_inv), theta[:OPT19_CHAINS],
+        init_eps=eps, device="cuda")
+
+    def call(**options):
+        gen = torch.Generator(device="cuda").manual_seed(190)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, th, st = fused_draw_phase(gen, spec, state, OPT19_T, OPT19_T,
+                                     pair=PAIR, **options)
+        torch.cuda.synchronize()
+        return th, st, time.perf_counter() - t0
+
+    calls0 = sum(by_chains.values())     # init_state's value+grad
+    reset_launches()
+    th, st, wall = call(unroll=2, experimental=Experimental(
+        out_dtype=torch.bfloat16, stage_slots=OPT19_STAGE))
+    counts = read_launches()
+    calls = sum(by_chains.values()) - calls0
+    th_ref, st_ref, wall_ref = call(
+        experimental=Experimental(out_dtype=torch.bfloat16))
+    out = {"phase": "19d", "chains": OPT19_CHAINS, "transitions": OPT19_T,
+           "x_dtype": "float16", "out_dtype": "bfloat16",
+           "stage_slots": OPT19_STAGE, "unroll": 2,
+           "wall_s": wall, "defaults_wall_s": wall_ref,
+           "accept_mean": float(st["acceptance_rate"].double().mean()),
+           "divergence_rate": float(st["numerical_error"].double().mean()),
+           "k1_f16_launches": counts[K1_F16],
+           "k1_f16_calls": counts[K1_F16_CALLS], "value_grad_calls": calls}
+    log(json.dumps(out))
+    gates = {
+        "draws finite, shape": tuple(th.shape) == (
+            OPT19_T, OPT19_CHAINS, DIM) and bool(torch.isfinite(th).all()),
+        "draws held in bfloat16": torch.equal(
+            th, th.to(torch.bfloat16).to(th.dtype)),
+        "the layout options change no bit": torch.equal(th, th_ref) and all(
+            torch.equal(st[k], st_ref[k]) for k in st),
+        "divergence_rate <= 1e-3": out["divergence_rate"] <= 1e-3,
+        f"accept in {MM_ACCEPT_BAND}":
+            MM_ACCEPT_BAND[0] <= out["accept_mean"] <= MM_ACCEPT_BAND[1],
+        "k1 float16 launched": out["k1_f16_launches"] > 0,
+        "k1 float16 calls = value+grad calls = all K1 calls":
+            out["k1_f16_calls"] == calls == counts[K1_CALLS],
+        "k1 float16 launches = 1 a call":
+            out["k1_f16_launches"] == out["k1_f16_calls"],
+    }
+    _finish_gates("19d", gates)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the starting points and the sampler")
+    ap.add_argument("--mesh-worker", nargs=4,
+                    metavar=("RANK", "WORLD", "STORE", "OUT"),
+                    help="run one rank of phase 19b and exit (the script "
+                    "starts its ranks itself)")
     args = ap.parse_args(argv)
+    if args.mesh_worker:
+        rank, world, store, out = args.mesh_worker
+        mesh_worker(int(rank), int(world), store, out, args.seed)
+        return
     require_cuda()
     import advancedhmc_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
@@ -4070,10 +4519,12 @@ def main(argv=None):
     log(f"# card: {gpu}")
     phase_build()
     clock("phase 1 (build)")
-    from advancedhmc_torch.ops.fused_logistic import MODE_BF16, MODE_F32
+    from advancedhmc_torch.ops.fused_logistic import MODE_BF16, MODE_F16, \
+        MODE_F32
     k1_rows, k1_err, _ = phase_k1(MODE_F32)
     k1_report()
     k1_bf16_rows, k1_bf16_err, _ = phase_k1(MODE_BF16)
+    k1_f16_rows, k1_f16_err, _ = phase_k1(MODE_F16)
     clock("phase 2")
     k3_rows, k3_err, k3_launches = phase_k3()
     clock("phase 2b")
@@ -4084,6 +4535,14 @@ def main(argv=None):
     log(f"# main path: warmup {out['warmup_s']:.1f} s, draws "
         f"{out['draws_s']:.1f} s, K1 launches {launches}")
     clock("phases 3-4")
+    # phase 19a here, beside phase 3 (the allocator and the card as phase
+    # 3 had them): phase 3 again on a one-rank NCCL mesh
+    t19a = time.perf_counter()
+    mesh_full = phase_mesh_full(args.seed, {
+        "digest": result_digest(res), "launches": launches,
+        "by_chains": k1_by_chains, "wall": wall})
+    t19a = time.perf_counter() - t19a
+    clock("phase 19a")
     turns = phase_pair_turns(res)
     clock("phase 3b")
     phase_profile(res)
@@ -4113,6 +4572,7 @@ def main(argv=None):
     wide_rows, wide_err, wide_launched = phase_wide_k1(MODE_F32)
     wide_shape = k1_wide_report(wide_launched)
     wide_bf16_rows, wide_bf16_err, _ = phase_wide_k1(MODE_BF16)
+    wide_f16_rows, wide_f16_err, _ = phase_wide_k1(MODE_F16)
     wide, res = phase_wide(args.seed)
     clock("phase 9")
     wide_k2 = phase_wide_megakernel(res, wide)
@@ -4178,10 +4638,27 @@ def main(argv=None):
                                          "peak_memory_gb")},
              "18d": {f: ckpt[f] for f in ("save_s", "load_s")}}))
     clock("phase 18")
+    t19 = time.perf_counter() - t19a     # phase 19's clock, 19a included
+    # 19c and 19d run while 19b's ranks run
+    mesh_gloo, (aot, last) = phase_mesh_gloo(
+        args.seed, lambda: (phase_aot(args.seed), phase_last_options(warmed)))
+    log(f"# phase 19 took {time.perf_counter() - t19:.1f} s (19a after "
+        "phase 3): " + json.dumps(
+        {"19a": {f: mesh_full[f] for f in ("wall_s", "phase3_wall_s")},
+         "19b": {f: mesh_gloo[f] for f in ("wall_s", "rank_walls_s",
+                                            "bitwise",
+                                            "k1_bitwise_at_half")},
+         "19c": {f: aot[f] for f in ("sources", "trace_call_s",
+                                     "cache_lookup_s")},
+         "19d": {f: last[f] for f in ("wall_s", "defaults_wall_s",
+                                      "accept_mean")}}))
+    clock("phase 19")
 
     k1_row, k3_row = k1_rows[0], k3_rows[2]
     wide_row = next(r for r in wide_rows if r["chains"] == WIDE_CHAINS)
     bf16_row = next(r for r in wide_bf16_rows if r["chains"] == WIDE_CHAINS)
+    f16_row = next(r for r in wide_f16_rows if r["chains"] == WIDE_CHAINS)
+    f16_narrow = k1_f16_rows[0]
     kernels = {"kernels": [{
         "name": "fused_logistic_value_grad",
         "route": "cuda",
@@ -4216,6 +4693,8 @@ def main(argv=None):
         "launches_rmhmc_logistic": rmc["k1_launches"],
         "calls_rmhmc_logistic_by_chains": rmc["k1_calls_by_chains"],
         "rmhmc_dH_dtheta_max_abs_err": rmc["dH_dtheta_max_abs_err"],
+        "launches_mesh_19a": mesh_full["k1_launches"],
+        "launches_mesh_19b_by_rank": mesh_gloo["rank_k1_launches"],
         "max_abs_err": k1_err,
         "max_err": k1_err,
         "ms": k1_row["ms"],
@@ -4268,6 +4747,29 @@ def main(argv=None):
         "cublas_bf16_ms": bf16_row["cublas_ms"],
         "wrapper_ms": bf16_row["wrapper_ms"],
         "shapes": k1_bf16_rows + wide_bf16_rows,
+    }, {
+        "name": K1_F16,
+        "route": "cuda",
+        "source": "advancedhmc_torch/csrc/fused_logistic.cu",
+        "replaces": "advancedhmc_tpu/ops/fused_logistic.py:53",
+        # its path: phase 19d's fused call on the float16 design (narrow)
+        "launches": last["k1_f16_launches"],
+        "calls": last["k1_f16_calls"],
+        "max_abs_err": max(k1_f16_err, wide_f16_err),
+        "max_err": max(k1_f16_err, wide_f16_err),
+        "ms": f16_narrow["ms"],
+        "kernel_ms": f16_narrow["ms"],
+        "plain_ms": f16_narrow["plain_ms"],
+        "bound_ms": f16_narrow["bound_ms"],
+        "bound_by": f16_narrow["bound_by"],
+        "bound_ms_one_tf32_pass": f16_narrow["bound_ms_one_tf32_pass"],
+        "library_ms": None,
+        "cublas_f16_ms": f16_narrow["cublas_ms"],
+        "wrapper_ms": f16_narrow["wrapper_ms"],
+        "wide_ms": f16_row["ms"],
+        "wide_plain_ms": f16_row["plain_ms"],
+        "wide_bound_ms": f16_row["bound_ms"],
+        "shapes": k1_f16_rows + wide_f16_rows,
     }, {
         "name": "fused_nuts",
         "route": "cuda",

@@ -110,6 +110,44 @@ def test_k1_reduced_modes_match_plain_on_card(mode, c, p, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c,p,n", [(32768, 99, 1000), (13, 99, 300),
+                                   (1024, 999, 1000), (1000, 200, 997)])
+@pytest.mark.parametrize("mode", [k1.MODE_F16, k1.MODE_RESID_F16])
+def test_k1_float16_modes_match_plain_on_card(mode, c, p, n):
+    """K1's float16 modes (`x_dtype`, `resid_dtype` "float16"), narrow and
+    wide, held as the bfloat16 modes are: the mode's float64 function to
+    K1's gate plus the residual roundings that float32 logits can flip, two
+    calls bitwise equal, the float16-operand mode counting its own
+    launches; and not the bfloat16 mode's function."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x_np, y_np = _synthetic_data(n, p)
+    x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    th = 0.3 * torch.randn(c, p + 1, generator=torch.Generator(
+        device="cuda").manual_seed(c + p), device="cuda")
+    design = k1.WideDesign(x, mode) if p > 128 else None
+    f = k1.logistic_value_grad
+    before = (f.launches, f.f16_launches)
+    lp, g = f(th, x, y, design, mode)
+    per_call = (f.launches - before[0], f.f16_launches - before[1])
+    lp2, g2 = f(th, x, y, design, mode)
+    lp_r, g_r, allow, _ = k1.rounding_reference(th, x, y, mode)
+    _, g_b, _, _ = k1.rounding_reference(th, x, y, mode - 2)
+    torch.cuda.synchronize()
+    launches = 2 if p > 128 else 1
+    assert per_call == (launches, launches if mode == k1.MODE_F16 else 0)
+    assert torch.equal(lp, lp2) and torch.equal(g, g2)
+    assert bool((g[:, 0] == 0).all())
+    tol_g = 1e-4 * float(g_r.abs().max())
+    tol_lp = 1e-4 * max(1.0, float(lp_r.abs().max()))
+    assert bool(((g.double() - g_r).abs() <= tol_g + allow).all())
+    assert float((lp.double() - lp_r).abs().max()) <= tol_lp
+    assert float((g_b - g_r).abs().max()) > tol_g
+
+
+@pytest.mark.gpu
 def test_sample_options_run_on_card(capsys):
     """The options of `sample()` that phase 12 of chip_smoke.py does not
     drive, on the card: `resid_dtype` (K1's residual mode), the progress
@@ -856,3 +894,128 @@ def test_softabs_dH_dtheta_on_logistic_through_k1_on_card():
     assert float((g32 - g64).abs().max()) <= 1e-4 * float(g64.abs().max())
     assert float((lp32 - lp64).abs().max()) <= 1e-4 * float(
         lp64.abs().max())
+
+
+def _mesh_card_run(mesh):
+    """A short cross-chain run on the card (4-D standard Gaussian, float64,
+    16 chains, the fused warmup with fan-out and the fused draws): no K1,
+    so a sharded run can be bitwise the unsharded one."""
+    import advancedhmc_torch as ah
+
+    lf = ah.Leapfrog(step_size=torch.tensor(0.4, dtype=torch.float64,
+                                            device="cuda"))
+    res = ah.sample(
+        torch.Generator(device="cuda").manual_seed(3), ah.std_gaussian(4),
+        ah.HMCKernel(ah.Trajectory(lf, ah.GeneralisedNoUTurn(max_depth=6))),
+        ah.make_metric("diagonal", 4, torch.float64),
+        torch.zeros(16, 4, dtype=torch.float64, device="cuda"), 40,
+        n_adapts=20, adaptor=ah.AdaptorConfig(kind="stan"), init_eps=0.4,
+        cross_chain=True, drop_warmup=True, fuse_warmup=True,
+        fuse_warmup_block=4, warmup_chains=8, fanout_decorrelate=4,
+        fuse_draws=10, mesh=mesh)
+    return {"thetas": res.thetas.cpu().numpy(),
+            "eps": res.final_state.adapt.da.eps.cpu().numpy(),
+            "m_inv": res.final_state.metric.m_inv.cpu().numpy()}
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card_under_gloo(tmp_path):
+    """Two processes on the one card, a gloo group (its collectives copy
+    the CUDA tensors through host memory), reproduce the run of one
+    process without a mesh bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "mesh", str(r), "2",
+         str(tmp_path / "store"), str(tmp_path / f"r{r}.npz")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in (0, 1)]
+    ref = _mesh_card_run(None)
+    for p in procs:
+        log = p.communicate(timeout=300)[0].decode()
+        assert p.returncode == 0, log[-3000:]
+    for r in (0, 1):
+        got = dict(np.load(tmp_path / f"r{r}.npz"))
+        for k, v in ref.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_aot_cache_hit_in_a_fresh_process_starts_no_nvcc(tmp_path):
+    """`aot_program` on a program through K1: the first lookup traces and
+    its call writes a manifest naming K1's library; a new process, where
+    starting nvcc would raise, finds it ("cache"), loads the library and
+    computes the same bits. (`_build`'s cache by source hash alone keeps
+    nvcc from starting there; the manifest adds the label.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    call, src = _aot_program(tmp_path)
+    assert src == "trace"
+    lp, g = call(_aot_theta())
+    manifest = next(tmp_path.glob("*.json")).read_text()
+    assert "fused_logistic" in manifest
+    np.savez(tmp_path / "ref.npz", lp=lp.cpu().numpy(), g=g.cpu().numpy())
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, __file__, "aot", str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "cache"
+
+
+def _aot_theta():
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return 0.3 * torch.randn(64, 100, generator=gen, device="cuda")
+
+
+def _aot_program(cache):
+    from advancedhmc_torch import aot_program
+
+    target = hierarchical_logistic(n=1000, p=99, device="cuda")
+    return aot_program(target.logdensity_and_grad, (_aot_theta(),),
+                       program_id="k1_value_grad", cache_dir=cache)
+
+
+def _aot_child(cache):
+    """The fresh process of the aot test: nvcc must not start."""
+    from pathlib import Path
+
+    from advancedhmc_torch.ops import _build
+
+    def no_nvcc(*args, **kwargs):
+        raise AssertionError("nvcc started")
+
+    _build.subprocess.Popen = no_nvcc
+    call, src = _aot_program(cache)
+    lp, g = call(_aot_theta())
+    ref = np.load(Path(cache) / "ref.npz")
+    np.testing.assert_array_equal(lp.cpu().numpy(), ref["lp"])
+    np.testing.assert_array_equal(g.cpu().numpy(), ref["g"])
+    print(src)
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1] == "aot":
+        _aot_child(sys.argv[2])
+    else:
+        import advancedhmc_torch as ah
+
+        rank, world, store, out = sys.argv[2:6]
+        ah.parallel.distributed_init(backend="gloo",
+                                     init_method=f"file://{store}",
+                                     world_size=int(world), rank=int(rank))
+        np.savez(out, **_mesh_card_run(ah.parallel.mesh_of_all_devices()))

@@ -137,7 +137,9 @@ def test_k1_mode_numbers_and_c_interface():
     enum = dict(re.findall(r"(k\w+) = (\d)", re.search(
         r"enum Mode : int \{([^}]*)\}", tile).group(1)))
     assert enum == {"kF32": str(k1.MODE_F32), "kBf16": str(k1.MODE_BF16),
-                    "kResidBf16": str(k1.MODE_RESID_BF16)}
+                    "kResidBf16": str(k1.MODE_RESID_BF16),
+                    "kF16": str(k1.MODE_F16),
+                    "kResidF16": str(k1.MODE_RESID_F16)}
     src = (CSRC / "fused_logistic.cu").read_text()
     for name, n_args in (("fused_logistic_value_grad_f32", 13),
                          ("fused_logistic_launch_shape", 6),

@@ -6,8 +6,6 @@ same numpy inputs on both sides: float64 on both, held to 1e-10 (the flags
 exactly).
 """
 
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,7 +31,6 @@ from advancedhmc_tpu.trajectory import mh_accept_ratio as mh_j
 
 import advancedhmc_torch as ah
 from advancedhmc_torch import convert, utils as ut
-from advancedhmc_torch.experimental import Experimental
 from advancedhmc_torch.stepsize_search import _search
 
 torch.set_num_threads(2)
@@ -255,58 +252,6 @@ def test_mh_accept_ratio_alpha_matches():
         jax.random.PRNGKey(0), jnp.asarray(h0.numpy()),
         jnp.asarray(h1.numpy()))
     _close(alpha_t, alpha_j)
-
-
-def test_unported_options_raise_not_implemented():
-    tgt = ah.hierarchical_logistic(n=N, p=P, dtype=torch.float64,
-                                   device="cpu")
-    lf = ah.Leapfrog(step_size=torch.tensor(0.1, dtype=torch.float64))
-    kernel = ah.HMCKernel(ah.Trajectory(lf, ah.GeneralisedNoUTurn()))
-    metric = ah.make_metric("diagonal", DIM, torch.float64, device="cpu")
-    th0 = np.zeros((4, DIM))
-    gen = torch.Generator().manual_seed(0)
-    h = ah.Hamiltonian(metric=metric, target=tgt)
-    z = h.init_phasepoint(gen, torch.zeros(4, DIM, dtype=torch.float64))
-    spec = ah.SampleSpec(target=tgt, kernel=kernel,
-                         adaptor=ah.AdaptorConfig(kind="none"))
-    state = ah.init_state(gen, spec, metric, th0, init_eps=0.1, device="cpu")
-    cases = [
-        # reduced dtypes other than bfloat16
-        lambda: ah.hierarchical_logistic(n=N, p=P, x_dtype="float16",
-                                         device="cpu"),
-        lambda: ah.hierarchical_logistic(n=N, p=P, resid_dtype="float16",
-                                         device="cpu"),
-        lambda: ah.Trajectory(lf, ah.GeneralisedNoUTurn(),
-                              stack_dtype="float16"),
-        # the fused loop's XLA layout knobs
-        lambda: ah.nuts_transitions_fused(gen, h, kernel.trajectory, z, 2,
-                                          kernel.refreshment, unroll=2),
-        lambda: ah.fused_draw_phase_ragged(gen, spec, state, 4, 2,
-                                           out_dtype=torch.bfloat16),
-        lambda: Experimental(stage_slots=2),
-        lambda: ah.sample(gen, tgt, kernel, metric, th0, 16, n_adapts=8,
-                          adaptor=ah.AdaptorConfig(), cross_chain=True,
-                          fuse_draws=4, fuse_warmup=True,
-                          fuse_warmup_block=4, mesh=object(), device="cpu"),
-    ]
-    for case in cases:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md section \d, item \d: "):
-            case()
-
-
-def test_roadmap_items_exist():
-    """Every message about a part the port lacks names its ROADMAP.md item
-    from `utils.ROADMAP_ITEMS`; each entry is an item of that number and
-    title in its section of ROADMAP.md."""
-    text = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
-    for section, item, title in ut.ROADMAP_ITEMS.values():
-        body = re.split(rf"^### {section}\. .*$", text, flags=re.M)[1]
-        body = body.split("\n### ")[0]
-        assert re.search(rf"^{item}\. \*\*{re.escape(title)}", body,
-                         flags=re.M), (section, item, title)
-    assert ut.roadmap("options") == \
-        "(ROADMAP.md section 1, item 1: The other options of JAX `sample`)"
 
 
 def test_state_constructors_need_cuda_or_explicit_cpu(monkeypatch):
