@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import profiling
 from .adaptation import AdaptorConfig, AdaptState, adapt_flags, \
     adapt_step_batch
 from .adaptation.chees import CheesConfig, CheesState, chees_update, \
@@ -41,9 +42,11 @@ from .utils import rand_uniform, resolve_device
 def _num_steps(eps, tau, max_steps: int) -> int:
     """n = clip(ceil(τ/ϵ), 1, max_steps), computed in θ's dtype and read to
     the host (a NaN quotient gives 1, as the JAX conversion of NaN to int32
-    gives 0 before the clip)."""
-    q = torch.nan_to_num(torch.ceil(tau / eps), nan=0.0)
-    return int(torch.clamp(q, 1, max_steps))
+    gives 0 before the clip). The read is the transition's one wait for
+    the device."""
+    with profiling.span("ahmc.chees.num_steps"):
+        q = torch.nan_to_num(torch.ceil(tau / eps), nan=0.0)
+        return int(torch.clamp(q, 1, max_steps))
 
 
 def chees_transition(generator, target, metric, eps, tau, max_steps, theta,
@@ -51,8 +54,9 @@ def chees_transition(generator, target, metric, eps, tau, max_steps, theta,
     """One jittered-HMC transition of the whole chain batch: draws the
     momenta, then the MH uniforms, and runs `chees_transition_core`."""
     c = theta.shape[0]
-    r0 = metric.rand_momentum(generator, c)
-    u = rand_uniform(generator, (c,), theta.dtype, theta.device)
+    with profiling.span("ahmc.chees.draw_randoms"):
+        r0 = metric.rand_momentum(generator, c)
+        u = rand_uniform(generator, (c,), theta.dtype, theta.device)
     return chees_transition_core(target, metric, eps, tau, max_steps, theta,
                                  lp, grad, r0, u)
 
@@ -67,38 +71,46 @@ def chees_transition_core(target, metric, eps, tau, max_steps, theta, lp,
     (C,))."""
     c = theta.shape[0]
     n = _num_steps(eps, tau, max_steps)
-    h0 = -(lp + metric.neg_kinetic_energy(r0))
-    r = r0 + 0.5 * eps * grad
+    profiling.note("n", n)
+    with profiling.span("ahmc.chees.kick"):
+        r = r0 + 0.5 * eps * grad
     theta1, lp1, grad1 = theta, lp, grad
     for _ in range(n):
-        theta1 = theta1 + eps * metric.velocity(r)
+        with profiling.span("ahmc.chees.drift"):
+            theta1 = theta1 + eps * metric.velocity(r)
         lp1, grad1 = target.logdensity_and_grad(theta1)
-        r = r + eps * grad1
-    r1 = r - 0.5 * eps * grad1
+        with profiling.span("ahmc.chees.kick"):
+            r = r + eps * grad1
+    with profiling.span("ahmc.chees.kick"):
+        r1 = r - 0.5 * eps * grad1
 
-    neg_inf = torch.full_like(lp, float("-inf"))
-    lp1c = torch.where(torch.isfinite(lp1), lp1, neg_inf)
-    neg_k1 = metric.neg_kinetic_energy(r1)
-    h1 = -(lp1c + torch.where(torch.isfinite(neg_k1), neg_k1, neg_inf))
-    dh = h1 - h0
-    alpha = torch.nan_to_num(torch.exp(torch.clamp(-dh, max=0.0)), nan=0.0)
-    accept = u < alpha
+    with profiling.span("ahmc.chees.accept"):
+        h0 = -(lp + metric.neg_kinetic_energy(r0))
+        neg_inf = torch.full_like(lp, float("-inf"))
+        lp1c = torch.where(torch.isfinite(lp1), lp1, neg_inf)
+        neg_k1 = metric.neg_kinetic_energy(r1)
+        h1 = -(lp1c + torch.where(torch.isfinite(neg_k1), neg_k1, neg_inf))
+        dh = h1 - h0
+        alpha = torch.nan_to_num(torch.exp(torch.clamp(-dh, max=0.0)),
+                                 nan=0.0)
+        accept = u < alpha
 
-    v_prop = metric.velocity(r1)
-    theta_new = torch.where(accept[:, None], theta1, theta)
-    lp_new = torch.where(accept, lp1c, lp)
-    grad_new = torch.where(accept[:, None], grad1, grad)
-    stats = {
-        "n_steps": torch.full((c,), n, dtype=torch.int32, device=lp.device),
-        "is_accept": accept,
-        "acceptance_rate": alpha,
-        "log_density": lp_new,
-        "hamiltonian_energy": torch.where(accept, h1, h0),
-        "hamiltonian_energy_error": torch.where(accept, dh, 0.0),
-        "numerical_error": ~torch.isfinite(h1),
-        "step_size": torch.broadcast_to(eps, (c,)),
-        "trajectory_length": torch.broadcast_to(tau, (c,)),
-    }
+        v_prop = metric.velocity(r1)
+        theta_new = torch.where(accept[:, None], theta1, theta)
+        lp_new = torch.where(accept, lp1c, lp)
+        grad_new = torch.where(accept[:, None], grad1, grad)
+        stats = {
+            "n_steps": torch.full((c,), n, dtype=torch.int32,
+                                  device=lp.device),
+            "is_accept": accept,
+            "acceptance_rate": alpha,
+            "log_density": lp_new,
+            "hamiltonian_energy": torch.where(accept, h1, h0),
+            "hamiltonian_energy_error": torch.where(accept, dh, 0.0),
+            "numerical_error": ~torch.isfinite(h1),
+            "step_size": torch.broadcast_to(eps, (c,)),
+            "trajectory_length": torch.broadcast_to(tau, (c,)),
+        }
     return (theta_new, lp_new, grad_new), (theta1, v_prop, alpha), stats
 
 
@@ -128,23 +140,29 @@ def make_chees_step(target, cfg: AdaptorConfig, chees: CheesConfig,
     draw iteration runs at the finalized T, exp(log_t_avg)."""
 
     def step(generator, carry, flags, u, s=None):
-        theta, lp, grad, metric, adapt, cs = carry
-        is_adapt = bool(flags["is_adapt"])
-        t_mean = cs.trajectory_length if is_adapt else torch.exp(cs.log_t_avg)
-        tau = u * t_mean
-        if is_adapt and s is not None:
-            tau = tau * s
-        (theta_n, lp_n, grad_n), (theta_p, v_p, alpha), stats = \
-            chees_transition(generator, target, metric, adapt.da.eps, tau,
-                             max_steps, theta, lp, grad)
-        if is_adapt:
-            cs = chees_update(chees, cs, theta, theta_p, v_p, alpha, tau)
-        adapt = adapt_step_batch(cfg, adapt, theta_n, grad_n, alpha, flags)
-        if cfg.uses_mm and is_adapt:
-            metric = metric.renew(adapt.mm.m_inv)
-        stats["is_adapt"] = torch.full_like(stats["is_accept"], is_adapt)
-        stats["nom_step_size"] = stats["step_size"]
-        return (theta_n, lp_n, grad_n, metric, adapt, cs), (theta_n, stats)
+        with profiling.span("ahmc.chees.step", iteration=True):
+            theta, lp, grad, metric, adapt, cs = carry
+            is_adapt = bool(flags["is_adapt"])
+            t_mean = (cs.trajectory_length if is_adapt
+                      else torch.exp(cs.log_t_avg))
+            tau = u * t_mean
+            if is_adapt and s is not None:
+                tau = tau * s
+            (theta_n, lp_n, grad_n), (theta_p, v_p, alpha), stats = \
+                chees_transition(generator, target, metric, adapt.da.eps,
+                                 tau, max_steps, theta, lp, grad)
+            with profiling.span("ahmc.chees.adapt"):
+                if is_adapt:
+                    cs = chees_update(chees, cs, theta, theta_p, v_p, alpha,
+                                      tau)
+                adapt = adapt_step_batch(cfg, adapt, theta_n, grad_n, alpha,
+                                         flags)
+                if cfg.uses_mm and is_adapt:
+                    metric = metric.renew(adapt.mm.m_inv)
+            stats["is_adapt"] = torch.full_like(stats["is_accept"], is_adapt)
+            stats["nom_step_size"] = stats["step_size"]
+            return ((theta_n, lp_n, grad_n, metric, adapt, cs),
+                    (theta_n, stats))
 
     return step
 
@@ -157,12 +175,13 @@ def make_chees_draw_step(target, max_steps: int):
     transition)."""
 
     def step(generator, carry, u):
-        theta, lp, grad, metric, eps, t_mean = carry
-        (theta_n, lp_n, grad_n), _, stats = chees_transition(
-            generator, target, metric, eps, u * t_mean, max_steps, theta, lp,
-            grad)
-        stats["is_adapt"] = torch.zeros_like(stats["is_accept"])
-        stats["nom_step_size"] = stats["step_size"]
+        with profiling.span("ahmc.chees.step", iteration=True):
+            theta, lp, grad, metric, eps, t_mean = carry
+            (theta_n, lp_n, grad_n), _, stats = chees_transition(
+                generator, target, metric, eps, u * t_mean, max_steps, theta,
+                lp, grad)
+            stats["is_adapt"] = torch.zeros_like(stats["is_accept"])
+            stats["nom_step_size"] = stats["step_size"]
         return (theta_n, lp_n, grad_n, metric, eps, t_mean), (theta_n, stats)
 
     return step

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from ..ops.fused_logistic import fused_logistic_value_grad, kernel_route, \
     mode_of
 from ..target import BlockTarget, LogDensityTarget
@@ -57,13 +58,14 @@ def _synthetic_data(n: int, p: int, seed: int = 0):
 
 def _prior(theta, p):
     """Log prior of (log σ, β) and its gradient, batched."""
-    ls = theta[:, 0]
-    beta = theta[:, 1:]
-    inv_s2 = torch.exp(-2.0 * ls)
-    bsq = torch.sum(beta * beta, -1)
-    lp = -0.5 * ls * ls - 0.5 * bsq * inv_s2 - p * ls
-    g0 = -ls + bsq * inv_s2 - p
-    return lp, torch.cat([g0[:, None], -beta * inv_s2[:, None]], 1)
+    with profiling.span("ahmc.target.prior"):
+        ls = theta[:, 0]
+        beta = theta[:, 1:]
+        inv_s2 = torch.exp(-2.0 * ls)
+        bsq = torch.sum(beta * beta, -1)
+        lp = -0.5 * ls * ls - 0.5 * bsq * inv_s2 - p * ls
+        g0 = -ls + bsq * inv_s2 - p
+        return lp, torch.cat([g0[:, None], -beta * inv_s2[:, None]], 1)
 
 
 def _loglik(y, logits):
@@ -94,18 +96,19 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
                                              @ x.T)
 
     def logdensity_and_grad(theta):
-        lp_pri, g_pri = _prior(theta, p)
-        if kernel_route(theta):
-            if likelihood is None:
-                raise ValueError(
-                    f"K1 has no mode for x_dtype={xd} with resid_dtype={rd}"
-                    " (a residual rounded twice)")
-            lp_lik, g_lik = likelihood(theta)
-            return lp_pri + lp_lik, g_pri + g_lik
-        logits = round_to(theta[:, 1:], xd) @ x.T
-        resid = round_to(round_to(y - torch.sigmoid(logits), rd), xd)
-        g_beta = resid @ x
-        return lp_pri + _loglik(y, logits), g_pri + F.pad(g_beta, (1, 0))
+        with profiling.span("ahmc.target.value_grad"):
+            lp_pri, g_pri = _prior(theta, p)
+            if kernel_route(theta):
+                if likelihood is None:
+                    raise ValueError(
+                        f"K1 has no mode for x_dtype={xd} with "
+                        f"resid_dtype={rd} (a residual rounded twice)")
+                lp_lik, g_lik = likelihood(theta)
+                return lp_pri + lp_lik, g_pri + g_lik
+            logits = round_to(theta[:, 1:], xd) @ x.T
+            resid = round_to(round_to(y - torch.sigmoid(logits), rd), xd)
+            g_beta = resid @ x
+            return lp_pri + _loglik(y, logits), g_pri + F.pad(g_beta, (1, 0))
 
     return LogDensityTarget(logdensity, p + 1, logdensity_and_grad)
 
@@ -137,22 +140,23 @@ def hierarchical_logistic_nc(n: int = 1000, p: int = 24, seed: int = 0,
         return prior(theta) + _loglik(y, logits)
 
     def logdensity_and_grad(theta):
-        ls, bt = theta[:, :1], theta[:, 1:]
-        s = torch.exp(ls)
-        if kernel_route(theta):
-            beta = s * bt
-            lp_lik, g = likelihood(torch.cat([ls, beta], 1))
-            g_beta = g[:, 1:]
-            grad_ls = -ls + torch.sum(g_beta * beta, -1, keepdim=True)
-        else:
-            logits = s * (bt @ x.T)
-            lp_lik = _loglik(y, logits)
-            resid = y - torch.sigmoid(logits)
-            # ∂logits/∂log σ = logits; ∂logits/∂β̃ = σ·x
-            grad_ls = -ls + torch.sum(resid * logits, -1, keepdim=True)
-            g_beta = resid @ x
-        return prior(theta) + lp_lik, torch.cat([grad_ls, s * g_beta - bt],
-                                                1)
+        with profiling.span("ahmc.target.value_grad"):
+            ls, bt = theta[:, :1], theta[:, 1:]
+            s = torch.exp(ls)
+            if kernel_route(theta):
+                beta = s * bt
+                lp_lik, g = likelihood(torch.cat([ls, beta], 1))
+                g_beta = g[:, 1:]
+                grad_ls = -ls + torch.sum(g_beta * beta, -1, keepdim=True)
+            else:
+                logits = s * (bt @ x.T)
+                lp_lik = _loglik(y, logits)
+                resid = y - torch.sigmoid(logits)
+                # ∂logits/∂log σ = logits; ∂logits/∂β̃ = σ·x
+                grad_ls = -ls + torch.sum(resid * logits, -1, keepdim=True)
+                g_beta = resid @ x
+            return (prior(theta) + lp_lik,
+                    torch.cat([grad_ls, s * g_beta - bt], 1))
 
     return LogDensityTarget(logdensity, p + 1, logdensity_and_grad)
 

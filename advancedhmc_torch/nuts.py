@@ -63,6 +63,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import profiling
 from .hamiltonian import FullMomentumRefreshment, PhasePoint, \
     select_phasepoint
 from .integrators import JitteredLeapfrog, leapfrog_step
@@ -869,73 +870,82 @@ def nuts_transitions_fused(generator, h, traj, z0: PhasePoint,
     done_at = torch.zeros(check_every, dtype=torch.bool, device=dev)
     it = 0
     while True:
-        act = ~all_done & ~stopped if ragged else ~all_done
-        st2 = (_leaf_pair if pair else _leaf)(
-            st, h, eps, max_depth, crit.delta_max, generator, act=act,
-            integ=integ, kind=kind)
-        boundary = st2["done"] & act
-        zc = st2["zcand"]
-        s = _stats(zc, st2["h0"], st2["n_alpha"], st2["sum_alpha"],
-                   st2["dh_max"], st2["depth"], st2["diverged"], eps)
-        vals = torch.stack([s[k].to(dtype) for k in _STAT_FIELDS], -1)
-        row = torch.where(boundary, t, n_t).long()[:, None, None]
-        out_theta.scatter_(1, row.expand(c, 1, d),
-                           zc.theta[:, None].to(out_theta.dtype))
-        out_stats.scatter_(1, row.expand(c, 1, n_f), vals[:, None])
-        t_done = t
-        t = t + boundary.to(torch.int32)
-        all_done = t >= n_t
-        reset = boundary & ~all_done
-        if ragged:
-            z_last = select_phasepoint(boundary, zc, z_last)
-            stopped = stopped | all_chains_t(t >= t_min)
+        with profiling.span("ahmc.nuts.leaf_iteration", iteration=True):
+            act = ~all_done & ~stopped if ragged else ~all_done
+            st2 = (_leaf_pair if pair else _leaf)(
+                st, h, eps, max_depth, crit.delta_max, generator, act=act,
+                integ=integ, kind=kind)
+            boundary = st2["done"] & act
+            zc = st2["zcand"]
+            s = _stats(zc, st2["h0"], st2["n_alpha"], st2["sum_alpha"],
+                       st2["dh_max"], st2["depth"], st2["diverged"], eps)
+            vals = torch.stack([s[k].to(dtype) for k in _STAT_FIELDS], -1)
+            row = torch.where(boundary, t, n_t).long()[:, None, None]
+            out_theta.scatter_(1, row.expand(c, 1, d),
+                               zc.theta[:, None].to(out_theta.dtype))
+            out_stats.scatter_(1, row.expand(c, 1, n_f), vals[:, None])
+            t_done = t
+            t = t + boundary.to(torch.int32)
+            all_done = t >= n_t
+            reset = boundary & ~all_done
+            if ragged:
+                z_last = select_phasepoint(boundary, zc, z_last)
+                stopped = stopped | all_chains_t(t >= t_min)
 
-        h_next, nom_next = h, nom
-        if adaptive:
-            # each finishing chain's adaptation step, at its own count
-            idx = torch.clamp(t_done, max=n_t - 1).long()
-            flags_t = {k: v[idx] for k, v in flags.items()}
-            ad = adapt_step_masked(
-                adapt_cfg, ad, zc.theta, zc.grad, s["acceptance_rate"],
-                flags_t, boundary)
-            nom_next = ad.da.eps
-            if adapt_metric and dense:
-                # M⁻¹ moves only at a window end: the factor is refreshed
-                # there, for the chains that reach one
-                new = (reset & flags_t["window_end"])[:, None, None]
-                h_next = dataclasses.replace(h, metric=DenseEuclideanMetric(
-                    m_inv=torch.where(reset[:, None, None], ad.mm.m_inv,
-                                      h.metric.m_inv),
-                    chol_u=torch.where(new, cholesky_upper(ad.mm.m_inv),
-                                       h.metric.chol_u)))
-            elif adapt_metric:
-                h_next = dataclasses.replace(h, metric=DiagEuclideanMetric.create(
-                    torch.where(reset[:, None], ad.mm.m_inv, h.metric.m_inv)))
-        # prepare the next transition of the chains that just finished one
-        z_next = refreshment.refresh(generator, h_next, zc)
-        fresh = _fresh_fields(z_next, z_next.energy(), kind, generator)
-        if jittered:
-            eps = torch.where(reset, integ.with_nom_step_size(nom_next).jitter(
-                generator, c).current_step_size, eps)
-        elif adaptive:
-            eps = torch.where(reset, nom_next, eps)
-        st = {k: _sel(reset, fresh[k], v) if k in fresh else v
-              for k, v in st2.items()}
-        if depth_caps is not None:
-            st["cap"] = torch.where(
-                boundary, caps[torch.clamp(t, max=n_t - 1).long()],
-                st2["cap"])
-        h = h_next
-        k = it % check_every
-        states[k] = generator.get_state()
-        if ragged:
-            done_at[k] = stopped
-        else:
-            torch.all(all_done, 0, out=done_at[k])
-        it += 1
-        if it % check_every == 0 and (
-                bool(stopped) if ragged else all_chains(all_done)):
-            break
+            h_next, nom_next = h, nom
+            if adaptive:
+                # each finishing chain's adaptation step, at its own count
+                idx = torch.clamp(t_done, max=n_t - 1).long()
+                flags_t = {k: v[idx] for k, v in flags.items()}
+                ad = adapt_step_masked(
+                    adapt_cfg, ad, zc.theta, zc.grad, s["acceptance_rate"],
+                    flags_t, boundary)
+                nom_next = ad.da.eps
+                if adapt_metric and dense:
+                    # M⁻¹ moves only at a window end: the factor is refreshed
+                    # there, for the chains that reach one
+                    new = (reset & flags_t["window_end"])[:, None, None]
+                    h_next = dataclasses.replace(
+                        h, metric=DenseEuclideanMetric(
+                            m_inv=torch.where(reset[:, None, None],
+                                              ad.mm.m_inv, h.metric.m_inv),
+                            chol_u=torch.where(new,
+                                               cholesky_upper(ad.mm.m_inv),
+                                               h.metric.chol_u)))
+                elif adapt_metric:
+                    h_next = dataclasses.replace(
+                        h, metric=DiagEuclideanMetric.create(torch.where(
+                            reset[:, None], ad.mm.m_inv, h.metric.m_inv)))
+            # prepare the next transition of the chains that just finished one
+            z_next = refreshment.refresh(generator, h_next, zc)
+            fresh = _fresh_fields(z_next, z_next.energy(), kind, generator)
+            if jittered:
+                eps = torch.where(
+                    reset, integ.with_nom_step_size(nom_next).jitter(
+                        generator, c).current_step_size, eps)
+            elif adaptive:
+                eps = torch.where(reset, nom_next, eps)
+            st = {k: _sel(reset, fresh[k], v) if k in fresh else v
+                  for k, v in st2.items()}
+            if depth_caps is not None:
+                st["cap"] = torch.where(
+                    boundary, caps[torch.clamp(t, max=n_t - 1).long()],
+                    st2["cap"])
+            h = h_next
+            k = it % check_every
+            with profiling.span("ahmc.nuts.rng_state"):
+                states[k] = generator.get_state()
+            if ragged:
+                done_at[k] = stopped
+            else:
+                torch.all(all_done, 0, out=done_at[k])
+            it += 1
+            if it % check_every == 0:
+                with profiling.span("ahmc.nuts.exit_read"):
+                    done = (bool(stopped) if ragged
+                            else all_chains(all_done))
+                if done:
+                    break
     # the first iteration of the window after which every rank was done
     # (`argmax` gives the first True; done stays done)
     generator.set_state(states[int(max_chains(done_at.to(torch.int32)

@@ -55,7 +55,8 @@ On the card, `logistic_value_grad.calls` counts its value+grad calls and
 `logistic_value_grad.launches` the kernels they launched, as the library
 reports them: one a call up to p = 128, two (the two GEMMs) above, in every
 mode; `.bf16_calls` and `.bf16_launches` count those of MODE_BF16 apart,
-`.f16_calls` and `.f16_launches` those of MODE_F16.
+`.f16_calls` and `.f16_launches` those of MODE_F16. Each launch runs inside
+an `ahmc.k1` span (`profiling.span`) that notes its chain count.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ import ctypes
 import torch
 
 from . import _build
+from .. import profiling
 from ..utils import round_to
 
 _LIB = "fused_logistic"
@@ -319,11 +321,13 @@ def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32):
     grad = torch.empty(c, dim, dtype=torch.float32, device=theta.device)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     launched = ctypes.c_int(0)
-    err = fn(theta.data_ptr(), x.data_ptr(), y.data_ptr(), loglik.data_ptr(),
-             grad.data_ptr(), c, dim, n, mode,
-             None if scratch is None else ctypes.addressof(design.maps),
-             None if scratch is None else scratch.data_ptr(), stream,
-             ctypes.byref(launched))
+    with profiling.span("ahmc.k1"):
+        profiling.note("chains", c)
+        err = fn(theta.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 loglik.data_ptr(), grad.data_ptr(), c, dim, n, mode,
+                 None if scratch is None else ctypes.addressof(design.maps),
+                 None if scratch is None else scratch.data_ptr(), stream,
+                 ctypes.byref(launched))
     if err != 0:
         _raise(lib, "kernel launch", err)
     logistic_value_grad.calls += 1

@@ -34,6 +34,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from . import profiling
 from .adaptation import (
     MM_LOWRANK,
     MM_NUTPIE,
@@ -250,24 +251,25 @@ def fused_draw_phase(generator, spec: SampleSpec, state: HMCState,
     if fuse % thin:
         raise ValueError("thin must divide fuse")
     z, ths, stats, om = state.z, [], [], online_om
-    for _ in range(n_draws // fuse):
-        z, th, st = _run_fused(generator, spec,
-                               dataclasses.replace(state, z=z), fuse, pair,
-                               chain_chunks, **layout)
-        st["is_adapt"] = torch.zeros_like(st["numerical_error"])
-        state = dataclasses.replace(state, iteration=state.iteration + fuse,
-                                    z=z)
-        if progress_cb is not None:
-            progress_cb(state.iteration, {k: v[-1] for k, v in st.items()},
-                        state.metric)
-        if om is not None:
-            for x in th:
-                om = online_update(om, x)
-        elif thin > 1:
-            th, st = _thin_block(th, st, thin)
-        if om is None:
-            ths.append(th)
-        stats.append(st)
+    with profiling.span("ahmc.nuts.draw_phase"):
+        for _ in range(n_draws // fuse):
+            z, th, st = _run_fused(generator, spec,
+                                   dataclasses.replace(state, z=z), fuse,
+                                   pair, chain_chunks, **layout)
+            st["is_adapt"] = torch.zeros_like(st["numerical_error"])
+            state = dataclasses.replace(
+                state, iteration=state.iteration + fuse, z=z)
+            if progress_cb is not None:
+                progress_cb(state.iteration,
+                            {k: v[-1] for k, v in st.items()}, state.metric)
+            if om is not None:
+                for x in th:
+                    om = online_update(om, x)
+            elif thin > 1:
+                th, st = _thin_block(th, st, thin)
+            if om is None:
+                ths.append(th)
+            stats.append(st)
     stats = _cat_stats(stats)
     if om is not None:
         return state, None, stats, om
@@ -698,8 +700,12 @@ _ARVIZ_STATS = {"log_density": "lp", "numerical_error": "diverging",
                 "n_steps": "n_steps", "step_size": "step_size"}
 
 
-def _synchronize(device):
-    if device.type == "cuda":
+def _synchronize(device=None):
+    """Wait for the work queued on `device` (None: on the current card, if
+    CUDA has started): CUDA runs asynchronously, so a clock read without it
+    times the launches, not the work."""
+    if (device.type == "cuda" if device is not None
+            else torch.cuda.is_initialized()):
         torch.cuda.synchronize(device)
 
 
