@@ -11,6 +11,22 @@
 //   grad[c, 0]  = 0
 //   grad[c, 1:] = sum_j (y[j] - sigmoid(logit)) * x[j]
 //
+// With `prior` on (the C entry's flag; the kernels take p = dim - 1 as
+// `prior_p`, 0 when off) a call adds the hierarchical prior of the
+// model (log sigma ~ N(0, 1), beta ~ N(0, sigma^2 I)) at ls = theta[c, 0]
+// and the unrounded beta, in every mode (`prior_of` below):
+//
+//   inv_s2 = exp(-2 ls),  bsq = sum_k beta_k^2
+//   lp[c]      += -ls^2 / 2 - bsq * inv_s2 / 2 - p * ls
+//   grad[c, 0]  = -ls + bsq * inv_s2 - p
+//   grad[c, k] -= beta_k * inv_s2                                (k >= 1)
+//
+// inside the same launches: the narrow instances sum bsq from the beta
+// they hold in shared memory and add the terms where they write the
+// outputs; the wide path's stage A sums bsq from the theta tiles it
+// streams, stage B adds the terms in its epilogue. So the model's
+// value+grad is K1 and nothing else: no (C, dim) pass outside it.
+//
 // Bound: two products of C x p x n multiply-adds against C*(dim + 1) floats
 // in and out; at the sampler's shapes (C = 4096..32768, p = 99, n = 1000)
 // some 4000 flops per byte, so the kernel is bound by its arithmetic. At
@@ -83,6 +99,26 @@ using logistic_tile::x_stride;
 
 namespace {
 
+// The hierarchical prior's terms of one chain at ls = log sigma, with bsq
+// the sum of its p beta_k^2: inv_s2 scales the beta gradient, lp and g0 are
+// the log density and its derivative in ls. Each product and sum is
+// rounded as the model's PyTorch prior rounds it (no contraction into
+// fma), and expf is the accurate one (no fast math), so non-finite values
+// propagate as they do there.
+struct Prior {
+  float inv_s2, lp, g0;
+};
+
+__device__ __forceinline__ Prior prior_of(float ls, float bsq, float p) {
+  Prior r;
+  r.inv_s2 = expf(-2.f * ls);
+  const float t = __fmul_rn(bsq, r.inv_s2);
+  r.lp = __fsub_rn(__fsub_rn(-0.5f * __fmul_rn(ls, ls), 0.5f * t),
+                   __fmul_rn(p, ls));
+  r.g0 = __fsub_rn(__fadd_rn(-ls, t), p);
+  return r;
+}
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChains = 16 * kWarps;  // chains per block
@@ -106,9 +142,14 @@ __global__ void __launch_bounds__(kThreads, 4)
 fused_logistic_kernel(const float* __restrict__ theta,
                       const float* __restrict__ x,
                       const float* __restrict__ y, float* __restrict__ lp,
-                      float* __restrict__ grad, int n_chains, int dim, int n) {
+                      float* __restrict__ grad, int n_chains, int dim, int n,
+                      int prior_p) {
   constexpr int S = x_stride(KSteps);
   constexpr int P8 = 8 * KSteps;
+  // after the tiles the x buffers hold the partial gradient and, in the
+  // columns its rows leave, the prior's terms of each chain
+  static_assert(2 * kTileRows * S >= kChains * P8 + kChains * 3,
+                "the prior's terms fit beside the partial gradient");
   extern __shared__ __align__(16) float smem[];
   float* bs = smem;                        // [kChains][S]
   float* xs = bs + kChains * S;            // [2][kTileRows][S]
@@ -212,6 +253,24 @@ fused_logistic_kernel(const float* __restrict__ theta,
     part_lp[cw] = lp_g;
     part_lp[cw + 8] = lp_g8;
   }
+  // the prior's terms of the warp's 16 chains, from their unrounded beta in
+  // bs: lanes over the columns, summed in a fixed order (every rank the
+  // same bits, from its own copy of beta)
+  Prior* pri = reinterpret_cast<Prior*>(part + kChains * P8);  // [kChains]
+  if (prior_p != 0) {
+    for (int r = 16 * warp; r < 16 * warp + 16; ++r) {
+      float s = 0.f;
+      for (int k = lane; k < p; k += 32) s += bs[r * S + k] * bs[r * S + k];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+      }
+      if (lane == 0 && c0 + r < n_chains) {
+        pri[r] = prior_of(__ldg(theta + (size_t)(c0 + r) * dim), s,
+                          (float)prior_p);
+      }
+    }
+  }
   cluster.sync();
 
   // every rank's partial at `at`, summed in rank order; the loads do not
@@ -227,17 +286,26 @@ fused_logistic_kernel(const float* __restrict__ theta,
     for (int q = 0; q < kMaxSplit; ++q) v += part_q[q];
     return v;
   };
-  // the cluster's ranks share the outputs
+  // the cluster's ranks share the outputs, each adding the prior's terms
+  // to the elements it writes
   for (int i = rank * kThreads + tid; i < kChains * dim;
        i += n_ranks * kThreads) {
     const int c = i / dim, k = i % dim;
     if (c0 + c < n_chains) {
-      grad[(size_t)(c0 + c) * dim + k] =
-          k > 0 ? sum_ranks(part, c * P8 + k - 1) : 0.f;
+      float v = k > 0 ? sum_ranks(part, c * P8 + k - 1) : 0.f;
+      if (prior_p != 0) {
+        const Prior& pr = pri[c];
+        v = k > 0 ? __fsub_rn(v, __fmul_rn(bs[c * S + k - 1], pr.inv_s2))
+                  : pr.g0;
+      }
+      grad[(size_t)(c0 + c) * dim + k] = v;
     }
   }
   for (int c = rank * kThreads + tid; c < kChains; c += n_ranks * kThreads) {
-    if (c0 + c < n_chains) lp[c0 + c] = sum_ranks(part_lp, c);
+    if (c0 + c < n_chains) {
+      const float v = sum_ranks(part_lp, c);
+      lp[c0 + c] = prior_p != 0 ? __fadd_rn(v, pri[c].lp) : v;
+    }
   }
   cluster.sync();  // no block leaves while another reads its partials
 }
@@ -282,7 +350,7 @@ cudaError_t prepare(int* sms, int* per_sm) {
 template <int KSteps, int Mode>
 cudaError_t launch(const float* theta, const float* x, const float* y,
                    float* lp, float* grad, int n_chains, int dim, int n,
-                   cudaStream_t stream) {
+                   int prior_p, cudaStream_t stream) {
   int sms = 0, per_sm = 0;
   const cudaError_t err = prepare<KSteps, Mode>(&sms, &per_sm);
   if (err != cudaSuccess) return err;
@@ -302,7 +370,7 @@ cudaError_t launch(const float* theta, const float* x, const float* y,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, fused_logistic_kernel<KSteps, Mode>, theta,
-                            x, y, lp, grad, n_chains, dim, n);
+                            x, y, lp, grad, n_chains, dim, n, prior_p);
 }
 
 // The compiled instances of each mode, by k-steps of 8 columns: 13 is the
@@ -311,7 +379,7 @@ struct Instance {
   int ksteps;
   cudaError_t (*prepare)(int*, int*);
   cudaError_t (*launch)(const float*, const float*, const float*, float*,
-                        float*, int, int, int, cudaStream_t);
+                        float*, int, int, int, int, cudaStream_t);
 };
 template <int Mode>
 struct Instances {
@@ -349,6 +417,13 @@ const Instance* instance_for(int dim, int mode) {
 //   stage B  grad = R . x, M = chains, N = k_pad columns of theta, K =
 //            n_pad rows; the blocks of column tile 0 also sum lp over the
 //            row tiles in order.
+//
+// With the prior (prior_p > 0), stage A's consumers also sum the squares of
+// the unrounded theta they split (log sigma's column left out), and its
+// blocks of row tile 0 write each chain's bsq beside the lp partials;
+// stage B's epilogue reads it with theta's column 0, writes grad[c, 0],
+// subtracts theta[c, k] * inv_s2 from each gradient element and, in column
+// tile 0, adds the prior's lp.
 //
 // B operands: the design's planes, laid out once per model by the wrapper
 // (ops/fused_logistic.py `wide_layout`): x as (2, n_pad, k_pad), stage A's,
@@ -441,6 +516,9 @@ struct Args {
   float* lp;           // (C,)
   float* grad;         // (C, dim)
   int n_chains, dim, n, n_pad, k_blocks, n_tiles_a;
+  const float* theta;  // (C, dim): the prior's log sigma and beta
+  float* bsq;          // (C,): stage A writes the prior's sum, stage B reads
+  int prior_p;         // the prior's p, 0 = no prior
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -607,11 +685,14 @@ __device__ __forceinline__ void copy_a(uint32_t dst, const Args& a, int m0,
 // `row` + 8 at columns 8 kk + t and + 4; TMA's tile has rows of kBK floats
 // whose 16-byte chunks are swizzled by the row mod 8, the copies' rows of
 // kAStride), split into their TF32 part hi and the float32 remainder lo
-// (the tensor cores read lo's TF32 part).
-template <bool kTmaA, int Mode>
+// (the tensor cores read lo's TF32 part). With kSumSq, the squares of the
+// unrounded values are added to sq (rows row, row + 8), but for column 0
+// of the operand where `col0` (the stage holds K's first block).
+template <bool kTmaA, int Mode, bool kSumSq>
 __device__ __forceinline__ void split_stage(const float* as, int row,
                                             uint32_t (&hi)[kKSteps][4],
-                                            uint32_t (&lo)[kKSteps][4]) {
+                                            uint32_t (&lo)[kKSteps][4],
+                                            float (&sq)[2], bool col0) {
   const int t = threadIdx.x & 3;
   constexpr int stride = kTmaA ? kBK : kAStride;
   const int swz = kTmaA ? row & 7 : 0;
@@ -621,6 +702,10 @@ __device__ __forceinline__ void split_stage(const float* as, int row,
     for (int i = 0; i < 4; ++i) {
       const int chunk = (2 * kk + (i >> 1)) ^ swz;   // row + 8: same swizzle
       const float x = as[(row + 8 * (i & 1)) * stride + 4 * chunk + t];
+      if constexpr (kSumSq) {   // column 8 kk + 4 (i >> 1) + t
+        const float b = kk == 0 && i < 2 && col0 && t == 0 ? 0.f : x;
+        sq[i & 1] += b * b;
+      }
       if constexpr (rounds_operands(Mode)) {
         hi[kk][i] = __float_as_uint(logistic_tile::round_mode<Mode>(x));
       } else {
@@ -690,6 +775,14 @@ __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
   const int row = rank * rows + tid / tpr, q = tid % tpr;
   const int c = m0 + row;
   const bool chain_ok = c < a.n_chains;
+  const bool prior = a.prior_p != 0 && chain_ok;
+  Prior pr = {0.f, 0.f, 0.f};
+  if constexpr (kStage == 1) {
+    if (prior) {
+      pr = prior_of(__ldg(a.theta + (size_t)c * a.dim), a.bsq[c],
+                    (float)a.prior_p);
+    }
+  }
   float lp = 0.f;
   for (int col = 4 * q; col < kBN; col += 4 * tpr) {
     float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -721,7 +814,18 @@ __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
             make_float4(r[0], r[1], r[2], r[3]);
       }
     } else {
-      if (chain_ok) {
+      if (prior) {
+        float* out = a.grad + (size_t)c * a.dim;
+        const float* th = a.theta + (size_t)c * a.dim;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j + e < a.dim) {
+            out[j + e] = j + e == 0 ? pr.g0
+                                    : __fsub_rn(v[e], __fmul_rn(
+                                          __ldg(th + j + e), pr.inv_s2));
+          }
+        }
+      } else if (chain_ok) {
         float* out = a.grad + (size_t)c * a.dim;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -738,13 +842,22 @@ __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
     if (q == 0 && chain_ok) {
       a.lp_part[(size_t)(n0 / kBN) * a.n_chains + c] = lp;
     }
+    if (n0 == 0 && q == 0 && prior) {
+      // the row's sum of squares over the ranks' K ranges, in rank order,
+      // from the epilogue tile's column kBN
+      float s = 0.f;
+      for (int r = 0; r < split; ++r) {
+        s += cluster.map_shared_rank(epi, r)[row * kEpiStride + kBN];
+      }
+      a.bsq[c] = s;
+    }
   } else {
     if (n0 == 0 && q == 0 && chain_ok) {
       float s = 0.f;
       for (int t = 0; t < a.n_tiles_a; ++t) {
         s += a.lp_part[(size_t)t * a.n_chains + c];
       }
-      a.lp[c] = s;
+      a.lp[c] = prior ? __fadd_rn(s, pr.lp) : s;
     }
   }
 }
@@ -824,14 +937,19 @@ gemm_kernel(const __grid_constant__ CUtensorMap b_map,
     const int row = 16 * warp + lane / 4;
     float acc[kAcc], d[kAcc];
     uint32_t hi[kKSteps][4], lo[kKSteps][4];
+    // stage A: the rows' sums of theta^2 for the prior, as the fragments
+    // are split, in every block (a gate on the blocks that write them
+    // spills more and costs more than the adds)
+    float sq[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < kAcc; ++r) acc[r] = d[r] = 0.f;
     for (int it = 0; it < nk; ++it) {
       const int s = it % kStages;
       mbar_wait(&full[s], (it / kStages) & 1);
       unsigned char* st = ring + s * kStageBytes;
-      split_stage<kTmaA, Mode>(reinterpret_cast<const float*>(st + kBBytes),
-                               row, hi, lo);
+      split_stage<kTmaA, Mode, kStage == 0>(
+          reinterpret_cast<const float*>(st + kBBytes), row, hi, lo, sq,
+          kb0 + it == 0);
       issue_stage<Mode>(d, hi, lo, smem_u32(st));
       wgmma_wait();
       fence_frag(hi);
@@ -851,6 +969,19 @@ gemm_kernel(const __grid_constant__ CUtensorMap b_map,
           make_float2(acc[4 * i], acc[4 * i + 1]);
       *reinterpret_cast<float2*>(epi + (erow + 8) * kEpiStride + col) =
           make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+    }
+    if constexpr (kStage == 0) {
+      // the rows' sums of squares over the quad's lanes, in a fixed order,
+      // into the tile's spare column kBN
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+        sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+      }
+      if (lane % 4 == 0) {
+        epi[erow * kEpiStride + kBN] = sq[0];
+        epi[(erow + 8) * kEpiStride + kBN] = sq[1];
+      }
     }
   }
   // every rank's partial tile is in its shared memory
@@ -1035,10 +1166,12 @@ Shape shape_of(const DeviceSetup& s, int n_chains, int dim, int n) {
   return sh;
 }
 
+// the residuals (C, n_pad), the lp partials (row tiles, C) and the
+// prior's sums of squares (C)
 size_t scratch_floats(int n_chains, int n) {
   const int n_pad = n_pad_of(n);
   return (size_t)n_chains * n_pad +
-         (size_t)((n_pad + kBN - 1) / kBN) * n_chains;
+         (size_t)((n_pad + kBN - 1) / kBN) * n_chains + n_chains;
 }
 
 template <int kStage, bool kTmaA, int Mode>
@@ -1071,7 +1204,7 @@ template <int Mode>
 cudaError_t launch_wide_mode(const void* design, const float* theta,
                         const float* y, float* lp, float* grad,
                         float* scratch, int n_chains, int dim, int n,
-                        cudaStream_t stream, int* launches) {
+                        int prior_p, cudaStream_t stream, int* launches) {
   using namespace wide;
   if (design == nullptr || scratch == nullptr) return cudaErrorInvalidValue;
   Design d;
@@ -1083,6 +1216,7 @@ cudaError_t launch_wide_mode(const void* design, const float* theta,
   const Shape sh = shape_of(*s, n_chains, dim, n);
   float* resid = scratch;                                 // (C, n_pad)
   float* lp_part = resid + (size_t)n_chains * sh.n_pad;   // (tiles, C)
+  float* bsq = lp_part + (size_t)sh.n_tiles_a * n_chains;  // (C)
   CUtensorMap x_map, xt_map, a_map;
   std::memcpy(&x_map, d.x_map, sizeof x_map);
   std::memcpy(&xt_map, d.xt_map, sizeof xt_map);
@@ -1094,7 +1228,8 @@ cudaError_t launch_wide_mode(const void* design, const float* theta,
     if (tma) err = encode_map(&a_map, theta, dim, n_chains, 1, kBM, 1);
     const Args args = {theta, dim,     dim, y,    resid,
                        lp_part, lp,    grad, n_chains, dim,
-                       n,     sh.n_pad, sh.k_pad / kBK, sh.n_tiles_a};
+                       n,     sh.n_pad, sh.k_pad / kBK, sh.n_tiles_a,
+                       theta, bsq,   prior_p};
     if (err == cudaSuccess) {
       err = (tma ? launch_gemm<0, true, Mode> : launch_gemm<0, false, Mode>)(
           x_map, a_map, args, sh.m_tiles, sh.n_tiles_a, sh.split_a, stream);
@@ -1106,7 +1241,8 @@ cudaError_t launch_wide_mode(const void* design, const float* theta,
     err = encode_map(&a_map, resid, sh.n_pad, n_chains, 1, kBM, 1);
     const Args args = {resid,   sh.n_pad, sh.n_pad, y,        resid,
                        lp_part, lp,       grad,     n_chains, dim,
-                       n,       sh.n_pad, sh.n_pad / kBK, sh.n_tiles_a};
+                       n,       sh.n_pad, sh.n_pad / kBK, sh.n_tiles_a,
+                       theta,   bsq,      prior_p};
     if (err == cudaSuccess) {
       err = launch_gemm<1, true, stage_b_mode(Mode)>(
           xt_map, a_map, args, sh.m_tiles, sh.n_tiles_b, sh.split_b, stream);
@@ -1121,25 +1257,28 @@ cudaError_t launch_wide_mode(const void* design, const float* theta,
 cudaError_t launch_wide(int mode, const void* design, const float* theta,
                         const float* y, float* lp, float* grad,
                         float* scratch, int n_chains, int dim, int n,
-                        cudaStream_t stream, int* launches) {
+                        int prior_p, cudaStream_t stream, int* launches) {
   switch (mode) {
     case kF32:
       return launch_wide_mode<kF32>(design, theta, y, lp, grad, scratch,
-                                    n_chains, dim, n, stream, launches);
+                                    n_chains, dim, n, prior_p, stream,
+                                    launches);
     case kBf16:
       return launch_wide_mode<kBf16>(design, theta, y, lp, grad, scratch,
-                                     n_chains, dim, n, stream, launches);
+                                     n_chains, dim, n, prior_p, stream,
+                                     launches);
     case kResidBf16:
       return launch_wide_mode<kResidBf16>(design, theta, y, lp, grad,
-                                          scratch, n_chains, dim, n, stream,
-                                          launches);
+                                          scratch, n_chains, dim, n, prior_p,
+                                          stream, launches);
     case kF16:
       return launch_wide_mode<kF16>(design, theta, y, lp, grad, scratch,
-                                    n_chains, dim, n, stream, launches);
+                                    n_chains, dim, n, prior_p, stream,
+                                    launches);
     case kResidF16:
       return launch_wide_mode<kResidF16>(design, theta, y, lp, grad,
-                                         scratch, n_chains, dim, n, stream,
-                                         launches);
+                                         scratch, n_chains, dim, n, prior_p,
+                                         stream, launches);
   }
   return cudaErrorInvalidValue;
 }
@@ -1207,8 +1346,8 @@ int fused_logistic_wide_shape(int n_chains, int dim, int n, int mode,
 // Bytes of a prepared design (the buffer fused_logistic_wide_prepare fills).
 size_t fused_logistic_wide_design_bytes() { return sizeof(wide::Design); }
 
-// Floats of the per-call scratch of the wide path: the residuals and the
-// lp partials.
+// Floats of the per-call scratch of the wide path: the residuals, the lp
+// partials and the prior's sums of squares.
 size_t fused_logistic_wide_scratch_floats(int n_chains, int n) {
   return wide::scratch_floats(n_chains, n);
 }
@@ -1243,7 +1382,9 @@ int fused_logistic_wide_prepare(void* out, const float* planes,
 
 // theta (n_chains, dim), x (n, dim - 1), y (n,), lp (n_chains,),
 // grad (n_chains, dim): contiguous float32 device arrays; `mode` kF32,
-// kBf16, kResidBf16, kF16 or kResidF16 (logistic_tile.cuh). For dim > 129
+// kBf16, kResidBf16, kF16 or kResidF16 (logistic_tile.cuh); `prior` 0
+// for the likelihood alone, or 1 to add the hierarchical prior at
+// p = dim - 1 (the header's formula) in the same launches. For dim > 129
 // also `design` (fused_logistic_wide_prepare, of this x laid out for the
 // mode) and `scratch` (fused_logistic_wide_scratch_floats floats); the
 // narrow instances take neither. Launches on `stream`, writes the number of
@@ -1253,18 +1394,20 @@ int fused_logistic_wide_prepare(void* out, const float* planes,
 int fused_logistic_value_grad_f32(const float* theta, const float* x,
                                   const float* y, float* lp, float* grad,
                                   int n_chains, int dim, int n, int mode,
-                                  const void* design, float* scratch,
-                                  void* stream, int* launches) {
+                                  int prior, const void* design,
+                                  float* scratch, void* stream,
+                                  int* launches) {
   *launches = 0;
   if (n_chains <= 0) return 0;
+  const int prior_p = prior ? dim - 1 : 0;
   // p <= 128 takes the narrow instance that holds it, a wider p the wide
   // kernels
   const Instance* inst = instance_for(dim, mode);
   const cudaError_t err =
-      inst ? inst->launch(theta, x, y, lp, grad, n_chains, dim, n,
+      inst ? inst->launch(theta, x, y, lp, grad, n_chains, dim, n, prior_p,
                           (cudaStream_t)stream)
            : launch_wide(mode, design, theta, y, lp, grad, scratch, n_chains,
-                         dim, n, (cudaStream_t)stream, launches);
+                         dim, n, prior_p, (cudaStream_t)stream, launches);
   if (inst && err == cudaSuccess) *launches = 1;
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that it is not reported again later

@@ -7,11 +7,11 @@ fixed-seed synthetic design and the same model):
 
 θ = (log σ, β₁..β_p), dim = p + 1. The batched value+grad dispatches
 before the call, as the JAX model's `fused=True` gate does: a float32 θ on
-CUDA (`ops.fused_logistic.kernel_route`) gets the prior in torch plus the
-likelihood of the CUDA kernel K1, at any p (above p = 128 its wide path,
-over the design laid out once per target); any other θ (the CPU,
-float64) the analytic value+grad, the counterpart of the JAX model's
-`logdensity_and_grad`.
+CUDA (`ops.fused_logistic.kernel_route`) is one call of the CUDA kernel K1
+with the prior folded in (`prior=True`), at any p (above p = 128 its wide
+path, over the design laid out once per target); any other θ (the CPU,
+float64) the prior in torch plus the analytic likelihood, the counterpart
+of the JAX model's `logdensity_and_grad`.
 
 The JAX model's reduced-precision switches are here too. `x_dtype=
 "bfloat16"` (or "float16") stores the design rounded to that dtype (from
@@ -38,8 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import profiling
-from ..ops.fused_logistic import fused_logistic_value_grad, kernel_route, \
-    mode_of
+from ..ops.fused_logistic import fused_logistic_value_grad, \
+    hierarchical_prior, kernel_route, mode_of
 from ..target import BlockTarget, LogDensityTarget
 from ..utils import reduced_dtype, resolve_device, round_to
 
@@ -57,15 +57,10 @@ def _synthetic_data(n: int, p: int, seed: int = 0):
 
 
 def _prior(theta, p):
-    """Log prior of (log σ, β) and its gradient, batched."""
+    """Log prior of (log σ, β) and its gradient, batched
+    (`ops.fused_logistic.hierarchical_prior`)."""
     with profiling.span("ahmc.target.prior"):
-        ls = theta[:, 0]
-        beta = theta[:, 1:]
-        inv_s2 = torch.exp(-2.0 * ls)
-        bsq = torch.sum(beta * beta, -1)
-        lp = -0.5 * ls * ls - 0.5 * bsq * inv_s2 - p * ls
-        g0 = -ls + bsq * inv_s2 - p
-        return lp, torch.cat([g0[:, None], -beta * inv_s2[:, None]], 1)
+        return hierarchical_prior(theta, p)
 
 
 def _loglik(y, logits):
@@ -88,8 +83,9 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
     x = x.to(device).contiguous()
     y = torch.as_tensor(y_np, dtype=dtype, device=device)
     mode = mode_of(xd, rd)
-    likelihood = None if mode is None else fused_logistic_value_grad(x, y,
-                                                                     mode)
+    # K1 with the prior folded in: the whole value+grad on the card
+    fused = None if mode is None else fused_logistic_value_grad(
+        x, y, mode, prior=True)
 
     def logdensity(theta):
         return _prior(theta, p)[0] + _loglik(y, round_to(theta[:, 1:], xd)
@@ -97,14 +93,13 @@ def hierarchical_logistic(n: int = 1000, p: int = 24, seed: int = 0,
 
     def logdensity_and_grad(theta):
         with profiling.span("ahmc.target.value_grad"):
-            lp_pri, g_pri = _prior(theta, p)
             if kernel_route(theta):
-                if likelihood is None:
+                if fused is None:
                     raise ValueError(
                         f"K1 has no mode for x_dtype={xd} with "
                         f"resid_dtype={rd} (a residual rounded twice)")
-                lp_lik, g_lik = likelihood(theta)
-                return lp_pri + lp_lik, g_pri + g_lik
+                return fused(theta)
+            lp_pri, g_pri = _prior(theta, p)
             logits = round_to(theta[:, 1:], xd) @ x.T
             resid = round_to(round_to(y - torch.sigmoid(logits), rd), xd)
             g_beta = resid @ x

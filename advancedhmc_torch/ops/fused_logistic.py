@@ -49,6 +49,16 @@ MODE_RESID_F16 are the same with float16 (`x_dtype`, `resid_dtype`
 holds it exactly too. On the card a mode runs its own kernel instances;
 there is no route to the plain version.
 
+The hierarchical prior (`hierarchical_prior`: log σ ~ N(0, 1), β ~ N(0,
+σ² I) at p = dim − 1, at θ's column 0 and the unrounded β) is an option
+of every call: with `prior=True` the kernels add its value and gradient
+inside the same launches (the narrow instances where they write the
+outputs, the wide path's stage A summing Σβ² from the θ tiles it streams
+and stage B's epilogue adding the terms), so the hierarchical model's
+value+grad on the card is K1 alone. `prior=False`, the default, keeps the
+likelihood alone, the Pallas kernel's contract ("the caller adds the
+prior").
+
 `logistic_value_grad` dispatches on the device of θ: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the kernels or raises.
 On the card, `logistic_value_grad.calls` counts its value+grad calls and
@@ -56,7 +66,8 @@ On the card, `logistic_value_grad.calls` counts its value+grad calls and
 reports them: one a call up to p = 128, two (the two GEMMs) above, in every
 mode; `.bf16_calls` and `.bf16_launches` count those of MODE_BF16 apart,
 `.f16_calls` and `.f16_launches` those of MODE_F16. Each launch runs inside
-an `ahmc.k1` span (`profiling.span`) that notes its chain count.
+an `ahmc.k1` span (`profiling.span`) that notes its chain count and, as
+"prior", the prior's p (0 without it).
 """
 
 from __future__ import annotations
@@ -103,10 +114,25 @@ def kernel_route(theta):
     return theta.is_cuda and theta.dtype == torch.float32
 
 
-def plain_logistic_value_grad(theta, x, y, mode=MODE_F32):
+def hierarchical_prior(theta, p):
+    """Log prior of θ = (log σ, β₁..β_p) under log σ ~ N(0, 1), β ~ N(0,
+    σ² I), and its gradient, batched: `(lp (C,), grad (C, p + 1))`. The
+    kernels' `prior` computes the same terms (`prior_of` in
+    csrc/fused_logistic.cu)."""
+    ls = theta[:, 0]
+    beta = theta[:, 1:]
+    inv_s2 = torch.exp(-2.0 * ls)
+    bsq = torch.sum(beta * beta, -1)
+    lp = -0.5 * ls * ls - 0.5 * bsq * inv_s2 - p * ls
+    g0 = -ls + bsq * inv_s2 - p
+    return lp, torch.cat([g0[:, None], -beta * inv_s2[:, None]], 1)
+
+
+def plain_logistic_value_grad(theta, x, y, mode=MODE_F32, prior=False):
     """The same function in plain PyTorch: two matmuls and elementwise ops,
     with the mode's operands rounded to bfloat16 or float16 (the products
-    of rounded operands are exact in θ's dtype)."""
+    of rounded operands are exact in θ's dtype), plus the unrounded θ's
+    `hierarchical_prior` where `prior` is on."""
     od, rd = _ROUNDING[mode]
     beta, x = round_to(theta[:, 1:], od), round_to(x, od)
     logits = beta @ x.T                                        # (C, n)
@@ -114,7 +140,11 @@ def plain_logistic_value_grad(theta, x, y, mode=MODE_F32):
         y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
     resid = round_to(y - torch.sigmoid(logits), rd)
     g = resid @ x                                              # (C, p)
-    return loglik, torch.cat([torch.zeros_like(g[:, :1]), g], 1)
+    grad = torch.cat([torch.zeros_like(g[:, :1]), g], 1)
+    if prior:
+        lp_pri, g_pri = hierarchical_prior(theta, theta.shape[-1] - 1)
+        return lp_pri + loglik, g_pri + grad
+    return loglik, grad
 
 
 def rounding_reference(theta, x, y, mode, logit_slack=2.0 ** -14):
@@ -156,7 +186,7 @@ def rounding_reference(theta, x, y, mode, logit_slack=2.0 ** -14):
 def _kernel(lib):
     fn = lib.fused_logistic_value_grad_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         lib.fused_logistic_smem_bytes.argtypes = [ctypes.c_int]
@@ -294,16 +324,18 @@ def wide_launch_shape(n_chains, dim, n, mode=MODE_F32):
     return dict(zip(WIDE_SHAPE_FIELDS, out))
 
 
-def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32):
+def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32,
+                        prior=False):
     """Likelihood part of the hierarchical logistic: `theta (C, dim)`,
-    `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`, in `mode`.
-    Above p = NARROW_MAX_P a CUDA call takes x's prepared `design` (a
-    WideDesign of this x in this mode), prepared here for the call when not
-    given. Each call on the card counts one in `.calls` and its kernels in
-    `.launches` (and, in MODE_BF16, in `.bf16_calls` and
+    `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`, in `mode`;
+    with `prior=True` the whole model's, `hierarchical_prior` at p =
+    dim − 1 included. Above p = NARROW_MAX_P a CUDA call takes x's prepared
+    `design` (a WideDesign of this x in this mode), prepared here for the
+    call when not given. Each call on the card counts one in `.calls` and
+    its kernels in `.launches` (and, in MODE_BF16, in `.bf16_calls` and
     `.bf16_launches`; in MODE_F16, in `.f16_calls` and `.f16_launches`)."""
     if theta.device.type == "cpu":
-        return plain_logistic_value_grad(theta, x, y, mode)
+        return plain_logistic_value_grad(theta, x, y, mode, prior)
     _check_inputs(theta, x, y)
     lib = _build.load(_LIB)
     fn = _kernel(lib)
@@ -323,8 +355,10 @@ def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32):
     launched = ctypes.c_int(0)
     with profiling.span("ahmc.k1"):
         profiling.note("chains", c)
+        profiling.note("prior", dim - 1 if prior else 0)
         err = fn(theta.data_ptr(), x.data_ptr(), y.data_ptr(),
                  loglik.data_ptr(), grad.data_ptr(), c, dim, n, mode,
+                 int(bool(prior)),
                  None if scratch is None else ctypes.addressof(design.maps),
                  None if scratch is None else scratch.data_ptr(), stream,
                  ctypes.byref(launched))
@@ -349,16 +383,17 @@ logistic_value_grad.f16_calls = 0
 logistic_value_grad.f16_launches = 0
 
 
-def fused_logistic_value_grad(x, y, mode=MODE_F32):
+def fused_logistic_value_grad(x, y, mode=MODE_F32, prior=False):
     """Build `apply(thetas (C, dim)) -> (loglik (C,), grad (C, dim))` over the
-    (n, p) design matrix `x` and (n,) 0/1 responses `y` (dim = p + 1, the
-    gradient's component 0 is 0; the caller adds the prior), in `mode`, as
-    the JAX function of the same name does. The data stays on its device in
-    its own dtype; the kernel is chosen by the device of `thetas` at each
-    call. Above p = NARROW_MAX_P the design is prepared for the wide path
-    at the first call on the card (`apply.design`), and again only once x
-    has been written in place (its version counter moved), so that every
-    route reads the x of the moment."""
+    (n, p) design matrix `x` and (n,) 0/1 responses `y` (dim = p + 1;
+    without `prior` the gradient's component 0 is 0 and the caller adds the
+    prior, as with the JAX function of the same name; with `prior=True` the
+    kernels add `hierarchical_prior`), in `mode`. The data stays on
+    its device in its own dtype; the kernel is chosen by the device of
+    `thetas` at each call. Above p = NARROW_MAX_P the design is prepared
+    for the wide path at the first call on the card (`apply.design`), and
+    again only once x has been written in place (its version counter
+    moved), so that every route reads the x of the moment."""
     x = x.contiguous()
     y = y.to(x.dtype).contiguous()
 
@@ -367,7 +402,7 @@ def fused_logistic_value_grad(x, y, mode=MODE_F32):
                 and (apply.design is None or apply.version != x._version)):
             _check_inputs(thetas, x, y)
             apply.design, apply.version = WideDesign(x, mode), x._version
-        return logistic_value_grad(thetas, x, y, apply.design, mode)
+        return logistic_value_grad(thetas, x, y, apply.design, mode, prior)
 
     apply.design = apply.version = None
     return apply

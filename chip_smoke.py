@@ -425,40 +425,88 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 2
+def launches_a_call(fn):
+    """The kernel launches one call of `fn` issues: the launch calls among
+    the CUDA runtime and driver events of a torch.profiler session (CUDA
+    activity), or None where it recorded none. Counted from the launch
+    events, not from the kernel records: a session that follows others in
+    a process can lose kernel records while it keeps every launch
+    (ROADMAP §3, F5)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "LaunchKernel" in str(e.get("name")) for e in events) \
+        or None
+
+
 def time_k1(theta, x, y, design, mode):
-    """K1's timing row at one shape in `mode`: device time (a CUDA graph of
-    its launches), the wrapper's back-to-back time, the plain version's
-    device time, cuBLAS doing the two products alone (logits = β·xᵀ, grad =
-    r·x; a yardstick the port never calls) on the mode's operand type
-    (float32, bfloat16 in MODE_BF16, float16 in MODE_F16), and the bound.
-    Above p = 128 `design` is x's prepared WideDesign."""
+    """K1's timing row at one shape in `mode`. The kernel is the call the
+    main path runs, the hierarchical model's value+grad with the prior
+    folded in: its device time (a CUDA graph of its launches), the
+    wrapper's back-to-back time and its launches a call. Beside it, device
+    times of the likelihood alone (the call without the prior) and of the
+    route before the prior was folded in (the likelihood call, then
+    `hierarchical_prior` and the two sums in PyTorch; with its launches a
+    call), the plain version's (prior included), cuBLAS doing the two
+    products alone (logits = β·xᵀ, grad = r·x; a yardstick the port never
+    calls) on the mode's operand type (float32, bfloat16 in MODE_BF16,
+    float16 in MODE_F16), and the bound. Above p = 128 `design` is x's
+    prepared WideDesign."""
     from advancedhmc_torch.ops import fused_logistic as k1
 
     (c, dim), n = theta.shape, x.shape[0]
-    reps = 20 if c >= N_CHAINS else 50
+    reps = 20 if c * dim >= N_CHAINS * DIM else 50
     dt = k1_operand_dtype(mode)
     beta, xo = theta[:, 1:].contiguous().to(dt), x.to(dt)
     resid = torch.rand(c, n, device=theta.device).to(dt)
 
     def kernel():
+        return k1.logistic_value_grad(theta, x, y, design, mode, prior=True)
+
+    def likelihood():
         return k1.logistic_value_grad(theta, x, y, design, mode)
+
+    def unfused():
+        lp_pri, g_pri = k1.hierarchical_prior(theta, dim - 1)
+        lp, g = likelihood()
+        return lp_pri + lp, g_pri + g
 
     row = dict(
         chains=c, dim=dim, n=n, mode=mode,
         ms=device_ms(kernel, reps),
         wrapper_ms=wrapper_ms(kernel, reps),
-        plain_ms=device_ms(
-            lambda: k1.plain_logistic_value_grad(theta, x, y, mode), reps),
+        launches=launches_a_call(kernel),
+        likelihood_ms=device_ms(likelihood, reps),
+        unfused_ms=device_ms(unfused, reps),
+        unfused_launches=launches_a_call(unfused),
+        plain_ms=device_ms(lambda: k1.plain_logistic_value_grad(
+            theta, x, y, mode, prior=True), reps),
         cublas_ms=device_ms(lambda: (beta @ xo.T, resid @ xo), reps))
     row["bound_ms"], row["bound_by"], side = k1_bound_ms(c, dim, n, mode)
     row.update(side)
     (side_name, side_ms), = side.items()
-    log(f"# K1 mode {mode} C={c} dim={dim} n={n}: kernel {row['ms']:.4f} ms "
-        f"on the device ({row['wrapper_ms']:.4f} ms back to back through "
-        f"the wrapper), plain {row['plain_ms']:.4f} ms, cuBLAS's two "
-        f"{dt} products {row['cublas_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {side_name} "
-        f"{side_ms:.4f} ms)")
+    log(f"# K1 mode {mode} C={c} dim={dim} n={n}: kernel with the prior "
+        f"{row['ms']:.4f} ms on the device, {row['launches']} launches a call "
+        f"({row['wrapper_ms']:.4f} ms back to back through the wrapper); "
+        f"the likelihood alone {row['likelihood_ms']:.4f} ms; the unfused "
+        f"route (likelihood, prior and sums in PyTorch) "
+        f"{row['unfused_ms']:.4f} ms, {row['unfused_launches']} launches a "
+        f"call; plain {row['plain_ms']:.4f} ms, cuBLAS's two {dt} products "
+        f"{row['cublas_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}; {side_name} {side_ms:.4f} ms)")
     return row
 
 
@@ -491,14 +539,17 @@ def k1_bound_ms(c, dim, n, mode):
             "operations" if t_ops >= t_bytes else "bytes", side)
 
 
-def check_k1(theta, x, y, design, mode, control_design):
+def check_k1(theta, x, y, design, mode, control_design, prior=False):
     """K1 in `mode` at one shape on the card: finite outputs of the right
-    shape with a zero column 0, two calls bitwise equal (no atomics), one
-    call counted with its launches (one up to p = 128, two above), and the
-    kernel held to the mode's float64 reference (its roundings, exact
-    sums; `ops.fused_logistic.rounding_reference`) and to its plain twin,
-    the plain twin to the reference, each to 1e-4 of the largest magnitude
-    (float32 sums in other orders). In MODE_BF16 (MODE_F16) the gradient's
+    shape (without the prior a zero column 0), two calls bitwise equal (no
+    atomics), one call counted with its launches (one up to p = 128, two
+    above), and the kernel held to the mode's float64 reference (its
+    roundings, exact sums; `ops.fused_logistic.rounding_reference`, plus
+    the float64 `hierarchical_prior` at the unrounded θ where `prior` is
+    on) and to its plain twin, the plain twin to the reference, each to
+    1e-4 of the largest magnitude (float32 sums in other orders): of
+    column 0 and of the other columns apart, since the prior's ∂/∂log σ
+    (≈ −p) would otherwise set the scale of the likelihood's columns. In MODE_BF16 (MODE_F16) the gradient's
     gate adds, per element, what the residual's rounding to bfloat16
     (float16) can move where a logit error of 2^-14 carries a residual
     across a rounding midpoint (two float32 evaluations can round it to
@@ -514,22 +565,30 @@ def check_k1(theta, x, y, design, mode, control_design):
     other = k1_control_mode(mode)
     launch_key, call_key = k1_counter_keys(mode)
     before = read_launches()
-    lp, g = k1.logistic_value_grad(theta, x, y, design, mode)
+    lp, g = k1.logistic_value_grad(theta, x, y, design, mode, prior)
     after = read_launches()
-    lp2, g2 = k1.logistic_value_grad(theta, x, y, design, mode)
-    lp_c, g_c = k1.logistic_value_grad(theta, x, y, control_design, other)
-    lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y, mode)
+    lp2, g2 = k1.logistic_value_grad(theta, x, y, design, mode, prior)
+    lp_c, g_c = k1.logistic_value_grad(theta, x, y, control_design, other,
+                                       prior)
+    lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y, mode, prior)
     lp_r, g_r, allow, n_near = k1.rounding_reference(theta, x, y, mode)
+    if prior:
+        lp_pri, g_pri = k1.hierarchical_prior(theta.double(), dim - 1)
+        lp_r, g_r = lp_r + lp_pri, g_r + g_pri
     torch.cuda.synchronize()
     per_call = after[launch_key] - before[launch_key]
-    tol_g = 1e-4 * float(g_r.abs().max())
+    # column 0's scale and the other columns' (one row, broadcast); without
+    # the prior column 0 is held to exactly 0 below instead
+    tol_g = 1e-4 * torch.cat([g_r[:, :1].abs().max().reshape(1),
+                              g_r[:, 1:].abs().max().expand(dim - 1)])
     tol_lp = 1e-4 * max(1.0, float(lp_r.abs().max()))
+    cols = slice(0 if prior else 1, None)
 
     def excess(gg, ll, g_to=g_r, lp_to=lp_r):
         """How far (grad, lp) exceed the gate against (g_to, lp_to)."""
-        return (float(((gg.double() - g_to.double()).abs() - allow).max())
-                - tol_g, float((ll.double() - lp_to.double()).abs().max())
-                - tol_lp)
+        return (float(((gg.double() - g_to.double()).abs() - allow
+                       - tol_g)[:, cols].max()),
+                float((ll.double() - lp_to.double()).abs().max()) - tol_lp)
 
     ex_k, ex_p, ex_kp = excess(g, lp), excess(g_p, lp_p), \
         excess(g, lp, g_p, lp_p)
@@ -539,21 +598,23 @@ def check_k1(theta, x, y, design, mode, control_design):
     ok = (lp.shape == (c,) and g.shape == (c, dim)
           and bool(torch.isfinite(lp).all() and torch.isfinite(g).all())
           and max(ex_k + ex_p + ex_kp) <= 0 and max(ex_c) > 0 and same
-          and bool((g[:, 0] == 0).all())
+          and (prior or bool((g[:, 0] == 0).all()))
           and per_call == (1 if dim <= 129 else 2)
           and after[call_key] - before[call_key] == 1)
-    log(f"# K1 mode {mode} C={c} p={dim - 1} n={x.shape[0]}: vs the mode's "
-        f"float64 reference max|Δgrad| - allowance {ex_k[0] + tol_g:.3e} "
-        f"(tol {tol_g:.3e}; plain twin {ex_p[0] + tol_g:.3e}; {n_near} "
-        f"residuals near a rounding midpoint), max|Δlp| "
-        f"{ex_k[1] + tol_lp:.3e} (tol {tol_lp:.3e}), vs the plain twin "
-        f"{err:.3e} (less the allowance {ex_kp[0] + tol_g:.3e}), two calls "
+    log(f"# K1 mode {mode} C={c} p={dim - 1} n={x.shape[0]}"
+        f"{' with the prior' if prior else ''}: vs the mode's float64 "
+        f"reference max(|Δgrad| - allowance - tol) {ex_k[0]:.3e} (tol "
+        f"{float(tol_g[0]):.3e} in column 0, {float(tol_g[-1]):.3e} "
+        f"beyond; plain twin {ex_p[0]:.3e}; {n_near} residuals near a "
+        f"rounding midpoint), max|Δlp| {ex_k[1] + tol_lp:.3e} (tol "
+        f"{tol_lp:.3e}), vs the plain twin {err:.3e} (less the allowance "
+        f"and tol {ex_kp[0]:.3e}), two calls "
         f"bitwise equal {same}, {per_call} launches a call; the kernel in "
         f"mode {other} exceeds the gate by {ex_c[0]:.3e} (grad), "
         f"{ex_c[1]:.3e} (lp), which must be > 0: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"K1 in mode {mode} disagrees with its reference "
-                           f"at C={c}, p={dim - 1}")
+                           f"at C={c}, p={dim - 1}, prior {prior}")
     return per_call, err
 
 
@@ -606,9 +667,10 @@ def k1_report():
 
 
 def phase_k1(mode):
-    """K1 in `mode` against its reference on the card (check_k1); returns
-    its timing rows, the largest difference from its plain twin and the
-    launches a call by timed chain count."""
+    """K1 in `mode` against its reference on the card (check_k1; at the
+    timed shapes also with the model's prior folded in, the main path's
+    call); returns its timing rows, the largest difference from its plain
+    twin and the launches a call by timed chain count."""
     from advancedhmc_torch.models.logistic import _synthetic_data
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -626,6 +688,9 @@ def phase_k1(mode):
         per_call, err = check_k1(theta, x, y, None, mode, None)
         worst = max(worst, err)
         if timed:
+            # the main path's call: the model's prior folded in
+            per_call, err = check_k1(theta, x, y, None, mode, None, True)
+            worst = max(worst, err)
             launched[c] = per_call
             rows.append(time_k1(theta, x, y, None, mode))
     return rows, worst, launched
@@ -1558,8 +1623,11 @@ WIDE_WARMUP, WIDE_DRAWS, WIDE_FUSE = 128, 32, 16
 # search, ragged C and n, the path's width and four times it, p = 200 (past
 # the narrow instances' 128), and twice the path's p
 WIDE_SHAPES = ((1, 999, 1000), (1000, 999, 997), (1024, 999, 1000),
-               (4096, 999, 1000), (4096, 200, 1000), (1024, 2047, 1000))
-WIDE_TIMED = ((1024, 999, 1000), (1, 999, 1000))   # the path's shapes
+               (4096, 999, 1000), (4096, 200, 1000), (1024, 2047, 1000),
+               (16384, 999, 1000))
+# the path's shapes and the hlr1000.chees benchmark cell's chain count,
+# each also checked with the prior folded in
+WIDE_TIMED = ((1024, 999, 1000), (1, 999, 1000), (16384, 999, 1000))
 # The JAX package's posterior: scripts/wide_reference.py runs JAX `sample`
 # in float64 on the CPU with this phase's settings, 1024 chains × 64 draws,
 # one run per seed:
@@ -1664,7 +1732,8 @@ def k1_wide_report(launched):
 def phase_wide_k1(mode):
     """K1's wide path in `mode` against its reference on the card
     (check_k1) at WIDE_SHAPES, over the design prepared once a shape;
-    timing rows at the path's shapes; returns (rows, largest difference
+    at the path's shapes (WIDE_TIMED) also with the model's prior folded
+    in, and timing rows; returns (rows, largest difference
     from the plain twin, launches a call by timed chain count)."""
     from advancedhmc_torch.models.logistic import _synthetic_data
     from advancedhmc_torch.ops import fused_logistic as k1
@@ -1678,10 +1747,14 @@ def phase_wide_k1(mode):
         y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
         design = k1.WideDesign(x, mode)
         theta = 0.1 * torch.randn(c, p + 1, generator=gen, device="cuda")
-        per_call, err = check_k1(theta, x, y, design, mode,
-                                 k1.WideDesign(x, other))
+        control = k1.WideDesign(x, other)
+        per_call, err = check_k1(theta, x, y, design, mode, control)
         worst = max(worst, err)
         if (c, p, n) in WIDE_TIMED:
+            # the main path's call: the model's prior folded in
+            per_call, err = check_k1(theta, x, y, design, mode, control,
+                                     True)
+            worst = max(worst, err)
             launched[c] = per_call
             rows.append(time_k1(theta, x, y, design, mode))
     return rows, worst, launched

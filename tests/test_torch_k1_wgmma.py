@@ -17,7 +17,10 @@ only on the card. Here:
   summed apart and then added (the promotion), K split over a cluster's
   ranks whose partial tiles add in rank order, the epilogue's masked rows,
   its threads' lp sums and the lp partials per row tile summed in order;
-  held against the plain version and the JAX model in float64;
+  with the prior folded in (`prior=True`), stage A's sums of θ² from the
+  fragments its consumers split (column 0 left out, quad lanes and ranks
+  in order) and stage B's epilogue terms; held against the plain version
+  and the JAX model in float64;
 * the numerics of the planes: 3xTF32 products of the TF32 parts the tensor
   cores read, against float64, well inside the card's gate.
 """
@@ -289,12 +292,43 @@ def _gemm_tiles(a, b, n_cols, split):
             yield m0, n0, tile
 
 
-def wide_model(theta, x, y):
+def stage_a_bsq(theta, split):
+    """Each chain's Σ θ_k² (k ≥ 1) as stage A's consumers sum it: lane t of
+    a row's quad adds, stage by stage of its rank's K range, columns 8 kk +
+    t and 8 kk + 4 + t of each k-step kk (column 0 of θ left out); the
+    quad's lanes add as (t0 + t1) + (t2 + t3), the ranks in rank order.
+    Every column of θ past 0 is added once."""
+    c, dim = theta.shape
+    k_blocks = -(-dim // BK)
+    padded = np.zeros((c, k_blocks * BK))
+    padded[:, :dim] = theta
+    seen = np.zeros(k_blocks * BK, int)
+    total = np.zeros(c)
+    for rank in range(split):
+        lanes = np.zeros((4, c))
+        for kb in range(rank * k_blocks // split,
+                        (rank + 1) * k_blocks // split):
+            for kk in range(BK // 8):
+                for t in range(4):
+                    for col in (8 * kk + t, 8 * kk + 4 + t):
+                        k = kb * BK + col
+                        if k == 0:
+                            continue
+                        seen[k] += 1
+                        lanes[t] += padded[:, k] ** 2
+        total = total + ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3]))
+    assert seen[0] == 0 and np.all(seen[1:] == 1)
+    return total
+
+
+def wide_model(theta, x, y, prior=False):
     """The wide path in float64, launch by launch: stage A's tiles (θ
     read as A, zero past dim; x's planes padded, column 0 zero) and
     epilogue (residuals, lp partials per row tile), stage B's tiles
     (gradient columns k < dim, column 0 written 0) and the lp partials
-    summed over the row tiles in order."""
+    summed over the row tiles in order. With `prior`, stage A's Σ θ_k²
+    and stage B's prior terms (column 0 written, θ_k · e^(−2 log σ)
+    taken from each element, the prior's lp added in column tile 0)."""
     c, dim = theta.shape
     n = x.shape[0]
     (m_tiles, a_tiles, split_a, _), (_, _, split_b, _) = launches(
@@ -331,6 +365,13 @@ def wide_model(theta, x, y):
     lp = np.zeros(c)
     for t in range(a_tiles):
         lp = lp + lp_part[t]
+    if prior:
+        p = dim - 1
+        ls, bsq = theta[:, 0], stage_a_bsq(theta, split_a)
+        inv_s2 = np.exp(-2.0 * ls)
+        grad[:, 1:] = grad[:, 1:] - theta[:, 1:] * inv_s2[:, None]
+        grad[:, 0] = -ls + bsq * inv_s2 - p
+        lp = lp + (-0.5 * ls * ls - 0.5 * bsq * inv_s2 - p * ls)
     return lp, grad
 
 
@@ -368,6 +409,44 @@ def test_wide_order_of_work_matches_plain_and_jax(p, n, c):
     lp_t, g_t = lp + lp_pri.numpy(), grad + g_pri.numpy()
     assert np.abs(lp_t - lp_j[:c]).max() <= 1e-10 * np.abs(lp_j[:c]).max()
     assert np.abs(g_t - g_j[:c]).max() <= 1e-10 * np.abs(g_j[:c]).max()
+
+
+@pytest.mark.parametrize("c", [1, 3, 64])
+@pytest.mark.parametrize("n", [997, 1000])
+@pytest.mark.parametrize("p", [129, 200, 999])
+def test_wide_order_of_work_with_the_prior_matches_jax(p, n, c):
+    """With the prior folded in (`prior=True`): stage A's sums of θ² over
+    its ranks' K ranges and stage B's epilogue terms, in float64, agree
+    with the plain version with the prior to 1e-12 and with the JAX model
+    (prior included) to 1e-10 of the largest magnitude, at ragged C, p and
+    n, with and without a split K (1 chain: 8 ranks; 64: fewer)."""
+    theta_all, lp_j, g_j = _jax_reference(n, p)
+    theta = theta_all[:c]
+    x, y = _synthetic_data(n, p)
+    lp, grad = wide_model(theta, x, y, prior=True)
+    lp_ref, g_ref = k1.plain_logistic_value_grad(
+        torch.as_tensor(theta), torch.as_tensor(x), torch.as_tensor(y),
+        prior=True)
+    assert np.all(np.isfinite(grad))
+    assert np.abs(lp - lp_ref.numpy()).max() <= 1e-12 * float(
+        lp_ref.abs().max())
+    assert np.abs(grad - g_ref.numpy()).max() <= 1e-12 * float(
+        g_ref.abs().max())
+    assert np.abs(lp - lp_j[:c]).max() <= 1e-10 * np.abs(lp_j[:c]).max()
+    assert np.abs(grad - g_j[:c]).max() <= 1e-10 * np.abs(g_j[:c]).max()
+
+
+def test_prior_sums_fit_the_tiles_spare_column():
+    """Stage A leaves each row's sum of squares in the epilogue tile's
+    column kBN, which its rows of kBN + 8 floats hold and no float4 of the
+    epilogue reads; the scratch holds the residuals, the lp partials and
+    one sum a chain."""
+    assert "constexpr int kEpiStride = kBN + 8;" in WIDE_SRC
+    assert "row * kEpiStride + kBN]" in WIDE_SRC
+    assert max(range(0, BN, 4)) + 4 <= BN < BN + 8
+    scratch = re.search(r"size_t scratch_floats\(int n_chains, int n\) \{"
+                        r"(.*?)\n\}", WIDE_SRC, re.S).group(1)
+    assert scratch.rstrip().endswith("* n_chains + n_chains;")
 
 
 # --- the numerics of the planes -----------------------------------------

@@ -147,6 +147,117 @@ def test_k1_float16_modes_match_plain_on_card(mode, c, p, n):
     assert float((g_b - g_r).abs().max()) > tol_g
 
 
+# K1 with the prior folded in: the cells' widths and chain counts, p = 24
+# (German credit's width), and one chain
+K1_PRIOR_SHAPES = [(24, 1), (24, 4096), (24, 32768), (99, 1), (99, 4096),
+                   (99, 32768), (999, 1), (999, 1024), (999, 16384)]
+K1_MODES = [k1.MODE_F32, k1.MODE_BF16, k1.MODE_RESID_BF16, k1.MODE_F16,
+            k1.MODE_RESID_F16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,c", K1_PRIOR_SHAPES)
+@pytest.mark.parametrize("mode", K1_MODES)
+def test_k1_prior_matches_float64_on_card(mode, p, c):
+    """K1 with the prior (p = dim − 1), narrow and wide, in every mode,
+    against the mode's float64 function plus the float64 prior at the
+    unrounded θ: K1's gate (1e-4 of the largest magnitude) plus, on the gradient, the
+    residual roundings that float32 logits can flip (`rounding_reference`,
+    zero in float32). Two calls give the same bits and launch what a
+    likelihood call launches; without the prior component 0 is exactly 0
+    and the difference of the two calls is the prior's terms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from advancedhmc_torch.models.logistic import _prior
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x_np, y_np = _synthetic_data(1000, p)
+    x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(c + p + mode)
+    th = (0.1 if p > 128 else 0.3) * torch.randn(c, p + 1, generator=gen,
+                                                 device="cuda")
+    th[:, 0] -= 0.7                  # σ ≈ 0.5: the prior's terms weigh in
+    design = k1.WideDesign(x, mode) if p > 128 else None
+    f = k1.logistic_value_grad
+    before = f.launches
+    lp, g = f(th, x, y, design, mode, prior=True)
+    assert f.launches - before == (2 if p > 128 else 1)
+    lp2, g2 = f(th, x, y, design, mode, prior=True)
+    lp0, g0 = f(th, x, y, design, mode)
+    lp_r, g_r, allow, _ = k1.rounding_reference(th, x, y, mode)
+    lp_pri, g_pri = _prior(th.double(), p)
+    lp_r, g_r = lp_r + lp_pri, g_r + g_pri
+    torch.cuda.synchronize()
+    assert torch.equal(lp, lp2) and torch.equal(g, g2)
+    assert bool((g0[:, 0] == 0).all())
+    tol_g = 1e-4 * float(g_r.abs().max())
+    tol_lp = 1e-4 * max(1.0, float(lp_r.abs().max()))
+    assert bool(((g.double() - g_r).abs() <= tol_g + allow).all())
+    assert float((lp.double() - lp_r).abs().max()) <= tol_lp
+    assert float(((g - g0).double() - g_pri).abs().max()) <= tol_g
+    assert float(((lp - lp0).double() - lp_pri).abs().max()) <= tol_lp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [24, 99, 999])
+def test_centred_model_value_grad_is_k1_alone_on_card(p):
+    """A float32 value+grad of `hierarchical_logistic` on the card is one
+    K1 call with the prior folded in: K1's launches (1 up to p = 128, 2
+    above) and no PyTorch operation but the outputs' allocation (a
+    dispatch mode records every ATen operation, without the profiler,
+    whose clock alignment a later test in the process relies on); its
+    `ahmc.k1` span notes prior = p and no `ahmc.target.prior` span opens;
+    the non-centred model's K1 call notes prior 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from advancedhmc_torch import profiling
+    from advancedhmc_torch.models.logistic import hierarchical_logistic_nc
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    tgt = hierarchical_logistic(n=1000, p=p, device="cuda")
+    th = 0.1 * torch.randn(4096, p + 1, generator=torch.Generator(
+        device="cuda").manual_seed(p), device="cuda")
+    tgt.logdensity_and_grad(th)          # lays out the wide design
+    before = k1.logistic_value_grad.launches
+    profiling.enable_spans(True)
+    try:
+        with Ops() as ops:
+            lp, g = tgt.logdensity_and_grad(th)
+        launched = k1.logistic_value_grad.launches - before
+        spans = profiling.spans()
+        hierarchical_logistic_nc(n=1000, p=p, device="cuda"
+                                 ).logdensity_and_grad(th)
+        nc = profiling.spans()
+    finally:
+        profiling.enable_spans(False)
+    assert launched == (2 if p > 128 else 1)
+    assert set(ops.names) == {"aten.empty.memory_format"}, ops.names
+    assert [r["name"] for r in spans] == ["ahmc.target.value_grad",
+                                          "ahmc.k1"]
+    assert spans[1]["attrs"] == {"chains": 4096, "prior": p}
+    assert [r["attrs"] for r in nc if r["name"] == "ahmc.k1"] == [
+        {"chains": 4096, "prior": 0}]
+    # the model's call is K1's with the prior, bit for bit
+    x_np, y_np = _synthetic_data(1000, p)
+    lp_k, g_k = k1.logistic_value_grad(
+        th, torch.as_tensor(x_np, dtype=torch.float32, device="cuda"),
+        torch.as_tensor(y_np, dtype=torch.float32, device="cuda"),
+        prior=True)
+    torch.cuda.synchronize()
+    assert torch.equal(lp, lp_k) and torch.equal(g, g_k)
+
+
 @pytest.mark.gpu
 def test_sample_options_run_on_card(capsys):
     """The options of `sample()` that phase 12 of chip_smoke.py does not

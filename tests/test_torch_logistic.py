@@ -194,3 +194,68 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
                           init_eps=0.1, n_chains=3, device="cpu")
     assert state.z.theta.shape == (3, P + 1)
 
+
+
+# --- the prior folded into K1 (`prior=True`) ------------------------------
+@pytest.mark.parametrize("mode", [k1.MODE_F32, k1.MODE_BF16,
+                                  k1.MODE_RESID_BF16, k1.MODE_F16,
+                                  k1.MODE_RESID_F16])
+@pytest.mark.parametrize("p", [24, 99, 200])
+def test_plain_with_the_prior_is_the_prior_plus_the_likelihood(p, mode):
+    """In float64, K1's plain version with the prior equals the model's
+    `_prior` (θ unrounded, p = dim − 1) plus the likelihood alone to 1e-12
+    of the largest magnitude, in every mode; without it component 0 of
+    the gradient stays exactly 0."""
+    from advancedhmc_torch.models.logistic import _prior
+
+    x, y = (torch.as_tensor(a) for a in _synthetic_data(N, p))
+    th = torch.as_tensor(0.1 * np.random.default_rng(p).normal(
+        size=(9, p + 1)))
+    th[:, 0] = -0.7 + th[:, 0]
+    lp_l, g_l = k1.plain_logistic_value_grad(th, x, y, mode)
+    assert bool((g_l[:, 0] == 0).all())
+    lp_pri, g_pri = _prior(th, p)
+    lp, g = k1.plain_logistic_value_grad(th, x, y, mode, prior=True)
+    scale = float((lp_l + lp_pri).abs().max())
+    assert float((lp - (lp_l + lp_pri)).abs().max()) <= 1e-12 * scale
+    gscale = float((g_l + g_pri).abs().max())
+    assert float((g - (g_l + g_pri)).abs().max()) <= 1e-12 * gscale
+    # the wrapper's CPU route is the plain version, option included
+    lp_w, g_w = k1.logistic_value_grad(th, x, y, mode=mode, prior=True)
+    assert torch.equal(lp_w, lp) and torch.equal(g_w, g)
+
+
+@pytest.mark.parametrize("p", [19, 200])
+def test_centred_k1_route_is_the_analytic_route(monkeypatch, p):
+    """The centred model's K1 route (one call with the prior folded in)
+    against its analytic route and the JAX model, in float64: on a CPU
+    tensor K1's wrapper runs its plain version, so forcing the route runs
+    the route here. The analytic route keeps its `ahmc.target.prior` span;
+    the K1 route opens none."""
+    import advancedhmc_torch.models.logistic as lg
+    from advancedhmc_torch import profiling
+
+    th = 0.1 * np.random.default_rng(p + 5).normal(size=(11, p + 1))
+    th[:, 0] -= 0.7
+    tj = jax_logistic(n=N, p=p, dtype=jnp.float64)
+    lp_j, g_j = jax.vmap(tj.logdensity_and_grad)(jnp.asarray(th))
+    tgt = ah.hierarchical_logistic(n=N, p=p, dtype=torch.float64,
+                                   device="cpu")
+    th = torch.as_tensor(th)
+    profiling.enable_spans(True)
+    try:
+        lp_a, g_a = tgt.logdensity_and_grad(th)
+        analytic = [r["name"] for r in profiling.spans()]
+        monkeypatch.setattr(lg, "kernel_route", lambda theta: True)
+        lp_k, g_k = tgt.logdensity_and_grad(th)
+        routed = [r["name"] for r in profiling.spans()]
+    finally:
+        profiling.enable_spans(False)
+    assert analytic == ["ahmc.target.value_grad", "ahmc.target.prior"]
+    assert routed == ["ahmc.target.value_grad"]
+    np.testing.assert_allclose(lp_a.numpy(), np.asarray(lp_j), rtol=1e-10)
+    np.testing.assert_allclose(g_a.numpy(), np.asarray(g_j), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(lp_k.numpy(), lp_a.numpy(), rtol=1e-12)
+    scale = float(g_a.abs().max())
+    assert float((g_k - g_a).abs().max()) <= 1e-12 * scale

@@ -16,8 +16,10 @@
   and the bfloat16 stacks bit for bit.
 """
 
+import collections
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -131,8 +133,9 @@ def test_k1_bf16_wide_layout():
 
 def test_k1_mode_numbers_and_c_interface():
     """The wrapper's modes are the kernels' (`enum Mode` of the tile
-    header), the mode reaches the C entry after n, and the ctypes argument
-    list has as many entries as the C signature."""
+    header), the mode reaches the C entry after n and the prior's flag
+    after the mode, and the ctypes argument list has as many entries as the C
+    signature."""
     tile = (CSRC / "logistic_tile.cuh").read_text()
     enum = dict(re.findall(r"(k\w+) = (\d)", re.search(
         r"enum Mode : int \{([^}]*)\}", tile).group(1)))
@@ -141,7 +144,7 @@ def test_k1_mode_numbers_and_c_interface():
                     "kF16": str(k1.MODE_F16),
                     "kResidF16": str(k1.MODE_RESID_F16)}
     src = (CSRC / "fused_logistic.cu").read_text()
-    for name, n_args in (("fused_logistic_value_grad_f32", 13),
+    for name, n_args in (("fused_logistic_value_grad_f32", 14),
                          ("fused_logistic_launch_shape", 6),
                          ("fused_logistic_wide_shape", 5)):
         sig = re.search(rf"\b(?:int|void) {name}\(([^)]*)\)", src).group(1)
@@ -149,7 +152,12 @@ def test_k1_mode_numbers_and_c_interface():
         assert len(params) == n_args, (name, params)
     sig = re.search(r"int fused_logistic_value_grad_f32\(([^)]*)\)",
                     src).group(1)
-    assert [a.split()[-1] for a in sig.split(",")][7:9] == ["n", "mode"]
+    assert [a.split()[-1] for a in sig.split(",")][7:10] == [
+        "n", "mode", "prior"]
+    # the wrapper's argument types, set on a stand-in for the library
+    fns = collections.defaultdict(lambda: SimpleNamespace(argtypes=None))
+    lib = type("Lib", (), {"__getattr__": lambda _, name: fns[name]})()
+    assert len(k1._kernel(lib).argtypes) == 14
     assert k1.mode_of(torch.bfloat16, None) == k1.MODE_BF16
     assert k1.mode_of(torch.bfloat16, torch.bfloat16) == k1.MODE_BF16
     assert k1.mode_of(None, torch.bfloat16) == k1.MODE_RESID_BF16

@@ -287,3 +287,58 @@ def test_warp_tile_fragments(rows):
     np.testing.assert_allclose(g_out[:, :p], resid @ xs[:, :p], rtol=0,
                                atol=1e-12)
     assert not g_out[:, p:].any()
+
+
+def _narrow_bsq(beta32):
+    """Σ β_k² as the narrow kernel sums it for one chain, in float32: lane l
+    of the warp adds columns l, l + 32, ... (each square added by one fma),
+    then the lanes add in a butterfly of shuffles (xor 16, 8, 4, 2, 1)."""
+    lanes = np.zeros(32, np.float32)
+    for k, b in enumerate(beta32):
+        lanes[k % 32] = np.float32(np.float64(lanes[k % 32])
+                                   + np.float64(b) * np.float64(b))
+    o = 16
+    while o:
+        lanes = (lanes + lanes[np.arange(32) ^ o]).astype(np.float32)
+        o //= 2
+    assert np.all(lanes == lanes[0])      # every lane holds the same bits
+    return lanes[0]
+
+
+@pytest.mark.parametrize("p", [24, 99, 128])
+def test_narrow_prior_terms_in_float32(p):
+    """The narrow instances' prior (`prior_of` after the warp's sum of β²,
+    every product and sum rounded once in float32, as the kernel writes
+    them) against the model's float64 prior: within float32's error, far
+    inside the card's gate, at each instance's width; and the terms of the
+    block's 64 chains fit in the x buffers' spare columns of every
+    instance."""
+    import re
+    from pathlib import Path
+
+    from advancedhmc_torch.models.logistic import _prior
+
+    src = (Path(__file__).resolve().parent.parent / "advancedhmc_torch" /
+           "csrc" / "fused_logistic.cu").read_text()
+    k_max = re.search(r"constexpr int kMaxKSteps = (\d+);", src).group(1)
+    ksteps = [int(k_max if k == "kMaxKSteps" else k)
+              for k in re.findall(r"\{(\w+), prepare<", src)]
+    assert ksteps == [4, 8, 13, 16]
+    for k in ksteps:             # 2 · kTileRows rows of x_stride floats
+        assert 2 * TILE_ROWS * (8 * k + 4) >= 64 * 8 * k + 64 * 3
+    theta = (0.3 * np.random.default_rng(p).normal(size=(16, p + 1))
+             ).astype(np.float32)
+    theta[:, 0] -= 0.7
+    f = np.float32
+    lp_ref, g_ref = (t.numpy() for t in _prior(
+        torch.as_tensor(theta, dtype=torch.float64), p))
+    for c in range(theta.shape[0]):
+        ls, beta = theta[c, 0], theta[c, 1:]
+        bsq = _narrow_bsq(beta)
+        inv = f(np.exp(f(-2.0) * ls))
+        t = f(bsq * inv)
+        lp = f(f(f(-0.5) * f(ls * ls)) - f(f(0.5) * t)) - f(f(p) * ls)
+        g0 = f(f(-ls + t) - f(p))
+        g = np.concatenate([[g0], (f(0.0) - (beta * inv)).astype(f)])
+        assert abs(lp - lp_ref[c]) <= 1e-6 * abs(lp_ref[c])
+        assert np.abs(g - g_ref[c]).max() <= 1e-6 * np.abs(g_ref[c]).max()
