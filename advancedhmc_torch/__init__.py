@@ -17,7 +17,8 @@ refreshment and the NUTS/HMC/HMCDA constructors; ChEES-HMC
 checkpoints (`checkpoint`), the program cache (`aot_program`) and the
 profiling helpers (`profiling`); on the
 JAX package's model zoo (`models`: the hierarchical logistic, centred with
-a float32 or bfloat16 design or non-centred, the Gaussians, Neal's funnel,
+a float32 or bfloat16 design or non-centred, the log-Gaussian Cox
+process, the Gaussians, Neal's funnel,
 banana, eight schools, gdemo, the mixtures, the spiral, the declarative
 distributions) and any transformed (`transforms`) or structured
 (`target_from_pytree`) target, with the likelihood value+grad in a
@@ -80,8 +81,8 @@ from .metrics import DenseEuclideanMetric, DiagEuclideanMetric, Metric, \
 from .models import GDEMO_MEAN, banana, correlated_gaussian, eight_schools, \
     funnel_nc_to_centered, gaussian_mixture, gdemo, german_credit_logistic, \
     hierarchical_logistic, hierarchical_logistic_block, \
-    hierarchical_logistic_nc, mvn_diag, neal_funnel, neal_funnel_nc, \
-    spiral, std_gaussian, two_gaussian_mixtures_2d
+    hierarchical_logistic_nc, log_gaussian_cox, mvn_diag, neal_funnel, \
+    neal_funnel_nc, spiral, std_gaussian, two_gaussian_mixtures_2d
 from .nuts import nuts_transition, nuts_transitions_fused
 from . import checkpoint, parallel, profiling, riemannian
 from .aot import aot_program, aot_signature
@@ -198,6 +199,7 @@ __all__ = [
     "leapfrog_step",
     "leapfrog_steps",
     "leapfrog_trajectory",
+    "log_gaussian_cox",
     "make_chees_draw_step",
     "make_chees_step",
     "make_integrator",

@@ -11,6 +11,24 @@
 //   grad[c, 0]  = 0
 //   grad[c, 1:] = sum_j (y[j] - sigmoid(logit)) * x[j]
 //
+// With `link` Poisson (the C entry's `link`, logistic_tile.cuh `Link`; 0
+// is the Bernoulli-logit above) the counts y take a Poisson-log likelihood
+// with the scalar offset c (`offset`) in place of the logistic's terms:
+//
+//   lp[c]       = sum_j  y[j] * logit - exp(c + logit)
+//   grad[c, 1:] = sum_j (y[j] - exp(c + logit)) * x[j]
+//
+// The link changes the epilogue alone: the products, tiles and sums are
+// the same. The narrow instances are compiled for each link: their
+// epilogue runs inside the tile loop, once per 32 rows, in a kernel held
+// at four blocks an SM with registers at the limit and a few spilled, so
+// a run-time branch there would change the logistic instances' registers
+// and schedule; compiled apart, the logistic instances are the code they
+// were, bit for bit and in time. The wide path's stage A picks the link
+// at run time, in its epilogue once per 128 x 128 tile after the main
+// loop, where the branch costs nothing. The Poisson link has instances in
+// kF32 and kBf16 only; another mode refuses it (cudaErrorInvalidValue).
+//
 // With `prior` on (the C entry's flag; the kernels take p = dim - 1 as
 // `prior_p`, 0 when off) a call adds the hierarchical prior of the
 // model (log sigma ~ N(0, 1), beta ~ N(0, sigma^2 I)) at ls = theta[c, 0]
@@ -91,6 +109,8 @@ using logistic_tile::cp_async_wait;
 using logistic_tile::kBf16;
 using logistic_tile::kF16;
 using logistic_tile::kF32;
+using logistic_tile::kLogistic;
+using logistic_tile::kPoisson;
 using logistic_tile::kResidBf16;
 using logistic_tile::kResidF16;
 using logistic_tile::rounds_operands;
@@ -137,13 +157,13 @@ __host__ __device__ constexpr size_t smem_floats(int ksteps) {
 // memory at p = 99. The kernel is bound by latency more than by any one
 // unit, so it gains more from the fourth block than it loses to a few
 // spilled registers.
-template <int KSteps, int Mode>
+template <int KSteps, int Mode, int Link>
 __global__ void __launch_bounds__(kThreads, 4)
 fused_logistic_kernel(const float* __restrict__ theta,
                       const float* __restrict__ x,
                       const float* __restrict__ y, float* __restrict__ lp,
                       float* __restrict__ grad, int n_chains, int dim, int n,
-                      int prior_p) {
+                      int prior_p, float offset) {
   constexpr int S = x_stride(KSteps);
   constexpr int P8 = 8 * KSteps;
   // after the tiles the x buffers hold the partial gradient and, in the
@@ -222,9 +242,9 @@ fused_logistic_kernel(const float* __restrict__ theta,
       cp_async_wait<0>();
     }
     __syncthreads();
-    logistic_tile::warp_tile<KSteps, Mode>(
+    logistic_tile::warp_tile<KSteps, Mode, Link>(
         bs + 16 * warp * S, xs + buf * kTileRows * S, ys + buf * kTileRows,
-        min(kTileRows, n - tile * kTileRows), acc, lp_g, lp_g8);
+        min(kTileRows, n - tile * kTileRows), acc, lp_g, lp_g8, offset);
     __syncthreads();  // the buffer is free for the tile after next
   }
   cp_async_wait<0>();  // beta's copies, where the rank had no tile
@@ -321,7 +341,7 @@ int row_split(int n_chains, int n, int slots) {
 
 // Sets the instance's attributes; gives the card's SMs and the instance's
 // resident blocks per SM.
-template <int KSteps, int Mode>
+template <int KSteps, int Mode, int Link>
 cudaError_t prepare(int* sms, int* per_sm) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -331,28 +351,28 @@ cudaError_t prepare(int* sms, int* per_sm) {
   }
   const size_t smem = smem_floats(KSteps) * sizeof(float);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_logistic_kernel<KSteps, Mode>,
+    err = cudaFuncSetAttribute(fused_logistic_kernel<KSteps, Mode, Link>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   }
   if (err == cudaSuccess) {  // room for four blocks per SM
-    err = cudaFuncSetAttribute(fused_logistic_kernel<KSteps, Mode>,
+    err = cudaFuncSetAttribute(fused_logistic_kernel<KSteps, Mode, Link>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, fused_logistic_kernel<KSteps, Mode>, kThreads, smem);
+        per_sm, fused_logistic_kernel<KSteps, Mode, Link>, kThreads, smem);
   }
   return err;
 }
 
-template <int KSteps, int Mode>
+template <int KSteps, int Mode, int Link>
 cudaError_t launch(const float* theta, const float* x, const float* y,
                    float* lp, float* grad, int n_chains, int dim, int n,
-                   int prior_p, cudaStream_t stream) {
+                   int prior_p, float offset, cudaStream_t stream) {
   int sms = 0, per_sm = 0;
-  const cudaError_t err = prepare<KSteps, Mode>(&sms, &per_sm);
+  const cudaError_t err = prepare<KSteps, Mode, Link>(&sms, &per_sm);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_floats(KSteps) * sizeof(float);
   const int split = row_split(n_chains, n, sms * std::max(per_sm, 1));
@@ -369,38 +389,52 @@ cudaError_t launch(const float* theta, const float* x, const float* y,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, fused_logistic_kernel<KSteps, Mode>, theta,
-                            x, y, lp, grad, n_chains, dim, n, prior_p);
+  return cudaLaunchKernelEx(&cfg, fused_logistic_kernel<KSteps, Mode, Link>,
+                            theta, x, y, lp, grad, n_chains, dim, n, prior_p,
+                            offset);
 }
 
-// The compiled instances of each mode, by k-steps of 8 columns: 13 is the
-// 100-D model's p = 99. A call takes the smallest that holds its p.
+// The compiled instances of each mode and link, by k-steps of 8 columns:
+// 13 is the 100-D model's p = 99. A call takes the smallest that holds its
+// p.
 struct Instance {
   int ksteps;
   cudaError_t (*prepare)(int*, int*);
   cudaError_t (*launch)(const float*, const float*, const float*, float*,
-                        float*, int, int, int, int, cudaStream_t);
+                        float*, int, int, int, int, float, cudaStream_t);
 };
-template <int Mode>
+template <int Mode, int Link>
 struct Instances {
   static constexpr Instance kAll[] = {
-      {4, prepare<4, Mode>, launch<4, Mode>},
-      {8, prepare<8, Mode>, launch<8, Mode>},
-      {13, prepare<13, Mode>, launch<13, Mode>},
-      {kMaxKSteps, prepare<kMaxKSteps, Mode>, launch<kMaxKSteps, Mode>},
+      {4, prepare<4, Mode, Link>, launch<4, Mode, Link>},
+      {8, prepare<8, Mode, Link>, launch<8, Mode, Link>},
+      {13, prepare<13, Mode, Link>, launch<13, Mode, Link>},
+      {kMaxKSteps, prepare<kMaxKSteps, Mode, Link>,
+       launch<kMaxKSteps, Mode, Link>},
   };
 };
 constexpr int kModes = 5;
-constexpr const Instance* kInstances[kModes] = {
-    Instances<kF32>::kAll, Instances<kBf16>::kAll,
-    Instances<kResidBf16>::kAll, Instances<kF16>::kAll,
-    Instances<kResidF16>::kAll};
+constexpr int kLinks = 2;
+// by link, then mode; none where the link has no instances in the mode
+constexpr const Instance* kInstances[kLinks][kModes] = {
+    {Instances<kF32, kLogistic>::kAll, Instances<kBf16, kLogistic>::kAll,
+     Instances<kResidBf16, kLogistic>::kAll, Instances<kF16, kLogistic>::kAll,
+     Instances<kResidF16, kLogistic>::kAll},
+    {Instances<kF32, kPoisson>::kAll, Instances<kBf16, kPoisson>::kAll,
+     nullptr, nullptr, nullptr}};
 constexpr int kPerMode = 4;
 
-const Instance* instance_for(int dim, int mode) {
-  if (mode < 0 || mode >= kModes) return nullptr;
+// Whether the link has instances in the mode (the wide path takes the
+// same pairs).
+bool has_link(int mode, int link) {
+  return mode >= 0 && mode < kModes && link >= 0 && link < kLinks &&
+         kInstances[link][mode] != nullptr;
+}
+
+const Instance* instance_for(int dim, int mode, int link = kLogistic) {
+  if (!has_link(mode, link)) return nullptr;
   for (int i = 0; i < kPerMode; ++i) {
-    const Instance& inst = kInstances[mode][i];
+    const Instance& inst = kInstances[link][mode][i];
     if (dim - 1 <= 8 * inst.ksteps) return &inst;
   }
   return nullptr;
@@ -519,6 +553,8 @@ struct Args {
   const float* theta;  // (C, dim): the prior's log sigma and beta
   float* bsq;          // (C,): stage A writes the prior's sum, stage B reads
   int prior_p;         // the prior's p, 0 = no prior
+  int link;            // the likelihood (logistic_tile.cuh `Link`)
+  float offset;        // the Poisson link's c
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -764,9 +800,9 @@ __device__ __forceinline__ void promote(float (&acc)[kAcc],
 // The epilogue of a tile: this rank's rows (kBM / split of them), each
 // element the ranks' partial sums added in rank order. Threads share a row
 // (2 * split of them), each takes every (2 * split)-th 4 columns. Stage A
-// turns logits into residuals and lp partials, stage B writes the gradient
-// and, in column tile 0, lp.
-template <int kStage, int Mode>
+// turns logits into residuals and lp partials under `Link`, stage B writes
+// the gradient and, in column tile 0, lp.
+template <int kStage, int Mode, int Link>
 __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
                                          float* epi, int split, int rank,
                                          int m0, int n0, const Args& a) {
@@ -803,8 +839,9 @@ __device__ __forceinline__ void epilogue(cg::cluster_group& cluster,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool in = j + e < a.n;
-        r[e] = logistic_tile::logit_term(
-            v[e], in ? __ldg(a.y + j + e) : 0.f, in ? 1.f : 0.f, lp);
+        r[e] = logistic_tile::link_term<Link>(
+            v[e], in ? __ldg(a.y + j + e) : 0.f, in ? 1.f : 0.f, a.offset,
+            lp);
         if constexpr (Mode != kF32) {
           r[e] = logistic_tile::round_mode<Mode>(r[e]);
         }
@@ -986,7 +1023,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap b_map,
   }
   // every rank's partial tile is in its shared memory
   cluster.sync();
-  epilogue<kStage, Mode>(cluster, epi, split, rank, m0, n0, args);
+  if (kStage == 0 && args.link == kPoisson) {
+    epilogue<kStage, Mode, kPoisson>(cluster, epi, split, rank, m0, n0,
+                                     args);
+  } else {
+    epilogue<kStage, Mode, kLogistic>(cluster, epi, split, rank, m0, n0,
+                                      args);
+  }
   cluster.sync();   // no block leaves while another reads its tile
 }
 
@@ -1204,7 +1247,8 @@ template <int Mode>
 cudaError_t launch_wide_mode(const void* design, const float* theta,
                         const float* y, float* lp, float* grad,
                         float* scratch, int n_chains, int dim, int n,
-                        int prior_p, cudaStream_t stream, int* launches) {
+                        int prior_p, int link, float offset,
+                        cudaStream_t stream, int* launches) {
   using namespace wide;
   if (design == nullptr || scratch == nullptr) return cudaErrorInvalidValue;
   Design d;
@@ -1229,7 +1273,7 @@ cudaError_t launch_wide_mode(const void* design, const float* theta,
     const Args args = {theta, dim,     dim, y,    resid,
                        lp_part, lp,    grad, n_chains, dim,
                        n,     sh.n_pad, sh.k_pad / kBK, sh.n_tiles_a,
-                       theta, bsq,   prior_p};
+                       theta, bsq,   prior_p, link, offset};
     if (err == cudaSuccess) {
       err = (tma ? launch_gemm<0, true, Mode> : launch_gemm<0, false, Mode>)(
           x_map, a_map, args, sh.m_tiles, sh.n_tiles_a, sh.split_a, stream);
@@ -1242,7 +1286,7 @@ cudaError_t launch_wide_mode(const void* design, const float* theta,
     const Args args = {resid,   sh.n_pad, sh.n_pad, y,        resid,
                        lp_part, lp,       grad,     n_chains, dim,
                        n,       sh.n_pad, sh.n_pad / kBK, sh.n_tiles_a,
-                       theta,   bsq,      prior_p};
+                       theta,   bsq,      prior_p, link, offset};
     if (err == cudaSuccess) {
       err = launch_gemm<1, true, stage_b_mode(Mode)>(
           xt_map, a_map, args, sh.m_tiles, sh.n_tiles_b, sh.split_b, stream);
@@ -1252,33 +1296,35 @@ cudaError_t launch_wide_mode(const void* design, const float* theta,
   return err;
 }
 
-// The wide path of a call in `mode` (launch_wide_mode); an unknown mode is
-// refused.
+// The wide path of a call in `mode` (launch_wide_mode); an unknown mode,
+// or a link the mode has no narrow instances of, is refused.
 cudaError_t launch_wide(int mode, const void* design, const float* theta,
                         const float* y, float* lp, float* grad,
                         float* scratch, int n_chains, int dim, int n,
-                        int prior_p, cudaStream_t stream, int* launches) {
+                        int prior_p, int link, float offset,
+                        cudaStream_t stream, int* launches) {
+  if (!has_link(mode, link)) return cudaErrorInvalidValue;
   switch (mode) {
     case kF32:
       return launch_wide_mode<kF32>(design, theta, y, lp, grad, scratch,
-                                    n_chains, dim, n, prior_p, stream,
-                                    launches);
+                                    n_chains, dim, n, prior_p, link, offset,
+                                    stream, launches);
     case kBf16:
       return launch_wide_mode<kBf16>(design, theta, y, lp, grad, scratch,
-                                     n_chains, dim, n, prior_p, stream,
-                                     launches);
+                                     n_chains, dim, n, prior_p, link, offset,
+                                     stream, launches);
     case kResidBf16:
       return launch_wide_mode<kResidBf16>(design, theta, y, lp, grad,
                                           scratch, n_chains, dim, n, prior_p,
-                                          stream, launches);
+                                          link, offset, stream, launches);
     case kF16:
       return launch_wide_mode<kF16>(design, theta, y, lp, grad, scratch,
-                                    n_chains, dim, n, prior_p, stream,
-                                    launches);
+                                    n_chains, dim, n, prior_p, link, offset,
+                                    stream, launches);
     case kResidF16:
       return launch_wide_mode<kResidF16>(design, theta, y, lp, grad,
                                          scratch, n_chains, dim, n, prior_p,
-                                         stream, launches);
+                                         link, offset, stream, launches);
   }
   return cudaErrorInvalidValue;
 }
@@ -1384,7 +1430,10 @@ int fused_logistic_wide_prepare(void* out, const float* planes,
 // grad (n_chains, dim): contiguous float32 device arrays; `mode` kF32,
 // kBf16, kResidBf16, kF16 or kResidF16 (logistic_tile.cuh); `prior` 0
 // for the likelihood alone, or 1 to add the hierarchical prior at
-// p = dim - 1 (the header's formula) in the same launches. For dim > 129
+// p = dim - 1 (the header's formula) in the same launches; `link`
+// kLogistic or kPoisson (logistic_tile.cuh; kPoisson in kF32 and kBf16
+// only), `offset` the Poisson link's c (not read by the logistic). For
+// dim > 129
 // also `design` (fused_logistic_wide_prepare, of this x laid out for the
 // mode) and `scratch` (fused_logistic_wide_scratch_floats floats); the
 // narrow instances take neither. Launches on `stream`, writes the number of
@@ -1394,20 +1443,21 @@ int fused_logistic_wide_prepare(void* out, const float* planes,
 int fused_logistic_value_grad_f32(const float* theta, const float* x,
                                   const float* y, float* lp, float* grad,
                                   int n_chains, int dim, int n, int mode,
-                                  int prior, const void* design,
-                                  float* scratch, void* stream,
-                                  int* launches) {
+                                  int prior, int link, float offset,
+                                  const void* design, float* scratch,
+                                  void* stream, int* launches) {
   *launches = 0;
   if (n_chains <= 0) return 0;
   const int prior_p = prior ? dim - 1 : 0;
   // p <= 128 takes the narrow instance that holds it, a wider p the wide
-  // kernels
-  const Instance* inst = instance_for(dim, mode);
+  // kernels (which refuse a link the mode has no instances of)
+  const Instance* inst = instance_for(dim, mode, link);
   const cudaError_t err =
       inst ? inst->launch(theta, x, y, lp, grad, n_chains, dim, n, prior_p,
-                          (cudaStream_t)stream)
+                          offset, (cudaStream_t)stream)
            : launch_wide(mode, design, theta, y, lp, grad, scratch, n_chains,
-                         dim, n, prior_p, (cudaStream_t)stream, launches);
+                         dim, n, prior_p, link, offset, (cudaStream_t)stream,
+                         launches);
   if (inst && err == cudaSuccess) *launches = 1;
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that it is not reported again later

@@ -9,6 +9,8 @@
 //   product 1   logit[c, j]  = beta_c . x[j]             (16 x kTileRows)
 //   epilogue    lp[c]       += y[j] * logit - softplus(logit)
 //               r[c, j]      = y[j] - sigmoid(logit)
+//               (Poisson-log link: y[j] * logit - exp(c + logit) and
+//               y[j] - exp(c + logit), `Link` below)
 //   product 2   grad[c, :]  += sum_j r[c, j] * x[j]      (16 x 8*KSteps)
 //
 // Both products are mma.sync.m16n8k8 in TF32 with the 3xTF32 split: every
@@ -62,6 +64,13 @@ constexpr int kTileRows = 32;  // 4 n-tiles of product 1, 4 k-steps of 2
 enum Mode : int {
   kF32 = 0, kBf16 = 1, kResidBf16 = 2, kF16 = 3, kResidF16 = 4
 };
+
+// The likelihood of an observation given its linear predictor l (the
+// "logit"); the numbers of the C interface. kLogistic: Bernoulli-logit,
+// y l - softplus(l). kPoisson: Poisson-log with a scalar offset c, counts
+// y ~ Poisson(exp(c + l)), y l - exp(c + l) (the terms y c and log y! that
+// do not depend on l left out).
+enum Link : int { kLogistic = 0, kPoisson = 1 };
 
 // The modes that round every operand (one TF32 product, no lo passes),
 // and those that round the residual alone.
@@ -173,22 +182,41 @@ __device__ __forceinline__ float logit_term(float l, float y, float w,
   return y - w * sig;
 }
 
+// One observation's share under `Link`: adds its log-likelihood term to
+// `lp` and returns the residual, the term's derivative in l; w is 0 on a
+// padded row (y 0 there). The Poisson term's rate exp(c + l) is the
+// accurate expf, as the logistic's exp.
+template <int Link>
+__device__ __forceinline__ float link_term(float l, float y, float w,
+                                           float offset, float& lp) {
+  if constexpr (Link == kPoisson) {
+    const float rate = w * expf(offset + l);
+    lp += y * l - rate;
+    return y - rate;
+  } else {
+    return logit_term(l, y, w, lp);
+  }
+}
+
 // One staged tile through the warp's 16 chains. `bs` holds their beta,
 // chain i at bs[i * x_stride + k] (columns p.. zero); `grad[nt]` accumulates
 // product 2's C fragment at columns 8nt..8nt+7; `lp_g`, `lp_g8` this lane's
 // share of lp of chains g and g+8. `rows` (<= kTileRows) rows are real.
+// `Link` picks the likelihood of the epilogue, `offset` is the Poisson
+// link's c.
 //
 // The tensor cores truncate where they add into the accumulator, so a long
 // chain of mma on one accumulator drifts (on the 100-D model, 1.7e-3 on
 // gradients of ~270 with one chain through all of n). Each product
 // therefore runs short chains from zero and adds them in float32: product 1
 // two k-steps at a time, product 2 one tile (32 rows) at a time.
-template <int KSteps, int Mode = kF32>
+template <int KSteps, int Mode = kF32, int Link = kLogistic>
 __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
                                           const float* __restrict__ xs,
                                           const float* __restrict__ ys,
                                           int rows, float (&grad)[KSteps][4],
-                                          float& lp_g, float& lp_g8) {
+                                          float& lp_g, float& lp_g8,
+                                          float offset = 0.f) {
   constexpr int S = x_stride(KSteps);
   constexpr int kNT = kTileRows / 8;
   const int lane = threadIdx.x & 31;
@@ -256,10 +284,10 @@ __device__ __forceinline__ void warp_tile(const float* __restrict__ bs,
     const float w0 = r0 < rows ? 1.f : 0.f;
     const float w1 = r0 + 1 < rows ? 1.f : 0.f;
     float r[4];
-    r[0] = logit_term(logit[j][0], y0, w0, lp_g);
-    r[1] = logit_term(logit[j][2], y0, w0, lp_g8);
-    r[2] = logit_term(logit[j][1], y1, w1, lp_g);
-    r[3] = logit_term(logit[j][3], y1, w1, lp_g8);
+    r[0] = link_term<Link>(logit[j][0], y0, w0, offset, lp_g);
+    r[1] = link_term<Link>(logit[j][2], y0, w0, offset, lp_g8);
+    r[2] = link_term<Link>(logit[j][1], y1, w1, offset, lp_g);
+    r[3] = link_term<Link>(logit[j][3], y1, w1, offset, lp_g8);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if constexpr (rounds_resid_only(Mode)) r[i] = round_mode<Mode>(r[i]);

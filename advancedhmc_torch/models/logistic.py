@@ -24,9 +24,10 @@ modes, `ops.fused_logistic.mode_of`); a design and a residual in two
 different reduced dtypes, which K1 has no mode for, raise there.
 
 `hierarchical_logistic_nc` is its non-centred form, θ = (log σ, β̃) with
-β = σ·β̃, and `german_credit_logistic` the model at German credit's shape
-(1000 rows, 24 features). `hierarchical_logistic_block` is the model in
-the block form of the NUTS megakernel K2 (`ops/fused_nuts_kernel.py`).
+β = σ·β̃ (`noncentred_target`, shared with `models/lgcp.py`), and
+`german_credit_logistic` the model at German credit's shape (1000 rows,
+24 features). `hierarchical_logistic_block` is the model in the block
+form of the NUTS megakernel K2 (`ops/fused_nuts_kernel.py`).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import profiling
-from ..ops.fused_logistic import fused_logistic_value_grad, \
-    hierarchical_prior, kernel_route, mode_of
+from ..ops.fused_logistic import MODE_F32, fused_logistic_value_grad, \
+    hierarchical_prior, kernel_route, link_terms, mode_of
 from ..target import BlockTarget, LogDensityTarget
 from ..utils import reduced_dtype, resolve_device, round_to
 
@@ -113,18 +114,30 @@ def hierarchical_logistic_nc(n: int = 1000, p: int = 24, seed: int = 0,
                              device=None) -> LogDensityTarget:
     """The non-centred hierarchy on `device` (None means CUDA): the same
     posterior and data, θ = (log σ, β̃) with β = σ·β̃, β̃ ~ N(0, I), log σ ~
-    N(0, 1). Counterpart of the JAX function of the same name.
-
-    On the card (`kernel_route`) the likelihood goes through K1, exactly:
-    the logits x·β = σ·(x·β̃) are those of the centred model at θ' = (log
-    σ, σ·β̃), so K1 at θ' gives lp and g_β = resid·x, and then ∇β̃ = σ·g_β
-    − β̃ and ∂/∂log σ = −log σ + g_β·β. Elsewhere the analytic value+grad
-    of the JAX model."""
+    N(0, 1). Counterpart of the JAX function of the same name; its
+    value+grad is `noncentred_target`'s."""
     device = resolve_device(device)
     x_np, y_np = _synthetic_data(n, p, seed)
     x = torch.as_tensor(x_np, dtype=dtype, device=device).contiguous()
     y = torch.as_tensor(y_np, dtype=dtype, device=device)
-    likelihood = fused_logistic_value_grad(x, y)
+    return noncentred_target(x, y)
+
+
+def noncentred_target(x, y, mode=MODE_F32, link="logistic",
+                      offset=0.0) -> LogDensityTarget:
+    """The non-centred hierarchy over the design `x` (n, p) and responses
+    `y` (n,) under K1's `link` (`ops.fused_logistic.link_terms`; offset c =
+    `offset` for "poisson"): θ = (log σ, β̃), log σ ~ N(0, 1), β̃ ~ N(0, I),
+    logits x·β with β = σ·β̃; dim = p + 1.
+
+    On the card (`kernel_route`) the likelihood goes through K1 in `mode`,
+    exactly: the logits x·β = σ·(x·β̃) are those of the centred model at
+    θ' = (log σ, σ·β̃), so K1 at θ' gives lp and g_β = resid·x, and then
+    ∇β̃ = σ·g_β − β̃ and ∂/∂log σ = −log σ + g_β·β. Elsewhere the analytic
+    value+grad (over `x` as given: a rounded design stays rounded, θ and
+    the residual do not round)."""
+    likelihood = fused_logistic_value_grad(x, y, mode, link=link,
+                                           offset=offset)
 
     def prior(theta):
         ls, bt = theta[:, 0], theta[:, 1:]
@@ -132,7 +145,7 @@ def hierarchical_logistic_nc(n: int = 1000, p: int = 24, seed: int = 0,
 
     def logdensity(theta):
         logits = torch.exp(theta[:, :1]) * (theta[:, 1:] @ x.T)
-        return prior(theta) + _loglik(y, logits)
+        return prior(theta) + link_terms(logits, y, link, offset)[0]
 
     def logdensity_and_grad(theta):
         with profiling.span("ahmc.target.value_grad"):
@@ -145,15 +158,14 @@ def hierarchical_logistic_nc(n: int = 1000, p: int = 24, seed: int = 0,
                 grad_ls = -ls + torch.sum(g_beta * beta, -1, keepdim=True)
             else:
                 logits = s * (bt @ x.T)
-                lp_lik = _loglik(y, logits)
-                resid = y - torch.sigmoid(logits)
+                lp_lik, resid = link_terms(logits, y, link, offset)
                 # ∂logits/∂log σ = logits; ∂logits/∂β̃ = σ·x
                 grad_ls = -ls + torch.sum(resid * logits, -1, keepdim=True)
                 g_beta = resid @ x
             return (prior(theta) + lp_lik,
                     torch.cat([grad_ls, s * g_beta - bt], 1))
 
-    return LogDensityTarget(logdensity, p + 1, logdensity_and_grad)
+    return LogDensityTarget(logdensity, x.shape[1] + 1, logdensity_and_grad)
 
 
 def german_credit_logistic(dtype=torch.float32,

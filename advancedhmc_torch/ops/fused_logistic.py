@@ -49,6 +49,17 @@ MODE_RESID_F16 are the same with float16 (`x_dtype`, `resid_dtype`
 holds it exactly too. On the card a mode runs its own kernel instances;
 there is no route to the plain version.
 
+Links: the likelihood above is the Bernoulli-logit (`link="logistic"`).
+With `link="poisson"` the responses are counts y ~ Poisson(exp(c + logit))
+with a scalar offset c (`offset`), and the kernels take
+
+    loglik[c] = Σ_j y_j·logit_cj − exp(c + logit_cj)
+    grad[c]   = (0, Σ_j (y_j − exp(c + logit_cj))·x_j)
+
+(the terms y_j·c and log y_j! left out). The link changes the epilogue
+alone; it has instances in MODE_F32 and MODE_BF16, and another mode
+refuses it.
+
 The hierarchical prior (`hierarchical_prior`: log σ ~ N(0, 1), β ~ N(0,
 σ² I) at p = dim − 1, at θ's column 0 and the unrounded β) is an option
 of every call: with `prior=True` the kernels add its value and gradient
@@ -66,8 +77,8 @@ On the card, `logistic_value_grad.calls` counts its value+grad calls and
 reports them: one a call up to p = 128, two (the two GEMMs) above, in every
 mode; `.bf16_calls` and `.bf16_launches` count those of MODE_BF16 apart,
 `.f16_calls` and `.f16_launches` those of MODE_F16. Each launch runs inside
-an `ahmc.k1` span (`profiling.span`) that notes its chain count and, as
-"prior", the prior's p (0 without it).
+an `ahmc.k1` span (`profiling.span`) that notes its chain count, as
+"prior" the prior's p (0 without it) and its "link".
 """
 
 from __future__ import annotations
@@ -89,6 +100,10 @@ _ROUNDING = {MODE_F32: (None, None),
              MODE_RESID_BF16: (None, torch.bfloat16),
              MODE_F16: (torch.float16, torch.float16),
              MODE_RESID_F16: (None, torch.float16)}
+# the links, numbered as the C interface numbers them (logistic_tile.cuh
+# `Link`), and the modes that have instances of each
+LINKS = {"logistic": 0, "poisson": 1}
+_LINK_MODES = {"logistic": tuple(_ROUNDING), "poisson": (MODE_F32, MODE_BF16)}
 
 
 def mode_of(x_dtype, resid_dtype):
@@ -128,17 +143,33 @@ def hierarchical_prior(theta, p):
     return lp, torch.cat([g0[:, None], -beta * inv_s2[:, None]], 1)
 
 
-def plain_logistic_value_grad(theta, x, y, mode=MODE_F32, prior=False):
+def link_terms(logits, y, link="logistic", offset=0.0):
+    """The likelihood of `link` at `logits` (C, n): its log density summed
+    over the observations (C,) and the residuals (C, n), its derivative in
+    each logit. "logistic": y·l − softplus(l) and y − σ(l); "poisson": y·l
+    − exp(c + l) and y − exp(c + l), c = `offset`."""
+    if link == "poisson":
+        rate = torch.exp(offset + logits)
+        return torch.sum(y * logits - rate, -1), y - rate
+    if link != "logistic":
+        raise ValueError(f"unknown link {link!r}; K1 has {sorted(LINKS)}")
+    loglik = torch.sum(
+        y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
+    return loglik, y - torch.sigmoid(logits)
+
+
+def plain_logistic_value_grad(theta, x, y, mode=MODE_F32, prior=False,
+                              link="logistic", offset=0.0):
     """The same function in plain PyTorch: two matmuls and elementwise ops,
     with the mode's operands rounded to bfloat16 or float16 (the products
-    of rounded operands are exact in θ's dtype), plus the unrounded θ's
-    `hierarchical_prior` where `prior` is on."""
+    of rounded operands are exact in θ's dtype), the likelihood of `link`
+    (`link_terms`), plus the unrounded θ's `hierarchical_prior` where
+    `prior` is on."""
     od, rd = _ROUNDING[mode]
     beta, x = round_to(theta[:, 1:], od), round_to(x, od)
     logits = beta @ x.T                                        # (C, n)
-    loglik = torch.sum(
-        y * logits - torch.logaddexp(logits, torch.zeros_like(logits)), -1)
-    resid = round_to(y - torch.sigmoid(logits), rd)
+    loglik, resid = link_terms(logits, y, link, offset)
+    resid = round_to(resid, rd)
     g = resid @ x                                              # (C, p)
     grad = torch.cat([torch.zeros_like(g[:, :1]), g], 1)
     if prior:
@@ -147,12 +178,15 @@ def plain_logistic_value_grad(theta, x, y, mode=MODE_F32, prior=False):
     return loglik, grad
 
 
-def rounding_reference(theta, x, y, mode, logit_slack=2.0 ** -14):
-    """The function of `mode` in float64 (its roundings, exact sums), and
-    how far a float32 evaluation of it can lie from that through the
-    residual's rounding alone. Float32 sums of the logits in another order
-    move a logit by far less than `logit_slack`, so a residual y − σ(l) by
-    less than `logit_slack`·σ(l)(1 − σ(l)) (and its own float32 rounding);
+def rounding_reference(theta, x, y, mode, logit_slack=2.0 ** -14,
+                       link="logistic", offset=0.0):
+    """The function of `mode` and `link` in float64 (its roundings, exact
+    sums), and how far a float32 evaluation of it can lie from that through
+    the residual's rounding alone. Float32 sums of the logits in another
+    order move a logit by far less than `logit_slack`, so a residual by
+    less than `logit_slack` times its derivative in the logit (σ(l)(1 −
+    σ(l)) for y − σ(l), exp(c + l) for the Poisson y − exp(c + l)), and
+    its own float32 rounding;
     where that reaches a bfloat16 rounding midpoint, the residual can round
     to its other neighbour, one step of the mode's residual dtype away
     (bfloat16 or float16), and move the gradient by that step times |x|.
@@ -160,14 +194,20 @@ def rounding_reference(theta, x, y, mode, logit_slack=2.0 ** -14):
     the allowance is zero in MODE_F32 and for every chain with no residual
     near a midpoint."""
     th, x, y = theta.double(), x.double(), y.double()
-    lp, g = plain_logistic_value_grad(th, x, y, mode)
+    lp, g = plain_logistic_value_grad(th, x, y, mode, link=link,
+                                      offset=offset)
     if mode == MODE_F32:
         return lp, g, torch.zeros_like(g), 0
     od, rd = _ROUNDING[mode]
     xr = round_to(x, od)
-    sig = torch.sigmoid(round_to(th[:, 1:], od) @ xr.T)
-    r = y - sig
-    slack = logit_slack * sig * (1.0 - sig) + 2.0 ** -22 * r.abs()
+    logits = round_to(th[:, 1:], od) @ xr.T
+    if link == "poisson":
+        rate = torch.exp(offset + logits)
+        r, slope = y - rate, rate
+    else:
+        sig = torch.sigmoid(logits)
+        r, slope = y - sig, sig * (1.0 - sig)
+    slack = logit_slack * slope + 2.0 ** -22 * r.abs()
     rb = r.to(rd)
     bits = rb.view(torch.int16)
     near_mid, step = None, None
@@ -186,8 +226,9 @@ def rounding_reference(theta, x, y, mode, logit_slack=2.0 ** -14):
 def _kernel(lib):
     fn = lib.fused_logistic_value_grad_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            ctypes.c_float] + [ctypes.c_void_p] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         lib.fused_logistic_smem_bytes.argtypes = [ctypes.c_int]
         lib.fused_logistic_smem_bytes.restype = ctypes.c_size_t
@@ -324,18 +365,29 @@ def wide_launch_shape(n_chains, dim, n, mode=MODE_F32):
     return dict(zip(WIDE_SHAPE_FIELDS, out))
 
 
+def _check_link(link, mode):
+    if link not in LINKS:
+        raise ValueError(f"unknown link {link!r}; K1 has {sorted(LINKS)}")
+    if mode not in _LINK_MODES[link]:
+        raise ValueError(f"K1 has no {link} link in mode {mode}; it has "
+                         f"it in modes {_LINK_MODES[link]}")
+
+
 def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32,
-                        prior=False):
+                        prior=False, link="logistic", offset=0.0):
     """Likelihood part of the hierarchical logistic: `theta (C, dim)`,
     `x (n, dim - 1)`, `y (n,)` → `(loglik (C,), grad (C, dim))`, in `mode`;
     with `prior=True` the whole model's, `hierarchical_prior` at p =
-    dim − 1 included. Above p = NARROW_MAX_P a CUDA call takes x's prepared
-    `design` (a WideDesign of this x in this mode), prepared here for the
-    call when not given. Each call on the card counts one in `.calls` and
+    dim − 1 included; `link="poisson"` takes y as counts under the
+    Poisson-log link with offset c = `offset`. Above p = NARROW_MAX_P a
+    CUDA call takes x's prepared `design` (a WideDesign of this x in this
+    mode), prepared here for the call when not given. Each call on the card counts one in `.calls` and
     its kernels in `.launches` (and, in MODE_BF16, in `.bf16_calls` and
     `.bf16_launches`; in MODE_F16, in `.f16_calls` and `.f16_launches`)."""
+    _check_link(link, mode)
     if theta.device.type == "cpu":
-        return plain_logistic_value_grad(theta, x, y, mode, prior)
+        return plain_logistic_value_grad(theta, x, y, mode, prior, link,
+                                         offset)
     _check_inputs(theta, x, y)
     lib = _build.load(_LIB)
     fn = _kernel(lib)
@@ -356,9 +408,10 @@ def logistic_value_grad(theta, x, y, design=None, mode=MODE_F32,
     with profiling.span("ahmc.k1"):
         profiling.note("chains", c)
         profiling.note("prior", dim - 1 if prior else 0)
+        profiling.note("link", link)
         err = fn(theta.data_ptr(), x.data_ptr(), y.data_ptr(),
                  loglik.data_ptr(), grad.data_ptr(), c, dim, n, mode,
-                 int(bool(prior)),
+                 int(bool(prior)), LINKS[link], float(offset),
                  None if scratch is None else ctypes.addressof(design.maps),
                  None if scratch is None else scratch.data_ptr(), stream,
                  ctypes.byref(launched))
@@ -383,17 +436,20 @@ logistic_value_grad.f16_calls = 0
 logistic_value_grad.f16_launches = 0
 
 
-def fused_logistic_value_grad(x, y, mode=MODE_F32, prior=False):
+def fused_logistic_value_grad(x, y, mode=MODE_F32, prior=False,
+                              link="logistic", offset=0.0):
     """Build `apply(thetas (C, dim)) -> (loglik (C,), grad (C, dim))` over the
     (n, p) design matrix `x` and (n,) 0/1 responses `y` (dim = p + 1;
     without `prior` the gradient's component 0 is 0 and the caller adds the
     prior, as with the JAX function of the same name; with `prior=True` the
-    kernels add `hierarchical_prior`), in `mode`. The data stays on
+    kernels add `hierarchical_prior`), in `mode`, under `link` (counts `y`
+    and offset c = `offset` with "poisson"). The data stays on
     its device in its own dtype; the kernel is chosen by the device of
     `thetas` at each call. Above p = NARROW_MAX_P the design is prepared
     for the wide path at the first call on the card (`apply.design`), and
     again only once x has been written in place (its version counter
     moved), so that every route reads the x of the moment."""
+    _check_link(link, mode)
     x = x.contiguous()
     y = y.to(x.dtype).contiguous()
 
@@ -402,7 +458,8 @@ def fused_logistic_value_grad(x, y, mode=MODE_F32, prior=False):
                 and (apply.design is None or apply.version != x._version)):
             _check_inputs(thetas, x, y)
             apply.design, apply.version = WideDesign(x, mode), x._version
-        return logistic_value_grad(thetas, x, y, apply.design, mode, prior)
+        return logistic_value_grad(thetas, x, y, apply.design, mode, prior,
+                                   link, offset)
 
     apply.design = apply.version = None
     return apply

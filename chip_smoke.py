@@ -77,6 +77,11 @@ Phases (any failure exits non-zero):
    wide_reference.py, four runs) within 4 combined MCSEs plus 3 standard
    deviations between the JAX runs; K1's bfloat16 mode is checked and
    timed as in phase 2 at the path's shapes (C = 1024 and 1, p = 999);
+   9c: K1's Poisson-log link over the 64 × 64 log-Gaussian Cox process's
+   factor L₀ (4096 × 4096, the lgcp64.chees cell), at its chain count
+   and the step-size search's one chain, in float32 and bfloat16, held
+   as in phase 2 with the other mode as the control, and timed beside the
+   model's least time (hmcbench/roofline_cox.py);
 10. the megakernel on the 1000-D model (K2's wide instance, p > 128): from
    phase 9's final state (ε, M⁻¹, the 1024 positions), K2 against its plain
    version on call 1's inputs, on forced-deep (ε/8, depth 6 of 6) and
@@ -539,8 +544,10 @@ def k1_bound_ms(c, dim, n, mode):
             "operations" if t_ops >= t_bytes else "bytes", side)
 
 
-def check_k1(theta, x, y, design, mode, control_design, prior=False):
-    """K1 in `mode` at one shape on the card: finite outputs of the right
+def check_k1(theta, x, y, design, mode, control_design, prior=False,
+             link="logistic", offset=0.0):
+    """K1 in `mode` under `link` (offset c = `offset` for the Poisson-log
+    link) at one shape on the card: finite outputs of the right
     shape (without the prior a zero column 0), two calls bitwise equal (no
     atomics), one call counted with its launches (one up to p = 128, two
     above), and the kernel held to the mode's float64 reference (its
@@ -565,13 +572,15 @@ def check_k1(theta, x, y, design, mode, control_design, prior=False):
     other = k1_control_mode(mode)
     launch_key, call_key = k1_counter_keys(mode)
     before = read_launches()
-    lp, g = k1.logistic_value_grad(theta, x, y, design, mode, prior)
+    kw = dict(link=link, offset=offset)
+    lp, g = k1.logistic_value_grad(theta, x, y, design, mode, prior, **kw)
     after = read_launches()
-    lp2, g2 = k1.logistic_value_grad(theta, x, y, design, mode, prior)
+    lp2, g2 = k1.logistic_value_grad(theta, x, y, design, mode, prior, **kw)
     lp_c, g_c = k1.logistic_value_grad(theta, x, y, control_design, other,
-                                       prior)
-    lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y, mode, prior)
-    lp_r, g_r, allow, n_near = k1.rounding_reference(theta, x, y, mode)
+                                       prior, **kw)
+    lp_p, g_p = k1.plain_logistic_value_grad(theta, x, y, mode, prior, **kw)
+    lp_r, g_r, allow, n_near = k1.rounding_reference(theta, x, y, mode,
+                                                     **kw)
     if prior:
         lp_pri, g_pri = k1.hierarchical_prior(theta.double(), dim - 1)
         lp_r, g_r = lp_r + lp_pri, g_r + g_pri
@@ -601,7 +610,7 @@ def check_k1(theta, x, y, design, mode, control_design, prior=False):
           and (prior or bool((g[:, 0] == 0).all()))
           and per_call == (1 if dim <= 129 else 2)
           and after[call_key] - before[call_key] == 1)
-    log(f"# K1 mode {mode} C={c} p={dim - 1} n={x.shape[0]}"
+    log(f"# K1 mode {mode} link {link} C={c} p={dim - 1} n={x.shape[0]}"
         f"{' with the prior' if prior else ''}: vs the mode's float64 "
         f"reference max(|Δgrad| - allowance - tol) {ex_k[0]:.3e} (tol "
         f"{float(tol_g[0]):.3e} in column 0, {float(tol_g[-1]):.3e} "
@@ -614,7 +623,8 @@ def check_k1(theta, x, y, design, mode, control_design, prior=False):
         f"{ex_c[1]:.3e} (lp), which must be > 0: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"K1 in mode {mode} disagrees with its reference "
-                           f"at C={c}, p={dim - 1}, prior {prior}")
+                           f"at C={c}, p={dim - 1}, prior {prior}, link "
+                           f"{link}")
     return per_call, err
 
 
@@ -653,9 +663,11 @@ def k1_report():
     for p_max, regs, spill, name in ptxas_instances(
             "fused_logistic", r"fused_logistic_kernelILi(\d+)E"):
         if p_max:       # the wide path's kernels: k1_wide_report
-            mode = re.search(r"fused_logistic_kernelILi\d+ELi(\d)E", name)
-            log(f"# K1 instance p <= {p_max}, mode {mode.group(1)}: {regs} "
-                f"registers, {spill} bytes of spill stores (ptxas)")
+            mode = re.search(
+                r"fused_logistic_kernelILi\d+ELi(\d)ELi(\d)E", name)
+            log(f"# K1 instance p <= {p_max}, mode {mode.group(1)}, link "
+                f"{mode.group(2)}: {regs} registers, {spill} bytes of spill "
+                "stores (ptxas)")
     per_sm, split = ctypes.c_int(), ctypes.c_int()
     for c in (N_CHAINS, WARMUP_CHAINS, 1):
         lib.fused_logistic_launch_shape(c, DIM, N_ROWS, k1.MODE_F32,
@@ -1758,6 +1770,77 @@ def phase_wide_k1(mode):
             launched[c] = per_call
             rows.append(time_k1(theta, x, y, design, mode))
     return rows, worst, launched
+
+
+# phase 9c: the lgcp64.chees cell's grid side, and its chain counts (the
+# draws and the step-size search)
+COX_SIDE = 64
+COX_CHAINS = (2048, 1)
+
+
+def phase_cox_k1(modes):
+    """K1's Poisson-log link over the log-Gaussian Cox process's factor
+    L₀ (made once, float64 Cholesky on the card) with the model's offset c,
+    at θ' = (log σ, σ·z) as the model's route passes it (log σ uniform in
+    [−1, 1], z normal): check_k1 in each of `modes` (the control the other
+    mode) and a timing row at each of COX_CHAINS, its bound the model's
+    least time (`hmcbench.roofline_cox.least_time_s`: the triangle's
+    products, not the dense ones K1 runs). Returns (rows, largest
+    difference from the plain twin)."""
+    from advancedhmc_torch.models import lgcp
+    from advancedhmc_torch.ops import fused_logistic as k1
+    from hmcbench import roofline_cox
+
+    cells = COX_SIDE * COX_SIDE
+    l0, y_np = lgcp.lgcp_data(COX_SIDE, 0, "cuda")
+    x = l0.float().contiguous()
+    del l0
+    y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    offset = lgcp.MU - math.log(cells)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows, worst = [], 0.0
+    for mode in modes:
+        design = k1.WideDesign(x, mode)
+        control = k1.WideDesign(x, k1_control_mode(mode))
+        dtype = {k1.MODE_F32: "float32",
+                 k1.MODE_BF16: "bfloat16"}[mode]
+        for c in COX_CHAINS:
+            ls = 2.0 * torch.rand(c, 1, generator=gen, device="cuda") - 1.0
+            z = torch.randn(c, cells, generator=gen, device="cuda")
+            theta = torch.cat([ls, torch.exp(ls) * z], 1)
+            per_call, err = check_k1(theta, x, y, design, mode, control,
+                                     link="poisson", offset=offset)
+            worst = max(worst, err)
+
+            def kernel():
+                return k1.logistic_value_grad(theta, x, y, design, mode,
+                                              link="poisson", offset=offset)
+
+            reps = 20
+            row = dict(chains=c, dim=cells + 1, n=cells, mode=mode,
+                       link="poisson", launches=per_call,
+                       ms=device_ms(kernel, reps),
+                       wrapper_ms=wrapper_ms(kernel, reps),
+                       plain_ms=device_ms(lambda: k1.plain_logistic_value_grad(
+                           theta, x, y, mode, link="poisson",
+                           offset=offset), reps),
+                       bound_ms=1e3 * roofline_cox.least_time_s(c, cells,
+                                                                dtype))
+            t_ops = (roofline_cox.value_grad_flops(c, cells)
+                     / roofline_cox.PEAK_FLOPS[dtype])
+            row["bound_by"] = "operations" if t_ops >= (
+                roofline_cox.value_grad_bytes(c, cells, dtype)
+                / roofline_cox.PEAK_BYTES_PER_S) else "bytes"
+            row["roofline_share"] = row["bound_ms"] / row["ms"]
+            log(f"# K1 Poisson link mode {mode} C={c} N={cells}: "
+                f"{row['ms']:.4f} ms on the device, {per_call} launches a "
+                f"call ({row['wrapper_ms']:.4f} ms back to back through the "
+                f"wrapper); plain {row['plain_ms']:.4f} ms; the model's "
+                f"least time {row['bound_ms']:.4f} ms ({row['bound_by']}; the "
+                f"kernel at {100 * row['roofline_share']:.2f} % of it)")
+            rows.append(row)
+        del design, control
+    return rows, worst
 
 
 def wide_spec():
@@ -4646,6 +4729,8 @@ def main(argv=None):
     wide_shape = k1_wide_report(wide_launched)
     wide_bf16_rows, wide_bf16_err, _ = phase_wide_k1(MODE_BF16)
     wide_f16_rows, wide_f16_err, _ = phase_wide_k1(MODE_F16)
+    cox_rows, cox_err = phase_cox_k1((MODE_F32, MODE_BF16))
+    clock("phase 9c")
     wide, res = phase_wide(args.seed)
     clock("phase 9")
     wide_k2 = phase_wide_megakernel(res, wide)
@@ -4843,6 +4928,22 @@ def main(argv=None):
         "wide_plain_ms": f16_row["plain_ms"],
         "wide_bound_ms": f16_row["bound_ms"],
         "shapes": k1_f16_rows + wide_f16_rows,
+    }, {
+        "name": "fused_logistic_value_grad (Poisson link)",
+        "route": "cuda",
+        "source": "advancedhmc_torch/csrc/fused_logistic.cu",
+        "replaces": None,
+        "launches": cox_rows[0]["launches"],
+        "max_abs_err": cox_err,
+        "max_err": cox_err,
+        "ms": cox_rows[0]["ms"],
+        "kernel_ms": cox_rows[0]["ms"],
+        "plain_ms": cox_rows[0]["plain_ms"],
+        "bound_ms": cox_rows[0]["bound_ms"],
+        "bound_by": cox_rows[0]["bound_by"],
+        "library_ms": None,
+        "wrapper_ms": cox_rows[0]["wrapper_ms"],
+        "shapes": cox_rows,
     }, {
         "name": "fused_nuts",
         "route": "cuda",

@@ -174,7 +174,7 @@ def call(lib, theta, x, y):
     grad = torch.empty(c, dim, device="cuda")
     err = lib.fused_logistic_value_grad_f32(
         theta.data_ptr(), x.data_ptr(), y.data_ptr(), lp.data_ptr(),
-        grad.data_ptr(), c, dim, x.shape[0], 0, 0, None, None,
+        grad.data_ptr(), c, dim, x.shape[0], 0, 0, 0, 0.0, None, None,
         torch.cuda.current_stream().cuda_stream,
         ctypes.byref(ctypes.c_int()))
     if err != 0:

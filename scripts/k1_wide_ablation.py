@@ -162,7 +162,7 @@ def call(lib, design, theta, x, y):
     launched = ctypes.c_int(0)
     err = lib.fused_logistic_value_grad_f32(
         theta.data_ptr(), x.data_ptr(), y.data_ptr(), lp.data_ptr(),
-        grad.data_ptr(), c, dim, n, 0, 0, ctypes.addressof(design),
+        grad.data_ptr(), c, dim, n, 0, 0, 0, 0.0, ctypes.addressof(design),
         scratch.data_ptr(), torch.cuda.current_stream().cuda_stream,
         ctypes.byref(launched))
     if err != 0:

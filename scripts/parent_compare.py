@@ -25,10 +25,12 @@ built by its own `ops/_build.py` into its own `_build` directory. Then:
   `fused_gaussian_leapfrog`: the same turns, beside each side's largest
   error against this tree's plain loop;
 * K1 narrow (the 100-D model, `logistic_value_grad`) at C = 32768, 4096,
-  13 and 1 over 1000 and 300 rows, K2 narrow (the 100-D logistic at three
-  step sizes and the Gaussian) and K2 wide (p = 999 and p = 200 over 997
-  rows), through `fused_nuts`: the parent's outputs and this tree's,
-  bitwise equal or not.
+  13 and 1 over 1000 and 300 rows; the value+grad of the hierarchical
+  logistic (float32 and bfloat16 designs) and of its non-centred form at
+  the benchmark cells' shapes (HLR_SHAPES, K1 narrow and wide); K2 narrow
+  (the 100-D logistic at three step sizes and the Gaussian) and K2 wide
+  (p = 999 and p = 200 over 997 rows), through `fused_nuts`: the parent's
+  outputs and this tree's, bitwise equal or not.
 
 Prints one line per comparison, the card's name and power limit, and last
 a JSON object with the results. It exits with 1 if K1 or K2 gives other
@@ -56,6 +58,8 @@ from chip_smoke import K3_SHAPES, WIDE_TIMED  # noqa: E402
 from k1_wide_ablation import graph_ms  # noqa: E402
 
 PARENT = "parent_advancedhmc_torch"
+# (chains, p) of the benchmark's hlr100.chees and hlr1000.chees cells
+HLR_SHAPES = ((32768, 99), (16384, 999))
 MODULES = {"k1": "ops.fused_logistic", "k2": "ops.fused_nuts_kernel",
            "k3": "ops.fused_leapfrog",
            "logistic": "models.logistic", "gaussian": "models.gaussian"}
@@ -186,6 +190,23 @@ def main():
             unchanged &= same
             result[f"K1 narrow C={c} n={n}"] = dict(same_bits=same)
             print(f"# K1 narrow C={c} n={n}: same bits {same}", flush=True)
+    for c, p in HLR_SHAPES:
+        theta = torch.as_tensor(
+            0.1 * np.random.default_rng(p).normal(size=(c, p + 1)),
+            dtype=torch.float32, device="cuda")
+        for model, kw in (("hierarchical_logistic", {}),
+                          ("hierarchical_logistic", {"x_dtype": "bfloat16"}),
+                          ("hierarchical_logistic_nc", {})):
+            old, new = (getattr(m.logistic, model)(
+                n=1000, p=p, device="cuda", **kw).logdensity_and_grad(theta)
+                for m in sides.values())
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(old, new))
+            unchanged &= same
+            label = f"K1 {model}{kw or ''} C={c} p={p}"
+            result[label] = dict(same_bits=same)
+            print(f"# {label}: same bits {same}", flush=True)
+            del old, new
     for (label, old_args), (_, new_args) in zip(
             k2_cases(sides["parent"]), k2_cases(sides["this"])):
         old = sides["parent"].k2.fused_nuts(*old_args)

@@ -207,8 +207,9 @@ def test_centred_model_value_grad_is_k1_alone_on_card(p):
     above) and no PyTorch operation but the outputs' allocation (a
     dispatch mode records every ATen operation, without the profiler,
     whose clock alignment a later test in the process relies on); its
-    `ahmc.k1` span notes prior = p and no `ahmc.target.prior` span opens;
-    the non-centred model's K1 call notes prior 0."""
+    `ahmc.k1` span notes prior = p and the logistic link and no
+    `ahmc.target.prior` span opens; the non-centred model's K1 call notes
+    prior 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -245,9 +246,10 @@ def test_centred_model_value_grad_is_k1_alone_on_card(p):
     assert set(ops.names) == {"aten.empty.memory_format"}, ops.names
     assert [r["name"] for r in spans] == ["ahmc.target.value_grad",
                                           "ahmc.k1"]
-    assert spans[1]["attrs"] == {"chains": 4096, "prior": p}
+    assert spans[1]["attrs"] == {"chains": 4096, "prior": p,
+                                 "link": "logistic"}
     assert [r["attrs"] for r in nc if r["name"] == "ahmc.k1"] == [
-        {"chains": 4096, "prior": 0}]
+        {"chains": 4096, "prior": 0, "link": "logistic"}]
     # the model's call is K1's with the prior, bit for bit
     x_np, y_np = _synthetic_data(1000, p)
     lp_k, g_k = k1.logistic_value_grad(

@@ -17,6 +17,7 @@
 """
 
 import collections
+import ctypes
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -132,10 +133,10 @@ def test_k1_bf16_wide_layout():
 
 
 def test_k1_mode_numbers_and_c_interface():
-    """The wrapper's modes are the kernels' (`enum Mode` of the tile
-    header), the mode reaches the C entry after n and the prior's flag
-    after the mode, and the ctypes argument list has as many entries as the C
-    signature."""
+    """The wrapper's modes and links are the kernels' (`enum Mode` and
+    `enum Link` of the tile header), the mode reaches the C entry after n,
+    then the prior's flag, the link and its offset, and the ctypes argument
+    list has as many entries as the C signature."""
     tile = (CSRC / "logistic_tile.cuh").read_text()
     enum = dict(re.findall(r"(k\w+) = (\d)", re.search(
         r"enum Mode : int \{([^}]*)\}", tile).group(1)))
@@ -143,8 +144,12 @@ def test_k1_mode_numbers_and_c_interface():
                     "kResidBf16": str(k1.MODE_RESID_BF16),
                     "kF16": str(k1.MODE_F16),
                     "kResidF16": str(k1.MODE_RESID_F16)}
+    links = dict(re.findall(r"(k\w+) = (\d)", re.search(
+        r"enum Link : int \{([^}]*)\}", tile).group(1)))
+    assert links == {"kLogistic": str(k1.LINKS["logistic"]),
+                     "kPoisson": str(k1.LINKS["poisson"])}
     src = (CSRC / "fused_logistic.cu").read_text()
-    for name, n_args in (("fused_logistic_value_grad_f32", 14),
+    for name, n_args in (("fused_logistic_value_grad_f32", 16),
                          ("fused_logistic_launch_shape", 6),
                          ("fused_logistic_wide_shape", 5)):
         sig = re.search(rf"\b(?:int|void) {name}\(([^)]*)\)", src).group(1)
@@ -152,12 +157,15 @@ def test_k1_mode_numbers_and_c_interface():
         assert len(params) == n_args, (name, params)
     sig = re.search(r"int fused_logistic_value_grad_f32\(([^)]*)\)",
                     src).group(1)
-    assert [a.split()[-1] for a in sig.split(",")][7:10] == [
-        "n", "mode", "prior"]
+    assert [a.split()[-1] for a in sig.split(",")][7:12] == [
+        "n", "mode", "prior", "link", "offset"]
+    assert [a.split()[0] for a in sig.split(",")][10:12] == ["int", "float"]
     # the wrapper's argument types, set on a stand-in for the library
     fns = collections.defaultdict(lambda: SimpleNamespace(argtypes=None))
     lib = type("Lib", (), {"__getattr__": lambda _, name: fns[name]})()
-    assert len(k1._kernel(lib).argtypes) == 14
+    argtypes = k1._kernel(lib).argtypes
+    assert len(argtypes) == 16
+    assert argtypes[10:12] == [ctypes.c_int, ctypes.c_float]
     assert k1.mode_of(torch.bfloat16, None) == k1.MODE_BF16
     assert k1.mode_of(torch.bfloat16, torch.bfloat16) == k1.MODE_BF16
     assert k1.mode_of(None, torch.bfloat16) == k1.MODE_RESID_BF16

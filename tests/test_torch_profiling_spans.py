@@ -228,3 +228,39 @@ def test_k1_kernels_land_on_k1_spans_on_the_card(p):
     assert j["device_s"]["ahmc.target.value_grad"] == pytest.approx(k1)
     assert j["self_device_s"].get("ahmc.target.value_grad", 0.0) == 0.0
     assert j["self_device_s"].get(program_trace.OUTSIDE, 0.0) < 0.1 * k1
+
+
+@pytest.mark.gpu
+def test_lgcp_k1_kernels_land_on_poisson_k1_spans_on_the_card():
+    """The log-Gaussian Cox process's K1 kernels (the wide path at 4096
+    cells) land on `ahmc.k1` spans, one a value+grad, each noting the
+    Poisson link; the non-centred chain rule's few operations around it
+    take less device time than K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hmcbench import program_trace
+
+    target = ah.log_gaussian_cox(side=64, device="cuda")
+    theta = 0.1 * torch.randn(2048, target.dim, device="cuda")
+    target.logdensity_and_grad(theta)           # build and lay out once
+    torch.cuda.synchronize()
+    profiling.enable_spans(True)
+    try:
+        target.logdensity_and_grad(theta)
+        notes = [r["attrs"] for r in profiling.spans()
+                 if r["name"] == "ahmc.k1"]
+    finally:
+        profiling.enable_spans(False)
+    assert notes == [{"chains": 2048, "prior": 0, "link": "poisson"}]
+
+    def step():
+        for _ in range(4):
+            target.logdensity_and_grad(theta)
+        torch.cuda.synchronize()
+
+    j = program_trace.program_pass(step)
+    assert j["calls"]["ahmc.k1"] == 4 == j["k1_calls"][2048]
+    k1 = j["self_device_s"]["ahmc.k1"]
+    assert k1 > 0
+    assert j["device_s"]["ahmc.target.value_grad"] - k1 < k1
+    assert j["self_device_s"].get(program_trace.OUTSIDE, 0.0) < 0.1 * k1
